@@ -33,115 +33,14 @@
 //   fp32 in shared memory and read as broadcasts. Full fp32 products (no
 //   TF32), for parity runs; not on the main path.
 
-#include <math.h>
-#include <stdint.h>
-
-#include "common.cuh"
+#include "attention_common.cuh"
 
 namespace {
 
+using namespace pdm_attn;
+
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
-
-constexpr int kTile = 64;        // query rows per block (16 per warp), and
-                                 // keys per shared-memory tile
-constexpr int kTcThreads = 128;  // 4 warps
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 out
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + kTile) of one head stripe (HD bf16 each, rows `ld`
-// apart) into shared memory rows `stride` elements apart; rows past n_tok
-// are zero. 16-byte loads: the wrapper checks the alignment.
-template <int HD>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* __restrict__ src,
-                                          int row0, int n_tok, long long ld,
-                                          int stride) {
-  constexpr int kVecs = HD / 8;  // uint4 per row
-  for (int e = threadIdx.x; e < kTile * kVecs; e += kTcThreads) {
-    const int r = e / kVecs, c = e - r * kVecs;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n_tok)
-      val = *reinterpret_cast<const uint4*>(src + (long long)row * ld + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * stride + c * 8) = val;
-  }
-}
-
-// s = q k^T for this warp's 16 rows and the tile's 64 keys, in log2 units
-// (times scale * log2(e)), keys past n_tok at -inf. s[n] holds keys
-// 8n + 2*tq + {0, 1} of rows g ([0], [1]) and g + 8 ([2], [3]).
-template <int HD>
-__device__ __forceinline__ void tile_scores(float (&s)[kTile / 8][4],
-                                            const uint32_t (&qa)[HD / 16][4],
-                                            const __nv_bfloat16* ks, int lane,
-                                            int k0, int n_tok, float scale_log2) {
-  constexpr int S = HD + 8;
-#pragma unroll
-  for (int n = 0; n < kTile / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-  // ldmatrix x4 over K rows: matrices (keys +0..7 | +8..15) x (cols +0 | +8)
-  const int key_off = (lane & 7) + (lane >> 4) * 8;
-  const int col_off = ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-    for (int np = 0; np < kTile / 16; ++np) {
-      uint32_t kb[4];
-      ldsm_x4(kb, ks + (np * 16 + key_off) * S + kk * 16 + col_off);
-      mma_bf16(s[2 * np], qa[kk], kb[0], kb[1]);
-      mma_bf16(s[2 * np + 1], qa[kk], kb[2], kb[3]);
-    }
-  }
-  const int tq = lane & 3;
-#pragma unroll
-  for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = k0 + n * 8 + 2 * tq + (e & 1);
-      s[n][e] = key < n_tok ? s[n][e] * scale_log2 : -INFINITY;
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads)
@@ -257,37 +156,6 @@ attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
 // ---------------------------------------------------------------------------
 // fp32: CUDA cores
-
-constexpr int kBQ = 64;           // query rows (threads) per block
-constexpr int kTileElems = 4096;  // K or V elements per shared-memory tile
-
-template <int HD>
-__device__ __forceinline__ void load_tile_f32(float* dst,
-                                              const float* __restrict__ src,
-                                              int k0, int n_tok, long long ld) {
-  constexpr int BK = kTileElems / HD;
-  for (int e = threadIdx.x; e < BK * HD; e += kBQ) {
-    const int r = e / HD, c = e - r * HD;
-    const int row = k0 + r;
-    dst[e] = row < n_tok ? src[(long long)row * ld + c] : 0.f;
-  }
-}
-
-// q . k over HD with four independent partial sums
-template <int HD>
-__device__ __forceinline__ float dot_row(const float (&qr)[HD], const float* kr) {
-  const float4* k4 = reinterpret_cast<const float4*>(kr);
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-  for (int d4 = 0; d4 < HD / 4; ++d4) {
-    const float4 kk = k4[d4];
-    s0 = fmaf(qr[4 * d4 + 0], kk.x, s0);
-    s1 = fmaf(qr[4 * d4 + 1], kk.y, s1);
-    s2 = fmaf(qr[4 * d4 + 2], kk.z, s2);
-    s3 = fmaf(qr[4 * d4 + 3], kk.w, s3);
-  }
-  return (s0 + s1) + (s2 + s3);
-}
 
 template <int HD>
 __global__ void __launch_bounds__(kBQ)

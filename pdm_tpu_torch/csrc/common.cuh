@@ -1,5 +1,5 @@
 // Shared helpers for the port's kernels: element loads/stores in fp32 or
-// bf16 with fp32 arithmetic, and a block-wide sum.
+// bf16 with fp32 arithmetic, aligned vectors, and a block-wide sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,6 +23,12 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as JAX's astype
 }
+
+// VEC elements of T loaded or stored as one aligned vector
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Vec {
+  T v[VEC];
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

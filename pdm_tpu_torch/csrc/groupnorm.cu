@@ -37,10 +37,7 @@ namespace {
 constexpr int kMaxThreads = 256;
 constexpr int kUnroll = 4;  // vector loads in flight per thread
 
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Vec {
-  T v[VEC];
-};
+using pdm::Vec;
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kMaxThreads)

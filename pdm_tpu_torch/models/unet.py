@@ -17,8 +17,17 @@ network's output is fp32. Activations are NCHW tensors in
 C)`` is a view and both kernels (``ops/groupnorm.py``, ``ops/attention.py``)
 read the same (B, S, C) memory the JAX kernels read.
 
-The model takes continuous ``tau in [0, 1]`` and has no backward kernels
-yet: on a CUDA device run it under ``torch.no_grad()``.
+The model takes continuous ``tau in [0, 1]``. It is differentiable: both
+kernels carry their own backward kernels (``autograd.Function``s in
+``ops/``). It is built in eval mode; in train mode (``.train()``) the
+resnets apply dropout after norm2's SiLU, as the JAX module does with
+``deterministic=False``, with masks drawn from the ``torch.Generator``
+passed to ``forward`` (never from the global RNG).
+
+Weights stay resident in ``dtype``: the forward adds no casts, so
+sampling launches nothing extra. A trainer keeps fp32 master copies and
+refreshes these weights after each step (``diffusion/trainer.py``), which
+is flax's fp32 parameters cast at use, written out.
 """
 
 from __future__ import annotations
@@ -56,6 +65,24 @@ def sinusoidal_time_embedding(
     if dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
     return emb
+
+
+def dropout(h: Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> Tensor:
+    """flax ``nn.Dropout`` on an NCHW activation: keep each element with
+    probability 1 - rate and divide the kept ones by it. The mask is drawn
+    from ``generator`` in NHWC order (the layout the JAX module masks)."""
+    if generator is None:
+        raise ValueError("dropout in train mode draws its masks from an "
+                         "explicit torch.Generator: pass generator=")
+    keep_prob = 1.0 - rate
+    if keep_prob <= 0.0:
+        return torch.zeros_like(h)
+    B, C, H, W = h.shape
+    keep = torch.rand((B, H, W, C), generator=generator,
+                      device=h.device) < keep_prob
+    return torch.where(keep.permute(0, 3, 1, 2), h / keep_prob,
+                       torch.zeros((), dtype=h.dtype, device=h.device))
 
 
 def _to_bsc(x: Tensor) -> Tensor:
@@ -114,18 +141,22 @@ class ResnetBlock(nn.Module):
         self.time_emb_proj = nn.Linear(temb_channels, out_channels, **kw)
         self.norm2 = GroupNormAct(norm_groups, out_channels, norm_eps, "silu",
                                   device=device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout_rate = dropout
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1, **kw)
         self.conv_shortcut = (
             nn.Conv2d(in_channels, out_channels, 1, **kw)
             if in_channels != out_channels else None
         )
 
-    def forward(self, x: Tensor, temb: Tensor) -> Tensor:
+    def forward(self, x: Tensor, temb: Tensor,
+                generator: Optional[torch.Generator] = None) -> Tensor:
         h = self.conv1(self.norm1(x))
         t = self.time_emb_proj(F.silu(temb).to(self.time_emb_proj.weight.dtype))
         h = h + t[:, :, None, None]
-        h = self.conv2(self.dropout(self.norm2(h)))
+        h = self.norm2(h)
+        if self.training and self.dropout_rate > 0.0:
+            h = dropout(h, self.dropout_rate, generator)
+        h = self.conv2(h)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -158,7 +189,7 @@ class AttentionBlock(nn.Module):
         b_qkv = torch.cat([self.to_q.bias, self.to_k.bias, self.to_v.bias])
         q, k, v = F.linear(h, w_qkv, b_qkv).split(C, dim=-1)
         out = fused_spatial_attention(q, k, v, self.heads, self.scale)
-        out = self.to_out[1](self.to_out[0](out))
+        out = self.to_out[0](out)  # to_out.1 is diffusers' Dropout(0.0)
         return x + _from_bsc(out, H, W)
 
 
@@ -218,7 +249,8 @@ class UNet2D(nn.Module):
     ``up_block_types``: "UpBlock2D" | "AttnUpBlock2D". Input and output are
     NCHW; the output is fp32. Built on ``device`` (the CUDA card unless
     ``device="cpu"``), with conv/linear weights in ``dtype``, and in eval
-    mode (dropout off; ``.train()`` turns it on).
+    mode (dropout off; ``.train()`` turns it on, and ``forward`` then
+    needs the ``generator`` its masks come from).
     """
 
     def __init__(
@@ -312,7 +344,8 @@ class UNet2D(nn.Module):
         # no dropout unless asked, as the JAX module's deterministic=True
         self.eval()
 
-    def forward(self, x: Tensor, tau: Tensor) -> Tensor:
+    def forward(self, x: Tensor, tau: Tensor,
+                generator: Optional[torch.Generator] = None) -> Tensor:
         temb = sinusoidal_time_embedding(
             tau, self.conv_in.out_channels,
             flip_sin_to_cos=self.flip_sin_to_cos, freq_shift=self.freq_shift,
@@ -324,7 +357,7 @@ class UNet2D(nn.Module):
         skips = [h]
         for block in self.down_blocks:
             for j, res in enumerate(block.resnets):
-                h = res(h, temb)
+                h = res(h, temb, generator)
                 a = block.attention(j)
                 if a is not None:
                     h = a(h)
@@ -334,16 +367,16 @@ class UNet2D(nn.Module):
                 skips.append(h)
 
         mid = self.mid_block
-        h = mid.resnets[0](h, temb)
+        h = mid.resnets[0](h, temb, generator)
         if mid.attention(0) is not None:
             h = mid.attention(0)(h)
-        h = mid.resnets[1](h, temb)
+        h = mid.resnets[1](h, temb, generator)
 
         for block in self.up_blocks:
             for j, res in enumerate(block.resnets):
                 h = torch.cat([h, skips.pop()], dim=1).contiguous(
                     memory_format=torch.channels_last)
-                h = res(h, temb)
+                h = res(h, temb, generator)
                 a = block.attention(j)
                 if a is not None:
                     h = a(h)

@@ -4,9 +4,17 @@ Counterpart of ``pdm_tpu/models/unet_ddpm.py``: bundles a UNet2D, a
 scheduler and a parametrization tag. The object layout is NCHW, as the
 reference's. The output is cast to ``xt.dtype``, as the JAX package does,
 which under ``precision="half"`` sampling is a bf16 rounding point.
+
+The module starts in eval mode (the JAX forward's ``deterministic=True``);
+the trainer switches it with :meth:`UNetDDPM.train` and back with
+:meth:`UNetDDPM.eval`, and builds the EMA model for its eval hook with
+:meth:`UNetDDPM.with_params`.
 """
 
 from __future__ import annotations
+
+import copy
+from typing import Mapping
 
 import torch
 from torch import Tensor
@@ -41,3 +49,21 @@ class UNetDDPM(DDPM):
         if self.tau_scale != 1.0:
             tau = tau * self.tau_scale
         return self.module(xt, tau).to(xt.dtype)
+
+    def train(self, mode: bool = True) -> "UNetDDPM":
+        """Dropout on (train) or off (eval) in the module."""
+        self.module.train(mode)
+        return self
+
+    def eval(self) -> "UNetDDPM":
+        return self.train(False)
+
+    def with_params(self, params: Mapping[str, Tensor]) -> "UNetDDPM":
+        """A new model, in eval mode, whose module is a copy of this one's
+        with ``params`` (a state dict, e.g. the trainer's fp32 EMA) loaded
+        and cast to the module's dtype. Counterpart of the JAX
+        ``UNetDDPM.with_params``; this model is left as it is."""
+        module = copy.deepcopy(self.module)
+        module.load_state_dict(params)
+        return UNetDDPM(self.scheduler, module, self.parametrization,
+                        self.tau_scale, device=self.device)

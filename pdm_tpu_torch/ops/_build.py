@@ -8,9 +8,10 @@ then one link. The library lands in ``pdm_tpu_torch/_build/`` under a name
 keyed by the sources' and flags' hash, so an edited source never loads a
 stale build.
 
-The wrappers in ``ops/`` call :func:`load_kernels`, declare their entry's
-``argtypes``, pass pointers and the current stream as ``c_void_p``, and
-raise on a non-zero return (each entry returns ``cudaGetLastError()``).
+The wrappers in ``ops/`` take their C entry through :func:`entry` (which
+declares its ``argtypes``), pass pointers and the current stream as
+``c_void_p``, and raise on a non-zero return (each entry returns
+``cudaGetLastError()``).
 """
 
 from __future__ import annotations
@@ -116,6 +117,16 @@ def load_kernels() -> ctypes.CDLL:
             build_info.update(library=str(lib_path), log=log)
             _lib = ctypes.CDLL(str(lib_path))
     return _lib
+
+
+def entry(name: str, argtypes: List[object]):
+    """The library's C function ``name`` with its ``argtypes`` declared;
+    every entry returns a CUDA error code (int)."""
+    fn = getattr(load_kernels(), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def check(err: int, what: str) -> None:

@@ -1,19 +1,25 @@
 """Fused spatial self-attention for the UNet's 16x16 (and 4x4 mid) blocks.
 
-Counterpart of ``pdm_tpu/ops/attention.py::fused_spatial_attention``.
-On a CUDA tensor the wrapper launches the hand-written Hopper kernel
-``csrc/attention.cu`` (which replaces the TPU kernel ``_fwd_kernel``); on
-a CPU tensor it runs :func:`attention_reference`, the plain PyTorch
-version with the reference's op order. It never falls back from one to
-the other.
+Counterpart of ``pdm_tpu/ops/attention.py::fused_spatial_attention`` and
+its VJP. On CUDA tensors the wrappers launch hand-written Hopper kernels:
+``csrc/attention.cu`` for the forward (it replaces the TPU kernel
+``_fwd_kernel``) and ``csrc/attention_bwd.cu`` for the backward (it
+replaces ``_bwd_kernel``). On CPU tensors they run
+:func:`attention_reference` and :func:`attention_bwd_reference`, the plain
+PyTorch versions with the reference's op order and rounding points. They
+never fall back from one to the other.
 
 Layout is the JAX package's: q, k, v are (B, T, C) with C = heads * hd,
 read as per-head column stripes. They may be the column thirds of one
-fused (B, T, 3C) qkv projection (token rows 3C apart); the kernel reads
+fused (B, T, 3C) qkv projection (token rows 3C apart); the kernels read
 them in place.
 
-Forward only: a CUDA input that requires grad raises, since the backward
-kernel (``_bwd_kernel`` on the TPU) comes with the training slice.
+When grad is enabled and an input requires it, the call goes through an
+``autograd.Function`` whose forward saves q, k, v and the per-row
+logsumexp and whose backward is :func:`attention_bwd`, as the JAX
+package's ``custom_vjp`` does. Launch counters:
+``fused_spatial_attention.launches`` (forward kernels) and
+``attention_bwd.launches`` (backward kernels, two per call).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Tuple
 
 import torch
 from torch import Tensor
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -68,10 +75,6 @@ def _check(q: Tensor, k: Tensor, v: Tensor, heads: int) -> int:
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "fused_spatial_attention has no backward kernel yet; call it "
-            "under torch.no_grad() or on tensors that do not require grad")
     B, T, C = q.shape
     if C % heads or C // heads not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim C/heads = {C}/{heads} not in "
@@ -106,7 +109,7 @@ def attention_with_lse(
     B, T, C = q.shape
     out = torch.empty((B, T, C), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, heads, T), dtype=torch.float32, device=q.device)
-    fn = _kernel_entry()
+    fn = _build.entry("pdm_attention_fwd", _FWD_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -117,24 +120,119 @@ def attention_with_lse(
     return out, lse
 
 
+def attention_bwd_reference(
+    q: Tensor, k: Tensor, v: Tensor, lse: Tensor, do: Tensor, heads: int,
+    scale: float,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of the TPU kernel ``_bwd_kernel``: (dq, dk, dv)
+    in q.dtype, rounding where it rounds. The cotangent is cast to q.dtype;
+    P = exp(s - lse) and ds = P * (dp - sum_k P * dp) are rounded to q.dtype
+    before their products; products of rounded operands accumulate in fp32
+    and the scale is applied after the product."""
+    B, T, C = q.shape
+    hd = C // heads
+    dtype = q.dtype
+
+    def split(t):
+        return t.reshape(B, T, heads, hd).transpose(1, 2).float()
+
+    def merge(t):
+        return t.transpose(1, 2).reshape(B, T, C).to(dtype)
+
+    qh, kh, vh, doh = split(q), split(k), split(v), split(do.to(dtype))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None]).to(dtype).float()
+    dv = torch.matmul(p.transpose(-1, -2), doh)
+    pdp = p * torch.matmul(doh, vh.transpose(-1, -2))
+    ds = (pdp - p * pdp.sum(dim=-1, keepdim=True)).to(dtype).float()
+    dq = torch.matmul(ds, kh) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+    return merge(dq), merge(dk), merge(dv)
+
+
+def attention_bwd(
+    q: Tensor, k: Tensor, v: Tensor, lse: Tensor, do: Tensor, heads: int,
+    scale: float,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """(dq, dk, dv) of :func:`fused_spatial_attention` for the cotangent
+    ``do``, from the forward's lse. Two kernels on CUDA tensors (dq with
+    the row sums D, then dk and dv), the plain version on CPU tensors."""
+    if not (q.device == k.device == v.device == lse.device == do.device):
+        raise ValueError("q, k, v, lse, do must be on one device")
+    if q.device.type == "cpu":
+        return attention_bwd_reference(q, k, v, lse, do, heads, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    ld = _check(q, k, v, heads)
+    B, T, C = q.shape
+    if do.shape != q.shape:
+        raise ValueError(f"do must be {tuple(q.shape)}: {tuple(do.shape)}")
+    if (lse.shape != (B, heads, T) or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous float32 {(B, heads, T)}: "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    do = do.to(q.dtype).contiguous()
+    if do.data_ptr() % 16:  # the bf16 kernels read 16-byte vectors
+        do = do.clone()
+    dq, dk, dv = (torch.empty((B, T, C), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    dsum = torch.empty((B, heads, T), dtype=torch.float32, device=q.device)
+    code, hd = _DTYPE_CODES[q.dtype], C // heads
+    fn_dq = _build.entry("pdm_attention_bwd_dq", _BWD_DQ_ARGS)
+    fn_dkdv = _build.entry("pdm_attention_bwd_dkdv", _BWD_DKDV_ARGS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), dq.data_ptr(), dsum.data_ptr(), B, T,
+                    heads, hd, ld, float(scale), code, stream)
+        _build.check(err, "pdm_attention_bwd_dq")
+        attention_bwd.launches += 1
+        err = fn_dkdv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                      lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), B, T, heads, hd, ld, float(scale), code,
+                      stream)
+        _build.check(err, "pdm_attention_bwd_dkdv")
+        attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _AttentionFn(torch.autograd.Function):
+    """The forward's kernel (or plain version) with :func:`attention_bwd`
+    as its VJP, as the JAX package's ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, scale):
+        out, lse = attention_with_lse(q, k, v, heads, scale)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.heads, ctx.scale = heads, scale
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, lse, do, ctx.heads, ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def fused_spatial_attention(
     q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float
 ) -> Tensor:
     """Multi-head softmax attention over (B, T, C); returns (B, T, C) in
-    q.dtype. Kernel on CUDA tensors, plain version on CPU tensors."""
+    q.dtype. Kernel on CUDA tensors, plain version on CPU tensors;
+    differentiable through :func:`attention_bwd`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _AttentionFn.apply(q, k, v, heads, scale)
     return attention_with_lse(q, k, v, heads, scale)[0]
 
 
 # kernel launches since the last reset (set to 0 to reset)
 fused_spatial_attention.launches = 0
+attention_bwd.launches = 0
 
-
-def _kernel_entry():
-    lib = _build.load_kernels()
-    fn = lib.pdm_attention_fwd
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_longlong,
-                       ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-    return fn
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
+             ctypes.c_float, _I, _P]
+_BWD_DQ_ARGS = [_P] * 7 + [_I] * 4 + [ctypes.c_longlong, ctypes.c_float, _I, _P]
+_BWD_DKDV_ARGS = [_P] * 8 + [_I] * 4 + [ctypes.c_longlong, ctypes.c_float, _I,
+                                        _P]

@@ -1,32 +1,41 @@
 """GroupNorm with an optional fused SiLU, over (B, S, C) activations.
 
-Counterpart of ``pdm_tpu/ops/groupnorm.py::fused_group_norm_act``. On a
-CUDA tensor the wrapper launches the hand-written Hopper kernel
-``csrc/groupnorm.cu`` (which replaces the TPU kernel ``_fwd_kernel``); on
-a CPU tensor it runs :func:`group_norm_reference`, the plain PyTorch
-version with the reference's op order. It never falls back from one to
-the other.
+Counterpart of ``pdm_tpu/ops/groupnorm.py::fused_group_norm_act`` and its
+VJP. On CUDA tensors the wrappers launch hand-written Hopper kernels:
+``csrc/groupnorm.cu`` for the forward (it replaces the TPU kernel
+``_fwd_kernel``) and ``csrc/groupnorm_bwd.cu`` for the backward (it
+replaces ``_bwd_kernel``). On CPU tensors they run
+:func:`group_norm_reference` and :func:`group_norm_bwd_reference`, the
+plain PyTorch versions with the reference's op order. They never fall
+back from one to the other.
 
 Statistics follow the reference, not ``torch.nn.functional.group_norm``:
 fp32 sum and sum of squares, ``var = max(E[x^2] - E[x]^2, 0)``, then
 ``(x - mean) * (rsqrt(var + eps) * scale) + bias``. The result has x's
 dtype.
 
-Forward only: a CUDA input that requires grad raises, since the backward
-kernel (``_bwd_kernel`` on the TPU) comes with the training slice.
+When grad is enabled and an input requires it, the call goes through an
+``autograd.Function`` that saves x, scale and bias and whose backward is
+:func:`group_norm_bwd`, as the JAX package's ``custom_vjp`` does. Launch
+counters: ``fused_group_norm_act.launches`` (forward) and
+``group_norm_bwd.launches`` (backward).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
 ACTS = ("none", "silu")
+# channels per group the backward kernel takes (kMaxCpg in the source)
+MAX_BWD_GROUP_CHANNELS = 256
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -68,21 +77,10 @@ def _check(x: Tensor, scale: Tensor, bias: Tensor, groups: int) -> None:
             raise ValueError(f"{name} must be contiguous on {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (B, S, C)")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, scale, bias)):
-        raise NotImplementedError(
-            "fused_group_norm_act has no backward kernel yet; call it under "
-            "torch.no_grad() or on tensors that do not require grad")
 
 
-def fused_group_norm_act(
-    x: Tensor, scale: Tensor, bias: Tensor, groups: int, eps: float,
-    act: str = "none",
-) -> Tensor:
-    """GroupNorm(+SiLU) over (B, S, C); returns x.dtype. Kernel on CUDA
-    tensors, plain version on CPU tensors."""
-    if act not in ACTS:
-        raise ValueError(f"act must be one of {ACTS}: {act!r}")
+def _forward(x: Tensor, scale: Tensor, bias: Tensor, groups: int, eps: float,
+             act: str) -> Tensor:
     if x.device.type == "cpu":
         return group_norm_reference(x, scale, bias, groups, eps, act).to(
             x.dtype)
@@ -91,7 +89,7 @@ def fused_group_norm_act(
     _check(x, scale, bias, groups)
     B, S, C = x.shape
     out = torch.empty_like(x)
-    fn = _kernel_entry()
+    fn = _build.entry("pdm_group_norm_fwd", _FWD_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
@@ -102,15 +100,120 @@ def fused_group_norm_act(
     return out
 
 
+def group_norm_bwd_reference(
+    x: Tensor, scale: Tensor, bias: Tensor, dy: Tensor, groups: int,
+    eps: float, act: str = "none",
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of the TPU kernel ``_bwd_kernel``: (dx in
+    x.dtype, dscale, dbias in fp32), in its op order. Statistics are
+    recomputed from x in fp32; the cotangent keeps its own dtype up to the
+    fp32 arithmetic; dscale/dbias are per-image partials summed over B."""
+    B, S, C = x.shape
+    cpg = C // groups
+    n = S * cpg
+    xf = x.float()
+    dz = dy.float()
+    cs = xf.sum(dim=1).reshape(B, groups, cpg).sum(dim=2)  # (B, G)
+    sq = (xf * xf).sum(dim=1).reshape(B, groups, cpg).sum(dim=2)
+    mu = cs / n
+    var = torch.clamp(sq / n - mu * mu, min=0.0)
+    inv = torch.rsqrt(var + eps)
+    mu_c = mu.repeat_interleave(cpg, dim=1)[:, None, :]  # (B, 1, C)
+    inv_c = inv.repeat_interleave(cpg, dim=1)[:, None, :]
+    n_hat = (xf - mu_c) * inv_c
+    gamma = scale.float()
+    if act == "silu":
+        z = n_hat * gamma + bias.float()
+        s = torch.sigmoid(z)
+        dz = dz * (s * (1.0 + z * (1.0 - s)))
+    dg_parts = (dz * n_hat).sum(dim=1)  # (B, C)
+    db_parts = dz.sum(dim=1)
+    dn = dz * gamma
+
+    def group_mean(t):  # (B, S, C) -> per-group mean broadcast to (B, 1, C)
+        g = t.sum(dim=1).reshape(B, groups, cpg).sum(dim=2) / n
+        return g.repeat_interleave(cpg, dim=1)[:, None, :]
+
+    dx = inv_c * (dn - group_mean(dn) - n_hat * group_mean(dn * n_hat))
+    return dx.to(x.dtype), dg_parts.sum(dim=0), db_parts.sum(dim=0)
+
+
+def group_norm_bwd(
+    x: Tensor, scale: Tensor, bias: Tensor, dy: Tensor, groups: int,
+    eps: float, act: str = "none",
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """(dx, dscale, dbias) of :func:`fused_group_norm_act` for the cotangent
+    ``dy``. The kernel on CUDA tensors (its per-image fp32 partials summed
+    over B here), the plain version on CPU tensors."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}: {act!r}")
+    if x.device.type == "cpu":
+        return group_norm_bwd_reference(x, scale, bias, dy, groups, eps, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check(x, scale, bias, groups)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must match x ({x.dtype} {tuple(x.shape)}): "
+                         f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    B, S, C = x.shape
+    if C // groups > MAX_BWD_GROUP_CHANNELS:
+        raise ValueError(f"the backward kernel takes at most "
+                         f"{MAX_BWD_GROUP_CHANNELS} channels per group: "
+                         f"{C // groups}")
+    dy = dy.contiguous()
+    dx = torch.empty_like(x)
+    parts = torch.empty((2, B, C), dtype=torch.float32, device=x.device)
+    fn = _build.entry("pdm_group_norm_bwd", _BWD_ARGS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dy.data_ptr(), scale.data_ptr(),
+                 bias.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
+                 parts[1].data_ptr(), B, S, C, groups, float(eps),
+                 int(act == "silu"), _DTYPE_CODES[x.dtype], stream)
+    _build.check(err, "pdm_group_norm_bwd")
+    group_norm_bwd.launches += 1
+    dscale, dbias = parts.sum(dim=1)
+    return dx, dscale, dbias
+
+
+class _GroupNormFn(torch.autograd.Function):
+    """The forward's kernel (or plain version) with :func:`group_norm_bwd`
+    as its VJP, as the JAX package's ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps, act):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.groups, ctx.eps, ctx.act = groups, eps, act
+        return _forward(x, scale, bias, groups, eps, act)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, scale, bias = ctx.saved_tensors
+        dx, dscale, dbias = group_norm_bwd(x, scale, bias, dy, ctx.groups,
+                                           ctx.eps, ctx.act)
+        return dx, dscale, dbias, None, None, None
+
+
+def fused_group_norm_act(
+    x: Tensor, scale: Tensor, bias: Tensor, groups: int, eps: float,
+    act: str = "none",
+) -> Tensor:
+    """GroupNorm(+SiLU) over (B, S, C); returns x.dtype. Kernel on CUDA
+    tensors, plain version on CPU tensors; differentiable through
+    :func:`group_norm_bwd`."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}: {act!r}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, scale, bias)):
+        return _GroupNormFn.apply(x, scale, bias, groups, eps, act)
+    return _forward(x, scale, bias, groups, eps, act)
+
+
 # kernel launches since the last reset (set to 0 to reset)
 fused_group_norm_act.launches = 0
+group_norm_bwd.launches = 0
 
-
-def _kernel_entry():
-    lib = _build.load_kernels()
-    fn = lib.pdm_group_norm_fwd
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p]
-        fn.restype = ctypes.c_int
-    return fn
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
+_BWD_ARGS = [_P] * 7 + [_I] * 4 + [ctypes.c_float, _I, _I, _P]

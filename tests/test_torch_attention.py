@@ -8,6 +8,7 @@ itself is held against the plain version on the card by
 tests/test_torch_cuda.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import torch
 from pdm_tpu.ops.attention import _fsa_call, fused_spatial_attention as j_fsa
 
 from pdm_tpu_torch.ops import attention as ta
+from torch_port_fixtures import two_torch_threads  # noqa: F401
 
 TOL = 2e-5
 
@@ -98,3 +100,60 @@ def test_attention_kernel_checks_are_enforced():
     with pytest.raises(ValueError, match="aligned"):
         ta._check(odd, odd, odd, heads=2)
     ta._check(q.bfloat16(), q.bfloat16(), q.bfloat16(), heads=2)
+
+
+
+# backward vs the JAX kernel's VJP: fp32 by summation order (1e-5); bf16
+# by one rounding step of an output or of a rounded P / ds (2^-7 of the
+# value, plus 2^-9 of the tensor's scale for the products of those)
+BWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 2 ** -9)}
+
+
+def _assert_close_to_scale(got, want, rtol, atol_of_scale):
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=atol_of_scale * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,heads,hd", [
+    (2, 16, 4, 64),   # 4 heads of 64: two of the JAX kernel's head groups
+    (2, 64, 2, 32),   # 2 heads of 32: one head group
+])
+def test_attention_backward_matches_jax_vjp(dtype, B, T, heads, hd):
+    """Gradients through the port's autograd Function (plain backward on
+    the CPU) against jax.vjp of the JAX kernel (interpret mode)."""
+    C = heads * hd
+    q, k, v = _qkv(B, T, C, seed=T + hd)
+    g = np.random.RandomState(9).standard_normal((B, T, C)).astype(np.float32)
+    scale = 1.0 / np.sqrt(hd)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(lambda q, k, v: j_fsa(q, k, v, heads, scale, True),
+                     *(jnp.asarray(a, jdt) for a in (q, k, v)))
+    want = vjp(jnp.asarray(g, jdt))
+    tq, tk, tv = (torch.from_numpy(a).to(tdt).requires_grad_() for a in (q, k, v))
+    before = ta.attention_bwd.launches
+    out = ta.fused_spatial_attention(tq, tk, tv, heads, scale)
+    out.backward(torch.from_numpy(g).to(tdt))
+    assert ta.attention_bwd.launches == before  # CPU: plain version
+    rtol, atol = BWD_TOL[dtype]
+    for w, t in zip(want, (tq, tk, tv)):
+        assert t.grad.dtype == tdt and t.grad.shape == (B, T, C)
+        _assert_close_to_scale(t.grad.float().numpy(),
+                        np.asarray(w.astype(jnp.float32)), rtol, atol)
+
+
+def test_attention_backward_of_strided_qkv_views():
+    """q, k, v as column thirds of one (B, T, 3C) tensor: the gradient of
+    that tensor is the three gradients side by side (the JAX kernel's VJP
+    on contiguous copies)."""
+    B, T, heads, hd = 2, 16, 2, 16
+    C = heads * hd
+    qkv = np.random.RandomState(3).standard_normal((B, T, 3 * C)).astype(np.float32)
+    g = np.random.RandomState(4).standard_normal((B, T, C)).astype(np.float32)
+    t = torch.from_numpy(qkv).requires_grad_()
+    ta.fused_spatial_attention(*t.split(C, dim=-1), heads, 0.3).backward(
+        torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda q, k, v: j_fsa(q, k, v, heads, 0.3, True),
+                     *(jnp.asarray(a) for a in np.split(qkv, 3, axis=-1)))
+    want = np.concatenate([np.asarray(w) for w in vjp(jnp.asarray(g))], axis=-1)
+    _assert_close_to_scale(t.grad.numpy(), want, *BWD_TOL["float32"])

@@ -2,15 +2,21 @@
 
 Every `cuda`-marked test needs an NVIDIA GPU with nvcc: each kernel is
 built from pdm_tpu_torch/csrc/ and held against its plain PyTorch version
-on the same card inputs, at the flagship's shapes (B=64). Without a card
-they skip, and the last test checks that chip_smoke.py refuses to run. The file imports torch, numpy and the port only (no JAX), so on a
-GPU machine without JAX it runs from the repository root with
+on the same card inputs, at the flagship's shapes (B=64 for the forward
+kernels, as the sampler; B=128 for the backward kernels, as the trainer),
+and a tiny UNet's forward and train step run on the card against the
+CPU. Without a card they skip, and the last test checks that
+chip_smoke.py refuses to run. The file imports torch, numpy and the port
+only (no JAX), so on a GPU machine without JAX it runs from the
+repository root with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: fp32 kernels differ from the plain versions by summation
-order only (1e-5); bf16 outputs by at most one rounding step of the
-output (2^-7 relative).
+order only (1e-5; 1e-4 where a backward sums over many more terms); bf16
+outputs by at most one rounding step of the output (2^-7 relative), and
+bf16 gradients also by the products of a P or ds rounded the other way
+(2^-8 of the tensor's scale).
 """
 
 import os
@@ -22,6 +28,12 @@ import pytest
 import torch
 
 from pdm_tpu_torch.models.unet import unet_from_config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from chip_smoke import (  # noqa: E402
+    adam_first_step_bound, compare_to_scale, train_step_with_grads,
+)
 from pdm_tpu_torch.ops import attention as ta
 from pdm_tpu_torch.ops import groupnorm as tg
 
@@ -96,14 +108,94 @@ def test_group_norm_kernel_matches_plain_on_card(cuda_device, S, C, act):
     torch.testing.assert_close(y.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
 
 
+def _assert_close_to_scale(got, want, rtol, atol_of_scale):
+    err, ok = compare_to_scale(got, want, rtol, atol_of_scale)
+    assert ok, (err, float(want.abs().max()))
+
+
+# backward kernels vs plain versions on the same card inputs: fp32 by
+# summation order; bf16 by one rounding step of an output or of a rounded
+# P / ds inside (2^-7 of the value, 2^-8 of the tensor's scale)
+BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2 ** -7, 2 ** -8)}
+
+
 @pytest.mark.cuda
-def test_wrappers_refuse_inputs_that_require_grad(cuda_device):
-    x = torch.randn(2, 16, 64, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ta.fused_spatial_attention(x, x, x, 2, 0.25)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tg.fused_group_norm_act(x, torch.ones(64, device=cuda_device),
-                                torch.zeros(64, device=cuda_device), 8, EPS)
+@pytest.mark.parametrize("T", [256, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_kernel_matches_plain_on_card(cuda_device, T, dtype):
+    """The flagship training shapes (B=128, C=256, 4 heads of 64), q, k, v
+    as column thirds of one projection; two kernel launches per call."""
+    B, heads, C = 128, 4, 256
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    qkv = torch.randn(B, T, 3 * C, generator=g, device=cuda_device).to(dtype)
+    q, k, v = qkv.split(C, dim=-1)
+    do = torch.randn(B, T, C, generator=g, device=cuda_device).to(dtype)
+    _, lse = ta.attention_with_lse(q, k, v, heads, 0.125)
+    before = ta.attention_bwd.launches
+    got = ta.attention_bwd(q, k, v, lse, do, heads, 0.125)
+    want = ta.attention_bwd_reference(q, k, v, lse, do, heads, 0.125)
+    torch.cuda.synchronize()
+    assert ta.attention_bwd.launches == before + 2
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == (B, T, C)
+        _assert_close_to_scale(a, b, *BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,heads,hd", [(100, 2, 16), (1024, 1, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_kernel_ragged_and_long_rows(cuda_device, T, heads,
+                                                       hd, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, do = (torch.randn(3, T, heads * hd, generator=g,
+                               device=cuda_device).to(dtype) for _ in range(4))
+    _, lse = ta.attention_with_lse(q, k, v, heads, 0.3)
+    got = ta.attention_bwd(q, k, v, lse, do, heads, 0.3)
+    want = ta.attention_bwd_reference(q, k, v, lse, do, heads, 0.3)
+    for a, b in zip(got, want):
+        _assert_close_to_scale(a, b, *BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_attention_autograd_on_card_matches_plain(cuda_device):
+    """Through the autograd Function: the forward kernel, then the
+    backward kernels, against autograd of the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    qkv = torch.randn(4, 64, 3 * 128, generator=g, device=cuda_device)
+    t1, t2 = qkv.clone().requires_grad_(), qkv.clone().requires_grad_()
+    do = torch.randn(4, 64, 128, generator=g, device=cuda_device)
+    ta.fused_spatial_attention(*t1.split(128, dim=-1), 2, 0.125).backward(do)
+    ta.attention_reference(*t2.split(128, dim=-1), 2, 0.125).backward(do)
+    _assert_close_to_scale(t1.grad, t2.grad, 1e-4, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,C,act,dtype", [
+    (1024, 128, "silu", torch.bfloat16), (1024, 384, "silu", torch.bfloat16),
+    (256, 512, "silu", torch.bfloat16), (256, 256, "none", torch.bfloat16),
+    (16, 256, "none", torch.bfloat16), (64, 96, "silu", torch.float32),
+])
+def test_group_norm_backward_kernel_matches_plain_on_card(cuda_device, S, C,
+                                                          act, dtype):
+    """The flagship training shapes at B=128 (and one fp32 case whose
+    3 channels per group take the scalar path): dx within one rounding of
+    the output, dscale/dbias (fp32 sums over B, S) within 1e-4 of scale."""
+    B = 128 if dtype == torch.bfloat16 else 8
+    groups = 32
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(B, S, C, generator=g, device=cuda_device).to(dtype)
+    dy = torch.randn(B, S, C, generator=g, device=cuda_device).to(dtype)
+    scale = 1.0 + 0.2 * torch.randn(C, generator=g, device=cuda_device)
+    bias = 0.1 * torch.randn(C, generator=g, device=cuda_device)
+    before = tg.group_norm_bwd.launches
+    dx, ds, db = tg.group_norm_bwd(x, scale, bias, dy, groups, EPS, act)
+    want = tg.group_norm_bwd_reference(x, scale, bias, dy, groups, EPS, act)
+    torch.cuda.synchronize()
+    assert tg.group_norm_bwd.launches == before + 1
+    assert dx.dtype == dtype and ds.dtype == db.dtype == torch.float32
+    _assert_close_to_scale(dx, want[0], *BWD_TOL[dtype])
+    _assert_close_to_scale(ds, want[1], 1e-4, 1e-4)
+    _assert_close_to_scale(db, want[2], 1e-4, 1e-4)
 
 
 @pytest.mark.cuda
@@ -133,13 +225,68 @@ def test_tiny_unet_on_card_matches_cpu(cuda_device):
     assert float((got - want).abs().max()) <= 1e-4 * scale
 
 
+@pytest.mark.cuda
+def test_tiny_unet_train_step_on_card_matches_cpu(cuda_device):
+    """One fp32 train step of a tiny UNet (dropout 0, the same tau and
+    eps) on the card (kernels) and on the CPU (plain versions): loss and
+    grad_norm to 1e-4 relative, each gradient the step applied to 1e-4 of
+    its scale plus 1e-6 of the largest gradient's, and the parameters
+    after the Adam step within what those two gradients allow
+    (adam_first_step_bound, + 1e-7). Each kernel launches once per call of
+    its layer."""
+    from pdm_tpu_torch.diffusion.trainer import DDPMTrainer
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+
+    cfg = {**TINY, "dropout": 0.0}
+    lr = 1e-3
+    rng = np.random.RandomState(0)
+    cpu_net = unet_from_config(3, cfg, device="cpu")
+    params = {k: torch.from_numpy(
+        (rng.standard_normal(tuple(v.shape)) * 0.1).astype(np.float32))
+        for k, v in cpu_net.named_parameters()}
+    x0 = torch.from_numpy(rng.standard_normal((4, 3, 16, 16)).astype(np.float32))
+    tau = torch.from_numpy(rng.uniform(0, 1, 4).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal((4, 3, 16, 16)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        net = cpu_net if dev == "cpu" else unet_from_config(3, cfg, device=dev)
+        tr = DDPMTrainer(UNetDDPM(LinearBetaScheduler(1e-4, 1e2), net,
+                                  device=dev),
+                         learning_rate=lr, warmup_steps=0, grad_clip=1e3)
+        state = tr.init_state(params)
+        counts = (ta.fused_spatial_attention.launches, ta.attention_bwd.launches,
+                  tg.fused_group_norm_act.launches, tg.group_norm_bwd.launches)
+        state, m, grads = train_step_with_grads(
+            tr, state, x0.to(dev), tau=tau.to(dev), eps=eps.to(dev))
+        after = (ta.fused_spatial_attention.launches, ta.attention_bwd.launches,
+                 tg.fused_group_norm_act.launches, tg.group_norm_bwd.launches)
+        out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]), grads,
+                         {k: v.cpu() for k, v in state.params.items()},
+                         [a - b for a, b in zip(after, counts)])
+    n_attn = sum(1 for n, _ in cpu_net.named_modules() if n.endswith("to_q"))
+    n_gn = sum(1 for n, _ in cpu_net.named_modules()
+               if n.endswith(("norm1", "norm2", "group_norm", "conv_norm_out")))
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    assert cpu[4] == [0, 0, 0, 0]
+    assert card[4] == [n_attn, 2 * n_attn, n_gn, n_gn]
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-4)
+    top = max(float(g.abs().max()) for g in cpu[2].values())
+    for k, g in cpu[2].items():
+        err = float((card[2][k] - g).abs().max())
+        assert err <= 1e-4 * float(g.abs().max()) + 1e-6 * top, k
+        step_err = (card[3][k] - cpu[3][k]).abs()
+        assert bool((step_err <= adam_first_step_bound(card[2][k], g, lr)
+                     + 1e-7).all()), k
+
+
 def test_chip_smoke_refuses_without_a_card():
     """Without a CUDA device the smoke script exits non-zero and prints
     no result on stdout."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the script runs for real")
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert proc.stdout == ""

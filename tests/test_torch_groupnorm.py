@@ -9,6 +9,7 @@ kernel is held against the plain version on the card by
 tests/test_torch_cuda.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from pdm_tpu.ops.groupnorm import (
 )
 
 from pdm_tpu_torch.ops import groupnorm as tg
+from torch_port_fixtures import two_torch_threads  # noqa: F401
 
 TOL = 1e-5
 EPS = 1e-6
@@ -92,3 +94,41 @@ def test_group_norm_kernel_checks_are_enforced():
         tg._check(x.transpose(1, 2).contiguous().transpose(1, 2), ones, zeros, 32)
     with pytest.raises(ValueError, match="act"):
         tg.fused_group_norm_act(x, ones, zeros, 32, EPS, "gelu")
+
+
+# backward vs the JAX kernel's VJP: dscale/dbias are fp32 sums (1e-5 of
+# their scale); dx in fp32 by summation order (1e-5), in bf16 by one
+# rounding step of the output (2^-7 of the value, 2^-9 of the scale)
+BWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 2 ** -9)}
+
+
+def _assert_close_to_scale(got, want, rtol, atol_of_scale):
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=atol_of_scale * np.abs(want).max())
+
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["silu", "none"])
+@pytest.mark.parametrize("B,S,C", [(2, 64, 128), (1, 16, 384)])
+def test_group_norm_backward_matches_jax_vjp(dtype, act, B, S, C):
+    """Gradients of x, scale and bias through the port's autograd Function
+    (plain backward on the CPU) against jax.vjp of the JAX kernel
+    (interpret mode). The cotangent keeps x's dtype, as autograd gives it."""
+    x, scale, bias = _inputs(B, S, C, seed=S + C)
+    g = np.random.RandomState(2).standard_normal((B, S, C)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(lambda x, s, b: j_fgn(x, s, b, 32, EPS, act, True),
+                     jnp.asarray(x, jdt), jnp.asarray(scale), jnp.asarray(bias))
+    want_dx, want_ds, want_db = vjp(jnp.asarray(g, jdt))
+    tx = torch.from_numpy(x).to(tdt).requires_grad_()
+    ts, tb = (torch.from_numpy(a).requires_grad_() for a in (scale, bias))
+    before = tg.group_norm_bwd.launches
+    tg.fused_group_norm_act(tx, ts, tb, 32, EPS, act).backward(
+        torch.from_numpy(g).to(tdt))
+    assert tg.group_norm_bwd.launches == before  # CPU: plain version
+    assert tx.grad.dtype == tdt and ts.grad.dtype == tb.grad.dtype == torch.float32
+    _assert_close_to_scale(tx.grad.float().numpy(),
+                    np.asarray(want_dx.astype(jnp.float32)), *BWD_TOL[dtype])
+    _assert_close_to_scale(ts.grad.numpy(), np.asarray(want_ds), 1e-5, 1e-5)
+    _assert_close_to_scale(tb.grad.numpy(), np.asarray(want_db), 1e-5, 1e-5)

@@ -37,6 +37,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from fixtures.make_golden import TINY  # noqa: E402
+from torch_port_fixtures import two_torch_threads  # noqa: E402,F401
 
 TABLE_KEYS = (
     "log_temp", "ab", "ab_prev", "ddpm_x0", "ddpm_xt", "ddpm_noise",

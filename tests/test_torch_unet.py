@@ -37,6 +37,7 @@ FIX = os.path.join(HERE, "fixtures")
 sys.path.insert(0, HERE)
 
 from fixtures.make_golden import TINY  # noqa: E402
+from torch_port_fixtures import two_torch_threads  # noqa: E402,F401
 
 TINY_PORT = {**TINY, "norm_groups": 4}
 

@@ -47,7 +47,24 @@ any error or disagreement:
    grad_norm finite; the card's busy time per step against the wall time;
    a torch.profiler breakdown; a checkpoint saved, resumed into a fresh
    trainer (the resumed state equal to the saved one) and one more step.
-8. One JSON line {"kernels": [...]} with all four kernels, then the last
+8. The fused multi-temperature Boltzmann sweep kernel against its plain
+   version on the same card inputs (the first 64 rows), in all three
+   precision modes, with and without an (N, 1) payload, at CIFAR-10 scale
+   (B = 1024 starts, N = 50,000, D = 3072, 32 temperatures) and at edge
+   shapes (gmm1d's D = 1 with N = 1e6; high_dim_exp's D = 100, N = 1e5,
+   200 temperatures; no tile's multiple; one start), each within a
+   tolerance derived from the Grams' rounding (sweep_logit_error); the
+   kernel in fp32 against one moments pass per temperature; times beside
+   the bound, the plain version and the two Grams alone through cuBLAS.
+9. The statistics main path: thermo_sweep on the card at CIFAR-10 scale
+   (fp32, global-floor regularization) with the sweep's launch counter
+   zeroed just before and read just after (two launches per batch);
+   bench.py's sweep_pairs_per_sec; the streamed tier against the
+   device-resident sweep on the same draws; metric_stats with adaptive
+   k-NN; the entropy and metric schedules from the sweep (tau -> log_temp
+   -> tau on the card and the CPU) and a 10-step DDIM sample of the bf16
+   flagship on each.
+10. One JSON line {"kernels": [...]} with all five kernels, then the last
    line {"ok": true, "device": {...}}.
 """
 
@@ -105,6 +122,94 @@ TRAIN_LAUNCHES = {"attention_fwd": 8, "attention_bwd": 16,
 # passes: statistics 3, normalizing twice 4, partials 3, dx 6; the SiLU
 # VJP (~10) is taken twice
 GN_BWD_OPS = {"silu": 36, "none": 16}
+
+# The statistics path: the sweep at CIFAR-10 scale on data of CIFAR-10's
+# shape from a seed (N(0, 1), N = 50,000, D = 3072), B = 1024 starts, 32
+# temperatures over CIFAR-10's range 1e0-1e6 (config/yaml/groups/
+# forward_stats.yaml, config/datasets.py). Edge shapes: gmm1d (D = 1,
+# N = 1e6, T 1e-4-1e1), high_dim_exp (D = 100, N = 1e5, 200 temperatures,
+# batch 500, T 1e-4-1e4), no tile's multiple, and one start.
+# (label, B, N, D, n_temps, log10 T range)
+SWEEP_MAIN = ("cifar10", 1024, 50_000, 3072, 32, (0.0, 6.0))
+SWEEP_EDGES = (("gmm1d", 1024, 1_000_000, 1, 32, (-4.0, 1.0)),
+               ("high_dim", 500, 100_000, 100, 200, (-4.0, 4.0)),
+               ("ragged", 77, 5003, 333, 7, (-1.0, 3.0)),
+               ("one_start", 1, 50_000, 3072, 32, (0.0, 6.0)))
+SWEEP_MODES = ("fp32", "bf16_3x", "bf16")
+SWEEP_SUBSET = 64  # rows held against the plain version
+SWEEP_PASSES = {"fp32": 1, "bf16_3x": 3, "bf16": 1}
+# operations per (row, point, temperature) of the epilogue: the logit 4,
+# max 1, exp and its argument 2, g 1, three sums and two products 5; the
+# payload adds a product and a sum
+SWEEP_EPI_OPS = 13
+BENCH_SWEEP = (1024, 96, (-2.0, 2.0), 4)  # bench.py:174-198: B, temps, range, reps
+STREAM = (256, 10_000)  # n_samples, stream_chunk of the streamed tier
+# the streamed tier and the device-resident sweep compute the same Gram
+# entries; they differ in how the fp32 sums over the N points are grouped
+# (chunks, then merges). Each such sum is within ~sqrt(N) 2^-24 of its
+# terms' scale; the fields are built from terms up to log N (entropy) or
+# their own size, so |diff| <= STREAM_EPS sqrt(N) (|value| + 1 + log N),
+# with a factor 4 for the four sums (s0, s1, s2 and the merge's rescale)
+STREAM_EPS = 4 * 2.0 ** -24
+ROUNDTRIP_TOL = 1e-4  # tau -> log_temp -> tau on the knot schedules
+
+
+def sweep_logit_error(xsq_max: float, esq_max: float, ysq_max: float, d: int,
+                      temps, kernel_steps: float):
+    """(n_temps,) bound on the difference of one logit l_ij(T) between two
+    correct computations of the sweep's Grams, from their rounding.
+
+    Every Gram entry sums d products whose partial sums stay below
+    2M = 2 max(0.5|x0|^2, 0.5|eps|^2, 0.5|y|^2) (Cauchy-Schwarz), so each
+    rounding step is at most one ulp(2M): about sqrt(d) of them in a sum
+    rounded to nearest (the random walk of the plain version's cuBLAS or
+    CPU sums), ``kernel_steps`` in the kernel (sqrt(d) for its FFMA chain;
+    one per mma.sync for the tensor cores, which truncate the fp32
+    accumulator once per 16-deep step: passes * d / 16). C0 enters the
+    logit over T, D0 over sqrt(T)."""
+    two_m = np.float32(2.0 * max(xsq_max, esq_max, ysq_max))
+    gram = (math.sqrt(d) + kernel_steps) * float(np.spacing(two_m))
+    temps = np.asarray(temps, np.float64)
+    return gram / temps + gram / np.sqrt(temps)
+
+
+def per_temp_logit_error(xsq_max: float, esq_max: float, ysq_max: float,
+                         d: int, temps):
+    """(n_temps,) rounding bound of the per-temperature oracle's own
+    logits: its Gram terms are those of xt = x0 + sqrt(T) eps, with
+    0.5|xt|^2 <= 2 (0.5|x0|^2 + T 0.5|eps|^2), sqrt(d) ulp of them over T."""
+    temps = np.asarray(temps, np.float64)
+    two_m = (4.0 * (xsq_max + temps * esq_max) + 2.0 * ysq_max).astype(np.float32)
+    return math.sqrt(d) * np.spacing(two_m) / temps
+
+
+def kernel_gram_steps(mode: str, d: int) -> float:
+    """Rounding steps of one Gram entry in the sweep kernel (see above)."""
+    return math.sqrt(d) if mode == "fp32" else SWEEP_PASSES[mode] * math.ceil(d / 16)
+
+
+def sweep_check(got, want, delta, v_max: float = 0.0):
+    """(max abs error, worst error / tolerance) of the moments ``got``
+    against ``want`` (both (n_temps, rows)), for a logit error of at most
+    ``delta`` (n_temps,). To first order in delta: log_z moves by at most
+    delta, E[g] by delta (1 + 2 sd), Var[g] by 2 delta (2 sd + var), the
+    payload mean by 2 delta max|v|; each also 1e-5 of (1 + its scale) for
+    the epilogue's sums over N in another order (~sqrt(N per block) 2^-24)."""
+    import torch
+
+    dl = torch.as_tensor(delta, dtype=torch.float32, device=want.log_z.device)[:, None]
+    sd = torch.sqrt(want.var)
+    pairs = [(got.log_z, want.log_z, dl), (got.e1, want.e1, dl * (1 + 2 * sd)),
+             (got.var, want.var, 2 * dl * (2 * sd + want.var))]
+    if want.mean is not None:
+        pairs.append((got.mean[..., 0], want.mean[..., 0], 2 * dl * v_max))
+    err, worst = 0.0, 0.0
+    for a, b, tol in pairs:
+        diff = (a - b).abs()
+        floor = 1e-5 * (1.0 + b.abs().amax(dim=1, keepdim=True))
+        err = max(err, float(diff.max()))
+        worst = max(worst, float((diff / (tol + floor)).max()))
+    return err, worst
 
 
 def log(msg: str) -> None:
@@ -287,6 +392,324 @@ def profile_steps(run, n_steps: int, label: str = "profile") -> float:
         log(f"{label} kernel: {ms / n_steps:.4f} ms/step x{n / n_steps:g} "
             f"{kname[:110]}")
     return busy / n_steps
+
+
+def sweep_kernel_rows(time_ms, dev):
+    """Phase 8: the sweep kernel against its plain version at every shape
+    and mode, with and without an (N, 1) payload, on the first
+    SWEEP_SUBSET rows; times of the kernel, the plain version and the two
+    Grams through cuBLAS. Returns the rows and the main shape's dataset."""
+    import torch
+
+    from pdm_tpu_torch.ops import boltzmann_sweep as sw
+    from pdm_tpu_torch.ops.precision import full_fp32_matmul, split
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows, main_data = [], None
+    for label, B, N, D, nt, (t_lo, t_hi) in (SWEEP_MAIN, *SWEEP_EDGES):
+        y = torch.randn(N, D, generator=g, device=dev)
+        x0 = y[:B].clone()  # starts are dataset points, as in thermo_sweep
+        eps = torch.randn(B, D, generator=g, device=dev)
+        temps = torch.logspace(t_lo, t_hi, nt, device=dev)
+        vals = torch.rand(N, 1, generator=g, device=dev) + 0.1
+        k = min(B, SWEEP_SUBSET)
+        sq = [float((0.5 * (t * t).sum(1)).max()) for t in (x0, eps, y)]
+        for mode in SWEEP_MODES:
+            prep = sw.prepare_y(y, mode)
+            delta = sweep_logit_error(*sq, D, temps.cpu().numpy(),
+                                      kernel_gram_steps(mode, D))
+            for with_v in (False, True):
+                v = vals if with_v else None
+                before = sw.boltzmann_sweep.launches
+                got = sw.boltzmann_sweep(x0, eps, prep, temps, values=v,
+                                         mxu_precision=mode)
+                torch.cuda.synchronize()
+                launched = sw.boltzmann_sweep.launches - before
+                want = sw.boltzmann_sweep_reference(
+                    x0[:k], eps[:k], prep, temps, values=v, mxu_precision=mode)
+                sub = sw.BoltzmannMoments(*(None if f is None else f[:, :k]
+                                            for f in got))
+                err, worst = sweep_check(sub, want, delta, v_max=float(vals.max()))
+                finite = all(bool(torch.isfinite(f).all()) for f in got if f is not None)
+                row = {"label": label, "shape": [B, N, D, nt], "log10_temps":
+                       [t_lo, t_hi], "mode": mode, "values": with_v,
+                       "launches": launched, "max_abs_err": err,
+                       "worst_of_tolerance": worst,
+                       "logit_tol_min_max": [float(delta.min()), float(delta.max())]}
+                ok = launched == 2 and finite and worst <= 1.0
+                if not with_v:
+                    ms, host_ms = time_ms(lambda: sw.boltzmann_sweep(
+                        x0, eps, prep, temps, mxu_precision=mode), reps=3, inner=1)
+                    plain_ms = event_ms(lambda: sw.boltzmann_sweep_reference(
+                        x0, eps, prep, temps, mxu_precision=mode), reps=1)[0]
+                    lib = library_grams(x0, eps, y, mode, split, full_fp32_matmul)
+                    library_ms = time_ms(lib, reps=3, inner=1)[0]
+                    passes = SWEEP_PASSES[mode]
+                    esz = 4 if mode == "fp32" else 2
+                    n_bytes = (2 * B * D * 4 + D * N * esz * (2 if passes == 3 else 1)
+                               + N * 4 + nt * 4 + 4 * nt * B * 4)
+                    t_ops = (4 * B * N * D * passes
+                             / PEAK_OPS_PER_S["float32" if mode == "fp32" else "bfloat16"]
+                             + SWEEP_EPI_OPS * B * N * nt / PEAK_OPS_PER_S["float32"]) * 1e3
+                    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+                    row.update(ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                               library_ms=library_ms,
+                               bound_ms=max(t_ops, t_bytes),
+                               bound_by="operations" if t_ops >= t_bytes else "bytes",
+                               gram_tflops=4 * B * N * D * passes / ms / 1e9,
+                               pairs_per_s=B * N * nt / ms * 1e3)
+                rows.append(row)
+                log(f"sweep {label} B={B} N={N} D={D} temps={nt} {mode}"
+                    f"{' +payload' if with_v else ''}: launches {launched}, "
+                    f"max_abs_err {err:.3g} (worst {worst:.3g} of the tolerance; "
+                    f"logit tol {row['logit_tol_min_max'][0]:.3g}-"
+                    f"{row['logit_tol_min_max'][1]:.3g})"
+                    + ("" if with_v else
+                       f" kernel_ms {row['ms']:.4f} (host {row['host_ms']:.4f}) "
+                       f"plain_ms {row['plain_ms']:.4f} library_ms (Grams only) "
+                       f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
+                       f"({row['bound_by']}) {row['gram_tflops']:.2f} Gram TFLOP/s")
+                    + f" {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    fail(f"sweep kernel disagrees with its plain version (or "
+                         f"launched {launched} kernels) at {label} {mode} "
+                         f"payload={with_v}")
+            del prep
+            torch.cuda.empty_cache()
+        if label == SWEEP_MAIN[0]:
+            # the independent oracle: one plain moments pass per temperature
+            kp = 8
+            got = sw.boltzmann_sweep(x0[:kp], eps[:kp], y, temps, mxu_precision="fp32")
+            want = sw.boltzmann_sweep_per_temp(x0[:kp], eps[:kp], y, temps)
+            tnp = temps.cpu().numpy()
+            delta = (sweep_logit_error(*sq, D, tnp, kernel_gram_steps("fp32", D))
+                     + per_temp_logit_error(*sq, D, tnp))
+            err, worst = sweep_check(got, want, delta)
+            log(f"sweep {label} fp32 vs one moments pass per temperature at "
+                f"xt = x0 + sqrt(T) eps ({kp} rows): max_abs_err {err:.3g} "
+                f"(worst {worst:.3g} of the tolerance) "
+                f"{'ok' if worst <= 1.0 else 'MISMATCH'}")
+            if worst > 1.0:
+                fail("sweep kernel disagrees with the per-temperature oracle")
+            main_data = y
+        del x0, eps, vals
+        torch.cuda.empty_cache()
+    return rows, main_data
+
+
+def library_grams(x0, eps, y, mode, split, full_fp32_matmul):
+    """The two Grams alone through cuBLAS in the mode's arithmetic (fp32
+    without TF32; bf16 hi*hi; the three bf16 passes of bf16_3x)."""
+    import torch
+
+    if mode == "fp32":
+        def run():
+            with full_fp32_matmul():
+                return torch.matmul(x0, y.T), torch.matmul(eps, y.T)
+        return run
+    xs, es, ys = split(x0, mode), split(eps, mode), split(y, mode)
+
+    def run():
+        out = []
+        for a_hi, a_lo in (xs, es):
+            out.append(torch.matmul(a_hi, ys[0].T))
+            if a_lo is not None:
+                out.append(torch.matmul(a_hi, ys[1].T))
+                out.append(torch.matmul(a_lo, ys[0].T))
+        return out
+    return run
+
+
+def event_ms(fn, reps: int = 3):
+    """(card ms between CUDA events, host ms) of `fn` after a warm call,
+    each call ending in a synchronize, the host's enqueue included (for
+    calls that enqueue more launches than a sleep kernel can hide);
+    medians over `reps`."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    card, host = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        card.append(a.elapsed_time(b))
+    return statistics.median(card), statistics.median(host)
+
+
+def sweep_stages(data, temps, gen, dev) -> None:
+    """Where one thermo_sweep's time goes: each stage of its main path
+    timed alone with CUDA events (a profiler trace drops the first
+    kernels after it starts, which here are the dataset pack's)."""
+    import torch
+
+    from pdm_tpu_torch.ops import boltzmann_sweep as sw
+    from pdm_tpu_torch.stats.sweep import thermo_sweep
+
+    n, d = data.shape
+    B = SWEEP_MAIN[1]
+    tt = torch.as_tensor(temps, dtype=torch.float32, device=dev)
+    prep = sw.prepare_y(data, "fp32")
+    idx = torch.randint(0, n, (B,), generator=gen, device=dev)
+    eps = torch.randn((B, d), generator=gen, device=dev)
+    x0 = data[idx]
+    mom = sw.boltzmann_sweep(x0, eps, prep, tt)
+    stages = {
+        "prepare_y (pad, transpose, half norms)": lambda: sw.prepare_y(data, "fp32"),
+        "draws (indices, noise)": lambda: (
+            torch.randint(0, n, (B,), generator=gen, device=dev),
+            torch.randn((B, d), generator=gen, device=dev)),
+        "gather of the starts": lambda: data[idx],
+        "boltzmann_sweep (kernels and wrapper)": lambda: sw.boltzmann_sweep(
+            x0, eps, prep, tt),
+        "curves to the host": lambda: (
+            mom.entropy(n).mean(dim=1).cpu().numpy(),
+            (-tt[:, None] * mom.log_z).mean(dim=1).cpu().numpy(),
+            mom.var.cpu().numpy()),
+        "dataset trace of covariance": lambda: float(
+            torch.var(data, dim=0, unbiased=True).sum()),
+        "thermo_sweep, whole": lambda: thermo_sweep(
+            data, temps, B, B, generator=gen, regularize=True, device=dev),
+    }
+    for name, fn in stages.items():
+        card, host = event_ms(fn)
+        log(f"stats stage: {name}: {card:.4f} ms card (CUDA events), "
+            f"{host:.4f} ms host")
+
+
+def stats_main_path(data, ddpm, dev) -> int:
+    """Phase 9: thermo_sweep on the card at the main shape (the launch
+    counter zeroed just before, read just after), bench.py's sweep rate,
+    the streamed tier on the same draws, metric_stats with adaptive k-NN,
+    then both knot schedules from the sweep and a 10-step DDIM sample of
+    the bf16 flagship on each. Returns the main path's sweep launches."""
+    import torch
+
+    from pdm_tpu_torch.diffusion.sampling import DDPMSampler
+    from pdm_tpu_torch.ops import boltzmann_sweep as sw
+    from pdm_tpu_torch.schedulers.interpolated import (
+        entropy_scheduler, metric_scheduler,
+    )
+    from pdm_tpu_torch.stats.sweep import metric_stats, thermo_sweep
+
+    label, B, N, D, nt, (t_lo, t_hi) = SWEEP_MAIN
+    n_samples = B  # forward_stats.yaml: n_samples 1024, batch_size 1024
+    temps = np.logspace(t_lo, t_hi, nt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sw.boltzmann_sweep.launches = 0
+    t0 = time.perf_counter()
+    out = thermo_sweep(data, temps, n_samples, B, generator=gen,
+                       regularize=True, device=dev)
+    wall = time.perf_counter() - t0
+    launches = sw.boltzmann_sweep.launches
+    finite = all(np.isfinite(v).all() for v in out.values())
+    log(f"stats main path: thermo_sweep fp32 {label} B={B} N={N} D={D} "
+        f"temps={nt} regularize (global floor): {wall:.4f} s per sweep, "
+        f"{4 * B * N * D / wall / 1e12:.3f} Gram TFLOP/s, "
+        f"{B * N * nt / wall:.4g} pairs/s; launches {launches}; entropy "
+        f"{out['entropy'][0]:.4g} .. {out['entropy'][-1]:.4g}, metric "
+        f"{out['metric'].min():.4g} .. {out['metric'].max():.4g}, "
+        f"tr_sigma0 {float(out['dataset_tr_sigma0']):.6g}; finite {finite}")
+    if launches != 2 * math.ceil(n_samples / B) or not finite:
+        fail(f"thermo_sweep: {launches} sweep launches (want 2 per batch) or "
+             f"outputs not finite")
+    sweep_stages(data, temps, gen, dev)
+
+    # bench.py's sweep rate: prepared dataset, 4 sweeps of 96 temperatures
+    bB, bnt, (b_lo, b_hi), reps = BENCH_SWEEP
+    x = torch.randn(bB, D, generator=gen, device=dev)
+    eps = torch.randn(bB, D, generator=gen, device=dev)
+    btemps = torch.logspace(b_lo, b_hi, bnt, device=dev)
+    prep = sw.prepare_y(data, "fp32")
+    sw.boltzmann_sweep(x, eps, prep, btemps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        mom = sw.boltzmann_sweep(x, eps, prep, btemps)
+    torch.cuda.synchronize()
+    bench_s = time.perf_counter() - t0
+    log(f"stats: sweep_pairs_per_sec (bench.py's definition: {reps} sweeps of "
+        f"{bnt} temperatures, B={bB}, N={N}, D={D}, fp32) "
+        f"{reps * bnt * bB * N / bench_s:.6g}; {bench_s / reps * 1e3:.3f} ms "
+        f"per sweep; finite {bool(torch.isfinite(mom.log_z).all())}")
+    del prep, x, eps, mom
+
+    # the streamed tier on the device-resident sweep's draws
+    n_s, chunk = STREAM
+    draws = [(torch.randint(0, N, (n_s,), generator=gen, device=dev),
+              torch.randn(n_s, D, generator=gen, device=dev))]
+    resident = thermo_sweep(data, temps, n_s, n_s, draws=draws, device=dev)
+    t0 = time.perf_counter()
+    streamed = thermo_sweep(data.cpu().numpy(), temps, n_s, n_s, draws=draws,
+                            stream_chunk=chunk, device=dev)
+    stream_s = time.perf_counter() - t0
+    eps_n = STREAM_EPS * math.sqrt(N)
+    per_field = {k: float(np.max(np.abs(streamed[k] - resident[k]) / (
+        eps_n * (np.abs(resident[k]) + 1.0 + math.log(N)))))
+        for k in ("entropy", "free_energy", "heat_capacity", "metric")}
+    worst = max(per_field.values())
+    log(f"stats: streamed tier (stream_chunk {chunk}, n_samples {n_s}) vs the "
+        f"device-resident sweep on the same draws: worst of the tolerance "
+        f"{ {k: float(f'{v:.3g}') for k, v in per_field.items()} } (tolerance "
+        f"{eps_n:.3g} (|value| + 1 + log N)); {stream_s:.3f} s "
+        f"{'ok' if worst <= 1.0 else 'MISMATCH'}")
+    if worst > 1.0:
+        fail("streamed sweep disagrees with the device-resident sweep")
+
+    t0 = time.perf_counter()
+    knn_out = metric_stats(data, temps, B, B, generator=gen, regularize=True,
+                           adaptive_knn=True, device=dev)
+    knn_s = time.perf_counter() - t0
+    ok = bool(np.isfinite(knn_out["metric"]).all() and (knn_out["metric"] > 0).all())
+    log(f"stats: metric_stats adaptive k-NN (k=5) N={N}: {knn_s:.3f} s, metric "
+        f"{knn_out['metric'].min():.4g} .. {knn_out['metric'].max():.4g} "
+        f"{'ok' if ok else 'NOT FINITE'}")
+    if not ok:
+        fail("metric_stats with adaptive k-NN: metric not finite and positive")
+
+    # the knot schedules from the main sweep, on the card and on the CPU
+    kinds = {
+        "entropy": lambda d: entropy_scheduler(
+            out["temp"], out["entropy"], extrapolate=True, min_temp=10 ** t_lo,
+            max_temp=10 ** t_hi, device=d),
+        "metric": lambda d: metric_scheduler(out["log_temp"], out["metric"],
+                                             device=d),
+    }
+    tau_cpu = torch.linspace(0.0, 1.0, 101)
+    for name, make in kinds.items():
+        card_s, cpu_s = make(dev), make("cpu")
+        lt_card = card_s.log_temp_from_tau(tau_cpu.to(dev))
+        back_card = card_s.tau_from_log_temp(lt_card).cpu()
+        lt_cpu = cpu_s.log_temp_from_tau(tau_cpu)
+        back_cpu = cpu_s.tau_from_log_temp(lt_cpu)
+        rt = max(float((back_card - tau_cpu).abs().max()),
+                 float((back_cpu - tau_cpu).abs().max()))
+        same = float((lt_card.cpu() - lt_cpu).abs().max())
+        sampler = DDPMSampler(ddpm=ddpm, scheduler=card_s, n_steps=10,
+                              obj_size=(3, 32, 32), batch_size=BATCH,
+                              n_samples=BATCH, step_type="ddim",
+                              precision="half", device=dev)
+        t0 = time.perf_counter()
+        xs = sampler.batch_sample(gen)["x"]
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        ok = (rt <= ROUNDTRIP_TOL and same <= ROUNDTRIP_TOL
+              and tuple(xs.shape) == (BATCH, 3, 32, 32)
+              and bool(torch.isfinite(xs).all()))
+        log(f"stats: {name} schedule ({card_s.timestamps.numel()} knots): tau -> "
+            f"log_temp -> tau worst {rt:.3g}, card vs CPU log_temp {same:.3g} "
+            f"(tol {ROUNDTRIP_TOL}); 10-step DDIM sample of the bf16 flagship, "
+            f"batch {BATCH}: {sample_s:.3f} s, mean {float(xs.mean()):.4g} std "
+            f"{float(xs.std()):.4g} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"{name} schedule: round trip or sample failed")
+    return launches
 
 
 def main() -> int:
@@ -792,9 +1215,21 @@ def main() -> int:
         f"{float(m_r['grad_norm']):.5g}")
     if not same or not math.isfinite(float(m_r["loss"])):
         fail("checkpoint resume did not restore the saved state")
+    del trainer, resumed, state, st_r, net_t, net_r, ddpm_t
+    torch.cuda.empty_cache()
 
-    # ---- phase 8: the kernels line and the result ----
+    # ---- phase 8: the sweep kernel against its plain version ----
     log(f"phase 8 at {time.perf_counter() - t_start:.1f} s")
+    sweep_rows, main_data = sweep_kernel_rows(time_ms, dev)
+
+    # ---- phase 9: the statistics main path ----
+    log(f"phase 9 at {time.perf_counter() - t_start:.1f} s")
+    stats_launches = stats_main_path(main_data, ddpm, dev)
+    del main_data
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: the kernels line and the result ----
+    log(f"phase 10 at {time.perf_counter() - t_start:.1f} s")
     def per_path(rows, launches, n_steps):
         main = [r for r in rows if r["calls_per_step"]]
 
@@ -852,6 +1287,25 @@ def main() -> int:
               [("training", gn_bwd_rows, train_launches["group_norm_bwd"],
                 TRAIN_STEPS)]),
     ]
+    head = next(r for r in sweep_rows if r["label"] == SWEEP_MAIN[0]
+                and r["mode"] == "fp32" and not r["values"])
+    stats = {k: head[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms")}
+    kernels.append({
+        "name": "boltzmann_sweep", "route": "cuda",
+        "source": "pdm_tpu_torch/csrc/boltzmann_sweep.cu",
+        "replaces": "pdm_tpu/ops/boltzmann_sweep.py:105",
+        "launches": stats_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in sweep_rows),
+        "per": "one call (a partials and a merge launch) at the stats path's "
+               "shape, fp32: B=1024, N=50,000, D=3072, 32 temperatures; "
+               "'shapes' gives every shape and mode (library: the two Grams "
+               "alone through cuBLAS)",
+        **stats,
+        "paths": {"stats": {"launches": stats_launches,
+                            "launches_per_step": 2, **stats}},
+        "shapes": sweep_rows,
+    })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

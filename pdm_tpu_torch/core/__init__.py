@@ -5,3 +5,4 @@ from .temperature import (
     log_temp_from_alpha_bar as log_temp_from_alpha_bar,
     one_minus_alpha_bar_from_log_temp as one_minus_alpha_bar_from_log_temp,
 )
+from .interp import interp1d as interp1d

@@ -10,3 +10,9 @@ from .groupnorm import (
     group_norm_bwd_reference as group_norm_bwd_reference,
     group_norm_reference as group_norm_reference,
 )
+from .boltzmann import (
+    BoltzmannMoments as BoltzmannMoments,
+    boltzmann_moments as boltzmann_moments,
+    merge_moments as merge_moments,
+)
+from .knn import knn_sqdist as knn_sqdist

@@ -1,0 +1,206 @@
+"""Streaming Boltzmann-posterior moments over a dataset.
+
+Counterpart of ``pdm_tpu/ops/boltzmann.py`` (its plain path,
+``boltzmann_moments_xla``, and ``merge_moments``). Given queries ``x``
+(B, D), a dataset ``y`` (N, D), a per-query inverse temperature
+``inv_temp`` and a per-query dataset scaling ``y_scale``:
+
+    H_ij = 0.5 * || x_i - y_scale_i * y_j ||^2          (energy)
+    g_ij = H_ij * inv_temp_i                            (energy over T)
+    p_ij = softmax_j(-g_ij)                             (posterior)
+
+one pass over dataset chunks with an online softmax (running max and
+rescaled fp32 accumulators) gives ``log_z``, the shift-stabilized moments
+of g and, optionally, the posterior mean of a per-point payload. The
+(B x N) energy matrix never exists whole.
+
+The JAX package runs this op with XLA, outside any Pallas kernel, so the
+port computes it in plain PyTorch: the Gram goes to ``torch.matmul`` in
+the precision mode of ``ops/precision.py`` (fp32 by default, never TF32).
+The multi-device shard body and the analytic denoiser built on this op
+(``true_posterior_mean_x0``, ``true_score``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+from torch import Tensor
+
+from .precision import boltzmann_precision_mode, gram, matmul_fp32
+
+DEFAULT_CHUNK = 0  # 0 = adaptive (see _auto_chunk)
+
+# memory budgets for the streamed buffers (fp32 words)
+_MAX_LOGIT_WORDS = 128 * 1024 * 1024  # B x chunk logits buffer: 512 MB
+_MAX_YCHUNK_WORDS = 64 * 1024 * 1024  # chunk x D dataset tile: 256 MB
+
+
+def _auto_chunk(B: int, N: int, D: int) -> int:
+    """The dataset-axis chunk: as large as the memory budgets allow, a
+    multiple of 128, at least 1024 (the JAX package's rule)."""
+    by_logits = _MAX_LOGIT_WORDS // max(B, 1)
+    by_tile = _MAX_YCHUNK_WORDS // max(D, 1)
+    chunk = max(1024, min(by_logits, by_tile))
+    chunk = min(chunk, -(-N // 128) * 128)
+    return max(128, (chunk // 128) * 128)
+
+
+class BoltzmannMoments(NamedTuple):
+    """Per-query posterior statistics (fp32, shift-stabilized).
+
+    ``shift`` is the online-softmax stabilizer (max of -g); ``e1_hat`` and
+    ``e2_hat`` are posterior moments of ``g_hat = g + shift``. Fields are
+    (B,) for one temperature and (n_temps, B) for a sweep; ``mean`` has a
+    trailing K.
+    """
+
+    log_z: Tensor  # logsumexp_j(-g_ij)
+    shift: Tensor  # max_j(-g_ij)
+    e1_hat: Tensor  # E_p[g + shift]
+    e2_hat: Tensor  # E_p[(g + shift)^2]
+    mean: Optional[Tensor]  # E_p[values_j]
+
+    @property
+    def e1(self) -> Tensor:
+        """E_p[g]: the posterior mean energy over T."""
+        return self.e1_hat - self.shift
+
+    @property
+    def var(self) -> Tensor:
+        """Var_p[g] (shift-invariant, cancellation-free)."""
+        return torch.clamp(self.e2_hat - torch.square(self.e1_hat), min=0.0)
+
+    def entropy(self, num_objects: int) -> Tensor:
+        """S = log Z + E_p[g] - log N, as (log_z - shift) + e1_hat - log N
+        so the large shift cancels analytically."""
+        return (self.log_z - self.shift) + self.e1_hat - math.log(
+            float(num_objects))
+
+
+class _RawAcc(NamedTuple):
+    m: Tensor  # running max of -g
+    s0: Tensor  # sum of exp(-g - m)
+    s1: Tensor  # sum of exp(-g - m) * g_hat
+    s2: Tensor  # sum of exp(-g - m) * g_hat^2
+    sy: Optional[Tensor]  # sum of exp(-g - m) * values
+
+
+def _finalize(acc: _RawAcc) -> BoltzmannMoments:
+    return BoltzmannMoments(
+        log_z=acc.m + torch.log(acc.s0),
+        shift=acc.m,
+        e1_hat=acc.s1 / acc.s0,
+        e2_hat=acc.s2 / acc.s0,
+        mean=None if acc.sy is None else acc.sy / acc.s0[:, None],
+    )
+
+
+def _scan_raw(xf: Tensor, yf: Tensor, inv_temp: Tensor, y_scale: Tensor,
+              values: Optional[Tensor], chunk_size: int, mode: str) -> _RawAcc:
+    B, D = xf.shape
+    N = yf.shape[0]
+    chunk = min(chunk_size or _auto_chunk(B, N, D), N)
+    x_sq = 0.5 * torch.sum(xf * xf, dim=-1)  # (B,)
+    m = torch.full((B,), float("-inf"), dtype=torch.float32, device=xf.device)
+    s0 = torch.zeros_like(m)
+    s1 = torch.zeros_like(m)
+    s2 = torch.zeros_like(m)
+    sy = None
+    if values is not None:
+        sy = torch.zeros((B, values.shape[1]), dtype=torch.float32,
+                         device=xf.device)
+    for lo in range(0, N, chunk):
+        yc = yf[lo:lo + chunk]
+        # H_ij = 0.5||x_i||^2 - s_i x_i.y_j + 0.5 s_i^2 ||y_j||^2
+        g = gram(xf, yc.T, mode)
+        y_sq = 0.5 * torch.sum(yc * yc, dim=-1)
+        h = (x_sq[:, None] - y_scale[:, None] * g
+             + torch.square(y_scale)[:, None] * y_sq[None, :])
+        lg = -h * inv_temp[:, None]
+        m_new = torch.maximum(m, torch.max(lg, dim=-1).values)
+        finite = torch.isfinite(m)
+        c = torch.where(finite, torch.exp(m - m_new), 0.0)
+        delta = torch.where(finite, m_new - m, 0.0)
+        p = torch.exp(lg - m_new[:, None])
+        g_hat = m_new[:, None] - lg  # shift-stabilized energy over T
+        s0, s1, s2 = (
+            s0 * c + torch.sum(p, dim=-1),
+            (s1 + delta * s0) * c + torch.sum(p * g_hat, dim=-1),
+            (s2 + 2.0 * delta * s1 + torch.square(delta) * s0) * c
+            + torch.sum(p * torch.square(g_hat), dim=-1),
+        )
+        if sy is not None:
+            sy = sy * c[:, None] + matmul_fp32(p, values[lo:lo + chunk])
+        m = m_new
+    return _RawAcc(m, s0, s1, s2, sy)
+
+
+def boltzmann_moments(
+    x: Tensor,
+    y: Tensor,
+    inv_temp,
+    y_scale=1.0,
+    *,
+    values: Optional[Tensor] = None,
+    compute_mean: bool = False,
+    chunk_size: int = DEFAULT_CHUNK,
+    mxu_precision: Optional[str] = None,
+) -> BoltzmannMoments:
+    """Moments of the Boltzmann posterior of each query over ``y``.
+
+    ``values`` (N, K): per-point payload whose posterior mean is returned
+    as ``mean``; ``compute_mean=True`` is sugar for ``values=y``.
+    ``mxu_precision``: the Gram's mode (``ops/precision.py``). Runs on the
+    tensors' device in plain PyTorch; the payload product is fp32.
+    """
+    mode = boltzmann_precision_mode(mxu_precision)
+    B = x.shape[0]
+    xf = x.reshape(B, -1).to(torch.float32)
+    yf = y.reshape(y.shape[0], -1).to(torch.float32)
+    if values is not None:
+        values = values.reshape(values.shape[0], -1).to(torch.float32)
+    elif compute_mean:
+        values = yf
+    inv_temp = torch.broadcast_to(torch.as_tensor(
+        inv_temp, dtype=torch.float32, device=xf.device), (B,))
+    y_scale = torch.broadcast_to(torch.as_tensor(
+        y_scale, dtype=torch.float32, device=xf.device), (B,))
+    return _finalize(_scan_raw(xf, yf, inv_temp, y_scale, values, chunk_size,
+                               mode))
+
+
+def merge_moments(a: BoltzmannMoments, b: BoltzmannMoments) -> BoltzmannMoments:
+    """Exact two-way merge of shift-stabilized moments of two disjoint
+    parts of a dataset: global shift by max, each side's partition sums
+    rescaled by exp(m - m_g), added. Shapes broadcast, so it merges the
+    single-temperature (B,) layout and the sweep's (n_temps, B) alike;
+    ``mean`` merges partition-weighted when both sides have it."""
+    m_g = torch.maximum(a.shift, b.shift)
+
+    def side(mom):
+        finite = torch.isfinite(mom.shift)
+        c = torch.where(finite, torch.exp(mom.shift - m_g), 0.0)
+        delta = torch.where(finite, m_g - mom.shift, 0.0)
+        s0 = torch.exp(mom.log_z - mom.shift)
+        s1 = mom.e1_hat * s0
+        s2 = mom.e2_hat * s0
+        return (s0 * c, (s1 + delta * s0) * c,
+                (s2 + 2.0 * delta * s1 + torch.square(delta) * s0) * c)
+
+    s0a, s1a, s2a = side(a)
+    s0b, s1b, s2b = side(b)
+    s0_g = s0a + s0b
+    mean_g = None
+    if a.mean is not None and b.mean is not None:
+        mean_g = (a.mean * (s0a / s0_g)[..., None]
+                  + b.mean * (s0b / s0_g)[..., None])
+    return BoltzmannMoments(
+        log_z=m_g + torch.log(s0_g),
+        shift=m_g,
+        e1_hat=(s1a + s1b) / s0_g,
+        e2_hat=(s2a + s2b) / s0_g,
+        mean=mean_g,
+    )

@@ -16,7 +16,8 @@ Tolerances: fp32 kernels differ from the plain versions by summation
 order only (1e-5; 1e-4 where a backward sums over many more terms); bf16
 outputs by at most one rounding step of the output (2^-7 relative), and
 bf16 gradients also by the products of a P or ds rounded the other way
-(2^-8 of the tensor's scale).
+(2^-8 of the tensor's scale). The sweep kernel's moments are held to what
+its Grams' rounding allows (chip_smoke.sweep_logit_error, sweep_check).
 """
 
 import os
@@ -32,9 +33,11 @@ from pdm_tpu_torch.models.unet import unet_from_config
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 from chip_smoke import (  # noqa: E402
-    adam_first_step_bound, compare_to_scale, train_step_with_grads,
+    adam_first_step_bound, compare_to_scale, kernel_gram_steps, sweep_check,
+    sweep_logit_error, train_step_with_grads,
 )
 from pdm_tpu_torch.ops import attention as ta
+from pdm_tpu_torch.ops import boltzmann_sweep as sw
 from pdm_tpu_torch.ops import groupnorm as tg
 
 EPS = 1e-6
@@ -279,6 +282,107 @@ def test_tiny_unet_train_step_on_card_matches_cpu(cuda_device):
         step_err = (card[3][k] - cpu[3][k]).abs()
         assert bool((step_err <= adam_first_step_bound(card[2][k], g, lr)
                      + 1e-7).all()), k
+
+
+def _sweep_case(dev, B, N, D, nt, seed, log10_t=(-1.0, 3.0)):
+    """Starts that are dataset points (as thermo_sweep draws them), shared
+    noise, a positive payload, and the logit tolerance of each mode."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn(N, D, generator=g, device=dev)
+    x0 = y[:B].clone()
+    eps = torch.randn(B, D, generator=g, device=dev)
+    temps = torch.logspace(*log10_t, nt, device=dev)
+    vals = torch.rand(N, 1, generator=g, device=dev) + 0.1
+    sq = [float((0.5 * (t * t).sum(1)).max()) for t in (x0, eps, y)]
+
+    def delta(mode):
+        return sweep_logit_error(*sq, D, temps.cpu().numpy(),
+                                 kernel_gram_steps(mode, D))
+    return x0, eps, y, temps, vals, delta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fp32", "bf16_3x", "bf16"])
+@pytest.mark.parametrize("B,N,D,nt", [
+    (256, 4096, 768, 16),  # whole tiles
+    (77, 5003, 333, 7),  # no tile's multiple
+    (1, 2000, 1, 5),  # one start, one feature
+    (130, 9000, 100, 200),  # 200 temperatures: partials beyond shared memory
+])
+def test_sweep_kernel_matches_plain_on_card(cuda_device, B, N, D, nt, mode):
+    """Both launches (partials, merge) per call, with and without the
+    (N, 1) payload, from a raw dataset and from its pack."""
+    x0, eps, y, temps, vals, delta = _sweep_case(cuda_device, B, N, D, nt, 5)
+    prep = sw.prepare_y(y, mode)
+    for v in (None, vals):
+        before = sw.boltzmann_sweep.launches
+        got = sw.boltzmann_sweep(x0, eps, prep, temps, values=v, mxu_precision=mode)
+        raw = sw.boltzmann_sweep(x0, eps, y, temps, values=v, mxu_precision=mode)
+        want = sw.boltzmann_sweep_reference(x0, eps, prep, temps, values=v,
+                                            mxu_precision=mode)
+        torch.cuda.synchronize()
+        assert sw.boltzmann_sweep.launches == before + 4
+        assert got.log_z.shape == (nt, B)
+        for a, b in zip(got, raw):
+            if a is not None:
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+        _, worst = sweep_check(got, want, delta(mode), v_max=float(vals.max()))
+        assert worst <= 1.0, worst
+
+
+@pytest.mark.cuda
+def test_sweep_kernel_never_reaches_the_plain_version(cuda_device, monkeypatch):
+    """A CUDA input launches the kernels in every mode and never calls the
+    plain version (here made to raise)."""
+    x0, eps, y, temps, vals, _ = _sweep_case(cuda_device, 64, 1000, 32, 4, 6)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA input")
+
+    monkeypatch.setattr(sw, "boltzmann_sweep_reference", refuse)
+    for mode in ("fp32", "bf16_3x", "bf16"):
+        before = sw.boltzmann_sweep.launches
+        out = sw.boltzmann_sweep(x0, eps, y, temps, values=vals, mxu_precision=mode)
+        torch.cuda.synchronize()
+        assert sw.boltzmann_sweep.launches == before + 2
+        assert all(bool(torch.isfinite(f).all()) for f in out)
+
+
+@pytest.mark.cuda
+def test_thermo_sweep_on_card_matches_cpu(cuda_device):
+    """thermo_sweep on the card (the kernels, exactly two launches per
+    batch) against the CPU (the plain version) on the same draws. Each
+    row's moments move by what the logit error delta allows
+    (sweep_check); a row's variance is at most B times the batch mean C,
+    so the curves may differ by 2 delta (1 + sqrt(B C)) (entropy), T delta
+    (free energy) and 2 delta (2 sqrt(B C) + B C) (heat capacity)."""
+    from pdm_tpu_torch.stats.sweep import thermo_sweep
+
+    n, d, bs, n_samples = 3000, 24, 96, 200
+    data = torch.randn(n, d, generator=torch.Generator().manual_seed(7))
+    g = torch.Generator().manual_seed(8)
+    sizes = [96, 96, 8]
+    draws = [(torch.randint(0, n, (b,), generator=g), torch.randn(b, d, generator=g))
+             for b in sizes]
+    temp = np.logspace(-2, 2, 9)
+    before = sw.boltzmann_sweep.launches
+    card = thermo_sweep(data, temp, n_samples, bs, draws=draws, regularize=True,
+                        device=cuda_device)
+    assert sw.boltzmann_sweep.launches - before == 2 * len(sizes)
+    cpu = thermo_sweep(data, temp, n_samples, bs, draws=draws, regularize=True,
+                       device="cpu")
+    x0 = torch.cat([data[i] for i, _ in draws])
+    eps = torch.cat([e for _, e in draws])
+    sq = [float((0.5 * (t * t).sum(1)).max()) for t in (x0, eps, data)]
+    dl = sweep_logit_error(*sq, d, temp, kernel_gram_steps("fp32", d))
+    bc = bs * cpu["heat_capacity"]
+    tol = {"entropy": 2 * dl * (1 + np.sqrt(bc)), "free_energy": temp * dl,
+           "heat_capacity": 2 * dl * (2 * np.sqrt(bc) + bc)}
+    for k, t in tol.items():
+        floor = 1e-5 * (1 + np.abs(cpu[k]))
+        assert np.all(np.abs(card[k] - cpu[k]) <= t + floor), k
+    np.testing.assert_allclose(card["dataset_tr_sigma0"], cpu["dataset_tr_sigma0"],
+                               rtol=1e-5)
 
 
 def test_chip_smoke_refuses_without_a_card():

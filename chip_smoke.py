@@ -64,7 +64,28 @@ any error or disagreement:
    k-NN; the entropy and metric schedules from the sweep (tau -> log_temp
    -> tau on the card and the CPU) and a 10-step DDIM sample of the bf16
    flagship on each.
-10. One JSON line {"kernels": [...]} with all five kernels, then the last
+10. The single-temperature moments kernel (the analytic denoiser's op)
+   against its plain version on the same card inputs, in all three
+   precision modes, with the payload (and at the main shape without), at
+   CIFAR-10 scale (B = 1000 queries, N = 50,000, D = K = 3072, the data as
+   payload) and at high_dim_exp's D = 100, gmm1d's D = 1 with N = 1e6, the
+   MC metric's K = 2D payload and one query at no tile's multiple; queries
+   noised from data points with one temperature per row over the
+   sampler's range. Each within what the Grams' rounding allows
+   (moments_logit_error, moments_check); times beside the bound, the plain
+   version and the Gram and payload products alone through cuBLAS.
+11. The analytic main path: TrueDDPM on LinearBetaScheduler(1e-4,
+   2.478e4) over 50,000 CIFAR-shaped points, DDIM 10 steps at batch 1000,
+   the moments launch counter zeroed just before and read just after (two
+   per step); every step's x0 against the plain version on the same xt;
+   ms/step, samples/s, a CUDA-event breakdown of a step and the card's
+   idle share; finite samples and the share a training image memorized.
+12. The paper's experiments on the card: high_dim_exp.yaml (the sweep,
+   the metric and cosine schedules, TrueDDPM DDPM-20 for 10,000 samples
+   each: MMD, component occupancy, MSE), gmm1d (DDPM-10, MMD, modes hit)
+   and the model-based and MC metric estimators against their Gaussian
+   closed forms.
+13. One JSON line {"kernels": [...]} with all six kernels, then the last
    line {"ok": true, "device": {...}}.
 """
 
@@ -153,24 +174,72 @@ STREAM = (256, 10_000)  # n_samples, stream_chunk of the streamed tier
 STREAM_EPS = 4 * 2.0 ** -24
 ROUNDTRIP_TOL = 1e-4  # tau -> log_temp -> tau on the knot schedules
 
+# The analytic denoiser's path (row 7): TrueDDPM over data of CIFAR-10's
+# shape (N(0, 1), N = 50,000, D = 3072), DDIM 10 steps at batch 1000 on
+# LinearBetaScheduler(1e-4, 2.478e4) (config/yaml/groups/sample.yaml,
+# ddpm.yaml, diffusion.yaml; n_samples raised from 100 to one batch), the
+# data itself as the payload (K = D). The kernel is also held at
+# high_dim_exp.yaml's D = 100, gmm1d's D = 1 with N = 1e6, mc_metric's
+# K = 2D payload and one query at no tile's multiple, each with per-row
+# temperatures over the sampler's range and queries noised from data
+# points as the sampler meets them. (label, B, N, D, K)
+MOMENTS_MAIN = ("cifar10", 1000, 50_000, 3072, 3072)
+MOMENTS_EDGES = (("high_dim", 1000, 50_000, 100, 100),
+                 ("gmm1d", 100, 1_000_000, 1, 1),
+                 ("mc_metric", 256, 20_000, 100, 200),
+                 ("edges", 1, 5003, 333, 131))
+MOMENTS_LOG10_T = (-4.0, math.log10(2.478e4))
+MOMENTS_SUBSET = 64  # rows held against the plain version, over the T range
+# operations per (row, point) of the moments epilogue, as the sweep's
+MOMENTS_EPI_OPS = 13
+TRUE_STEPS = 10  # DDIM steps of the analytic main path
+MEMORIZED = 1e-2  # a sample within this times sqrt(D) of a training image
+# The paper's experiments (phase 12): high_dim_exp.yaml (dim 100, 5
+# components, 50,000 training points; the sweep's 200 temperatures
+# 1e-4..1e4, 1000 samples in batches of 500; DDPM-20, 10,000 samples in
+# batches of 1000) and scripts/sample_gmm.py (N = 1e6)
+HIGH_DIM = {"dim": 100, "n_train": 50_000, "n_temps": 200, "sweep_samples": 1000,
+            "sweep_batch": 500, "steps": 20, "n_gen": 10_000, "batch": 1000}
+GMM1D_N = 1_000_000
+
+
+def gram_rounding(two_m: float, d: int, kernel_steps: float) -> float:
+    """Bound on the difference of one Gram entry between two correct
+    computations (the plain version's and a kernel's).
+
+    Every Gram entry sums d products whose partial sums stay below
+    two_m = 2M, M the largest half squared norm of an operand row
+    (Cauchy-Schwarz), so each rounding step is at most one ulp(2M): about
+    sqrt(d) of them in a sum rounded to nearest (the random walk of the
+    plain version's cuBLAS or CPU sums), ``kernel_steps`` in the kernel
+    (sqrt(d) for its FFMA chain; one per mma.sync for the tensor cores,
+    which truncate the fp32 accumulator once per 16-deep step:
+    passes * d / 16)."""
+    return (math.sqrt(d) + kernel_steps) * float(np.spacing(np.float32(two_m)))
+
 
 def sweep_logit_error(xsq_max: float, esq_max: float, ysq_max: float, d: int,
                       temps, kernel_steps: float):
     """(n_temps,) bound on the difference of one logit l_ij(T) between two
-    correct computations of the sweep's Grams, from their rounding.
-
-    Every Gram entry sums d products whose partial sums stay below
-    2M = 2 max(0.5|x0|^2, 0.5|eps|^2, 0.5|y|^2) (Cauchy-Schwarz), so each
-    rounding step is at most one ulp(2M): about sqrt(d) of them in a sum
-    rounded to nearest (the random walk of the plain version's cuBLAS or
-    CPU sums), ``kernel_steps`` in the kernel (sqrt(d) for its FFMA chain;
-    one per mma.sync for the tensor cores, which truncate the fp32
-    accumulator once per 16-deep step: passes * d / 16). C0 enters the
-    logit over T, D0 over sqrt(T)."""
-    two_m = np.float32(2.0 * max(xsq_max, esq_max, ysq_max))
-    gram = (math.sqrt(d) + kernel_steps) * float(np.spacing(two_m))
+    correct computations of the sweep's Grams, from their rounding
+    (gram_rounding): C0 enters the logit over T, D0 over sqrt(T)."""
+    gram = gram_rounding(2.0 * max(xsq_max, esq_max, ysq_max), d, kernel_steps)
     temps = np.asarray(temps, np.float64)
     return gram / temps + gram / np.sqrt(temps)
+
+
+def moments_logit_error(xsq_max: float, ysq_max: float, d: int, inv_temp,
+                        y_scale, kernel_steps: float):
+    """(B,) bound on the difference of one logit l_ij = -h_ij inv_temp_i of
+    the single-temperature moments between two correct computations: the
+    Gram's (gram_rounding) enters h times s_i = y_scale_i; the half norms
+    (summed in another order) and the expansion's own roundings add
+    (sqrt(d) + 4) ulp(2M) times 1 + s_i^2; all of it times inv_temp_i."""
+    two_m = 2.0 * max(xsq_max, ysq_max)
+    gram = gram_rounding(two_m, d, kernel_steps)
+    norms = gram_rounding(two_m, d, 4.0)
+    s = np.abs(np.asarray(y_scale, np.float64))
+    return np.asarray(inv_temp, np.float64) * (s * gram + (1.0 + s * s) * norms)
 
 
 def per_temp_logit_error(xsq_max: float, esq_max: float, ysq_max: float,
@@ -210,6 +279,61 @@ def sweep_check(got, want, delta, v_max: float = 0.0):
         err = max(err, float(diff.max()))
         worst = max(worst, float((diff / (tol + floor)).max()))
     return err, worst
+
+
+def moments_check(got, want, delta, gap=None, v_range: float = 0.0,
+                  v_max: float = 0.0, n: int = 1):
+    """(max abs error, worst error / tolerance) of single-temperature
+    moments ``got`` against ``want`` ((rows,) fields, mean (rows, K)) for a
+    per-row logit error of at most ``delta``. log_z, e1 and var as
+    sweep_check holds them, each row in the place of a temperature. The
+    mean: reweighting by exp(+-delta) moves a convex combination of
+    payload rows by at most expm1(2 delta) / 2 of their range
+    ``v_range``, and never by more than the range; where the reference's
+    top logit leads the next by ``gap`` (rows,), each side's mean is within
+    (N - 1) exp(2 delta - (gap - 2 delta)) of the range of the top
+    point's, so rows whose two nearest points are closer than the error
+    may give either's mean and rows with a clear winner may not. The
+    mean's floor, 4 sqrt(N) 2^-24 max|v|, is the fp32 sums over N points
+    in another order."""
+    import torch
+
+    scal = [None if f is None else f[:, None]
+            for f in (got.log_z, got.shift, got.e1_hat, got.e2_hat)]
+    ref = [f[:, None] for f in (want.log_z, want.shift, want.e1_hat, want.e2_hat)]
+    err, worst = sweep_check(type(want)(*scal, None), type(want)(*ref, None), delta)
+    if want.mean is None:
+        return err, worst
+    d = torch.as_tensor(np.asarray(delta, np.float64), device=want.mean.device)
+    share = torch.minimum(torch.expm1(2.0 * d) / 2.0, torch.ones_like(d))
+    if gap is not None:
+        g = torch.as_tensor(np.asarray(gap, np.float64), device=d.device)
+        share = torch.minimum(share, 2.0 * (n - 1) * torch.exp(4.0 * d - g))
+    tol = (share * v_range).float()[:, None] + 4.0 * math.sqrt(n) * 2.0 ** -24 * v_max
+    diff = (got.mean - want.mean).abs()
+    return max(err, float(diff.max())), max(worst, float((diff / tol).max()))
+
+
+def top_two_gap(x, y, inv_temp, y_scale, chunk: int = 1 << 15):
+    """(rows,) lead of each row's largest plain fp32 logit over its second
+    (the single-temperature moments' logits, cuBLAS without TF32)."""
+    import torch
+
+    from pdm_tpu_torch.ops.precision import matmul_fp32
+
+    xf = x.reshape(x.shape[0], -1).float()
+    yf = y.reshape(y.shape[0], -1).float()
+    xsq = 0.5 * (xf * xf).sum(1, keepdim=True)
+    s = torch.as_tensor(y_scale, dtype=torch.float32, device=xf.device).reshape(-1, 1)
+    it = torch.as_tensor(inv_temp, dtype=torch.float32, device=xf.device).reshape(-1, 1)
+    best = torch.full((xf.shape[0], 2), float("-inf"), device=xf.device)
+    for lo in range(0, yf.shape[0], chunk):
+        yc = yf[lo:lo + chunk]
+        lg = -((xsq - s * matmul_fp32(xf, yc.T)) + s * s * 0.5 * (yc * yc).sum(1)) * it
+        k = min(2, lg.shape[1])
+        best = torch.topk(torch.cat([best, torch.topk(lg, k, dim=1).values], 1),
+                          2, dim=1).values
+    return (best[:, 0] - best[:, 1]).cpu().numpy()
 
 
 def log(msg: str) -> None:
@@ -497,27 +621,31 @@ def sweep_kernel_rows(time_ms, dev):
     return rows, main_data
 
 
-def library_grams(x0, eps, y, mode, split, full_fp32_matmul):
-    """The two Grams alone through cuBLAS in the mode's arithmetic (fp32
+def library_gram(a, y, mode, split, full_fp32_matmul):
+    """One Gram a . y^T through cuBLAS in the mode's arithmetic (fp32
     without TF32; bf16 hi*hi; the three bf16 passes of bf16_3x)."""
     import torch
 
     if mode == "fp32":
         def run():
             with full_fp32_matmul():
-                return torch.matmul(x0, y.T), torch.matmul(eps, y.T)
+                return torch.matmul(a, y.T)
         return run
-    xs, es, ys = split(x0, mode), split(eps, mode), split(y, mode)
+    (a_hi, a_lo), (y_hi, y_lo) = split(a, mode), split(y, mode)
 
     def run():
-        out = []
-        for a_hi, a_lo in (xs, es):
-            out.append(torch.matmul(a_hi, ys[0].T))
-            if a_lo is not None:
-                out.append(torch.matmul(a_hi, ys[1].T))
-                out.append(torch.matmul(a_lo, ys[0].T))
+        out = torch.matmul(a_hi, y_hi.T)
+        if a_lo is not None:
+            return out, torch.matmul(a_hi, y_lo.T), torch.matmul(a_lo, y_hi.T)
         return out
     return run
+
+
+def library_grams(x0, eps, y, mode, split, full_fp32_matmul):
+    """The sweep's two Grams alone through cuBLAS (library_gram)."""
+    gx = library_gram(x0, y, mode, split, full_fp32_matmul)
+    ge = library_gram(eps, y, mode, split, full_fp32_matmul)
+    return lambda: (gx(), ge())
 
 
 def event_ms(fn, reps: int = 3):
@@ -710,6 +838,405 @@ def stats_main_path(data, ddpm, dev) -> int:
         if not ok:
             fail(f"{name} schedule: round trip or sample failed")
     return launches
+
+
+def moments_case(dev, g, B, N, D, K):
+    """Row 7's inputs: a dataset, queries xt = sqrt(ab) y_j + sqrt(1 - ab)
+    eps with one temperature per row over MOMENTS_LOG10_T (the sampler's
+    range), the denoiser's inv_temp = 1 / (1 - ab) and y_scale =
+    sqrt(ab), and a payload: the data itself (K = D), the MC metric's
+    [y, y^2] (K = 2D) or N(0, 1)."""
+    import torch
+
+    y = torch.randn(N, D, generator=g, device=dev)
+    temps = torch.logspace(*MOMENTS_LOG10_T, B, device=dev)
+    ab = 1.0 / (1.0 + temps)
+    idx = torch.randint(0, N, (B,), generator=g, device=dev)
+    x = (torch.sqrt(ab)[:, None] * y[idx]
+         + torch.sqrt(1.0 - ab)[:, None] * torch.randn(B, D, generator=g, device=dev))
+    if K == D:
+        v = y
+    elif K == 2 * D:
+        v = torch.cat([y, y * y], dim=1)
+    else:
+        v = torch.randn(N, K, generator=g, device=dev)
+    return x, y, 1.0 / (1.0 - ab), torch.sqrt(ab), v
+
+
+def moments_bound(B, N, D, K, mode):
+    """(bound ms, bound_by) of one moments call: the Gram's passes at the
+    mode's peak, the fp32 payload product and epilogue at fp32's; each
+    input read once (queries, the pack, norms, per-row terms, payload),
+    each output written once."""
+    passes = SWEEP_PASSES[mode]
+    esz = 4 if mode == "fp32" else 2
+    n_bytes = (B * D * 4 + D * N * esz * (2 if passes == 3 else 1) + N * 4
+               + 2 * B * 4 + 4 * B * 4 + (N * K * 4 + B * K * 4 if K else 0))
+    t_ops = (2 * B * N * D * passes
+             / PEAK_OPS_PER_S["float32" if mode == "fp32" else "bfloat16"]
+             + (2 * B * N * K + MOMENTS_EPI_OPS * B * N) / PEAK_OPS_PER_S["float32"]) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def moments_kernel_rows(time_ms, dev):
+    """Phase 10: the moments kernel (row 7) against its plain version on
+    the same card inputs at every shape and mode, with the payload (and at
+    the main shape without), on MOMENTS_SUBSET rows over the temperature
+    range; times of the kernel, the plain version and the products alone
+    through cuBLAS (the Gram in the mode's arithmetic, the fp32 p . V)."""
+    import torch
+
+    from pdm_tpu_torch.ops import boltzmann as bz
+    from pdm_tpu_torch.ops import boltzmann_sweep as sw
+    from pdm_tpu_torch.ops.precision import full_fp32_matmul, split
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for label, B, N, D, K in (MOMENTS_MAIN, *MOMENTS_EDGES):
+        x, y, it, s, v = moments_case(dev, g, B, N, D, K)
+        sub = torch.linspace(0, B - 1, min(B, MOMENTS_SUBSET), device=dev).round().long().unique()
+        gap = top_two_gap(x[sub], y, it[sub], s[sub])
+        sq = [float((0.5 * (t * t).sum(1)).max()) for t in (x, y)]
+        v_range, v_max = float(v.max() - v.min()), float(v.abs().max())
+        p_lib = torch.rand(B, N, generator=g, device=dev)  # any weights: products only
+        for mode in SWEEP_MODES:
+            prep = sw.prepare_y(y, mode)
+            delta = moments_logit_error(*sq, D, it[sub].cpu().numpy(), s[sub].cpu().numpy(),
+                                        kernel_gram_steps(mode, D))
+            gram_lib = library_gram(x, y, mode, split, full_fp32_matmul)
+            for with_v in ((False, True) if label == MOMENTS_MAIN[0] else (True,)):
+                vals = v if with_v else None
+
+                def kernel(vals=vals, prep=prep, mode=mode):
+                    return bz.boltzmann_moments(x, prep, it, s, values=vals,
+                                                mxu_precision=mode)
+
+                def library(vals=vals, gram_lib=gram_lib):
+                    out = gram_lib()
+                    if vals is not None:
+                        with full_fp32_matmul():
+                            out = out, torch.matmul(p_lib, vals)
+                    return out
+
+                before = bz.boltzmann_moments.launches
+                got = kernel()
+                torch.cuda.synchronize()
+                launched = bz.boltzmann_moments.launches - before
+                want = bz.boltzmann_moments_reference(x[sub], y, it[sub], s[sub], values=vals,
+                                                      mxu_precision=mode)
+                got_sub = bz.BoltzmannMoments(*(None if f is None else f[sub] for f in got))
+                err, worst = moments_check(got_sub, want, delta, gap, v_range, v_max, N)
+                finite = all(bool(torch.isfinite(f).all()) for f in got if f is not None)
+                ms, host_ms = time_ms(kernel, reps=3, inner=1)
+                plain_ms = event_ms(lambda: bz.boltzmann_moments_reference(
+                    x, y, it, s, values=vals, mxu_precision=mode), reps=1)[0]
+                library_ms = time_ms(library, reps=3, inner=1)[0]
+                b_ms, b_by = moments_bound(B, N, D, K if with_v else 0, mode)
+                row = {"label": label, "shape": [B, N, D, K if with_v else 0],
+                       "mode": mode, "values": with_v, "launches": launched,
+                       "max_abs_err": err, "worst_of_tolerance": worst,
+                       "logit_tol_min_max": [float(delta.min()), float(delta.max())],
+                       "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "tflops": 2 * B * N * (D * SWEEP_PASSES[mode] + (K if with_v else 0))
+                       / ms / 1e9}
+                rows.append(row)
+                ok = launched == 2 and finite and worst <= 1.0
+                log(f"moments {label} B={B} N={N} D={D} K={row['shape'][3]} {mode}: "
+                    f"launches {launched}, max_abs_err {err:.3g} (worst {worst:.3g} of the "
+                    f"tolerance; logit tol {row['logit_tol_min_max'][0]:.3g}-"
+                    f"{row['logit_tol_min_max'][1]:.3g}) kernel_ms {ms:.4f} (host "
+                    f"{host_ms:.4f}) plain_ms {plain_ms:.4f} library_ms (products only) "
+                    f"{library_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) {row['tflops']:.2f} "
+                    f"TFLOP/s {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    fail(f"moments kernel disagrees with its plain version (or launched "
+                         f"{launched} kernels) at {label} {mode} payload={with_v}")
+            del prep, gram_lib
+            torch.cuda.empty_cache()
+        del x, y, v, p_lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def nearest_distance(x, data, chunk: int = 1 << 14):
+    """(B,) distance of each row of x to its nearest row of data: the
+    argmin from fp32 Grams (TF32 off), the distance recomputed directly."""
+    import torch
+
+    from pdm_tpu_torch.ops.precision import matmul_fp32
+
+    xf = x.reshape(x.shape[0], -1).float()
+    df = data.reshape(data.shape[0], -1).float()
+    best = torch.full((xf.shape[0],), float("inf"), device=xf.device)
+    arg = torch.zeros((xf.shape[0],), dtype=torch.long, device=xf.device)
+    for lo in range(0, df.shape[0], chunk):
+        dc = df[lo:lo + chunk]
+        d2 = (dc * dc).sum(1)[None, :] - 2.0 * matmul_fp32(xf, dc.T)
+        val, idx = d2.min(dim=1)
+        better = val < best
+        best = torch.where(better, val, best)
+        arg = torch.where(better, idx + lo, arg)
+    return (xf - df[arg]).norm(dim=1)
+
+
+def analytic_main_path(time_ms, dev):
+    """Phase 11: TrueDDPM DDIM sampling at CIFAR-10 scale (MOMENTS_MAIN):
+    the moments launch counter zeroed just before the sample and read just
+    after (two per step); every step's x0 against the plain version on the
+    same xt; ms/step, samples/s, the stages by CUDA events and the card's
+    idle share; finite samples and how many a training image memorized.
+    Returns (launches, path numbers)."""
+    import torch
+
+    from pdm_tpu_torch.diffusion.sampling import DDPMSampler, _step_tables
+    from pdm_tpu_torch.models.base import TrueDDPM
+    from pdm_tpu_torch.ops import boltzmann as bz
+    from pdm_tpu_torch.ops import boltzmann_kernel as bk
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+
+    label, B, N, D, _ = MOMENTS_MAIN
+    g = torch.Generator(device=dev).manual_seed(5)
+    data = torch.randn(N, 3, 32, 32, generator=g, device=dev)
+    sched = LinearBetaScheduler(1e-4, 2.478e4)
+    t0 = time.perf_counter()
+    ddpm = TrueDDPM(sched, data, device=dev)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+
+    def sampler_of(n_steps):
+        return DDPMSampler(ddpm=ddpm, scheduler=sched, n_steps=n_steps,
+                           obj_size=(3, 32, 32), batch_size=B, n_samples=B,
+                           step_type="ddim", precision="full", track_states=True,
+                           device=dev)
+
+    sampler_of(1).batch_sample(torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    sampler = sampler_of(TRUE_STEPS)
+    bz.boltzmann_moments.launches = 0
+    t0 = time.perf_counter()
+    out = sampler.batch_sample(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bz.boltzmann_moments.launches
+    x, states = out["x"], out["states"]
+    ms_step = wall / TRUE_STEPS * 1e3
+    finite = bool(torch.isfinite(x).all())
+    log(f"analytic main path: TrueDDPM DDIM {TRUE_STEPS} steps, batch {B}, {label} "
+        f"N={N} D={D} fp32 (dataset packed once in {pack_s:.3f} s): {wall:.4f} s, "
+        f"{ms_step:.3f} ms/step, {B / wall:.2f} samples/s; moments launches "
+        f"{launches} ({launches / TRUE_STEPS:g}/step); output {tuple(x.shape)} mean "
+        f"{float(x.mean()):.4g} std {float(x.std()):.4g} finite {finite}")
+    if launches != 2 * TRUE_STEPS:
+        fail(f"analytic main path: {launches} moments launches, want {2 * TRUE_STEPS}")
+    if tuple(x.shape) != (B, 3, 32, 32) or not finite:
+        fail("analytic main path: samples not finite of shape (1000, 3, 32, 32)")
+
+    # every step's x0 (the moments' mean) against the plain version on the
+    # same xt, the inputs the sampler gave the model
+    x_init = torch.randn((B, 3, 32, 32), generator=torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    lt_steps = _step_tables(sampler._grid())["log_temp"]
+    flat = data.reshape(N, -1)
+    v_range, v_max = float(flat.max() - flat.min()), float(flat.abs().max())
+    worst_all, err_all, step_inputs = 0.0, 0.0, []
+    with torch.inference_mode():
+        for i in range(TRUE_STEPS):
+            xt = x_init if i == 0 else states[TRUE_STEPS - i]
+            tau = torch.clamp(sched.tau_from_log_temp(lt_steps[i]), 0.0, 1.0)
+            lt = torch.broadcast_to(sched.log_temp_from_tau(tau), (B,))
+            it, s = 1.0 / torch.sigmoid(lt), torch.sqrt(torch.sigmoid(-lt))
+            got = bz.boltzmann_moments(xt, ddpm.pack(), it, s, values=data)
+            want = bz.boltzmann_moments_reference(xt, data, it, s, compute_mean=True)
+            sq = [float((0.5 * (t * t).reshape(t.shape[0], -1).sum(1)).max()) for t in (xt, data)]
+            delta = moments_logit_error(*sq, D, it.cpu().numpy(), s.cpu().numpy(),
+                                        kernel_gram_steps("fp32", D))
+            err, worst = moments_check(got, want, delta, top_two_gap(xt, data, it, s),
+                                       v_range, v_max, N)
+            worst_all, err_all = max(worst_all, worst), max(err_all, err)
+            step_inputs.append((xt, lt_steps[i], it, s))
+    log(f"analytic main path: every step's x0 against the plain version on the same xt: "
+        f"max_abs_err {err_all:.3g}, worst {worst_all:.3g} of the tolerance "
+        f"{'ok' if worst_all <= 1.0 else 'MISMATCH'}")
+    if worst_all > 1.0:
+        fail("analytic main path: x0 disagrees with the plain version")
+
+    # where a step's time goes: each stage alone, the host's enqueue hidden
+    xt, lt0, it, s = step_inputs[TRUE_STEPS // 2]
+    tab = {k: v[TRUE_STEPS // 2] for k, v in _step_tables(sampler._grid()).items()}
+    ops = bk.operands(xt, ddpm.pack(), it, s, values=data, mode="fp32")
+
+    def step():
+        preds = ddpm.get_predictions(xt, lt0)
+        return tab["ddim_x0"] * preds.x0.float() + tab["ddim_eps"] * preds.eps.float()
+
+    stages = {
+        "moments kernels (partials and merge launches)": lambda: bk.launch(ops),
+        "boltzmann_moments call (layout: transpose, per-row terms; launches)":
+            lambda: bz.boltzmann_moments(xt, ddpm.pack(), it, s, values=data),
+        "model evaluation (tau, alpha_bar, the call, eps from x0)":
+            lambda: ddpm.get_predictions(xt, lt0),
+        "one DDIM step (evaluation and update)": step,
+    }
+    card = {}
+    with torch.inference_mode():
+        for name, fn in stages.items():
+            card[name], host = time_ms(fn, reps=5, inner=1)
+            log(f"analytic stage: {name}: {card[name]:.4f} ms card, {host:.4f} ms host")
+    busy = card["one DDIM step (evaluation and update)"]
+    kern = card["moments kernels (partials and merge launches)"]
+    log(f"analytic main path: the moments kernels are {kern / busy:.1%} of a step's "
+        f"{busy:.4f} ms card time; the card is idle {max(0.0, 1.0 - busy / ms_step):.1%} "
+        f"of a {ms_step:.3f} ms step")
+    dist = nearest_distance(x, data)
+    share = float((dist <= MEMORIZED * math.sqrt(D)).float().mean())
+    log(f"analytic main path: {share:.1%} of the samples lie within "
+        f"{MEMORIZED} sqrt(D) = {MEMORIZED * math.sqrt(D):.3f} of their nearest "
+        f"training image (median distance {float(dist.median()):.4g}): the Bayes-"
+        f"optimal denoiser of a finite set reproduces its points")
+    del ddpm, data, states, out, step_inputs, ops
+    torch.cuda.empty_cache()
+    return launches, {"launches": launches, "launches_per_step": launches / TRUE_STEPS,
+                      "ms_per_step": ms_step, "samples_per_s": B / wall,
+                      "card_ms_per_step": busy, "kernels_ms_per_step": kern}
+
+
+def g_lambda_gaussian(sigma_sq, sigma0_sq=1.0):
+    """Closed-form G(lambda), lambda = log sigma^2, for N(0, sigma0^2) data
+    (tests/test_stats.py:23-26)."""
+    return 0.5 * sigma0_sq * (sigma0_sq + 2 * sigma_sq) / (sigma0_sq + sigma_sq) ** 2
+
+
+def paper_experiments(dev) -> None:
+    """Phase 12: the paper's experiments on the card through the moments
+    kernel: high_dim_exp.yaml (the sweep, the metric and cosine schedules,
+    TrueDDPM DDPM-20 for 10,000 samples each; MMD at sigma = sqrt(dim)
+    against 5,000 training points, component occupancy, mean MSE to the
+    assigned mean, as scripts/reproduce_high_dim.py:169-187 without KL),
+    gmm1d (scripts/sample_gmm.py: DDPM-10 on 100 samples, MMD at 0.1,
+    modes hit) and the estimators against the closed forms of
+    tests/test_stats.py."""
+    import torch
+
+    from pdm_tpu_torch.diffusion.sampling import DDPMSampler, get_samples
+    from pdm_tpu_torch.models.base import TrueDDPM
+    from pdm_tpu_torch.ops import boltzmann as bz
+    from pdm_tpu_torch.ops.mmd import mmd_rbf
+    from pdm_tpu_torch.schedulers.analytic import CosineScheduler, LogSNRScheduler
+    from pdm_tpu_torch.schedulers.interpolated import metric_scheduler
+    from pdm_tpu_torch.stats.mc_metric import metric_scalar
+    from pdm_tpu_torch.stats.model_metric import (
+        empirical_entropy_stats, model_metric_stats,
+    )
+    from pdm_tpu_torch.stats.sweep import thermo_sweep
+    from pdm_tpu_torch.utils.synthetic import generate_anisotropic_gmm, generate_gmm_1d
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    hd = HIGH_DIM
+    dim, n_comp, n_train, n_gen, batch, steps = (hd["dim"], 5, hd["n_train"], hd["n_gen"],
+                                                 hd["batch"], hd["steps"])
+    train, means, _ = generate_anisotropic_gmm(dim=dim, n_components=n_comp,
+                                               n_samples=n_train)
+    data = torch.from_numpy(train).to(dev)
+    t0 = time.perf_counter()
+    stats = thermo_sweep(data, np.logspace(-4, 4, hd["n_temps"]), hd["sweep_samples"],
+                         hd["sweep_batch"], generator=gen, device=dev)
+    log(f"high_dim: thermo_sweep ({hd['n_temps']} temperatures 1e-4..1e4, "
+        f"{hd['sweep_samples']} samples in batches of {hd['sweep_batch']}) "
+        f"{time.perf_counter() - t0:.3f} s; metric "
+        f"{stats['metric'].min():.4g} .. {stats['metric'].max():.4g}")
+    schedules = {"Cosine": CosineScheduler(1e-4, 1e4),
+                 "Metric": metric_scheduler(stats["log_temp"], stats["metric"], device=dev)}
+    rng = np.random.RandomState(0)
+    flat = train.reshape(n_train, dim)
+    ref = flat[rng.randint(0, n_train, n_gen)]
+    samples = {"Baseline (True)": flat[rng.randint(0, n_train, n_gen)]}
+    for name, sch in schedules.items():
+        ddpm = TrueDDPM(sch, data, device=dev)
+        bz.boltzmann_moments.launches = 0
+        t0 = time.perf_counter()
+        out = get_samples(ddpm, sch, n_steps=steps, obj_size=(1, dim, 1), n_samples=n_gen,
+                          batch_size=batch, step_type="ddpm", generator=gen, device=dev)
+        wall = time.perf_counter() - t0
+        launches = bz.boltzmann_moments.launches
+        samples[name] = out["x"].reshape(n_gen, dim)
+        log(f"high_dim: {name} schedule, TrueDDPM DDPM-{steps}, {n_gen} samples in "
+            f"batches of {batch}: {wall:.3f} s, {n_gen / wall:.1f} samples/s; moments "
+            f"launches {launches}")
+        if launches != 2 * steps * (n_gen // batch):
+            fail(f"high_dim {name}: {launches} moments launches")
+    n_mmd = min(5000, n_gen)
+    ref_t = torch.from_numpy(ref[:n_mmd]).to(dev)
+    for name, x in samples.items():
+        mmd = float(mmd_rbf(torch.from_numpy(x[:n_mmd]).to(dev), ref_t,
+                            sigmas=(float(np.sqrt(dim)),)))
+        d = ((x[:, None, :] - means[None]) ** 2).sum(-1)
+        assign = d.argmin(1)
+        occ = np.bincount(assign, minlength=n_comp) / len(x)
+        mse = np.nanmean([((x[assign == i] - means[i]) ** 2).sum(1).mean()
+                          if (assign == i).any() else np.nan for i in range(n_comp)])
+        ok = bool(np.isfinite(x).all() and occ.min() >= 0.05)
+        log(f"high_dim: {name:<16} MMD {mmd:.6f}  avg MSE {mse:.4f}  components "
+            f"[{', '.join(f'{o:.3f}' for o in occ)}] {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"high_dim {name}: samples not finite or a component under 5%")
+    del data, samples, schedules
+    torch.cuda.empty_cache()
+
+    # gmm1d (scripts/sample_gmm.py)
+    g1 = torch.from_numpy(generate_gmm_1d(GMM1D_N)).to(dev)
+    sch = LogSNRScheduler(1e-4, 1e1)
+    sampler = DDPMSampler(ddpm=TrueDDPM(sch, g1, device=dev), scheduler=sch, n_steps=10,
+                          obj_size=(1, 1, 1), batch_size=100, n_samples=100,
+                          step_type="ddpm", device=dev)
+    x = sampler.sample(gen)["x"].reshape(-1)
+    mmd = float(mmd_rbf(torch.from_numpy(x[:, None]).to(dev), g1[:10_000].reshape(-1, 1),
+                        sigmas=(0.1,)))
+    modes = np.array([-1.1, -0.9, 0.9, 1.1])
+    hit = np.unique(np.abs(x[:, None] - modes[None]).argmin(1))
+    ok = bool(np.isfinite(x).all() and len(hit) == 4)
+    log(f"gmm1d: TrueDDPM DDPM-10 on 100 samples, N = {GMM1D_N}: MMD (sigma 0.1) {mmd:.6f}, "
+        f"modes hit {len(hit)} of 4 {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("gmm1d: samples not finite or a mode missed")
+    del g1, sampler
+
+    # the estimators against their Gaussian closed forms (tests/test_stats.py)
+    checks = []
+    d8 = np.random.RandomState(8).randn(20_000, 1, 1, 1).astype(np.float32)
+    temp = np.logspace(-1, 1, 5)
+    got = model_metric_stats(TrueDDPM(LogSNRScheduler(1e-3, 1e3), d8, device=dev), d8,
+                             temp, 512, 256, generator=gen, device=dev)["metric"]
+    want = 0.5 * ((1 - 1 / np.sqrt(1 + temp)) ** 2 / temp + 1 / (1 + temp))
+    checks.append(("model_metric_stats (VE into the VP posterior)", got, want,
+                   np.abs(got - want) <= 0.02 + 0.3 * np.abs(want), "rtol 0.3 atol 0.02"))
+    d9 = np.random.RandomState(9).randn(10_000, 1, 1, 1).astype(np.float32)
+    temp9 = np.logspace(-2, 2, 9)
+    ent = empirical_entropy_stats(TrueDDPM(LogSNRScheduler(1e-3, 1e3), d9, device=dev),
+                                  d9, temp9, 256, 256, generator=gen, device=dev)
+    tf = np.logspace(-2, 2, 2001)
+    f = 0.5 / (1 + tf)
+    cum = np.concatenate([[0.0], np.cumsum(0.5 * (f[1:] + f[:-1]) * np.diff(np.log(tf)))])
+    want9 = np.interp(np.log(temp9), np.log(tf), cum)
+    want9 -= want9[-1]
+    checks.append(("empirical_entropy_stats (entropy)", ent["entropy"], want9,
+                   (np.abs(ent["entropy"] - want9) <= 0.1)
+                   & (ent["d_entropy_d_log_temp"] > 0), "atol 0.1, dS/dlogT > 0"))
+    x10 = torch.randn(10_000, 1, generator=gen, device=dev)
+    lams = np.linspace(-3, 3, 7)
+    got = np.array([float(metric_scalar(lam, x10, 10_000, generator=gen, device=dev))
+                    for lam in lams])
+    want = g_lambda_gaussian(np.exp(lams))
+    checks.append(("metric_scalar", got, want, np.abs(got - want) <= 0.02 + 0.15 * want,
+                   "rtol 0.15 atol 0.02"))
+    for name, got, want, ok, tol in checks:
+        log(f"estimator {name} vs the Gaussian closed form ({tol}): got "
+            f"{np.array2string(np.asarray(got), precision=4)} want "
+            f"{np.array2string(np.asarray(want), precision=4)} "
+            f"{'ok' if bool(np.all(ok)) else 'FAILED'}")
+        if not np.all(ok):
+            fail(f"{name} disagrees with its closed form")
 
 
 def main() -> int:
@@ -1228,8 +1755,21 @@ def main() -> int:
     del main_data
     torch.cuda.empty_cache()
 
-    # ---- phase 10: the kernels line and the result ----
+    # ---- phase 10: the moments kernel against its plain version ----
     log(f"phase 10 at {time.perf_counter() - t_start:.1f} s")
+    moments_rows = moments_kernel_rows(time_ms, dev)
+
+    # ---- phase 11: the analytic denoiser's main path ----
+    log(f"phase 11 at {time.perf_counter() - t_start:.1f} s")
+    true_launches, true_path = analytic_main_path(time_ms, dev)
+
+    # ---- phase 12: the paper's experiments on the analytic denoiser ----
+    log(f"phase 12 at {time.perf_counter() - t_start:.1f} s")
+    paper_experiments(dev)
+
+    # ---- phase 13: the kernels line and the result ----
+    log(f"phase 13 at {time.perf_counter() - t_start:.1f} s")
+
     def per_path(rows, launches, n_steps):
         main = [r for r in rows if r["calls_per_step"]]
 
@@ -1305,6 +1845,24 @@ def main() -> int:
         "paths": {"stats": {"launches": stats_launches,
                             "launches_per_step": 2, **stats}},
         "shapes": sweep_rows,
+    })
+    head = next(r for r in moments_rows if r["label"] == MOMENTS_MAIN[0]
+                and r["mode"] == "fp32" and r["values"])
+    analytic = {k: head[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}
+    kernels.append({
+        "name": "boltzmann_moments", "route": "cuda",
+        "source": "pdm_tpu_torch/csrc/boltzmann_moments.cu",
+        "replaces": "pdm_tpu/ops/boltzmann_pallas.py:163",
+        "launches": true_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in moments_rows),
+        "per": "one call (a partials and a merge launch) at the analytic "
+               "sampler's shape, fp32 with the data as payload: B=1000, "
+               "N=50,000, D=K=3072; 'shapes' gives every shape and mode "
+               "(library: the Gram and the p.V product alone through cuBLAS)",
+        **analytic,
+        "paths": {"analytic sampling": {**true_path, **analytic}},
+        "shapes": moments_rows,
     })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

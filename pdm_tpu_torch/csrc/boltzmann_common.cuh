@@ -9,20 +9,22 @@
 // Contraction rows past D are zero-filled by the copy, so D needs no
 // padding and the extra products add exact zeros.
 //
-// Two Gram engines, both for two query operands at once (x0 and eps share
-// every dataset tile load, as the two Grams of the sweep do):
+// Two Gram engines, each for one query operand or for two at once
+// (kTwo: x0 and eps share every dataset tile load, as the two Grams of the
+// sweep do; the single-temperature moments kernel has x alone and runs
+// the one-operand form, which neither loads nor multiplies a second one):
 //   * fp32 on the CUDA cores (FFMA), never TF32. 256 threads, each owns a
-//     4-row x 8-column patch of both Grams (64 accumulators); per
-//     contraction step it reads two float4 of queries and two of the
-//     dataset from shared memory (broadcast across the warp) for 64 FMAs.
+//     4-row x 8-column patch of each Gram (32 accumulators an operand); per
+//     contraction step it reads a float4 of queries per operand and two of
+//     the dataset from shared memory (broadcast across the warp).
 //   * bf16 on the tensor cores (mma.sync m16n8k16, fp32 accumulate), one
 //     pass (hi*hi) or three (hi*hi + hi*lo + lo*hi): each warp owns 16
-//     rows x 64 columns of both Grams; A and B fragments come from the
+//     rows x 64 columns of each Gram; A and B fragments come from the
 //     (k-major) tiles through ldmatrix.trans.
 // Both run a 3-stage cp.async pipeline over the contraction and leave the
-// tile's two Grams in registers, each accumulator at the (row, column)
-// their comments give. Row 7's single-temperature kernel can reuse both
-// engines (with eps absent) and the moment update below.
+// tile's Grams in registers, each accumulator at the (row, column) their
+// comments give. The online-softmax moment update and the exact merge of
+// two parts' accumulators follow.
 #pragma once
 
 #include <math.h>
@@ -95,11 +97,19 @@ __device__ __forceinline__ void pipeline(int D, Load load, Compute compute) {
 // fp32 on the CUDA cores
 
 constexpr int kTK32 = 16;  // contraction rows per stage
-constexpr int kStageFloats32 = kTK32 * (2 * kTB + kTN);
-constexpr int kSmemGram32 = kStages * kStageFloats32 * 4;
+
+// floats of one ring slot: kTK32 rows of each query operand, then of the dataset
+template <bool kTwo>
+__host__ __device__ constexpr int stage_floats32() {
+  return kTK32 * ((kTwo ? 2 : 1) * kTB + kTN);
+}
+template <bool kTwo>
+__host__ __device__ constexpr int smem_gram32() {
+  return kStages * stage_floats32<kTwo>() * 4;
+}
 
 // ax/ae[i][j]: tile row r0 + i, tile column c0 + j (j < 4) or c0 + 28 + j
-// (j >= 4), with r0, c0 from fp32_patch.
+// (j >= 4), with r0, c0 from fp32_patch. ae is untouched unless kTwo.
 __device__ __forceinline__ void fp32_patch(int& r0, int& c0) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   r0 = (warp & 3) * 16 + (lane >> 3) * 4;
@@ -108,8 +118,10 @@ __device__ __forceinline__ void fp32_patch(int& r0, int& c0) {
 
 __device__ __forceinline__ int fp32_col(int c0, int j) { return j < 4 ? c0 + j : c0 + 28 + j; }
 
+template <bool kTwo>
 __device__ __forceinline__ void gram_fp32(float (&ax)[4][8], float (&ae)[4][8],
                                           const GramOperands& op, float* smem) {
+  constexpr int kQ = kTwo ? 2 : 1;  // query operands
   const float* xg = static_cast<const float*>(op.x_hi);
   const float* eg = static_cast<const float*>(op.e_hi);
   const float* yg = static_cast<const float*>(op.y_hi);
@@ -117,19 +129,21 @@ __device__ __forceinline__ void gram_fp32(float (&ax)[4][8], float (&ae)[4][8],
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) ax[i][j] = ae[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) {
+      ax[i][j] = 0.f;
+      if constexpr (kTwo) ae[i][j] = 0.f;
+    }
 
   auto load = [&](int stage, int kt) {
-    float* xs = smem + stage * kStageFloats32;
-    float* es = xs + kTK32 * kTB;
-    float* ys = es + kTK32 * kTB;
+    float* xs = smem + stage * stage_floats32<kTwo>();
+    float* ys = xs + kQ * kTK32 * kTB;
     const int k0 = kt * kTK32;
     {  // queries: 16 rows x 16 float4, one per thread per operand
       const int k = tid >> 4, c4 = (tid & 15) * 4;
       const bool ok = k0 + k < op.D;
       const long long off = ok ? (long long)(k0 + k) * op.ld_q + c4 : 0;
       cp_async16(xs + k * kTB + c4, xg + off, ok);
-      cp_async16(es + k * kTB + c4, eg + off, ok);
+      if constexpr (kTwo) cp_async16(xs + kTK32 * kTB + k * kTB + c4, eg + off, ok);
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {  // dataset: 16 rows x 32 float4
@@ -143,25 +157,27 @@ __device__ __forceinline__ void gram_fp32(float (&ax)[4][8], float (&ae)[4][8],
   int r0, c0;
   fp32_patch(r0, c0);
   auto compute = [&](int stage) {
-    const float* xs = smem + stage * kStageFloats32;
-    const float* es = xs + kTK32 * kTB;
-    const float* ys = es + kTK32 * kTB;
+    const float* xs = smem + stage * stage_floats32<kTwo>();
+    const float* ys = xs + kQ * kTK32 * kTB;
 #pragma unroll
     for (int kk = 0; kk < kTK32; ++kk) {
       const float4 xv = *reinterpret_cast<const float4*>(xs + kk * kTB + r0);
-      const float4 ev = *reinterpret_cast<const float4*>(es + kk * kTB + r0);
       const float4 y0 = *reinterpret_cast<const float4*>(ys + kk * kTN + c0);
       const float4 y1 = *reinterpret_cast<const float4*>(ys + kk * kTN + c0 + 32);
       const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-      const float er[4] = {ev.x, ev.y, ev.z, ev.w};
       const float yr[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          ax[i][j] = fmaf(xr[i], yr[j], ax[i][j]);
-          ae[i][j] = fmaf(er[i], yr[j], ae[i][j]);
-        }
+        for (int j = 0; j < 8; ++j) ax[i][j] = fmaf(xr[i], yr[j], ax[i][j]);
+      if constexpr (kTwo) {
+        const float4 ev = *reinterpret_cast<const float4*>(xs + (kTK32 + kk) * kTB + r0);
+        const float er[4] = {ev.x, ev.y, ev.z, ev.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) ae[i][j] = fmaf(er[i], yr[j], ae[i][j]);
+      }
     }
   };
   pipeline<kTK32>(op.D, load, compute);
@@ -176,39 +192,44 @@ constexpr int kSY = kTN + 8;      // ... of a dataset tile
 constexpr int kQTile = kTK16 * kSQ;  // elements of one query tile
 constexpr int kYTile = kTK16 * kSY;
 
-template <bool kThree>
+// bf16 elements of one ring slot: the hi tiles of each query operand and of
+// the dataset, then (bf16_3x) their lo tiles in the same order
+template <bool kThree, bool kTwo>
 __host__ __device__ constexpr int stage_elems16() {
-  return (2 * kQTile + kYTile) * (kThree ? 2 : 1);
+  return ((kTwo ? 2 : 1) * kQTile + kYTile) * (kThree ? 2 : 1);
 }
-template <bool kThree>
+template <bool kThree, bool kTwo>
 __host__ __device__ constexpr int smem_gram16() {
-  return kStages * stage_elems16<kThree>() * 2;
+  return kStages * stage_elems16<kThree, kTwo>() * 2;
 }
 
-// ax/ae[n][e]: tile row wr*16 + g + 8*(e >> 1), column wc*64 + 8n + 2tq + (e & 1)
-template <bool kThree>
+// ax/ae[n][e]: tile row wr*16 + g + 8*(e >> 1), column wc*64 + 8n + 2tq + (e & 1).
+// ae is untouched unless kTwo.
+template <bool kThree, bool kTwo>
 __device__ __forceinline__ void gram_bf16(float (&ax)[8][4], float (&ae)[8][4],
                                           const GramOperands& op, __nv_bfloat16* smem) {
   using bf = __nv_bfloat16;
+  constexpr int kQ = kTwo ? 2 : 1;
+  constexpr int kHalf = kQ * kQTile + kYTile;  // elements of the hi (or lo) tiles
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wr = warp & 3, wc = warp >> 2;
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) ax[n][e] = ae[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      ax[n][e] = 0.f;
+      if constexpr (kTwo) ae[n][e] = 0.f;
+    }
 
+  // query operand w: 0 x_hi, 1 e_hi, 2 x_lo, 3 e_lo
   const bf* src_q[4] = {static_cast<const bf*>(op.x_hi), static_cast<const bf*>(op.e_hi),
                         static_cast<const bf*>(op.x_lo), static_cast<const bf*>(op.e_lo)};
   const bf* src_y[2] = {static_cast<const bf*>(op.y_hi), static_cast<const bf*>(op.y_lo)};
-  // slot layout: x_hi, e_hi, y_hi, then (bf16_3x) x_lo, e_lo, y_lo
-  auto tile_q = [&](int stage, int which) {  // which: 0 x_hi, 1 e_hi, 2 x_lo, 3 e_lo
-    bf* base = smem + stage * stage_elems16<kThree>();
-    return which < 2 ? base + which * kQTile
-                     : base + (2 * kQTile + kYTile) + (which - 2) * kQTile;
+  auto tile_q = [&](int stage, int w) {
+    return smem + stage * stage_elems16<kThree, kTwo>() + (w >> 1) * kHalf + (w & 1) * kQTile;
   };
   auto tile_y = [&](int stage, int lo) {
-    bf* base = smem + stage * stage_elems16<kThree>();
-    return base + 2 * kQTile + lo * (2 * kQTile + kYTile);
+    return smem + stage * stage_elems16<kThree, kTwo>() + lo * kHalf + kQ * kQTile;
   };
 
   auto load = [&](int stage, int kt) {
@@ -218,8 +239,11 @@ __device__ __forceinline__ void gram_bf16(float (&ax)[8][4], float (&ae)[8][4],
       const bool ok = k0 + k < op.D;
       const long long off = ok ? (long long)(k0 + k) * op.ld_q + c8 : 0;
 #pragma unroll
-      for (int w = 0; w < (kThree ? 4 : 2); ++w)
+      for (int w = 0; w < 4; ++w) {
+        if ((w & 1) && !kTwo) continue;
+        if (w >= 2 && !kThree) continue;
         cp_async16(tile_q(stage, w) + k * kSQ + c8, src_q[w] + off, ok);
+      }
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {  // dataset: 32 rows x 16 vectors
@@ -241,10 +265,10 @@ __device__ __forceinline__ void gram_bf16(float (&ax)[8][4], float (&ae)[8][4],
       const int qa = (ks + (lane & 7) + (lane >> 4) * 8) * kSQ + wr * 16 + ((lane >> 3) & 1) * 8;
       uint32_t axh[4], aeh[4], axl[4], ael[4];
       ldsm_x4_trans(axh, tile_q(stage, 0) + qa);
-      ldsm_x4_trans(aeh, tile_q(stage, 1) + qa);
+      if constexpr (kTwo) ldsm_x4_trans(aeh, tile_q(stage, 1) + qa);
       if constexpr (kThree) {
         ldsm_x4_trans(axl, tile_q(stage, 2) + qa);
-        ldsm_x4_trans(ael, tile_q(stage, 3) + qa);
+        if constexpr (kTwo) ldsm_x4_trans(ael, tile_q(stage, 3) + qa);
       }
       const int kb = ks + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
@@ -254,8 +278,10 @@ __device__ __forceinline__ void gram_bf16(float (&ax)[8][4], float (&ae)[8][4],
         ldsm_x4_trans(bh, tile_y(stage, 0) + yb);
         mma_bf16(ax[2 * np], axh, bh[0], bh[1]);
         mma_bf16(ax[2 * np + 1], axh, bh[2], bh[3]);
-        mma_bf16(ae[2 * np], aeh, bh[0], bh[1]);
-        mma_bf16(ae[2 * np + 1], aeh, bh[2], bh[3]);
+        if constexpr (kTwo) {
+          mma_bf16(ae[2 * np], aeh, bh[0], bh[1]);
+          mma_bf16(ae[2 * np + 1], aeh, bh[2], bh[3]);
+        }
         if constexpr (kThree) {
           uint32_t bl[4];
           ldsm_x4_trans(bl, tile_y(stage, 1) + yb);
@@ -263,10 +289,12 @@ __device__ __forceinline__ void gram_bf16(float (&ax)[8][4], float (&ae)[8][4],
           mma_bf16(ax[2 * np + 1], axh, bl[2], bl[3]);
           mma_bf16(ax[2 * np], axl, bh[0], bh[1]);
           mma_bf16(ax[2 * np + 1], axl, bh[2], bh[3]);
-          mma_bf16(ae[2 * np], aeh, bl[0], bl[1]);
-          mma_bf16(ae[2 * np + 1], aeh, bl[2], bl[3]);
-          mma_bf16(ae[2 * np], ael, bh[0], bh[1]);
-          mma_bf16(ae[2 * np + 1], ael, bh[2], bh[3]);
+          if constexpr (kTwo) {
+            mma_bf16(ae[2 * np], aeh, bl[0], bl[1]);
+            mma_bf16(ae[2 * np + 1], aeh, bl[2], bl[3]);
+            mma_bf16(ae[2 * np], ael, bh[0], bh[1]);
+            mma_bf16(ae[2 * np + 1], ael, bh[2], bh[3]);
+          }
         }
       }
     }
@@ -289,6 +317,24 @@ __device__ __forceinline__ Moments empty_moments() {
   return Moments{-INFINITY, 0.f, 0.f, 0.f, 0.f};
 }
 
+// Move `a` to the new running max m_new (> -inf) and add the sums of one
+// tile's columns taken at that max: ps = sum p, pg = sum p g, pgg =
+// sum p g^2, pv = sum p v. Returns exp(m_old - m_new), the factor that
+// rescales sums kept elsewhere (0 while `a` was empty).
+__device__ __forceinline__ float fold_moments(Moments& a, float m_new, float ps, float pg,
+                                              float pgg, float pv) {
+  const bool finite = a.m > -INFINITY;
+  const float scale = finite ? expf(a.m - m_new) : 0.f;
+  const float delta = finite ? m_new - a.m : 0.f;
+  const float s0 = a.s0, s1 = a.s1;
+  a.s0 = s0 * scale + ps;
+  a.s1 = (s1 + delta * s0) * scale + pg;
+  a.s2 = (a.s2 + (2.f * delta) * s1 + (delta * delta) * s0) * scale + pgg;
+  a.sy = a.sy * scale + pv;
+  a.m = m_new;
+  return scale;
+}
+
 // Add the logits l_c = -(invt * c0[c] + irt * d0[c]) - esq, c < ncols, to
 // `a` (as the TPU kernel's per-tile update): the max first, then the sums
 // at the new max, with the old sums rescaled. A row whose max is still
@@ -301,9 +347,6 @@ __device__ __forceinline__ void update_moments(Moments& a, const float* c0, cons
   for (int c = 0; c < ncols; ++c) mx = fmaxf(mx, -(invt * c0[c] + irt * d0[c]) - esq);
   const float m_new = fmaxf(a.m, mx);
   if (m_new == -INFINITY) return;
-  const bool finite = a.m > -INFINITY;
-  const float scale = finite ? expf(a.m - m_new) : 0.f;
-  const float delta = finite ? m_new - a.m : 0.f;
   float ps = 0.f, pg = 0.f, pgg = 0.f, pv = 0.f;
   for (int c = 0; c < ncols; ++c) {
     const float l = -(invt * c0[c] + irt * d0[c]) - esq;
@@ -315,12 +358,7 @@ __device__ __forceinline__ void update_moments(Moments& a, const float* c0, cons
     pgg += pgc * g;
     if constexpr (kWithValues) pv += p * v[c];
   }
-  const float s0 = a.s0, s1 = a.s1;
-  a.s0 = s0 * scale + ps;
-  a.s1 = (s1 + delta * s0) * scale + pg;
-  a.s2 = (a.s2 + (2.f * delta) * s1 + (delta * delta) * s0) * scale + pgg;
-  if constexpr (kWithValues) a.sy = a.sy * scale + pv;
-  a.m = m_new;
+  fold_moments(a, m_new, ps, pg, pgg, pv);
 }
 
 // Exact merge of `b` into `a`: the shift-stabilized join of two disjoint

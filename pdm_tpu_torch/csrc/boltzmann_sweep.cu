@@ -49,7 +49,7 @@ constexpr int kSmemEpi = 2 * kTB * kES * 4;
 
 template <int kMode>
 __host__ __device__ constexpr int smem_bytes() {
-  const int gram = kMode == kFp32 ? kSmemGram32 : smem_gram16<kMode == kBf16x3>();
+  const int gram = kMode == kFp32 ? smem_gram32<true>() : smem_gram16<kMode == kBf16x3, true>();
   return gram > kSmemEpi ? gram : kSmemEpi;
 }
 
@@ -89,7 +89,7 @@ __device__ __forceinline__ void tile_energies(const SweepArgs& a, int row0, int 
                   a.D, a.Bp, a.Np};
   if constexpr (kMode == kFp32) {
     float ax[4][8], ae[4][8];
-    gram_fp32(ax, ae, op, reinterpret_cast<float*>(smem));
+    gram_fp32<true>(ax, ae, op, reinterpret_cast<float*>(smem));
     int r0, c0;
     fp32_patch(r0, c0);
 #pragma unroll
@@ -105,7 +105,7 @@ __device__ __forceinline__ void tile_energies(const SweepArgs& a, int row0, int 
     }
   } else {
     float ax[8][4], ae[8][4];
-    gram_bf16<kMode == kBf16x3>(ax, ae, op, reinterpret_cast<__nv_bfloat16*>(smem));
+    gram_bf16<kMode == kBf16x3, true>(ax, ae, op, reinterpret_cast<__nv_bfloat16*>(smem));
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int g = lane >> 2, tq = lane & 3;
 #pragma unroll

@@ -1,4 +1,4 @@
-from .base import DDPM as DDPM
+from .base import DDPM as DDPM, TrueDDPM as TrueDDPM
 from .predictions import (
     Predictions as Predictions,
     convert_prediction as convert_prediction,

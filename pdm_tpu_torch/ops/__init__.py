@@ -13,6 +13,15 @@ from .groupnorm import (
 from .boltzmann import (
     BoltzmannMoments as BoltzmannMoments,
     boltzmann_moments as boltzmann_moments,
+    boltzmann_moments_reference as boltzmann_moments_reference,
     merge_moments as merge_moments,
+    true_posterior_mean_x0 as true_posterior_mean_x0,
+    true_score as true_score,
+)
+from .distance import (
+    compute_gram_matrix as compute_gram_matrix,
+    compute_pw_dist_sqr as compute_pw_dist_sqr,
+    norm_sqr as norm_sqr,
 )
 from .knn import knn_sqdist as knn_sqdist
+from .mmd import mmd_rbf as mmd_rbf

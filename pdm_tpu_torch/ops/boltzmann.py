@@ -1,24 +1,31 @@
-"""Streaming Boltzmann-posterior moments over a dataset.
+"""Streaming Boltzmann-posterior moments over a dataset, and the analytic
+denoiser built on them.
 
-Counterpart of ``pdm_tpu/ops/boltzmann.py`` (its plain path,
-``boltzmann_moments_xla``, and ``merge_moments``). Given queries ``x``
-(B, D), a dataset ``y`` (N, D), a per-query inverse temperature
-``inv_temp`` and a per-query dataset scaling ``y_scale``:
+Counterpart of ``pdm_tpu/ops/boltzmann.py`` (``boltzmann_moments_xla``, the
+dispatcher, ``true_posterior_mean_x0``, ``true_score``, ``merge_moments``)
+and, through ``ops/boltzmann_kernel.py``, of ``ops/boltzmann_pallas.py``.
+Given queries ``x`` (B, D), a dataset ``y`` (N, D), a per-query inverse
+temperature ``inv_temp`` and a per-query dataset scaling ``y_scale``:
 
     H_ij = 0.5 * || x_i - y_scale_i * y_j ||^2          (energy)
     g_ij = H_ij * inv_temp_i                            (energy over T)
     p_ij = softmax_j(-g_ij)                             (posterior)
 
-one pass over dataset chunks with an online softmax (running max and
+one pass over the dataset with an online softmax (running max and
 rescaled fp32 accumulators) gives ``log_z``, the shift-stabilized moments
 of g and, optionally, the posterior mean of a per-point payload. The
 (B x N) energy matrix never exists whole.
 
-The JAX package runs this op with XLA, outside any Pallas kernel, so the
-port computes it in plain PyTorch: the Gram goes to ``torch.matmul`` in
-the precision mode of ``ops/precision.py`` (fp32 by default, never TF32).
-The multi-device shard body and the analytic denoiser built on this op
-(``true_posterior_mean_x0``, ``true_score``) are not ported yet.
+:func:`boltzmann_moments` dispatches on the queries' device: on CUDA
+tensors it launches the hand-written kernel of ``csrc/boltzmann_moments.cu``
+(it replaces the TPU kernel ``_pallas_moments``) in every precision mode;
+on CPU tensors it runs :func:`boltzmann_moments_reference`, the plain
+version, whose Gram goes to ``torch.matmul`` in the mode of
+``ops/precision.py`` (fp32 by default, never TF32) and whose payload
+product is fp32. One deliberate difference from the JAX package: there the
+Pallas kernel runs only under ``PDM_BOLTZMANN_IMPL=pallas`` on a TPU and the
+XLA path otherwise; the port has no such switch and no fallback. The
+multi-device shard body is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +36,11 @@ from typing import NamedTuple, Optional
 import torch
 from torch import Tensor
 
+from ..core.temperature import (
+    alpha_bar_from_log_temp,
+    bcast_right,
+    one_minus_alpha_bar_from_log_temp,
+)
 from .precision import boltzmann_precision_mode, gram, matmul_fp32
 
 DEFAULT_CHUNK = 0  # 0 = adaptive (see _auto_chunk)
@@ -138,7 +150,12 @@ def _scan_raw(xf: Tensor, yf: Tensor, inv_temp: Tensor, y_scale: Tensor,
     return _RawAcc(m, s0, s1, s2, sy)
 
 
-def boltzmann_moments(
+def _per_row(v, B: int, device: torch.device) -> Tensor:
+    return torch.broadcast_to(torch.as_tensor(v, dtype=torch.float32,
+                                              device=device), (B,))
+
+
+def boltzmann_moments_reference(
     x: Tensor,
     y: Tensor,
     inv_temp,
@@ -149,13 +166,16 @@ def boltzmann_moments(
     chunk_size: int = DEFAULT_CHUNK,
     mxu_precision: Optional[str] = None,
 ) -> BoltzmannMoments:
-    """Moments of the Boltzmann posterior of each query over ``y``.
+    """The plain version of the moments kernel (``boltzmann_moments_xla``).
 
     ``values`` (N, K): per-point payload whose posterior mean is returned
     as ``mean``; ``compute_mean=True`` is sugar for ``values=y``.
     ``mxu_precision``: the Gram's mode (``ops/precision.py``). Runs on the
     tensors' device in plain PyTorch; the payload product is fp32.
     """
+    if not isinstance(y, Tensor):
+        raise ValueError("the plain version takes the dataset itself, not a "
+                         "kernel pack")
     mode = boltzmann_precision_mode(mxu_precision)
     B = x.shape[0]
     xf = x.reshape(B, -1).to(torch.float32)
@@ -164,12 +184,77 @@ def boltzmann_moments(
         values = values.reshape(values.shape[0], -1).to(torch.float32)
     elif compute_mean:
         values = yf
-    inv_temp = torch.broadcast_to(torch.as_tensor(
-        inv_temp, dtype=torch.float32, device=xf.device), (B,))
-    y_scale = torch.broadcast_to(torch.as_tensor(
-        y_scale, dtype=torch.float32, device=xf.device), (B,))
-    return _finalize(_scan_raw(xf, yf, inv_temp, y_scale, values, chunk_size,
-                               mode))
+    return _finalize(_scan_raw(xf, yf, _per_row(inv_temp, B, xf.device),
+                               _per_row(y_scale, B, xf.device), values,
+                               chunk_size, mode))
+
+
+def boltzmann_moments(
+    x: Tensor,
+    y,
+    inv_temp,
+    y_scale=1.0,
+    *,
+    values: Optional[Tensor] = None,
+    compute_mean: bool = False,
+    chunk_size: int = DEFAULT_CHUNK,
+    mxu_precision: Optional[str] = None,
+) -> BoltzmannMoments:
+    """Moments of the Boltzmann posterior of each query over ``y``.
+
+    ``y`` is the dataset (N, ...) or, on CUDA, its kernel pack
+    (``ops/boltzmann_sweep.prepare_y`` in the same mode, reused across
+    calls; ``values`` must then be given for a mean). On CUDA tensors the
+    kernel (two launches, ``boltzmann_moments.launches``; no input may
+    require grad: the kernel has no backward, as the TPU kernel has none),
+    on CPU tensors the plain version; any other device raises.
+    ``chunk_size`` only splits the plain version's passes.
+    """
+    mode = boltzmann_precision_mode(mxu_precision)
+    if x.device.type == "cpu":
+        return boltzmann_moments_reference(
+            x, y, inv_temp, y_scale, values=values, compute_mean=compute_mean,
+            chunk_size=chunk_size, mxu_precision=mode)
+    if x.device.type != "cuda":
+        raise ValueError(f"boltzmann_moments runs on CUDA (the kernel) or the "
+                         f"CPU (the plain version), not on {x.device}")
+    from .boltzmann_kernel import boltzmann_moments_cuda
+
+    return boltzmann_moments_cuda(x, y, inv_temp, y_scale, values=values,
+                                  compute_mean=compute_mean, mode=mode)
+
+
+# kernel launches since the last reset (set to 0 to reset); the wrapper in
+# ops/boltzmann_kernel.py counts
+boltzmann_moments.launches = 0
+
+
+def true_posterior_mean_x0(xt: Tensor, log_temp, data, *,
+                           values: Optional[Tensor] = None) -> Tensor:
+    """Bayes-optimal denoiser E[x0 | xt] over a finite dataset (VP
+    process): energy 0.5 ||xt - sqrt(ab) x0_j||^2 at temperature 1 - ab.
+    Cast back to ``xt``'s dtype. ``data`` is the dataset or, on CUDA, its
+    kernel pack, with the dataset itself as ``values``."""
+    B = xt.shape[0]
+    log_temp = _per_row(log_temp, B, xt.device)
+    ab = alpha_bar_from_log_temp(log_temp)
+    omab = one_minus_alpha_bar_from_log_temp(log_temp)
+    out = boltzmann_moments(xt, data, inv_temp=1.0 / omab,
+                            y_scale=torch.sqrt(ab), values=values,
+                            compute_mean=values is None)
+    return out.mean.reshape(xt.shape).to(xt.dtype)
+
+
+def true_score(xt: Tensor, log_temp, data, *,
+               values: Optional[Tensor] = None) -> Tensor:
+    """Analytic marginal score of the VP-noised data distribution:
+    (sqrt(ab) E[x0 | xt] - xt) / (1 - ab)."""
+    B = xt.shape[0]
+    log_temp = _per_row(log_temp, B, xt.device)
+    ab = bcast_right(alpha_bar_from_log_temp(log_temp), xt.ndim)
+    omab = bcast_right(one_minus_alpha_bar_from_log_temp(log_temp), xt.ndim)
+    mean = true_posterior_mean_x0(xt, log_temp, data, values=values)
+    return (torch.sqrt(ab) * mean - xt) / omab
 
 
 def merge_moments(a: BoltzmannMoments, b: BoltzmannMoments) -> BoltzmannMoments:

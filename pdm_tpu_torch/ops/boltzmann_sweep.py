@@ -26,7 +26,9 @@ gives way to the other. Launch counter: ``boltzmann_sweep.launches`` (two
 per call).
 
 :func:`boltzmann_sweep_per_temp` is the independent oracle: one plain
-moments pass per temperature at xt, as ``boltzmann_sweep_xla``.
+moments pass per temperature at xt, as ``boltzmann_sweep_xla``. It calls
+the moments op's plain version by name, so on the card it stays
+independent of the moments kernel too.
 
 The dataset is packed once (:func:`prepare_y`: transposed to (D, Np),
 padded to the kernel's 128-column tiles, split to bf16 hi/lo for the
@@ -44,17 +46,17 @@ import torch
 from torch import Tensor
 
 from . import _build
-from .boltzmann import BoltzmannMoments, boltzmann_moments
+from .boltzmann import BoltzmannMoments, boltzmann_moments_reference
 from .precision import split, split_matmul, sweep_precision_mode
 
 TILE_ROWS = 64  # queries per block (kTB in the source)
 TILE_COLS = 128  # dataset points per sub-tile (kTN in the source)
-_MODE_CODES = {"fp32": 0, "bf16_3x": 1, "bf16": 2}
+MODE_CODES = {"fp32": 0, "bf16_3x": 1, "bf16": 2}
 # fp32 words of the plain version's (n_temps, B, chunk) logit temporaries
 _EPILOGUE_WORDS = 1 << 25
 
 
-def _round_up(x: int, m: int) -> int:
+def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
@@ -75,7 +77,7 @@ def prepare_y(y: Tensor, mxu_precision: Optional[str] = None) -> PreparedY:
     mode = sweep_precision_mode(mxu_precision)
     yf = y.reshape(y.shape[0], -1).to(torch.float32)
     n, d = yf.shape
-    n_pad = _round_up(n, TILE_COLS)
+    n_pad = round_up(n, TILE_COLS)
     yt = torch.zeros((d, n_pad), dtype=torch.float32, device=yf.device)
     yt[:, :n] = yf.T
     ysq = torch.zeros((n_pad,), dtype=torch.float32, device=yf.device)
@@ -84,7 +86,8 @@ def prepare_y(y: Tensor, mxu_precision: Optional[str] = None) -> PreparedY:
     return PreparedY(hi, lo, ysq, n, d, mode)
 
 
-def _pack(y, mode: str) -> PreparedY:
+def pack(y, mode: str) -> PreparedY:
+    """``y`` itself when it is a pack (of ``mode``), else its pack."""
     if isinstance(y, PreparedY):
         if y.mode != mode:
             raise ValueError(f"PreparedY was built for mxu_precision "
@@ -125,7 +128,7 @@ def boltzmann_sweep_reference(
     (n_temps, B) fields; ``mean`` (n_temps, B, 1) when ``values`` (N, 1)
     is given."""
     mode = sweep_precision_mode(mxu_precision)
-    prep = _pack(y, mode)
+    prep = pack(y, mode)
     n = prep.n
     B = x0.shape[0]
     xf = x0.reshape(B, -1).to(torch.float32)
@@ -187,35 +190,39 @@ def boltzmann_sweep_per_temp(
     outs = []
     for t in temps:
         xt = x0 + torch.sqrt(t) * eps
-        outs.append(boltzmann_moments(xt, y, inv_temp=1.0 / t, values=values,
-                                      mxu_precision="fp32"))
+        outs.append(boltzmann_moments_reference(
+            xt, y, inv_temp=1.0 / t, values=values, mxu_precision="fp32"))
     return BoltzmannMoments(*(
         None if f[0] is None else torch.stack(f) for f in zip(*outs)))
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(device_index: int, mode_code: int, with_values: bool) -> int:
-    """Blocks of the partials kernel the card holds at once."""
+def _resident_blocks(kernel: str, device_index: int, mode_code: int,
+                     variant: int) -> int:
+    """Blocks of a partials kernel (``kernel``: "sweep" or "moments"; the
+    variant: with values or the payload's form) the card holds at once."""
     per_sm = ctypes.c_int(0)
-    fn = _build.entry("pdm_boltzmann_sweep_blocks_per_sm", _SLOTS_ARGS)
+    name = f"pdm_boltzmann_{kernel}_blocks_per_sm"
+    fn = _build.entry(name, _SLOTS_ARGS)
     with torch.cuda.device(device_index):
-        _build.check(fn(mode_code, int(with_values), ctypes.byref(per_sm)),
-                     "pdm_boltzmann_sweep_blocks_per_sm")
+        _build.check(fn(mode_code, variant, ctypes.byref(per_sm)), name)
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return max(1, per_sm.value) * sms
 
 
-def _chunks(device: torch.device, mode: str, with_values: bool, row_tiles: int,
-            n_sub: int) -> Tuple[int, int]:
+def chunks(kernel: str, device: torch.device, mode: str, variant: int,
+           row_tiles: int, n_sub: int) -> Tuple[int, int]:
     """(n_chunks, sub-tiles per chunk): the dataset split so that all
-    row-tile x chunk blocks are resident at once (one wave)."""
-    slots = _resident_blocks(device.index or 0, _MODE_CODES[mode], with_values)
+    row-tile x chunk blocks of a partials kernel are resident at once (one
+    wave)."""
+    slots = _resident_blocks(kernel, device.index or 0, MODE_CODES[mode],
+                             variant)
     n_chunks = max(1, min(n_sub, slots // row_tiles))
     per_chunk = -(-n_sub // n_chunks)
     return -(-n_sub // per_chunk), per_chunk
 
 
-def _check_pack(prep: PreparedY, dev: torch.device) -> None:
+def check_pack(prep: PreparedY, dev: torch.device) -> None:
     """The kernel reads the pack through raw pointers: its layout must be
     prepare_y's."""
     n_pad = prep.yt_hi.shape[1] if prep.yt_hi.ndim == 2 else -1
@@ -244,13 +251,13 @@ def _sweep_cuda(xf: Tensor, ef: Tensor, prep: PreparedY, temps: Tensor,
     if prep.d != D or ef.shape != xf.shape:
         raise ValueError(f"x0 {tuple(xf.shape)} and eps {tuple(ef.shape)} "
                          f"must be (B, D) with the dataset's D = {prep.d}")
-    _check_pack(prep, dev)
+    check_pack(prep, dev)
     for name, t in (("eps", ef), ("temps", temps)):
         if t.device != dev:
             raise ValueError(f"{name} must be on {dev}: {t.device}")
     if v is not None and v.device != dev:
         raise ValueError(f"values must be on {dev}: {v.device}")
-    b_pad = _round_up(B, TILE_ROWS)
+    b_pad = round_up(B, TILE_ROWS)
     n_pad = prep.yt_hi.shape[1]
     nt = temps.shape[0]
     xt = torch.zeros((D, b_pad), dtype=torch.float32, device=dev)
@@ -268,8 +275,8 @@ def _sweep_cuda(xf: Tensor, ef: Tensor, prep: PreparedY, temps: Tensor,
         vp = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
         vp[:prep.n] = v
     n_q = 5 if v is not None else 4
-    n_chunks, per_chunk = _chunks(dev, prep.mode, v is not None,
-                                  b_pad // TILE_ROWS, n_pad // TILE_COLS)
+    n_chunks, per_chunk = chunks("sweep", dev, prep.mode, int(v is not None),
+                                 b_pad // TILE_ROWS, n_pad // TILE_COLS)
     partials = torch.empty((n_chunks, n_q, nt, b_pad), dtype=torch.float32,
                            device=dev)
     out = torch.empty((n_q, nt, B), dtype=torch.float32, device=dev)
@@ -284,7 +291,7 @@ def _sweep_cuda(xf: Tensor, ef: Tensor, prep: PreparedY, temps: Tensor,
                  ptr(prep.yt_lo), ptr(prep.ysq), ptr(row[0]), ptr(row[1]),
                  ptr(row[2]), ptr(vp), ptr(invt), ptr(irt),
                  ptr(partials), b_pad, D, n_pad, prep.n, nt, n_chunks,
-                 per_chunk, _MODE_CODES[prep.mode], stream)
+                 per_chunk, MODE_CODES[prep.mode], stream)
         _build.check(err, "pdm_boltzmann_sweep_partials")
         boltzmann_sweep.launches += 1
         fn = _build.entry("pdm_boltzmann_sweep_merge", _MERGE_ARGS)
@@ -320,7 +327,7 @@ def boltzmann_sweep(
                                          mxu_precision=mode)
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
-    prep = _pack(y, mode)
+    prep = pack(y, mode)
     B = x0.shape[0]
     temps = torch.as_tensor(temps, dtype=torch.float32, device=x0.device)
     if temps.ndim != 1 or temps.shape[0] == 0:

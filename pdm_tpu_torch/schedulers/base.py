@@ -64,3 +64,17 @@ class Scheduler:
         omab = bcast_right(one_minus_alpha_bar_from_log_temp(log_temp), x0.ndim)
         xt = torch.sqrt(ab) * x0 + torch.sqrt(omab) * eps
         return tau, eps, xt
+
+    # -- analytic (dataset-exact) quantities, through ops/boltzmann.py --
+
+    def true_posterior_mean_x0(self, xt: Tensor, tau: Tensor, data) -> Tensor:
+        """Bayes-optimal E[x0 | xt] over a finite dataset."""
+        from ..ops.boltzmann import true_posterior_mean_x0
+
+        return true_posterior_mean_x0(xt, self.log_temp_from_tau(tau), data)
+
+    def true_score(self, xt: Tensor, tau: Tensor, data) -> Tensor:
+        """Analytic marginal score over a finite dataset."""
+        from ..ops.boltzmann import true_score
+
+        return true_score(xt, self.log_temp_from_tau(tau), data)

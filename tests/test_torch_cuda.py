@@ -16,8 +16,9 @@ Tolerances: fp32 kernels differ from the plain versions by summation
 order only (1e-5; 1e-4 where a backward sums over many more terms); bf16
 outputs by at most one rounding step of the output (2^-7 relative), and
 bf16 gradients also by the products of a P or ds rounded the other way
-(2^-8 of the tensor's scale). The sweep kernel's moments are held to what
-its Grams' rounding allows (chip_smoke.sweep_logit_error, sweep_check).
+(2^-8 of the tensor's scale). The sweep and moments kernels' moments are
+held to what their Grams' rounding allows (chip_smoke.sweep_logit_error,
+sweep_check; moments_logit_error, moments_check).
 """
 
 import os
@@ -28,15 +29,18 @@ import numpy as np
 import pytest
 import torch
 
+from pdm_tpu_torch.diffusion import sampling as ts
 from pdm_tpu_torch.models.unet import unet_from_config
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 from chip_smoke import (  # noqa: E402
-    adam_first_step_bound, compare_to_scale, kernel_gram_steps, sweep_check,
-    sweep_logit_error, train_step_with_grads,
+    adam_first_step_bound, compare_to_scale, kernel_gram_steps, moments_check,
+    moments_logit_error, sweep_check, sweep_logit_error, top_two_gap,
+    train_step_with_grads,
 )
 from pdm_tpu_torch.ops import attention as ta
+from pdm_tpu_torch.ops import boltzmann as bz
 from pdm_tpu_torch.ops import boltzmann_sweep as sw
 from pdm_tpu_torch.ops import groupnorm as tg
 
@@ -383,6 +387,110 @@ def test_thermo_sweep_on_card_matches_cpu(cuda_device):
         assert np.all(np.abs(card[k] - cpu[k]) <= t + floor), k
     np.testing.assert_allclose(card["dataset_tr_sigma0"], cpu["dataset_tr_sigma0"],
                                rtol=1e-5)
+
+
+def _moments_case(dev, B, N, D, K, seed):
+    """Noised queries as the denoiser sees them (xt = sqrt(ab) y_j +
+    sqrt(1 - ab) eps over T = 1e-4..1e4, one T per row), a payload of K
+    columns (the data itself when K = D), and the logit tolerance."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn(N, D, generator=g, device=dev)
+    temps = torch.logspace(-4.0, 4.0, B, device=dev)
+    ab = 1.0 / (1.0 + temps)
+    x = (torch.sqrt(ab)[:, None] * y[torch.randint(0, N, (B,), generator=g, device=dev)]
+         + torch.sqrt(1.0 - ab)[:, None] * torch.randn(B, D, generator=g, device=dev))
+    v = y if K == D else torch.randn(N, K, generator=g, device=dev)
+    inv_t, scale = 1.0 / (1.0 - ab), torch.sqrt(ab)
+    sq = [float((0.5 * (t * t).sum(1)).max()) for t in (x, y)]
+
+    def check(got, want, mode):
+        delta = moments_logit_error(*sq, D, inv_t.cpu().numpy(), scale.cpu().numpy(),
+                                    kernel_gram_steps(mode, D))
+        return moments_check(got, want, delta, top_two_gap(x, y, inv_t, scale),
+                             float(v.max() - v.min()), float(v.abs().max()), N)[1]
+    return x, y, inv_t, scale, v, check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fp32", "bf16_3x", "bf16"])
+@pytest.mark.parametrize("B,N,D,K", [
+    (256, 4096, 768, 768),  # whole tiles, the data as payload
+    (77, 5003, 333, 13),  # no tile's multiple; K % 4 != 0 (4-byte copies)
+    (1, 300, 1, 1),  # one query, one feature
+])
+def test_moments_kernel_matches_plain_on_card(cuda_device, B, N, D, K, mode):
+    """Two launches per call, with and without the payload, from a raw
+    dataset and from its pack."""
+    x, y, inv_t, scale, v, check = _moments_case(cuda_device, B, N, D, K, 9)
+    prep = sw.prepare_y(y, mode)
+    for vals in (None, v):
+        before = bz.boltzmann_moments.launches
+        got = bz.boltzmann_moments(x, prep, inv_t, scale, values=vals,
+                                   mxu_precision=mode)
+        raw = bz.boltzmann_moments(x, y, inv_t, scale, values=vals,
+                                   mxu_precision=mode)
+        want = bz.boltzmann_moments_reference(x, y, inv_t, scale, values=vals,
+                                              mxu_precision=mode)
+        torch.cuda.synchronize()
+        assert bz.boltzmann_moments.launches == before + 4
+        assert got.log_z.shape == (B,)
+        for a, b in zip(got, raw):
+            if a is not None:
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert check(got, want, mode) <= 1.0
+
+
+@pytest.mark.cuda
+def test_moments_kernel_never_reaches_the_plain_version(cuda_device, monkeypatch):
+    """A CUDA input launches the kernels in every mode, never the plain
+    version (here made to raise), and refuses an input that requires grad
+    (the kernel has no backward)."""
+    x, y, inv_t, scale, v, _ = _moments_case(cuda_device, 64, 1000, 32, 32, 10)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA input")
+
+    monkeypatch.setattr(bz, "boltzmann_moments_reference", refuse)
+    for mode in ("fp32", "bf16_3x", "bf16"):
+        before = bz.boltzmann_moments.launches
+        out = bz.boltzmann_moments(x, y, inv_t, scale, compute_mean=True,
+                                   mxu_precision=mode)
+        torch.cuda.synchronize()
+        assert bz.boltzmann_moments.launches == before + 2
+        assert all(bool(torch.isfinite(f).all()) for f in out)
+    for kw in ({"x": x.clone().requires_grad_()}, {"y": y.clone().requires_grad_()},
+               {"inv_t": inv_t.clone().requires_grad_()}):
+        args = {"x": x, "y": y, "inv_t": inv_t, **kw}
+        with pytest.raises(ValueError, match="requires grad"):
+            bz.boltzmann_moments(args["x"], args["y"], args["inv_t"], scale,
+                                 compute_mean=True)
+
+
+@pytest.mark.cuda
+def test_true_ddpm_sample_on_card_matches_cpu(cuda_device):
+    """A 3-step DDIM sample of TrueDDPM: one moments call (two launches)
+    per step on the card, the dataset packed once; the same samples as the
+    CPU's plain version from the same start, to 1e-4 of their scale."""
+    from pdm_tpu_torch.models.base import TrueDDPM
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+
+    rng = np.random.RandomState(0)
+    data = torch.from_numpy(rng.standard_normal((500, 3, 4, 4)).astype(np.float32))
+    x_init = torch.from_numpy(rng.standard_normal((16, 3, 4, 4)).astype(np.float32))
+    sched = LinearBetaScheduler(1e-4, 2.478e4)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        ddpm = TrueDDPM(sched, data, device=dev)
+        sampler = ts.DDPMSampler(ddpm=ddpm, scheduler=sched, n_steps=3,
+                                 obj_size=(3, 4, 4), batch_size=16,
+                                 step_type="ddim", device=dev)
+        before = bz.boltzmann_moments.launches
+        out[str(dev)] = sampler.batch_sample(x_init=x_init)["x"].cpu()
+        out[str(dev) + "_launches"] = bz.boltzmann_moments.launches - before
+    assert out["cpu_launches"] == 0 and out[str(cuda_device) + "_launches"] == 6
+    want = out["cpu"]
+    assert float((out[str(cuda_device)] - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -8,8 +8,8 @@
 * The whole sampler on the tiny UNet with the same weights, for all four
   step types at 6 steps. JAX's RNG cannot be reproduced in torch, so the
   test derives the JAX sampler's own draws with the calls it makes
-  (``split`` for the initial noise, then ``fold_in(key, i)`` per step)
-  and hands them to the port. fp32: 1e-4 of the sample scale.
+  (``torch_port_fixtures.jax_sampler_draws``) and hands them to the port.
+  fp32: 1e-4 of the sample scale.
 """
 
 import dataclasses
@@ -37,7 +37,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from fixtures.make_golden import TINY  # noqa: E402
-from torch_port_fixtures import two_torch_threads  # noqa: E402,F401
+from torch_port_fixtures import (  # noqa: E402
+    jax_sampler_draws, two_torch_threads,  # noqa: F401
+)
 
 TABLE_KEYS = (
     "log_temp", "ab", "ab_prev", "ddpm_x0", "ddpm_xt", "ddpm_noise",
@@ -96,17 +98,6 @@ def models():
     return jm, tm
 
 
-def _jax_draws(key, n_steps, shape):
-    """The JAX sampler's own draws (sampling.py: split, then fold_in)."""
-    key, init_key = jax.random.split(key)
-    x_init = jax.random.normal(init_key, shape, dtype=jnp.float32)
-    noise = jnp.stack([
-        jax.random.normal(jax.random.fold_in(key, i), shape, dtype=jnp.float32)
-        for i in range(n_steps)
-    ])
-    return np.array(x_init), np.array(noise)
-
-
 @pytest.mark.parametrize("step_type", ["ddpm", "ddim", "heun", "dpmpp_2m"])
 def test_sampler_matches_jax(models, step_type):
     jm, tm = models
@@ -116,7 +107,7 @@ def test_sampler_matches_jax(models, step_type):
         ddpm=jm, scheduler=jm.scheduler, n_steps=N_STEPS, obj_size=shape[1:],
         batch_size=B, n_samples=B, step_type=step_type, track_states=True,
     ).batch_sample(key)
-    x_init, noise = _jax_draws(key, N_STEPS, shape)
+    x_init, noise = jax_sampler_draws(key, N_STEPS, shape)
     got = ts.DDPMSampler(
         ddpm=tm, scheduler=tm.scheduler, n_steps=N_STEPS, obj_size=shape[1:],
         batch_size=B, n_samples=B, step_type=step_type, track_states=True,
@@ -143,7 +134,7 @@ def test_half_precision_sampler_matches_jax(models):
         ddpm=jm, scheduler=jm.scheduler, n_steps=4, obj_size=shape[1:],
         batch_size=B, step_type="ddpm", precision="half",
     ).batch_sample(key)["x"]
-    x_init, noise = _jax_draws(key, 4, shape)
+    x_init, noise = jax_sampler_draws(key, 4, shape)
     got = ts.DDPMSampler(
         ddpm=tm, scheduler=tm.scheduler, n_steps=4, obj_size=shape[1:],
         batch_size=B, step_type="ddpm", precision="half", device="cpu",

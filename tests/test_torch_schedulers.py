@@ -25,8 +25,8 @@ from pdm_tpu_torch.diffusion import sampling as ts
 from pdm_tpu_torch.schedulers import interpolated as ti
 from pdm_tpu_torch.stats.sweep import forward_stats
 
-from test_torch_sampler import B, N_STEPS, SIZE, _jax_draws, models  # noqa: F401
-from torch_port_fixtures import two_torch_threads  # noqa: F401
+from test_torch_sampler import B, N_STEPS, SIZE, models  # noqa: F401
+from torch_port_fixtures import jax_sampler_draws, two_torch_threads  # noqa: F401
 
 XK = np.array([0.0, 1.0, 3.0, 3.0, 7.0], np.float32)  # one zero-width segment
 YK = np.array([1.0, 2.0, 0.0, 5.0, 8.0], np.float32)
@@ -175,7 +175,7 @@ def test_ddim_sample_on_entropy_schedule_matches_jax(models):
     want = js.DDPMSampler(ddpm=jm, scheduler=j_sched, n_steps=N_STEPS,
                           obj_size=shape[1:], batch_size=B, n_samples=B,
                           step_type="ddim").batch_sample(key)["x"]
-    x_init, _ = _jax_draws(key, N_STEPS, shape)
+    x_init, _ = jax_sampler_draws(key, N_STEPS, shape)
     got = ts.DDPMSampler(ddpm=tm, scheduler=t_sched, n_steps=N_STEPS,
                          obj_size=shape[1:], batch_size=B, n_samples=B,
                          step_type="ddim", device="cpu",

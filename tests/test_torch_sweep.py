@@ -114,13 +114,13 @@ def test_prepare_y_layout_and_mode_checks():
         sw.boltzmann_sweep(x, x, y, torch.ones(2), values=torch.ones(300, 2))
     # the layout the kernel's pointers assume, checked before a launch
     cpu = torch.device("cpu")
-    sw._check_pack(prep, cpu)
+    sw.check_pack(prep, cpu)
     for bad in (prep._replace(yt_hi=prep.yt_hi.float()),
                 prep._replace(yt_lo=None),
                 prep._replace(ysq=prep.ysq[:300]),
                 prep._replace(yt_hi=prep.yt_hi.T.contiguous().T)):
         with pytest.raises(ValueError, match="PreparedY|yt_lo"):
-            sw._check_pack(bad, cpu)
+            sw.check_pack(bad, cpu)
 
 
 def test_per_temp_oracle_matches_jax():

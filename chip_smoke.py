@@ -85,7 +85,28 @@ any error or disagreement:
    each: MMD, component occupancy, MSE), gmm1d (DDPM-10, MMD, modes hit)
    and the model-based and MC metric estimators against their Gaussian
    closed forms.
-13. One JSON line {"kernels": [...]} with all six kernels, then the last
+13. The whole attention block (rows 5 and 6, the opt-in path) against
+   its plain versions on the same card inputs at the flagship's attention
+   shapes (T 256 and the 4x4 mid block's 16, C 256, 4 heads): the forward
+   at batch 64 and 128, the backward at 128 (every gradient of the
+   autograd Function: dx, dh, dW_q/k/v, db_qkv, dW_out, db_out), bf16 and
+   fp32, with times beside the bound, the plain version and the library
+   composition (F.linear, scaled_dot_product_attention, F.linear, add;
+   for the backward that composition's autograd).
+14. The whole-block sampling path, PDM_FUSED_BLOCK=1 set for phases 14-16
+   only: one bf16 model evaluation against the default path on the same
+   input, then the bf16 flagship's DDPM-1000 at batch 64 as phase 4, with
+   exactly 8 row-5 launches, no row-1 launch and 69 GroupNorm launches
+   per step, the card's busy time and a profiler breakdown; then the
+   default and whole-block paths in turns (default, whole block, whole
+   block, default; 200 steps each).
+15. The whole-block training path: the bf16 train step at batch 128 as
+   phase 7, with exact launch counts (row 5 8 and row 6 24 per step, rows
+   1 and 2 none, GroupNorm 69 and 69) and the card's busy time; then the
+   two paths in turns on the same trainer (10 steps each).
+16. The whole-block path in fp32 at full width, card vs CPU: the UNet
+   forward at batch 2 and the train step as phase 6.
+17. One JSON line {"kernels": [...]} with all eight kernels, then the last
    line {"ok": true, "device": {...}}.
 """
 
@@ -93,6 +114,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -143,6 +165,30 @@ TRAIN_LAUNCHES = {"attention_fwd": 8, "attention_bwd": 16,
 # passes: statistics 3, normalizing twice 4, partials 3, dx 6; the SiLU
 # VJP (~10) is taken twice
 GN_BWD_OPS = {"silu": 36, "none": 16}
+
+# The opt-in whole attention block (rows 5 and 6, PDM_FUSED_BLOCK=1): the
+# flagship's attention geometries (T, C, heads) with their calls per model
+# evaluation (seven blocks at 16x16, the mid block at 4x4)
+BLOCK_GEOMS = ((256, 256, 4, 7), (16, 256, 4, 1))
+# rows 5 and 6 against their plain versions, (rtol, atol as a fraction of
+# the tensor's max |value|): fp32 by summation order; bf16 by a rounding
+# (of q, k, v, P or att forward; of datt, P, ds or dqkv backward) that the
+# other summation order can flip, which moves what follows by about one
+# bf16 step (2^-8) of that operand, and a backward product sums two such
+BLOCK_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 2 ** -7)}
+BLOCK_BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2 ** -6, 2 ** -6)}
+# one bf16 model evaluation, whole-block path against the default path on
+# the same input, of the output's scale: the two round at other points (the
+# residual add, the qkv bias add), as the bf16 UNet and JAX's do
+# (tests/test_torch_unet.py holds those to the same 2e-2)
+FUSED_VS_DEFAULT_TOL = 2e-2
+# per-step launches of the whole-block training path: 8 blocks, once
+# forward and once backward (three kernels), no row 1 or 2 launch
+TURN_STEPS = 200       # sampler steps per turn of the two paths' comparison
+TRAIN_TURN_STEPS = 10  # train steps per turn
+BLOCK_TRAIN_LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0,
+                        "block_fwd": 8, "block_bwd": 24,
+                        "group_norm_fwd": 69, "group_norm_bwd": 69}
 
 # The statistics path: the sweep at CIFAR-10 scale on data of CIFAR-10's
 # shape from a seed (N(0, 1), N = 50,000, D = 3072), B = 1024 starts, 32
@@ -422,6 +468,14 @@ def compare_to_scale(got, want, rtol: float, atol_of_scale: float):
     return float(diff.max()), bool((diff <= bound_t).all())
 
 
+def tol_fraction(got, want, rtol: float, atol_of_scale: float) -> float:
+    """The largest |got - want| as a fraction of compare_to_scale's
+    bound (1.0 is the tolerance's edge)."""
+    got, want = got.float(), want.float()
+    bound_t = rtol * want.abs() + atol_of_scale * float(want.abs().max())
+    return float(((got - want).abs() / bound_t.clamp_min(1e-30)).max())
+
+
 def adam_first_step_bound(g_a, g_b, lr: float, eps: float = 1e-8):
     """The most two first Adam steps (update lr * g / (|g| + eps), weight
     decay 0) can differ by, elementwise, for gradients g_a and g_b: near
@@ -488,7 +542,10 @@ def profile_steps(run, n_steps: int, label: str = "profile") -> float:
                 and not getattr(e, "is_user_annotation", False)):
             ms, n = per_kernel.get(e.name, (0.0, 0))
             per_kernel[e.name] = (ms + e.device_time_total / 1e3, n + 1)
-    kinds = (("attention kernel", ("attention_fwd",)),
+    kinds = (("whole-block kernel", ("attention_block_fwd",)),
+             ("whole-block backward kernels", ("attention_block_bwd",
+                                               "attention_block_wgrad")),
+             ("attention kernel", ("attention_fwd",)),
              ("attention backward kernels", ("attention_bwd",)),
              ("GroupNorm kernel", ("group_norm_fwd",)),
              ("GroupNorm backward kernel", ("group_norm_bwd",)),
@@ -1239,6 +1296,213 @@ def paper_experiments(dev) -> None:
             fail(f"{name} disagrees with its closed form")
 
 
+def block_inputs(g, dev, B, T, C, dtype):
+    """x, h, (w_q, w_k, w_v), (b_q, b_k, b_v), w_out, b_out of one block in
+    the module's layout and dtype: activations N(0, 1), weights N(0, 1/C),
+    biases N(0, 0.01)."""
+    import torch
+
+    def r(*shape, s=1.0):
+        return (s * torch.randn(*shape, generator=g, device=dev)).to(dtype)
+
+    ws = [r(C, C, s=C ** -0.5) for _ in range(4)]
+    bs = [r(C, s=0.1) for _ in range(4)]
+    return r(B, T, C), r(B, T, C), ws[:3], bs[:3], ws[3], bs[3]
+
+
+def block_library(x, h, ws, bs, w_out, b_out, heads, scale):
+    """The whole block as library calls (F.linear, SDPA, F.linear, add),
+    the yardstick of rows 5 and 6: returns a function of no arguments."""
+    import torch
+    import torch.nn.functional as F
+
+    B, T, C = h.shape
+    w_cat, b_cat = torch.cat(list(ws)), torch.cat(list(bs))
+
+    def run():
+        q, k, v = F.linear(h, w_cat, b_cat).view(B, T, 3, heads, C // heads).permute(
+            2, 0, 3, 1, 4)
+        a = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        return x + F.linear(a.transpose(1, 2).reshape(B, T, C), w_out, b_out)
+
+    return run
+
+
+def block_kernel_rows(time_ms, dev):
+    """Rows 5 and 6 against their plain versions on the same card inputs at
+    the flagship's attention shapes: the forward at batch 64 and 128, the
+    backward at 128, bf16 and fp32. Returns (forward rows at batch 64,
+    forward rows at 128, backward rows)."""
+    import torch
+    from pdm_tpu_torch.ops import attention_block as tb
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    fwd = {BATCH: [], TRAIN_BATCH: []}
+    bwd_rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        esz = 2 if dtype == torch.bfloat16 else 4
+        for (T, C, heads, calls), batch in [(geom, b) for b in (BATCH, TRAIN_BATCH)
+                                           for geom in BLOCK_GEOMS]:
+            hd = C // heads
+            scale = 1.0 / math.sqrt(hd)
+            x, h, ws, bs, wo, bo = block_inputs(g, dev, batch, T, C, dtype)
+            args = (x, h, ws, bs, wo, bo, heads, scale)
+            out, lse = tb._forward(*args)
+            ref, ref_lse = tb._reference_with_lse(x, h, *ws, bs, wo, bo, heads, scale)
+            torch.cuda.synchronize()
+            rtol, atol = BLOCK_TOL[dname]
+            err, ok = compare_to_scale(out, ref, rtol, atol)
+            lse_err, lse_ok = compare_to_scale(lse, ref_lse, rtol, atol)
+            frac = max(tol_fraction(out, ref, rtol, atol),
+                       tol_fraction(lse, ref_lse, rtol, atol))
+            b_ms, b_by = bound(3 * batch * T * C * esz + 4 * C * C * esz + 4 * C * esz
+                               + batch * heads * T * 4,
+                               8 * batch * T * C * C + 4 * batch * T * T * C, dname)
+            ms, host_ms = time_ms(lambda: tb._forward(*args))
+            row = {
+                "shape": [batch, T, C], "heads": heads, "dtype": dname,
+                "calls_per_step": calls if dtype == torch.bfloat16 else 0,
+                "max_abs_err": err, "lse_max_abs_err": lse_err,
+                "tol_fraction": frac, "rtol": rtol,
+                "atol_of_scale": atol, "ms": ms, "host_ms": host_ms,
+                "plain_ms": time_ms(lambda: tb._reference_with_lse(
+                    x, h, *ws, bs, wo, bo, heads, scale), inner=5)[0],
+                "library_ms": time_ms(block_library(*args))[0],
+                "library": "F.linear + scaled_dot_product_attention + F.linear + add",
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            fwd[batch].append(row)
+            log(f"whole block {dname} B={batch} T={T} C={C} heads={heads}: max_abs_err "
+                f"{err:.3g} (lse {lse_err:.3g}; tol rtol {rtol} atol {atol:.3g} of "
+                f"scale; worst {frac:.3g} of it) kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms "
+                f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
+                f"{b_ms:.4f} ({b_by}) {'ok' if ok and lse_ok else 'MISMATCH'}")
+            if not (ok and lse_ok):
+                fail(f"whole-block kernel disagrees with its plain version at "
+                     f"{row['shape']} {dname}")
+            if batch != TRAIN_BATCH:
+                continue
+
+            # the backward at the training batch: every gradient of the
+            # autograd Function against the plain backward on the same lse
+            gco = torch.randn(batch, T, C, generator=g, device=dev).to(dtype)
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in (x, h, *ws, *bs, wo, bo)]
+            got = torch.autograd.grad(tb.fused_attention_block(
+                leaves[0], leaves[1], *leaves[2:5], leaves[5:8], leaves[8],
+                leaves[9], heads, scale), leaves, gco)
+            want = tb.attention_block_bwd_reference(h, *ws, bs, wo, lse, gco, heads, scale)
+            torch.cuda.synchronize()
+            rtol, atol = BLOCK_BWD_TOL[dname]
+            named = {"dh": (got[1], want[0]), "dw_q": (got[2], want[1]),
+                     "dw_k": (got[3], want[2]), "dw_v": (got[4], want[3]),
+                     "db_qkv": (torch.cat(got[5:8]), torch.cat(want[4:7])),
+                     "dw_out": (got[8], want[7])}
+            checks = {k: compare_to_scale(a, b, rtol, atol) for k, (a, b) in named.items()}
+            frac = max(tol_fraction(a, b, rtol, atol) for a, b in named.values())
+            db_out = gco.float().sum(dim=(0, 1)).to(bo.dtype)
+            checks["db_out"] = compare_to_scale(got[9], db_out, *PARAM_GRAD_TOL)
+            checks["dx"] = (float((got[0].float() - gco.float()).abs().max()),
+                            torch.equal(got[0], gco))
+            err = max(c[0] for c in checks.values())
+            ok = all(c[1] for c in checks.values())
+            # the function's least work: recompute q, k, v (6 B T C^2) and
+            # datt (2), dh (6), dW_qkv (6), dW_out (2); the attention's
+            # scores, P v, dv, dp, dq and dk (2 B T^2 C each)
+            b_ms, b_by = bound(3 * batch * T * C * esz + batch * heads * T * 4
+                               + 8 * C * C * esz + 3 * C * esz,
+                               22 * batch * T * C * C + 12 * batch * T * T * C, dname)
+            ms, host_ms = time_ms(lambda: tb.attention_block_bwd(
+                h, *ws, bs, wo, lse, gco, heads, scale))
+            lib_leaves = [t.detach().clone().requires_grad_()
+                          for t in (x, h, *ws, *bs, wo, bo)]
+            lib_out = block_library(lib_leaves[0], lib_leaves[1], lib_leaves[2:5],
+                                    lib_leaves[5:8], lib_leaves[8], lib_leaves[9],
+                                    heads, scale)()
+            row = {
+                "shape": [batch, T, C], "heads": heads, "dtype": dname,
+                "calls_per_step": calls if dtype == torch.bfloat16 else 0,
+                "max_abs_err": err,
+                "errors": {k: c[0] for k, c in checks.items()},
+                "tol_fraction": frac,
+                "rtol": rtol, "atol_of_scale": atol, "ms": ms, "host_ms": host_ms,
+                "plain_ms": time_ms(lambda: tb.attention_block_bwd_reference(
+                    h, *ws, bs, wo, lse, gco, heads, scale), inner=3)[0],
+                "library_ms": time_ms(lambda: torch.autograd.grad(
+                    lib_out, lib_leaves, gco, retain_graph=True))[0],
+                "library": "autograd of F.linear + scaled_dot_product_attention "
+                           "+ F.linear + add",
+                "bound_ms": b_ms, "bound_by": b_by,
+                # the design's own traffic beyond the bound: dqkv and att
+                # written by the first kernel and read by the second
+                "intermediate_mb": 2 * batch * T * 4 * C * esz / 1e6,
+            }
+            bwd_rows.append(row)
+            log(f"whole block backward {dname} B={batch} T={T} C={C} heads={heads}: "
+                f"errors {', '.join(f'{k} {c[0]:.3g}' for k, c in checks.items())} "
+                f"(tol rtol {rtol} atol {atol:.3g} of scale, worst {frac:.3g} of it; "
+                f"db_out {PARAM_GRAD_TOL}; dx exact) kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms "
+                f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
+                f"{b_ms:.4f} ({b_by}); dqkv and att round trip "
+                f"{row['intermediate_mb']:.1f} MB {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad = [k for k, c in checks.items() if not c[1]]
+                fail(f"whole-block backward kernels disagree with their plain "
+                     f"version at {row['shape']} {dname}: {bad}")
+            del lib_out, lib_leaves, leaves, got, want
+    torch.cuda.empty_cache()
+    return fwd[BATCH], fwd[TRAIN_BATCH], bwd_rows
+
+
+def train_step_card_vs_cpu(weights, sched, dev, x6, tau6, eps6, label):
+    """The full-width fp32 flagship train step (batch 2, dropout off, the
+    same tau and eps) on the card against the CPU: loss and every gradient
+    the step applied within TRAIN_TOL of their scale, then the parameters
+    after that Adam step within what the two gradients allow."""
+    import torch
+    from pdm_tpu_torch.diffusion.trainer import DDPMTrainer
+    from pdm_tpu_torch.models.unet import unet_from_config
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+
+    lr6 = 1e-4
+    step6 = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        net6 = unet_from_config(3, {**FLAGSHIP, "dropout": 0.0},
+                                dtype=torch.float32, device=d)
+        tr6 = DDPMTrainer(UNetDDPM(sched, net6, device=d), learning_rate=lr6,
+                          warmup_steps=0, grad_clip=1e9, ema_decay=0.9999)
+        st6 = tr6.init_state(weights)
+        st6, m6, grads6 = train_step_with_grads(
+            tr6, st6, x6.to(d), tau=tau6.to(d), eps=eps6.to(d))
+        step6[name] = (float(m6["loss"]), grads6,
+                       {k: v.cpu() for k, v in st6.params.items()},
+                       float(m6["grad_norm"]))
+        del net6, tr6, st6
+    torch.cuda.empty_cache()
+    cpu6, card6 = step6["cpu"], step6["card"]
+    loss_err = abs(card6[0] - cpu6[0]) / abs(cpu6[0])
+    top = max(float(v.abs().max()) for v in cpu6[1].values())
+    worst_grad, worst_step, bad = 0.0, 0.0, []
+    for k, g6 in cpu6[1].items():
+        e = float((card6[1][k] - g6).abs().max())
+        tol_k = TRAIN_TOL["grad"] * float(g6.abs().max()) + TRAIN_TOL["grad_floor"] * top
+        worst_grad = max(worst_grad, e / tol_k)
+        excess = ((card6[2][k] - cpu6[2][k]).abs()
+                  - adam_first_step_bound(card6[1][k], g6, lr6) - 1e-7)
+        worst_step = max(worst_step, float(excess.max()))
+        if e > tol_k or float(excess.max()) > 0:
+            bad.append(k)
+    log(f"{label} fp32 train step B=2, card (kernels) vs CPU (plain): loss "
+        f"{card6[0]:.6g} vs {cpu6[0]:.6g} (rel err {loss_err:.3g}, tol "
+        f"{TRAIN_TOL['loss']}); grad_norm {card6[3]:.6g} vs {cpu6[3]:.6g}; "
+        f"worst gradient error {worst_grad:.3g} of its tolerance (1e-3 of its "
+        f"scale + 1e-5 of {top:.3g}); params after one Adam step (lr {lr6}) "
+        f"within the bound the gradients allow, worst excess {worst_step:.3g}")
+    if not (loss_err <= TRAIN_TOL["loss"]) or bad:
+        fail(f"{label} fp32 train step on the card disagrees with the CPU: {bad[:5]}")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -1254,6 +1518,7 @@ def main() -> int:
     from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
     from pdm_tpu_torch.ops import _build
     from pdm_tpu_torch.ops import attention as attn_op
+    from pdm_tpu_torch.ops import attention_block as block_op
     from pdm_tpu_torch.ops import groupnorm as gn_op
     from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
 
@@ -1608,45 +1873,10 @@ def main() -> int:
 
     # ---- phase 6: the full-width fp32 train step, card vs CPU ----
     log(f"phase 6 at {time.perf_counter() - t_start:.1f} s")
-    lr6 = 1e-4
     x6 = torch.from_numpy(rng.standard_normal((2, 3, 32, 32)).astype(np.float32))
     tau6 = torch.from_numpy(rng.uniform(0.0, 1.0, 2).astype(np.float32))
     eps6 = torch.from_numpy(rng.standard_normal((2, 3, 32, 32)).astype(np.float32))
-    step6 = {}
-    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
-        net6 = unet_from_config(3, {**FLAGSHIP, "dropout": 0.0},
-                                dtype=torch.float32, device=d)
-        tr6 = DDPMTrainer(UNetDDPM(sched, net6, device=d), learning_rate=lr6,
-                          warmup_steps=0, grad_clip=1e9, ema_decay=0.9999)
-        st6 = tr6.init_state(weights)
-        st6, m6, grads6 = train_step_with_grads(
-            tr6, st6, x6.to(d), tau=tau6.to(d), eps=eps6.to(d))
-        step6[name] = (float(m6["loss"]), grads6,
-                       {k: v.cpu() for k, v in st6.params.items()},
-                       float(m6["grad_norm"]))
-        del net6, tr6, st6
-    torch.cuda.empty_cache()
-    cpu6, card6 = step6["cpu"], step6["card"]
-    loss_err = abs(card6[0] - cpu6[0]) / abs(cpu6[0])
-    top = max(float(v.abs().max()) for v in cpu6[1].values())
-    worst_grad, worst_step, bad = 0.0, 0.0, []
-    for k, g6 in cpu6[1].items():
-        e = float((card6[1][k] - g6).abs().max())
-        tol_k = TRAIN_TOL["grad"] * float(g6.abs().max()) + TRAIN_TOL["grad_floor"] * top
-        worst_grad = max(worst_grad, e / tol_k)
-        excess = ((card6[2][k] - cpu6[2][k]).abs()
-                  - adam_first_step_bound(card6[1][k], g6, lr6) - 1e-7)
-        worst_step = max(worst_step, float(excess.max()))
-        if e > tol_k or float(excess.max()) > 0:
-            bad.append(k)
-    log(f"flagship fp32 train step B=2, card (kernels) vs CPU (plain): loss "
-        f"{card6[0]:.6g} vs {cpu6[0]:.6g} (rel err {loss_err:.3g}, tol "
-        f"{TRAIN_TOL['loss']}); grad_norm {card6[3]:.6g} vs {cpu6[3]:.6g}; "
-        f"worst gradient error {worst_grad:.3g} of its tolerance (1e-3 of its "
-        f"scale + 1e-5 of {top:.3g}); params after one Adam step (lr {lr6}) "
-        f"within the bound the gradients allow, worst excess {worst_step:.3g}")
-    if not (loss_err <= TRAIN_TOL["loss"]) or bad:
-        fail(f"fp32 train step on the card disagrees with the CPU: {bad[:5]}")
+    train_step_card_vs_cpu(weights, sched, dev, x6, tau6, eps6, "flagship")
 
     # ---- phase 7: the training main path ----
     log(f"phase 7 at {time.perf_counter() - t_start:.1f} s")
@@ -1767,8 +1997,179 @@ def main() -> int:
     log(f"phase 12 at {time.perf_counter() - t_start:.1f} s")
     paper_experiments(dev)
 
-    # ---- phase 13: the kernels line and the result ----
+    # ---- phase 13: the whole-block kernels against their plain versions ----
     log(f"phase 13 at {time.perf_counter() - t_start:.1f} s")
+    block_rows, block_train_rows, block_bwd_rows = block_kernel_rows(time_ms, dev)
+
+    # the whole-block path is opt-in: on for phases 14-16 only
+    opt_in_before = os.environ.get("PDM_FUSED_BLOCK")
+    os.environ["PDM_FUSED_BLOCK"] = "1"
+    try:
+        # ---- phase 14: the whole-block sampling path ----
+        log(f"phase 14 at {time.perf_counter() - t_start:.1f} s")
+        tau_in = torch.full((BATCH,), 0.5, device=dev)
+        with torch.inference_mode():
+            fused_out = net(x_in, tau_in)
+            os.environ["PDM_FUSED_BLOCK"] = "0"
+            default_out = net(x_in, tau_in)
+            os.environ["PDM_FUSED_BLOCK"] = "1"
+        d_scale = float(default_out.abs().max())
+        d_err = float((fused_out - default_out).abs().max())
+        log(f"one bf16 model evaluation B={BATCH}, whole-block path vs default path: "
+            f"max_abs_err {d_err:.3g} of output scale {d_scale:.3g} (tol "
+            f"{FUSED_VS_DEFAULT_TOL} of scale)")
+        if not (math.isfinite(d_err) and d_err <= FUSED_VS_DEFAULT_TOL * d_scale):
+            fail("the whole-block path disagrees with the default path")
+        sampler_of(2).batch_sample(torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        sampler = sampler_of(N_STEPS)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        block_op.fused_attention_block.launches = 0
+        attn_op.fused_spatial_attention.launches = 0
+        gn_op.fused_group_norm_act.launches = 0
+        t0 = time.perf_counter()
+        x = sampler.batch_sample(gen)["x"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fused_launches = block_op.fused_attention_block.launches
+        row1_launches = attn_op.fused_spatial_attention.launches
+        gn_launches_f = gn_op.fused_group_norm_act.launches
+        ms_step_f = wall / N_STEPS * 1e3
+        log(f"whole-block sampling path: DDPM {N_STEPS} steps, batch {BATCH}, bf16 "
+            f"flagship, PDM_FUSED_BLOCK=1: {wall:.3f} s, {ms_step_f:.3f} ms/step, "
+            f"{BATCH / wall:.3f} samples/s; launches whole block {fused_launches} "
+            f"({fused_launches / N_STEPS:g}/step), attention {row1_launches}, "
+            f"GroupNorm {gn_launches_f} ({gn_launches_f / N_STEPS:g}/step); output "
+            f"{tuple(x.shape)} mean {float(x.mean()):.4g} std {float(x.std()):.4g}")
+        if tuple(x.shape) != (BATCH, 3, 32, 32) or not bool(torch.isfinite(x).all()):
+            fail("whole-block sampling output not finite of shape (64, 3, 32, 32)")
+        if (fused_launches, row1_launches, gn_launches_f) != (
+                8 * N_STEPS, 0, 69 * N_STEPS):
+            fail(f"whole-block sampling launch counts {fused_launches}, "
+                 f"{row1_launches}, {gn_launches_f} != {8 * N_STEPS}, 0, "
+                 f"{69 * N_STEPS}")
+        with torch.inference_mode():
+            eval_ms_f, eval_host_ms_f = time_ms(
+                lambda: ddpm.get_predictions(x_in, lt_top), reps=5, inner=1)
+        log(f"whole-block sampling path: one model evaluation keeps the card busy "
+            f"{eval_ms_f:.3f} ms and takes the host {eval_host_ms_f:.3f} ms to "
+            f"enqueue; the card is idle {1.0 - eval_ms_f / ms_step_f:.1%} of a "
+            f"{ms_step_f:.3f} ms step (default path in this run: {ms_step:.3f} "
+            f"ms/step, card busy {eval_ms:.3f} ms)")
+        profile_steps(lambda: sampler_of(PROFILE_STEPS).batch_sample(gen),
+                      PROFILE_STEPS, label="whole-block profile")
+        # the two paths in turns in this run (default, whole block, whole
+        # block, default): the host's speed drifts between phases
+        turns = {"0": [], "1": []}
+        for flag in ("0", "1", "1", "0"):
+            os.environ["PDM_FUSED_BLOCK"] = flag
+            leg = sampler_of(TURN_STEPS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            leg.batch_sample(gen)
+            torch.cuda.synchronize()
+            turns[flag].append((time.perf_counter() - t0) / TURN_STEPS * 1e3)
+        os.environ["PDM_FUSED_BLOCK"] = "1"
+        log(f"sampling in turns, {TURN_STEPS} DDPM steps each: default path "
+            f"{turns['0'][0]:.3f} / {turns['0'][1]:.3f} ms/step, whole-block path "
+            f"{turns['1'][0]:.3f} / {turns['1'][1]:.3f} ms/step")
+
+        # ---- phase 15: the whole-block training path ----
+        log(f"phase 15 at {time.perf_counter() - t_start:.1f} s")
+        net_f = unet_from_config(3, FLAGSHIP, dtype=torch.bfloat16, device=dev)
+        trainer_f = DDPMTrainer(UNetDDPM(sched, net_f, parametrization="eps",
+                                         device=dev), **hyper)
+        state_f = trainer_f.init_state(weights)
+        for it in range(1, TRAIN_WARM + 1):
+            state_f, _ = trainer_f.train_step(state_f, x_train, step_generator(0, it, dev))
+        torch.cuda.synchronize()
+        gens = [step_generator(0, TRAIN_WARM + i + 1, dev) for i in range(TRAIN_STEPS)]
+        counters_f = ((attn_op.fused_spatial_attention, "attention_fwd"),
+                      (attn_op.attention_bwd, "attention_bwd"),
+                      (block_op.fused_attention_block, "block_fwd"),
+                      (block_op.attention_block_bwd, "block_bwd"),
+                      (gn_op.fused_group_norm_act, "group_norm_fwd"),
+                      (gn_op.group_norm_bwd, "group_norm_bwd"))
+        for fn, _ in counters_f:
+            fn.launches = 0
+        losses, norms = [], []
+        t0 = time.perf_counter()
+        for gen in gens:
+            state_f, m = trainer_f.train_step(state_f, x_train, gen)
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        block_train_launches = {key: fn.launches for fn, key in counters_f}
+        losses, norms = torch.stack(losses).cpu(), torch.stack(norms).cpu()
+        train_ms_f = wall / TRAIN_STEPS * 1e3
+        log(f"whole-block training path: bf16 flagship, fp32 masters, batch "
+            f"{TRAIN_BATCH}, PDM_FUSED_BLOCK=1: {TRAIN_STEPS} steps in {wall:.3f} s, "
+            f"{train_ms_f:.3f} ms/step, {TRAIN_BATCH / wall * TRAIN_STEPS:.3f} img/s "
+            f"(default path in this run: {train_ms:.3f} ms/step); launches "
+            f"{block_train_launches}; loss first {float(losses[0]):.5g} last "
+            f"{float(losses[-1]):.5g}, grad_norm first {float(norms[0]):.5g} last "
+            f"{float(norms[-1]):.5g}")
+        if not (bool(torch.isfinite(losses).all()) and bool(torch.isfinite(norms).all())):
+            fail("whole-block training path: loss or grad_norm not finite")
+        want_launches = {k: v * TRAIN_STEPS for k, v in BLOCK_TRAIN_LAUNCHES.items()}
+        if block_train_launches != want_launches:
+            fail(f"whole-block training launch counts {block_train_launches} != "
+                 f"{want_launches}")
+        gen_b = step_generator(0, 10_000, dev)
+        busy_f = profile_steps(lambda: [trainer_f.train_step(state_f, x_train, gen_b)
+                                        for _ in range(TRAIN_PROFILE_STEPS)],
+                               TRAIN_PROFILE_STEPS, label="whole-block training profile")
+        idle_f = train_ms_f - busy_f
+        turns = {"0": [], "1": []}
+        for flag in ("0", "1", "1", "0"):
+            os.environ["PDM_FUSED_BLOCK"] = flag
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_TURN_STEPS):
+                state_f, _ = trainer_f.train_step(state_f, x_train, gen_b)
+            torch.cuda.synchronize()
+            turns[flag].append((time.perf_counter() - t0) / TRAIN_TURN_STEPS * 1e3)
+        os.environ["PDM_FUSED_BLOCK"] = "1"
+        log(f"training in turns, {TRAIN_TURN_STEPS} steps each: default path "
+            f"{turns['0'][0]:.3f} / {turns['0'][1]:.3f} ms/step, whole-block path "
+            f"{turns['1'][0]:.3f} / {turns['1'][1]:.3f} ms/step")
+        log(f"whole-block training path: the card is busy {busy_f:.3f} ms of a "
+            f"{train_ms_f:.3f} ms step and idle {idle_f:.3f} ms "
+            f"({idle_f / train_ms_f:.1%}) (default path: busy {busy_ms:.3f} ms)")
+        del trainer_f, state_f, net_f
+        torch.cuda.empty_cache()
+
+        # ---- phase 16: the whole-block path in fp32, card vs CPU ----
+        log(f"phase 16 at {time.perf_counter() - t_start:.1f} s")
+        outs = {}
+        for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            net16 = unet_from_config(3, FLAGSHIP, dtype=torch.float32, device=d)
+            net16.load_state_dict(weights)
+            block_op.fused_attention_block.launches = 0
+            with torch.no_grad():
+                outs[name] = net16(x_small.to(d), tau_small.to(d)).cpu()
+            if name == "card" and block_op.fused_attention_block.launches != 8:
+                fail("the fp32 UNet on the card did not take the whole-block path")
+            del net16
+        scale16 = float(outs["cpu"].abs().max())
+        err16 = float((outs["card"] - outs["cpu"]).abs().max())
+        log(f"flagship UNet fp32 forward B=2, PDM_FUSED_BLOCK=1, card (kernels) vs "
+            f"CPU (plain): max_abs_err {err16:.3g} of output scale {scale16:.3g} "
+            f"(tol {FORWARD_TOL} of scale); vs the default path's CPU output "
+            f"{float((outs['cpu'] - ref_out).abs().max()):.3g}")
+        if not (math.isfinite(err16) and err16 <= FORWARD_TOL * scale16):
+            fail("fp32 whole-block UNet forward on the card disagrees with the CPU")
+        train_step_card_vs_cpu(weights, sched, dev, x6, tau6, eps6,
+                               "whole-block flagship")
+    finally:
+        if opt_in_before is None:
+            os.environ.pop("PDM_FUSED_BLOCK", None)
+        else:
+            os.environ["PDM_FUSED_BLOCK"] = opt_in_before
+
+    # ---- phase 17: the kernels line and the result ----
+    log(f"phase 17 at {time.perf_counter() - t_start:.1f} s")
 
     def per_path(rows, launches, n_steps):
         main = [r for r in rows if r["calls_per_step"]]
@@ -1826,6 +2227,17 @@ def main() -> int:
               "pdm_tpu/ops/groupnorm.py:112",
               [("training", gn_bwd_rows, train_launches["group_norm_bwd"],
                 TRAIN_STEPS)]),
+    ]
+    kernels += [
+        entry("fused_attention_block", "pdm_tpu_torch/csrc/attention_block.cu",
+              "pdm_tpu/ops/attention_block.py:90",
+              [("whole-block sampling", block_rows, fused_launches, N_STEPS),
+               ("whole-block training", block_train_rows,
+                block_train_launches["block_fwd"], TRAIN_STEPS)]),
+        entry("attention_block_bwd", "pdm_tpu_torch/csrc/attention_block_bwd.cu",
+              "pdm_tpu/ops/attention_block.py:104",
+              [("whole-block training", block_bwd_rows,
+                block_train_launches["block_bwd"], TRAIN_STEPS)]),
     ]
     head = next(r for r in sweep_rows if r["label"] == SWEEP_MAIN[0]
                 and r["mode"] == "fp32" and not r["values"])

@@ -15,7 +15,10 @@ embedding MLP run in fp32; GroupNorm output is cast to ``dtype``; the
 network's output is fp32. Activations are NCHW tensors in
 ``torch.channels_last`` memory, so ``x.permute(0, 2, 3, 1).reshape(B, H*W,
 C)`` is a view and both kernels (``ops/groupnorm.py``, ``ops/attention.py``)
-read the same (B, S, C) memory the JAX kernels read.
+read the same (B, S, C) memory the JAX kernels read. With
+``PDM_FUSED_BLOCK=1`` (opt-in, as in the JAX package) an attention block
+runs ``ops/attention_block.py``'s whole-block kernel instead of its
+projections, attention kernel and residual add.
 
 The model takes continuous ``tau in [0, 1]``. It is differentiable: both
 kernels carry their own backward kernels (``autograd.Function``s in
@@ -41,6 +44,9 @@ from torch import Tensor, nn
 
 from ..core.device import DeviceLike, resolve_device
 from ..ops.attention import fused_spatial_attention
+from ..ops.attention_block import (
+    fused_attention_block, use_fused_attention_block,
+)
 from ..ops.groupnorm import fused_group_norm_act
 
 
@@ -183,6 +189,17 @@ class AttentionBlock(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         _, C, H, W = x.shape
         h = _to_bsc(self.group_norm(x))
+        if use_fused_attention_block(H * W, C, self.heads):
+            # the opt-in whole-block kernel (PDM_FUSED_BLOCK=1): projections,
+            # attention, out projection and residual in one call, the
+            # weights read in place
+            proj = self.to_out[0]
+            out = fused_attention_block(
+                _to_bsc(x), h, self.to_q.weight, self.to_k.weight,
+                self.to_v.weight,
+                (self.to_q.bias, self.to_k.bias, self.to_v.bias),
+                proj.weight, proj.bias, self.heads, self.scale)
+            return _from_bsc(out, H, W)
         # one (B*T, C) x (C, 3C) projection; q, k, v are its column thirds,
         # which the kernel reads in place (token rows 3C apart)
         w_qkv = torch.cat([self.to_q.weight, self.to_k.weight, self.to_v.weight])

@@ -4,6 +4,13 @@ from .attention import (
     attention_reference as attention_reference,
     fused_spatial_attention as fused_spatial_attention,
 )
+from .attention_block import (
+    attention_block_bwd as attention_block_bwd,
+    attention_block_bwd_reference as attention_block_bwd_reference,
+    attention_block_reference as attention_block_reference,
+    fused_attention_block as fused_attention_block,
+    use_fused_attention_block as use_fused_attention_block,
+)
 from .groupnorm import (
     fused_group_norm_act as fused_group_norm_act,
     group_norm_bwd as group_norm_bwd,

@@ -1,0 +1,256 @@
+"""Port parity: the whole attention block (pdm_tpu_torch.ops.attention_block).
+
+On CPU tensors the port's wrappers run their plain PyTorch versions; they
+are held against the JAX package's Pallas kernel in interpret mode
+(``fused_attention_block(..., interpret=True)``) on the same numpy inputs:
+
+* fp32 forward (and the per-head logsumexp the forward saves) at the JAX
+  tests' shapes (tests/test_attention.py) and the flagship's 4x4 mid
+  block, to the JAX tests' own tolerance 2e-4;
+* all six gradients (x, h, the qkv weight and bias, the out weight and
+  bias) through the port's autograd Function against ``jax.grad`` of the
+  kernel's custom VJP, fp32, to 3e-4 (tests/test_attention.py);
+* one bf16 case with bf16-representable biases: the two sides round at
+  the same points and differ only in fp32 summation order, which can
+  flip a rounding: the output within one bf16 step of the value (2^-7)
+  plus 2^-8 of its scale, each gradient within 2^-6 of the value plus
+  2^-6 of its scale (a flipped rounding of P, ds or dqkv moves a product
+  by one step of the operand).
+
+The tiny UNet with ``PDM_FUSED_BLOCK=1`` on the port's CPU path against
+the JAX UNet's standard XLA path (JAX's gate stays closed off the TPU)
+agrees in fp32 to 1e-5 of the output scale. The three-step trainer run
+with the opt-in is in tests/test_torch_trainer.py (it shares that file's
+compiled JAX train step). The CUDA kernels are held against the plain
+versions on the card by tests/test_torch_cuda.py.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pdm_tpu.models.unet import unet_from_config as j_unet_from_config
+from pdm_tpu.ops.attention_block import (
+    _fab_fwd, fused_attention_block as j_block,
+)
+
+from pdm_tpu_torch.models.unet import unet_from_config
+from pdm_tpu_torch.models.weights import from_flax_params
+from pdm_tpu_torch.ops import attention_block as tb
+from torch_port_fixtures import two_torch_threads  # noqa: F401
+
+FWD_TOL = 2e-4
+GRAD_TOL = 3e-4
+
+
+def _inputs(B, T, heads, hd, seed=0):
+    """x, h, w_qkv (C, 3C), b_qkv, w_out (C, C), b_out, g in the JAX
+    layout, as tests/test_attention.py scales them."""
+    C = heads * hd
+    rng = np.random.RandomState(seed)
+
+    def r(*shape, s=1.0):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+
+    return (r(B, T, C), r(B, T, C), r(C, 3 * C, s=0.1), r(3 * C, s=0.1),
+            r(C, C, s=0.1), r(C, s=0.1), r(B, T, C))
+
+
+def _port_args(x, h, w_qkv, b_qkv, w_out, b_out, dtype=torch.float32,
+               bias_dtype=torch.float32):
+    """The same values in the port's layout: nn.Linear weights (C_out,
+    C_in), three separate projection weights and biases."""
+    C = h.shape[-1]
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(np.array(a)).to(dt)
+
+    ws = [t(w_qkv[:, i * C:(i + 1) * C].T) for i in range(3)]
+    bs = [t(b_qkv[i * C:(i + 1) * C], bias_dtype) for i in range(3)]
+    return t(x), t(h), ws, bs, t(w_out.T), t(b_out, bias_dtype)
+
+
+@pytest.mark.parametrize("B,T,heads,hd", [
+    (2, 256, 4, 64),   # flagship 16x16 blocks
+    (2, 128, 2, 64),
+    (2, 64, 1, 32),
+    (2, 16, 4, 64),    # flagship 4x4 mid block
+])
+def test_block_forward_matches_jax_kernel(B, T, heads, hd):
+    x, h, w_qkv, b_qkv, w_out, b_out, _ = _inputs(B, T, heads, hd, seed=T + hd)
+    scale = 1.0 / np.sqrt(hd)
+    want, res = _fab_fwd(*(jnp.asarray(a) for a in (x, h, w_qkv, b_qkv, w_out,
+                                                     b_out)),
+                         heads, scale, True)
+    tx, th, ws, bs, two, tbo = _port_args(x, h, w_qkv, b_qkv, w_out, b_out)
+    before = tb.fused_attention_block.launches
+    got, lse = tb._forward(tx, th, ws, bs, two, tbo, heads, scale)
+    assert tb.fused_attention_block.launches == before  # CPU: plain version
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=FWD_TOL,
+                               atol=FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(res[-1]), rtol=FWD_TOL,
+                               atol=FWD_TOL)
+    one = tb.fused_attention_block(tx, th, *ws, bs, two, tbo, heads, scale)
+    assert torch.equal(one, got) and one.shape == (B, T, heads * hd)
+
+
+def _grads(dtype, bias_dtype, B, T, heads, hd, seed):
+    """(JAX's six gradients, the port's six in JAX's layout) as fp32 numpy."""
+    x, h, w_qkv, b_qkv, w_out, b_out, g = _inputs(B, T, heads, hd, seed)
+    if dtype == torch.bfloat16:  # bf16-representable biases on both sides
+        b_qkv, b_out = (np.asarray(jnp.asarray(b, jnp.bfloat16)
+                                   .astype(jnp.float32)) for b in (b_qkv, b_out))
+    scale = 1.0 / np.sqrt(hd)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jx, jh, jw, jwo, jg = (jnp.asarray(a, jdt) for a in (x, h, w_qkv, w_out, g))
+
+    def loss(x_, h_, w_, bq_, wo_, bo_):
+        out = j_block(x_, h_, w_, bq_, wo_, bo_, heads, scale, True)
+        return jnp.sum(out.astype(jnp.float32) * jg.astype(jnp.float32))
+
+    want = jax.grad(loss, argnums=tuple(range(6)))(
+        jx, jh, jw, jnp.asarray(b_qkv), jwo, jnp.asarray(b_out))
+    want = [np.asarray(w.astype(jnp.float32)) for w in want]
+
+    tx, th, ws, bs, two, tbo = _port_args(x, h, w_qkv, b_qkv, w_out, b_out,
+                                          dtype, bias_dtype)
+    leaves = [tx, th, *ws, *bs, two, tbo]
+    for t_ in leaves:
+        t_.requires_grad_()
+    before = tb.attention_block_bwd.launches
+    out = tb.fused_attention_block(tx, th, *ws, bs, two, tbo, heads, scale)
+    assert out.dtype == dtype
+    out.backward(torch.from_numpy(g).to(dtype))
+    assert tb.attention_block_bwd.launches == before  # CPU: plain version
+    for t_ in leaves:
+        assert t_.grad.dtype == t_.dtype and t_.grad.shape == t_.shape
+    f = [t_.grad.float().numpy() for t_ in leaves]
+    got = [f[0], f[1], np.concatenate([f[2].T, f[3].T, f[4].T], axis=1),
+           np.concatenate(f[5:8]), f[8].T, f[9]]
+    return want, got
+
+
+def test_block_gradients_match_jax_vjp():
+    want, got = _grads(torch.float32, torch.float32, 2, 128, 4, 64, seed=7)
+    for name, w, g_ in zip(["dx", "dh", "dw_qkv", "db_qkv", "dw_out",
+                            "db_out"], want, got):
+        np.testing.assert_allclose(g_, w, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=name)
+
+
+def test_block_bf16_matches_jax_kernel():
+    B, T, heads, hd = 2, 64, 4, 16
+    x, h, w_qkv, b_qkv, w_out, b_out, _ = _inputs(B, T, heads, hd, seed=3)
+    b_qkv, b_out = (np.asarray(jnp.asarray(b, jnp.bfloat16).astype(jnp.float32))
+                    for b in (b_qkv, b_out))
+    scale = 1.0 / np.sqrt(hd)
+    want = j_block(*(jnp.asarray(a, jnp.bfloat16) for a in (x, h, w_qkv)),
+                   jnp.asarray(b_qkv), jnp.asarray(w_out, jnp.bfloat16),
+                   jnp.asarray(b_out), heads, scale, True)
+    want = np.asarray(want.astype(jnp.float32))
+    tx, th, ws, bs, two, tbo = _port_args(x, h, w_qkv, b_qkv, w_out, b_out,
+                                          torch.bfloat16, torch.bfloat16)
+    got = tb.fused_attention_block(tx, th, *ws, bs, two, tbo, heads, scale)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=2 ** -8 * np.abs(want).max())
+
+    want_g, got_g = _grads(torch.bfloat16, torch.bfloat16, B, T, heads, hd,
+                           seed=3)
+    for name, w, g_ in zip(["dx", "dh", "dw_qkv", "db_qkv", "dw_out",
+                            "db_out"], want_g, got_g):
+        np.testing.assert_allclose(g_, w, rtol=2 ** -6,
+                                   atol=2 ** -6 * np.abs(w).max(),
+                                   err_msg=name)
+
+
+def test_gate_reads_the_variable_per_call(monkeypatch):
+    monkeypatch.delenv("PDM_FUSED_BLOCK", raising=False)
+    assert not tb.use_fused_attention_block(256, 256, 4)
+    monkeypatch.setenv("PDM_FUSED_BLOCK", "1")
+    assert tb.use_fused_attention_block(256, 256, 4)
+    assert tb.use_fused_attention_block(16, 256, 4)
+    # the JAX gate's geometry: T % 8, hd % 8, C <= 512, T <= 1024
+    assert not tb.use_fused_attention_block(100, 256, 4)
+    assert not tb.use_fused_attention_block(256, 256, 64)
+    assert not tb.use_fused_attention_block(256, 1024, 4)
+    assert not tb.use_fused_attention_block(2048, 256, 4)
+    monkeypatch.setenv("PDM_FUSED_BLOCK", "0")
+    assert not tb.use_fused_attention_block(256, 256, 4)
+
+
+def test_kernel_checks_are_enforced():
+    """Shapes the kernels do not take raise (the card path never falls
+    back to the standard attention)."""
+    def call(B, T, heads, hd, dtype=torch.float32, wdtype=None):
+        C = heads * hd
+        x = torch.zeros(B, T, C, dtype=dtype)
+        w = torch.zeros(C, C, dtype=wdtype or dtype)
+        b = torch.zeros(C)
+        tb._check(x, (w, w, w, w), (b, b, b, b), heads)
+
+    call(2, 256, 4, 64)
+    call(2, 16, 4, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        call(2, 64, 1, 128)  # hd 128 has no instantiation
+    with pytest.raises(ValueError, match="head dim"):
+        call(2, 64, 4, 8)    # hd 8: the tensor-core kernel needs 16
+    with pytest.raises(ValueError, match="tokens"):
+        call(1, 512, 4, 64)
+    with pytest.raises(ValueError, match="heads"):
+        call(1, 64, 16, 16)
+    with pytest.raises(ValueError, match="weights"):
+        call(1, 64, 4, 16, torch.bfloat16, torch.float32)
+    with pytest.raises(TypeError):
+        call(1, 64, 4, 16, torch.float64)
+
+
+TINY = {
+    "block_out_channels": [16, 32],
+    "down_block_types": ["DownBlock2D", "AttnDownBlock2D"],
+    "up_block_types": ["AttnUpBlock2D", "UpBlock2D"],
+    "layers_per_block": 1,
+    "attention_head_dim": 16,
+    "norm_groups": 4,
+}
+
+
+def test_tiny_unet_with_the_opt_in_matches_jax(monkeypatch):
+    """PDM_FUSED_BLOCK=1: the port's attention blocks take the whole-block
+    path (its plain version on the CPU) and give the JAX UNet's output
+    (standard XLA path, the same weights) in fp32."""
+    monkeypatch.setenv("PDM_FUSED_BLOCK", "1")
+    jnet = dataclasses.replace(j_unet_from_config(3, TINY), norm_groups=4)
+    shapes = jax.eval_shape(
+        lambda k: jnet.init(k, jnp.zeros((1, 16, 16, 3)), jnp.zeros((1,)))[
+            "params"], jax.random.PRNGKey(0))
+    rng = np.random.RandomState(0)
+    params = jax.tree_util.tree_map(
+        lambda s: (rng.standard_normal(s.shape) * 0.1).astype(np.float32),
+        shapes)
+    x = rng.standard_normal((3, 16, 16, 3)).astype(np.float32)
+    tau = rng.uniform(0.0, 1.0, 3).astype(np.float32)
+    want = np.asarray(jax.jit(lambda p, x, t: jnet.apply(
+        {"params": p}, x, t, deterministic=True))(params, x, tau))
+    net = unet_from_config(3, TINY, device="cpu")
+    net.load_state_dict(from_flax_params(params), strict=True)
+    calls = []
+    real = tb.fused_attention_block
+
+    def spy(*args, **kw):
+        calls.append(args[1].shape)
+        return real(*args, **kw)
+
+    monkeypatch.setattr("pdm_tpu_torch.models.unet.fused_attention_block", spy)
+    with torch.no_grad():
+        got = net(torch.from_numpy(x).permute(0, 3, 1, 2),
+                  torch.from_numpy(tau)).permute(0, 2, 3, 1).numpy()
+    # every attention block takes the path: the down block's, the mid
+    # block's and the up block's two
+    assert len(calls) == 4
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got - want).max()) <= 1e-5 * scale

@@ -12,8 +12,9 @@ repository root with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: fp32 kernels differ from the plain versions by summation
-order only (1e-5; 1e-4 where a backward sums over many more terms); bf16
+The whole attention block (rows 5 and 6) is held to chip_smoke's
+BLOCK_TOL and BLOCK_BWD_TOL. Tolerances: fp32 kernels differ from the plain
+versions by summation order only (1e-5; 1e-4 where a backward sums over many more terms); bf16
 outputs by at most one rounding step of the output (2^-7 relative), and
 bf16 gradients also by the products of a P or ds rounded the other way
 (2^-8 of the tensor's scale). The sweep and moments kernels' moments are
@@ -35,11 +36,12 @@ from pdm_tpu_torch.models.unet import unet_from_config
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 from chip_smoke import (  # noqa: E402
-    adam_first_step_bound, compare_to_scale, kernel_gram_steps, moments_check,
-    moments_logit_error, sweep_check, sweep_logit_error, top_two_gap,
-    train_step_with_grads,
+    BLOCK_BWD_TOL, BLOCK_TOL, adam_first_step_bound, block_inputs,
+    compare_to_scale, kernel_gram_steps, moments_check, moments_logit_error,
+    sweep_check, sweep_logit_error, top_two_gap, train_step_with_grads,
 )
 from pdm_tpu_torch.ops import attention as ta
+from pdm_tpu_torch.ops import attention_block as tb
 from pdm_tpu_torch.ops import boltzmann as bz
 from pdm_tpu_torch.ops import boltzmann_sweep as sw
 from pdm_tpu_torch.ops import groupnorm as tg
@@ -286,6 +288,112 @@ def test_tiny_unet_train_step_on_card_matches_cpu(cuda_device):
         step_err = (card[3][k] - cpu[3][k]).abs()
         assert bool((step_err <= adam_first_step_bound(card[2][k], g, lr)
                      + 1e-7).all()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,heads,hd", [
+    (2, 64, 2, 32),     # small
+    (3, 100, 4, 16),    # ragged: T not a multiple of 16 or 64
+    (64, 256, 4, 64),   # the flagship's 16x16 blocks
+    (64, 16, 4, 64),    # its 4x4 mid block
+])
+def test_attention_block_kernels_match_plain_on_card(cuda_device, B, T, heads,
+                                                     hd, dtype):
+    """Rows 5 and 6: the forward (and its lse) and every gradient of the
+    backward against the plain versions on the same card inputs, to
+    chip_smoke's BLOCK_TOL / BLOCK_BWD_TOL (db_qkv as one vector: db_k is
+    zero in exact arithmetic); one launch forward, three backward."""
+    C = heads * hd
+    g = torch.Generator(device=cuda_device).manual_seed(B + T)
+    x, h, ws, bs, wo, bo = block_inputs(g, cuda_device, B, T, C, dtype)
+    scale = 1.0 / np.sqrt(hd)
+    f0, b0 = tb.fused_attention_block.launches, tb.attention_block_bwd.launches
+    out, lse = tb._forward(x, h, ws, bs, wo, bo, heads, scale)
+    ref, ref_lse = tb._reference_with_lse(x, h, *ws, bs, wo, bo, heads, scale)
+    gco = torch.randn(B, T, C, generator=g, device=cuda_device).to(dtype)
+    got = tb.attention_block_bwd(h, *ws, bs, wo, lse, gco, heads, scale)
+    want = tb.attention_block_bwd_reference(h, *ws, bs, wo, lse, gco, heads, scale)
+    torch.cuda.synchronize()
+    assert tb.fused_attention_block.launches == f0 + 1
+    assert tb.attention_block_bwd.launches == b0 + 3
+    dname = str(dtype).split(".")[1]
+    _assert_close_to_scale(out, ref, *BLOCK_TOL[dname])
+    _assert_close_to_scale(lse, ref_lse, *BLOCK_TOL[dname])
+    assert got[0].dtype == dtype and got[0].shape == (B, T, C)
+    for a, w in zip(got[1:4] + got[7:], want[1:4] + want[7:]):
+        _assert_close_to_scale(a, w, *BLOCK_BWD_TOL[dname])
+    _assert_close_to_scale(got[0], want[0], *BLOCK_BWD_TOL[dname])
+    _assert_close_to_scale(torch.cat(got[4:7]), torch.cat(want[4:7]),
+                           *BLOCK_BWD_TOL[dname])
+
+
+@pytest.mark.cuda
+def test_attention_block_gate_raises_for_shapes_the_kernels_do_not_take(
+        cuda_device, monkeypatch):
+    """With PDM_FUSED_BLOCK=1 the gate opens for any head dim that is a
+    multiple of 8 (as JAX's); on the card a head dim with no kernel
+    instantiation raises instead of falling back to the standard path."""
+    monkeypatch.setenv("PDM_FUSED_BLOCK", "1")
+    for heads, hd in ((1, 128), (8, 8)):
+        C = heads * hd
+        assert tb.use_fused_attention_block(64, C, heads)
+        x, h, ws, bs, wo, bo = block_inputs(
+            torch.Generator(device=cuda_device).manual_seed(0), cuda_device, 2,
+            64, C, torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim"):
+            tb.fused_attention_block(x, h, *ws, bs, wo, bo, heads, 0.1)
+    net = unet_from_config(3, {**TINY, "attention_head_dim": 8},
+                           device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"), torch.no_grad():
+        net(torch.zeros(1, 3, 16, 16, device=cuda_device),
+            torch.zeros(1, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_tiny_unet_with_the_fused_block_on_card_matches_cpu(cuda_device,
+                                                            monkeypatch):
+    """PDM_FUSED_BLOCK=1, fp32: the tiny UNet's loss and gradients on the
+    card (rows 5 and 6) against the CPU (plain versions), as the default
+    path's test: 1e-4 relative loss, each gradient 1e-4 of its scale plus
+    1e-6 of the largest; one row-5 launch per attention block forward and
+    three row-6 launches backward, no row-1 or row-2 launch."""
+    monkeypatch.setenv("PDM_FUSED_BLOCK", "1")
+    from pdm_tpu_torch.diffusion.trainer import DDPMTrainer
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+
+    cfg = {**TINY, "dropout": 0.0}
+    rng = np.random.RandomState(3)
+    cpu_net = unet_from_config(3, cfg, device="cpu")
+    params = {k: torch.from_numpy(
+        (rng.standard_normal(tuple(v.shape)) * 0.1).astype(np.float32))
+        for k, v in cpu_net.named_parameters()}
+    x0 = torch.from_numpy(rng.standard_normal((4, 3, 16, 16)).astype(np.float32))
+    tau = torch.from_numpy(rng.uniform(0, 1, 4).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal((4, 3, 16, 16)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        net = cpu_net if dev == "cpu" else unet_from_config(3, cfg, device=dev)
+        tr = DDPMTrainer(UNetDDPM(LinearBetaScheduler(1e-4, 1e2), net, device=dev),
+                         learning_rate=1e-3, warmup_steps=0, grad_clip=1e3)
+        state = tr.init_state(params)
+        counts = (ta.fused_spatial_attention.launches, ta.attention_bwd.launches,
+                  tb.fused_attention_block.launches, tb.attention_block_bwd.launches)
+        state, m, grads = train_step_with_grads(
+            tr, state, x0.to(dev), tau=tau.to(dev), eps=eps.to(dev))
+        after = (ta.fused_spatial_attention.launches, ta.attention_bwd.launches,
+                 tb.fused_attention_block.launches, tb.attention_block_bwd.launches)
+        out[str(dev)] = (float(m["loss"]), grads, [a - b for a, b in zip(after, counts)])
+    n_attn = sum(1 for n, _ in cpu_net.named_modules() if n.endswith("to_q"))
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    assert cpu[2] == [0, 0, 0, 0]
+    assert card[2] == [0, 0, n_attn, 3 * n_attn]
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
+    top = max(float(g.abs().max()) for g in cpu[1].values())
+    for k, g in cpu[1].items():
+        err = float((card[1][k] - g).abs().max())
+        assert err <= 1e-4 * float(g.abs().max()) + 1e-6 * top, k
 
 
 def _sweep_case(dev, B, N, D, nt, seed, log10_t=(-1.0, 3.0)):

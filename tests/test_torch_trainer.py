@@ -130,6 +130,27 @@ def test_loss_and_gradients_match_jax(jax_setup):
 
 
 def test_three_train_steps_match_jax(jax_setup):
+    _three_steps_against_jax(jax_setup)
+
+
+def test_three_train_steps_with_the_fused_block_match_jax(jax_setup,
+                                                          monkeypatch):
+    """PDM_FUSED_BLOCK=1: the port's attention blocks run the whole-block
+    path (its plain forward and backward on the CPU) against the JAX
+    trainer's standard XLA path (JAX's gate stays closed off the TPU), to
+    the same tolerances."""
+    from pdm_tpu_torch.ops import attention_block as tb
+
+    monkeypatch.setenv("PDM_FUSED_BLOCK", "1")
+    calls = []
+    real = tb.attention_block_bwd
+    monkeypatch.setattr(tb, "attention_block_bwd",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    _three_steps_against_jax(jax_setup)
+    assert len(calls) == 3 * 4  # four attention blocks, three steps
+
+
+def _three_steps_against_jax(jax_setup):
     jddpm, jtrainer, params = jax_setup
     jstate = jtrainer.init_state()
     tr = _port_trainer()
@@ -222,6 +243,37 @@ def test_grad_accum_matches_one_batch():
     np.testing.assert_allclose(out[2][1], out[1][1], rtol=1e-5)
     for k, v in out[1][2].items():
         assert float((out[2][2][k] - v).abs().max()) <= 1e-6, k
+
+
+def test_fused_block_grad_accum_and_checkpoint(tmp_path, monkeypatch):
+    """With PDM_FUSED_BLOCK=1: two micro-batches give the one-batch step,
+    and a checkpoint saved after it resumes to the same next step."""
+    monkeypatch.setenv("PDM_FUSED_BLOCK", "1")
+    x0 = torch.from_numpy(_x0(B=4, seed=6))
+    g = torch.Generator().manual_seed(1)
+    tau, eps = torch.rand(4, generator=g), torch.randn(4, 3, 16, 16, generator=g)
+    rng = np.random.RandomState(8)
+    init = {k: torch.from_numpy((rng.standard_normal(tuple(v.shape)) * 0.1)
+                                .astype(np.float32))
+            for k, v in _port_trainer().ddpm.module.named_parameters()}
+    out = {}
+    for a in (1, 2):
+        tr = _port_trainer(grad_accum=a, checkpoint_dir=str(tmp_path / str(a)))
+        state, m = tr.train_step(tr.init_state(init), x0, tau=tau, eps=eps)
+        out[a] = (float(m["loss"]), float(m["grad_norm"]), state.params)
+        tr.save_checkpoint(state, state.step)
+    np.testing.assert_allclose(out[2][0], out[1][0], rtol=1e-6)
+    np.testing.assert_allclose(out[2][1], out[1][1], rtol=1e-5)
+    for k, v in out[1][2].items():
+        assert float((out[2][2][k] - v).abs().max()) <= 1e-6, k
+    tr = _port_trainer(checkpoint_dir=str(tmp_path / "1"))
+    state = tr.load_checkpoint(tr.init_state(), tr.latest_checkpoint_step())
+    assert all(torch.equal(state.params[k], v) for k, v in out[1][2].items())
+    a, _ = tr.train_step(state, x0, torch.Generator().manual_seed(9))
+    tr2 = _port_trainer(checkpoint_dir=str(tmp_path / "1"))
+    b, _ = tr2.train_step(tr2.load_checkpoint(tr2.init_state(), 1), x0,
+                          torch.Generator().manual_seed(9))
+    assert all(torch.equal(a.params[k], b.params[k]) for k in a.params)
 
 
 def test_bf16_module_trains_from_fp32_masters():

@@ -16,7 +16,9 @@ any error or disagreement:
    the tolerance stated; times beside the bound and one library call as a
    yardstick. A time is the card's (CUDA events, median of repetitions,
    warm L2, the host's enqueue hidden behind a sleep kernel); the host's
-   own cost per call is reported beside it.
+   own cost per call is reported beside it. Attention (row 1) also at the
+   edge shapes ATTN_EDGES in bf16: head dims that pad to 16, 32, 64 and
+   128, and T 512 (the two-pass kernel).
 3. The full-width flagship UNet in fp32 on the card (kernels) against the
    same weights on the CPU (plain versions) at batch 2, and a 10-step
    fp32 DDIM sample on both from the same starting noise.
@@ -29,15 +31,21 @@ any error or disagreement:
    torch.profiler trace of 20 more steps: the card's time per step by
    kernel and by kind of kernel.
 5. The backward kernels at every shape the flagship's training step
-   gives them (batch 128, bf16, and fp32 for attention), and the forward
-   kernels at the training batch, against their plain versions, with
-   times beside the bound, the plain version and one library call's
-   backward alone (torch.autograd.grad over scaled_dot_product_attention,
-   and over group_norm then silu).
+   gives them (batch 128, bf16, and fp32 for attention; attention also
+   at ATTN_EDGES in bf16), and the forward kernels at the training batch, against
+   their plain versions, with times beside the bound, the plain version
+   and one library call's backward alone (torch.autograd.grad over
+   scaled_dot_product_attention, and over group_norm then silu). Then
+   rows 1 and 2, untimed, at every head dim they take (8 to 128 by 8) at
+   T 16, 64, 256 and 512, bf16 and fp32.
 6. The full-width fp32 flagship train step (batch 2, dropout off, the
    same tau and eps) on the card against the CPU: loss and every
    gradient the step applied within the stated tolerance of their scale,
-   then the parameters after that Adam step.
+   then the parameters after that Adam step. Then a probe of the card's
+   backward: two backward passes of that step's loss on the same inputs,
+   compared bitwise, as the card runs by default and under
+   cudnn.deterministic with use_deterministic_algorithms(True); the
+   largest difference of each parameter group is printed.
 7. The training main path: the bf16 flagship with fp32 master weights in
    DDPMTrainer(lr 1e-4, warmup 10, total 1000, clip 1.0, EMA 0.9999), as
    bench.py's train step, at batch 128 of N(0, 1) CIFAR-shaped data from a
@@ -106,8 +114,9 @@ any error or disagreement:
    two paths in turns on the same trainer (10 steps each).
 16. The whole-block path in fp32 at full width, card vs CPU: the UNet
    forward at batch 2 and the train step as phase 6.
-17. One JSON line {"kernels": [...]} with all eight kernels, then the last
-   line {"ok": true, "device": {...}}.
+17. One JSON line {"kernels": [...]} with all eight kernels (each with its
+   worst error as a fraction of its tolerance), then the last line
+   {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -161,6 +170,14 @@ TRAIN_PROFILE_STEPS = 5
 # each once forward and once backward; attention's backward is two kernels
 TRAIN_LAUNCHES = {"attention_fwd": 8, "attention_bwd": 16,
                   "group_norm_fwd": 69, "group_norm_bwd": 69}
+# rows 1 and 2 off the main path, timed beside the main shapes: (T, head
+# dim, heads) with head dims that pad to 16, 32, 64 and 128 in the
+# single-pass kernels (T <= 256) and T 512 in the two-pass ones
+ATTN_EDGES = ((16, 8, 8), (64, 24, 4), (256, 40, 4), (256, 128, 2),
+              (512, 64, 4), (512, 128, 2))
+# and untimed, every head dim the kernels take at these T, bf16 and fp32
+ATTN_SWEEP_T = (16, 64, 256, 512)
+ATTN_SWEEP_HD = tuple(range(8, 129, 8))
 # operations per element of the GroupNorm backward (fp32), over its three
 # passes: statistics 3, normalizing twice 4, partials 3, dx 6; the SiLU
 # VJP (~10) is taken twice
@@ -459,6 +476,13 @@ def compare(got, want, dtype: str):
     return float(diff.max()), ok, rtol, atol
 
 
+def compare_fraction(got, want, dtype: str) -> float:
+    """The largest |got - want| as a fraction of compare()'s bound."""
+    rtol, atol = TOL[dtype]
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
 def compare_to_scale(got, want, rtol: float, atol_of_scale: float):
     """(max abs error, ok) for |got - want| <= rtol |want| + atol_of_scale
     * max |want|."""
@@ -568,7 +592,10 @@ def profile_steps(run, n_steps: int, label: str = "profile") -> float:
     for kind, (ms, n) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
         log(f"{label}: {kind}: {ms / n_steps:.4f} ms/step, {n / n_steps:g} "
             f"launches/step")
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
+    # the 15 largest kernels, then every other attention kernel (rows 1, 2,
+    # 5 and 6 by name: their split is read against their bounds)
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
+    top = ranked[:15] + [kv for kv in ranked[15:] if "attention_" in kv[0]]
     for kname, (ms, n) in top:
         log(f"{label} kernel: {ms / n_steps:.4f} ms/step x{n / n_steps:g} "
             f"{kname[:110]}")
@@ -1455,6 +1482,74 @@ def block_kernel_rows(time_ms, dev):
     return fwd[BATCH], fwd[TRAIN_BATCH], bwd_rows
 
 
+def backward_probe(weights, sched, dev, x6, tau6, eps6) -> dict:
+    """Two backward passes of the full-width fp32 train step's loss on the
+    same weights and inputs, compared bitwise: once as the card runs by
+    default, once with torch.backends.cudnn.deterministic and
+    torch.use_deterministic_algorithms(True) (warn_only, so an op without a
+    deterministic implementation is named rather than raised). Prints the
+    largest difference of each parameter group and, where the two passes
+    differ, the parameter whose gradient the backward computes first (the
+    last in module order) among those that differ."""
+    import warnings
+
+    import torch
+    from pdm_tpu_torch.diffusion.trainer import DDPMTrainer
+    from pdm_tpu_torch.models.unet import unet_from_config
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+
+    net = unet_from_config(3, {**FLAGSHIP, "dropout": 0.0}, dtype=torch.float32,
+                           device=dev)
+    net.load_state_dict(weights)
+    net.train()
+    trainer = DDPMTrainer(UNetDDPM(sched, net, device=dev), learning_rate=1e-4,
+                          warmup_steps=0)
+    trainer.ddpm.train()
+    names = [k for k, _ in net.named_parameters()]
+
+    def group(name):
+        parts = name.split(".")
+        return ".".join(parts[:2]) if parts[0].endswith("blocks") else parts[0]
+
+    def two_passes():
+        a = trainer._grads(x6.to(dev), None, tau6.to(dev), eps6.to(dev))[1]
+        b = trainer._grads(x6.to(dev), None, tau6.to(dev), eps6.to(dev))[1]
+        return [float((ga - gb).abs().max()) for ga, gb in zip(a, b)]
+
+    result = {}
+    before = (torch.backends.cudnn.deterministic,
+              torch.are_deterministic_algorithms_enabled())
+    for mode in ("default", "deterministic"):
+        caught = []
+        if mode == "deterministic":
+            torch.backends.cudnn.deterministic = True
+            torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                diffs = two_passes()
+        finally:
+            torch.backends.cudnn.deterministic = before[0]
+            torch.use_deterministic_algorithms(before[1])
+        by_group = {}
+        for name, d in zip(names, diffs):
+            by_group[group(name)] = max(by_group.get(group(name), 0.0), d)
+        differing = [n for n, d in zip(names, diffs) if d > 0.0]
+        first = differing[-1] if differing else None
+        nondet = sorted({str(w.message).split(".")[0] for w in caught
+                         if "deterministic" in str(w.message)})
+        log(f"backward probe ({mode}): two passes on the same inputs differ in "
+            f"{len(differing)} of {len(names)} parameters; largest difference "
+            f"by group {json.dumps({k: v for k, v in by_group.items()})}; first "
+            f"to differ in backward order: {first}; ops without a "
+            f"deterministic implementation: {nondet or 'none'}")
+        result[mode] = {"differing": len(differing), "first": first,
+                        "max": max(diffs), "nondeterministic_ops": nondet}
+    del trainer, net
+    torch.cuda.empty_cache()
+    return result
+
+
 def train_step_card_vs_cpu(weights, sched, dev, x6, tau6, eps6, label):
     """The full-width fp32 flagship train step (batch 2, dropout off, the
     same tau and eps) on the card against the CPU: loss and every gradient
@@ -1503,6 +1598,48 @@ def train_step_card_vs_cpu(weights, sched, dev, x6, tau6, eps6, label):
         fail(f"{label} fp32 train step on the card disagrees with the CPU: {bad[:5]}")
 
 
+def attention_head_dim_sweep(attn_op, dev, g) -> None:
+    """Rows 1 and 2 at every head dim the kernels take (ATTN_SWEEP_HD) and
+    ATTN_SWEEP_T, bf16 and fp32, on the column thirds of one (2, T, 3C)
+    projection with 2 heads: the forward (and lse) to TOL, the three
+    gradients to BWD_TOL, against the plain versions on the same inputs.
+    Untimed; fails on the first disagreement."""
+    import torch
+
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for T in ATTN_SWEEP_T:
+            for hd in ATTN_SWEEP_HD:
+                C, heads = 2 * hd, 2
+                qkv = torch.randn(2, T, 3 * C, generator=g, device=dev).to(dtype)
+                q, k, v = qkv.split(C, dim=-1)
+                do = torch.randn(2, T, C, generator=g, device=dev).to(dtype)
+                scale = 1.0 / math.sqrt(hd)
+                out, lse = attn_op.attention_with_lse(q, k, v, heads, scale)
+                ref, ref_lse = attn_op._reference_with_lse(q, k, v, heads, scale)
+                got = attn_op.attention_bwd(q, k, v, lse, do, heads, scale)
+                want = attn_op.attention_bwd_reference(q, k, v, lse, do, heads, scale)
+                torch.cuda.synchronize()
+                lse_tol = 1e-4 * (1.0 + float(ref_lse.abs().max()))
+                fwd = max(compare_fraction(out, ref, dname),
+                          float((lse - ref_lse).abs().max()) / lse_tol)
+                bwd = max(tol_fraction(a_, b_, *BWD_TOL[dname])
+                          for a_, b_ in zip(got, want))
+                key = (dname, "single-pass" if T <= 256 and dtype == torch.bfloat16
+                       else "two-pass" if dtype == torch.bfloat16 else "fp32")
+                worst[key] = max(worst.get(key, (0.0, 0.0))[0], fwd), max(
+                    worst.get(key, (0.0, 0.0))[1], bwd)
+                if fwd > 1.0 or bwd > 1.0:
+                    fail(f"attention kernels disagree with their plain versions at "
+                         f"T={T} hd={hd} {dname}: forward {fwd:.3g}, backward "
+                         f"{bwd:.3g} of the tolerance")
+    for (dname, kind), (fwd, bwd) in worst.items():
+        log(f"attention head-dim sweep {dname} {kind}: hd {ATTN_SWEEP_HD[0]}-"
+            f"{ATTN_SWEEP_HD[-1]}, T {ATTN_SWEEP_T}: worst forward {fwd:.3g}, "
+            f"backward {bwd:.3g} of the tolerance")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -1510,6 +1647,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    # cuBLAS is deterministic under use_deterministic_algorithms only with
+    # this workspace setting, read at its first call; 8 buffers of 4 MiB is
+    # PyTorch's default on Hopper (phase 6's probe turns the mode on)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from pdm_tpu_torch.diffusion.sampling import DDPMSampler
     from pdm_tpu_torch.diffusion.trainer import DDPMTrainer, step_generator
     from pdm_tpu_torch.models.unet import (
@@ -1595,11 +1736,16 @@ def main() -> int:
     log(f"phase 2 at {time.perf_counter() - t_start:.1f} s")
     g = torch.Generator(device=dev).manual_seed(0)
 
-    def attention_fwd_rows(batch, dtypes):
+    # the main path's attention shapes (T, C, heads) with their calls per
+    # step, then the edge shapes (no calls on the main path; bf16 only)
+    attn_shapes = sorted(attn_calls.items(), reverse=True) + [
+        ((T, heads * hd, heads), 0) for T, hd, heads in ATTN_EDGES]
+
+    def attention_fwd_rows(batch, dtypes, shapes):
         rows = []
         for dtype in dtypes:
             dname = str(dtype).split(".")[1]
-            for (T, C, heads), calls in sorted(attn_calls.items(), reverse=True):
+            for (T, C, heads), calls in shapes:
                 qkv = torch.randn(batch, T, 3 * C, generator=g, device=dev).to(dtype)
                 q, k, v = qkv.split(C, dim=-1)  # the UNet's layout: rows 3C apart
                 scale = 1.0 / math.sqrt(C // heads)
@@ -1608,7 +1754,9 @@ def main() -> int:
                 torch.cuda.synchronize()
                 err, ok, rtol, atol = compare(out, ref, dname)
                 lse_err = float((lse - ref_lse).abs().max())
-                ok = ok and lse_err <= 1e-4 * (1.0 + float(ref_lse.abs().max()))
+                lse_tol = 1e-4 * (1.0 + float(ref_lse.abs().max()))
+                ok = ok and lse_err <= lse_tol
+                worst = max(compare_fraction(out, ref, dname), lse_err / lse_tol)
                 hd = C // heads
                 qh, kh, vh = (t.view(batch, T, heads, hd).transpose(1, 2)
                               for t in (q, k, v))
@@ -1621,6 +1769,7 @@ def main() -> int:
                     "shape": [batch, T, C], "heads": heads, "dtype": dname,
                     "calls_per_step": calls if dtype == torch.bfloat16 else 0,
                     "max_abs_err": err, "lse_max_abs_err": lse_err,
+                    "worst_of_tolerance": worst,
                     "rtol": rtol, "atol": atol, "ms": ms, "host_ms": host_ms,
                     "plain_ms": time_ms(lambda: attn_op._reference_with_lse(
                         q, k, v, heads, scale), inner=5)[0],
@@ -1629,9 +1778,10 @@ def main() -> int:
                     "bound_ms": b_ms, "bound_by": b_by,
                 }
                 rows.append(row)
-                log(f"attention {dname} B={batch} T={T} C={C} heads={heads}: "
-                    f"max_abs_err {err:.3g} (lse {lse_err:.3g}; tol rtol {rtol} "
-                    f"atol {atol}) kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms "
+                log(f"attention {dname} B={batch} T={T} C={C} heads={heads} "
+                    f"x{calls}/step: max_abs_err {err:.3g} (lse {lse_err:.3g}; tol "
+                    f"rtol {rtol} atol {atol}; worst {worst:.3g} of it) kernel_ms "
+                    f"{ms:.4f} (host {host_ms:.4f}) plain_ms "
                     f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
                     f"bound_ms {b_ms:.4f} ({b_by}) {'ok' if ok else 'MISMATCH'}")
                 if not ok:
@@ -1649,6 +1799,7 @@ def main() -> int:
             ref = gn_op.group_norm_reference(x, scale, bias, 32, 1e-6, act).bfloat16()
             torch.cuda.synchronize()
             err, ok, rtol, atol = compare(y, ref, "bfloat16")
+            worst = compare_fraction(y, ref, "bfloat16")
             side = int(round(math.sqrt(S)))
             x4 = x.view(batch, side, side, C).permute(0, 3, 1, 2)  # channels_last
             sc_b, bi_b = scale.bfloat16(), bias.bfloat16()
@@ -1664,7 +1815,8 @@ def main() -> int:
                 lambda: gn_op.fused_group_norm_act(x, scale, bias, 32, 1e-6, act))
             row = {
                 "shape": [batch, S, C], "act": act, "dtype": "bfloat16",
-                "calls_per_step": calls, "max_abs_err": err, "rtol": rtol,
+                "calls_per_step": calls, "max_abs_err": err,
+                "worst_of_tolerance": worst, "rtol": rtol,
                 "atol": atol, "ms": ms, "host_ms": host_ms,
                 "plain_ms": time_ms(lambda: gn_op.group_norm_reference(
                     x, scale, bias, 32, 1e-6, act).bfloat16(), inner=5)[0],
@@ -1682,7 +1834,9 @@ def main() -> int:
                      f"{row['shape']} act={act}")
         return rows
 
-    attn_rows = attention_fwd_rows(BATCH, (torch.bfloat16, torch.float32))
+    attn_main = sorted(attn_calls.items(), reverse=True)
+    attn_rows = (attention_fwd_rows(BATCH, (torch.bfloat16,), attn_shapes)
+                 + attention_fwd_rows(BATCH, (torch.float32,), attn_main))
     gn_rows = group_norm_fwd_rows(BATCH)
 
     # ---- phase 3: full-width fp32 UNet and a short sample, card vs CPU ----
@@ -1767,7 +1921,7 @@ def main() -> int:
 
     # ---- phase 5: backward kernels (and forward at the training batch) ----
     log(f"phase 5 at {time.perf_counter() - t_start:.1f} s")
-    attn_train_rows = attention_fwd_rows(TRAIN_BATCH, (torch.bfloat16,))
+    attn_train_rows = attention_fwd_rows(TRAIN_BATCH, (torch.bfloat16,), attn_main)
     gn_train_rows = group_norm_fwd_rows(TRAIN_BATCH)
 
     def grad_ms(out, inputs, cot):
@@ -1777,7 +1931,8 @@ def main() -> int:
     attn_bwd_rows = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
-        for (T, C, heads), calls in sorted(attn_calls.items(), reverse=True):
+        for (T, C, heads), calls in (attn_shapes if dtype == torch.bfloat16
+                                     else attn_main):
             B, hd = TRAIN_BATCH, C // heads
             qkv = torch.randn(B, T, 3 * C, generator=g, device=dev).to(dtype)
             q, k, v = qkv.split(C, dim=-1)
@@ -1791,6 +1946,7 @@ def main() -> int:
             checks = [compare_to_scale(a_, b_, rtol, atol)
                       for a_, b_ in zip(got, want)]
             err, ok = max(c[0] for c in checks), all(c[1] for c in checks)
+            worst = max(tol_fraction(a_, b_, rtol, atol) for a_, b_ in zip(got, want))
             esz = qkv.element_size()
             b_ms, b_by = bound(7 * B * T * C * esz + B * heads * T * 4,
                                10 * B * T * T * C, dname)
@@ -1802,8 +1958,8 @@ def main() -> int:
             row = {
                 "shape": [B, T, C], "heads": heads, "dtype": dname,
                 "calls_per_step": calls if dtype == torch.bfloat16 else 0,
-                "max_abs_err": err, "rtol": rtol, "atol_of_scale": atol,
-                "ms": ms, "host_ms": host_ms,
+                "max_abs_err": err, "worst_of_tolerance": worst, "rtol": rtol,
+                "atol_of_scale": atol, "ms": ms, "host_ms": host_ms,
                 "plain_ms": time_ms(lambda: attn_op.attention_bwd_reference(
                     q, k, v, lse, do, heads, scale), inner=3)[0],
                 "library_ms": grad_ms(lib_out, (qh, kh, vh), do.reshape(
@@ -1811,8 +1967,9 @@ def main() -> int:
                 "bound_ms": b_ms, "bound_by": b_by,
             }
             attn_bwd_rows.append(row)
-            log(f"attention backward {dname} B={B} T={T} C={C} heads={heads}: "
-                f"max_abs_err {err:.3g} (tol rtol {rtol} atol {atol} of scale) "
+            log(f"attention backward {dname} B={B} T={T} C={C} heads={heads} "
+                f"x{calls}/step: max_abs_err {err:.3g} (tol rtol {rtol} atol "
+                f"{atol} of scale; worst {worst:.3g} of it) "
                 f"kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms "
                 f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
                 f"bound_ms {b_ms:.4f} ({b_by}) {'ok' if ok else 'MISMATCH'}")
@@ -1820,6 +1977,7 @@ def main() -> int:
                 fail(f"attention backward kernels disagree with their plain "
                      f"version at {row['shape']} {dname}")
             del lib_out, qh, kh, vh
+    attention_head_dim_sweep(attn_op, dev, g)
 
     gn_bwd_rows = []
     for (S, C, act), calls in sorted(gn_calls.items(), reverse=True):
@@ -1836,6 +1994,8 @@ def main() -> int:
             compare_to_scale(a_, b_, *PARAM_GRAD_TOL)
             for a_, b_ in zip(got[1:], want[1:])]
         err, ok = max(c[0] for c in checks), all(c[1] for c in checks)
+        worst = max([tol_fraction(got[0], want[0], rtol, atol)] + [
+            tol_fraction(a_, b_, *PARAM_GRAD_TOL) for a_, b_ in zip(got[1:], want[1:])])
         side = int(round(math.sqrt(S)))
         x4 = (x.view(B, side, side, C).permute(0, 3, 1, 2).detach().clone()
               .requires_grad_())  # channels_last
@@ -1850,7 +2010,8 @@ def main() -> int:
             x, scale, bias, dy, 32, 1e-6, act))
         row = {
             "shape": [B, S, C], "act": act, "dtype": "bfloat16",
-            "calls_per_step": calls, "max_abs_err": err, "rtol": rtol,
+            "calls_per_step": calls, "max_abs_err": err,
+            "worst_of_tolerance": worst, "rtol": rtol,
             "atol_of_scale": atol, "ms": ms, "host_ms": host_ms,
             "plain_ms": time_ms(lambda: gn_op.group_norm_bwd_reference(
                 x, scale, bias, dy, 32, 1e-6, act), inner=3)[0],
@@ -1877,6 +2038,7 @@ def main() -> int:
     tau6 = torch.from_numpy(rng.uniform(0.0, 1.0, 2).astype(np.float32))
     eps6 = torch.from_numpy(rng.standard_normal((2, 3, 32, 32)).astype(np.float32))
     train_step_card_vs_cpu(weights, sched, dev, x6, tau6, eps6, "flagship")
+    backward_probe(weights, sched, dev, x6, tau6, eps6)
 
     # ---- phase 7: the training main path ----
     log(f"phase 7 at {time.perf_counter() - t_start:.1f} s")
@@ -2199,6 +2361,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": sum(v["launches"] for v in per.values()),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "worst_of_tolerance": max(
+                r.get("worst_of_tolerance", r.get("tol_fraction", 0.0)) for r in rows),
             "per": f"main-path step of the {paths[0][0]} path: sum over the "
                    f"step's calls at their shapes of the per-call medians in "
                    f"'shapes'; 'paths' gives each path's",
@@ -2249,6 +2413,7 @@ def main() -> int:
         "replaces": "pdm_tpu/ops/boltzmann_sweep.py:105",
         "launches": stats_launches,
         "max_abs_err": max(r["max_abs_err"] for r in sweep_rows),
+        "worst_of_tolerance": max(r["worst_of_tolerance"] for r in sweep_rows),
         "per": "one call (a partials and a merge launch) at the stats path's "
                "shape, fp32: B=1024, N=50,000, D=3072, 32 temperatures; "
                "'shapes' gives every shape and mode (library: the two Grams "
@@ -2268,6 +2433,7 @@ def main() -> int:
         "replaces": "pdm_tpu/ops/boltzmann_pallas.py:163",
         "launches": true_launches,
         "max_abs_err": max(r["max_abs_err"] for r in moments_rows),
+        "worst_of_tolerance": max(r["worst_of_tolerance"] for r in moments_rows),
         "per": "one call (a partials and a merge launch) at the analytic "
                "sampler's shape, fp32 with the data as payload: B=1000, "
                "N=50,000, D=K=3072; 'shapes' gives every shape and mode "

@@ -13,7 +13,7 @@
 // D = sum_k P * dp are taken from the rounded P, as the reference does
 // (not FlashAttention's rowsum(do * o), which differs by a rounding).
 //
-// Layout: q, k, v are (B, T, C) with C = heads * HD, token rows `ld` apart
+// Layout: q, k, v are (B, T, C) with C = heads * hd, token rows `ld` apart
 // (the column thirds of the fused qkv projection); do, dq, dk, dv are
 // contiguous (B, T, C); lse and D are (B, heads, T) fp32.
 //
@@ -25,22 +25,59 @@
 // shared memory.
 //
 // Design: the TPU kernel holds an image's whole T x T tiles in VMEM and
-// runs five matmuls; here nothing T x T is materialized and no block
-// writes another's output, so there are no atomics. Two kernels:
-//  1. dq: one block per (query tile of 64, head, image), 4 warps x 16 query
-//     rows. Sweep 1 over 64-key tiles recomputes P and dp on the tensor
-//     cores and sums D; sweep 2 recomputes them, forms ds (bf16, in the
-//     score accumulators' registers, reused as the A operand) and
-//     accumulates ds k. Writes dq and D.
-//  2. dk, dv: one block per (key tile of 64, head, image), 4 warps x 16 key
-//     rows, over 64-query tiles: P^T (from k q^T and the saved lse) times
-//     do gives dv, dp^T = v do^T and the saved D give ds^T, and ds^T q
-//     gives dk.
-// The bf16 kernels use mma.sync m16n8k16 through the helpers of
-// attention_common.cuh. fp32 (parity runs, not the main path) runs on the
-// CUDA cores with one thread per query row (dq) or key row (dk, dv).
+// runs five matmuls; here nothing T x T reaches device memory and no block
+// writes another's output, so there are no atomics and every sum runs in a
+// fixed order (the backward is deterministic). Two launches per call, by
+// shape:
+//
+// * bf16, T <= 256 (every flagship shape): the single-pass Hopper kernels.
+//   Both are persistent (one block per SM, two warpgroups) over items of
+//   (pair of 64-row strips, head, image), warpgroup w taking strip w of the
+//   pair. Thread 0 loads an item's operands once through TMA into one stage
+//   of a two-stage ring of swizzled shared memory (two mbarriers a stage,
+//   so the first product starts while the rest is in flight) and the next
+//   item's into the other stage, so loads overlap compute. Every product
+//   runs on wgmma, 7 products of 2 B T^2 C in all (the old design ran 9):
+//   1. dq: an item holds the pair's q and do and the head's whole k and v.
+//      S = q k^T and dp = do v^T (one wgmma m64n(64 NC)k16 per 16 head-dim
+//      columns, NC = T / 64 rounded up) stay in registers for the strip's
+//      whole row: P = exp(s - lse) is rounded to bf16 as it is packed, D =
+//      sum_k P * dp comes from that rounded P exactly, ds = P dp - P D is
+//      rounded as it is repacked in the same registers, the A operand of
+//      dq = ds k (k read N-major). One sweep over the keys, where the old
+//      kernel took two.
+//   2. dk, dv: an item holds the pair's k and v and the head's whole q and
+//      do, with the head's lse and D staged in shared memory. Over groups
+//      of 128 queries (64 where NC is odd or HDP is 128): S^T = k q^T,
+//      P^T (from the saved lse), dv += P^T do and dp^T = v do^T (issued
+//      together), ds^T from the saved D, dk += ds^T q. dk and dv
+//      accumulate in registers.
+// * bf16, 256 < T <= 1024: the two-pass kernels on mma.sync (4 warps x 16
+//   rows, 64-key tiles in padded shared memory): dq sweeps the keys once
+//   for D and again for ds k; dk/dv recompute P^T and dp^T per query tile.
+// * fp32 (parity runs, not the main path): the CUDA cores with one thread
+//   per query row (dq) or key row (dk, dv). At HD 128 their row registers
+//   spill, and dk/dv's shared memory (82 KB) is dynamic.
+//
+// head dims: any multiple of 8 up to 128, zero-padded in shared memory to
+// the instantiated HDP of 16, 32, 64 or 128 (TMA fills the columns past hd
+// with zeros; padded output columns are never written).
+//
+// Trouble met in the single-pass kernels, and what they do about it: a
+// stage is 96 KB at HDP 64 and T 256 (two fit in a block's 227 KB; at HDP
+// 128 one), dynamic, opted into with cudaFuncSetAttribute; tensor maps come
+// through cudaGetDriverEntryPoint; the mid block's T = 16 is padded by
+// TMA's zero fill to the 64 rows wgmma needs, padded keys get P = 0 in dq
+// (their k rows are zeros, so their scores are not -inf), padded queries
+// get lse = +inf and D = 0 in dk/dv, and padded rows are never stored.
+// Registers: dq holds P (64 packed registers) beside dp (128 fp32) at
+// T 256; the chunk count is a template parameter so that no branch sits
+// between a product's issue and its wait. The elementwise work between
+// products sets much of the time, so P and ds are rounded only where they
+// are packed (the packing rounds to nearest even, as the reference's cast
+// does) and padded keys are masked only when T is not a multiple of 64.
 
-#include "attention_common.cuh"
+#include "attention_hopper.cuh"
 
 namespace {
 
@@ -49,7 +86,378 @@ using namespace pdm_attn;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16, T <= 256: single pass on wgmma
+//
+// Both kernels are persistent (one block per SM, two warpgroups) over items
+// of (pair of 64-row strips, head, image); warpgroup w takes strip w of the
+// pair. An item's operands land in one stage of a two-stage ring through
+// TMA, the next item's in the other, so loads overlap compute; the pair's
+// two strips share the item's whole-head stripes.
+
+// the item's strip pair, head and image
+struct Item {
+  int pair, h, b;
+};
+__device__ __forceinline__ Item decode(int item, int pairs, int heads) {
+  Item it;
+  it.pair = item % pairs;
+  const int rest = item / pairs;
+  it.h = rest % heads;
+  it.b = rest / heads;
+  return it;
+}
+
+// dq and D of one 64-row query strip: qs, dos hold the pair's q and do
+// (pair_rows rows, the strip at row0), ks, vs the head's k and v (64 NC
+// rows). NC is a template parameter so that no branch sits between a
+// product's issue and its wait.
+template <int HDP, int NC>
+__device__ __forceinline__ void dq_strip(const char* qs, const char* dos,
+                                         const char* ks, const char* vs,
+                                         uint64_t* dov_bar, int phase, int pair_rows,
+                                         int row0, int st, int n_tok, int heads, int hd,
+                                         int h, int b, const float* __restrict__ lse,
+                                         __nv_bfloat16* __restrict__ dq,
+                                         float* __restrict__ dsum, float scale,
+                                         float scale_log2) {
+  using namespace pdm_hop;
+  using S = Stripe<HDP>;
+  constexpr int rows = NC * kRows;
+  const int warp = (threadIdx.x & (kWgThreads - 1)) >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int C = heads * hd;
+  const long long lrow = ((long long)b * heads + h) * n_tok;
+  // lse of rows g and g + 8 in log2 units; +inf past n_tok makes P = 0
+  float lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = st * kRows + warp * 16 + g + 8 * r;
+    lse2[r] = row < n_tok ? lse[lrow + row] * kLog2e : INFINITY;
+  }
+
+  // S = q k^T over the strip's whole key row, m64n(64 NC)k16
+  float s[NC * 32];
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i) s[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < S::kKSteps; ++kk)
+    wgmma_ss<NC>(s, desc_k<HDP>(qs, pair_rows, row0, kk), desc_k<HDP>(ks, rows, 0, kk));
+  wgmma_commit();
+  wgmma_wait_all();
+  reg_fence(s);
+
+  // P = exp(s - lse), rounded to bf16 as it is packed (keys past n_tok: 0)
+  uint32_t pa[NC * 4][4];
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i) s[i] = ex2(fmaf(s[i], scale_log2, -lse2[(i >> 1) & 1]));
+  if (n_tok < rows) {
+#pragma unroll
+    for (int i = 0; i < NC * 32; ++i)
+      if ((i >> 2) * 8 + 2 * tq + (i & 1) >= n_tok) s[i] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < NC * 4; ++j) pack_slice(pa[j], s, j);
+
+  // dp = do v^T (in the same registers), D = sum_k P * dp
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i) s[i] = 0.f;
+  mbar_wait(dov_bar, phase);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < S::kKSteps; ++kk)
+    wgmma_ss<NC>(s, desc_k<HDP>(dos, pair_rows, row0, kk), desc_k<HDP>(vs, rows, 0, kk));
+  wgmma_commit();
+  wgmma_wait_all();
+  reg_fence(s);
+  float D[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i)
+    D[(i >> 1) & 1] += unpack(pa[i >> 3], i >> 2, i & 3) * s[i];
+  D[0] = quad_sum(D[0]);
+  D[1] = quad_sum(D[1]);
+
+  // ds = P dp - P D, rounded to bf16 as it is repacked (the A operand of
+  // ds k)
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i) {
+    const float p = unpack(pa[i >> 3], i >> 2, i & 3);
+    s[i] = p * s[i] - p * D[(i >> 1) & 1];
+  }
+#pragma unroll
+  for (int j = 0; j < NC * 4; ++j) pack_slice(pa[j], s, j);
+  float acc[S::kPanels][S::kBW / 2];
+#pragma unroll
+  for (int n = 0; n < S::kPanels; ++n)
+#pragma unroll
+    for (int i = 0; i < S::kBW / 2; ++i) acc[n][i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NC * 4; ++j)
+#pragma unroll
+    for (int n = 0; n < S::kPanels; ++n)
+      wgmma_rs<S::kBW>(acc[n], pa[j], desc_mn<HDP>(ks, rows, j, n));
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int n = 0; n < S::kPanels; ++n) reg_fence(acc[n]);
+  reg_fence(pa);
+
+  store_acc<HDP>(dq, acc, scale, (long long)b * n_tok, st * kRows, n_tok, C, h * hd,
+                 hd);
+  if (tq == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = st * kRows + warp * 16 + g + 8 * r;
+      if (row < n_tok) dsum[lrow + row] = D[r];
+    }
+  }
+}
+
+template <int HDP, int NC>
+__global__ void __launch_bounds__(pdm_hop::kThreads, 1)
+attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const float* __restrict__ lse,
+                              __nv_bfloat16* __restrict__ dq,
+                              float* __restrict__ dsum, int n_items, int n_tok,
+                              int heads, int hd, float scale, float scale_log2,
+                              int stages) {
+  using namespace pdm_hop;
+  using S = Stripe<HDP>;
+  constexpr int rows = NC * kRows;
+  constexpr int pairs = (NC + 1) / 2, pair_rows = (NC < 2 ? NC : 2) * kRows;
+  constexpr int pair_tile = S::bytes(pair_rows), tile = S::bytes(rows);
+  constexpr int stage = 2 * pair_tile + 2 * tile;
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t bar[2][2];  // [stage]: q and k; do and v
+
+  char* base = aligned_smem(smem_raw);
+  const int G = gridDim.x, wg = threadIdx.x / kWgThreads;
+
+  auto issue = [&](int item, int st) {
+    const Item it = decode(item, pairs, heads);
+    char* qs = base + st * stage;
+    char* dos = qs + pair_tile;
+    char* ks = dos + pair_tile;
+    char* vs = ks + tile;
+    mbar_expect_tx(&bar[st][0], pair_tile + tile);
+    load_stripe<HDP>(qs, &tm_q, &bar[st][0], pair_rows, it.h, it.pair * 2 * kRows, it.b);
+    load_stripe<HDP>(ks, &tm_k, &bar[st][0], rows, it.h, 0, it.b);
+    mbar_expect_tx(&bar[st][1], pair_tile + tile);
+    load_stripe<HDP>(dos, &tm_do, &bar[st][1], pair_rows, it.h, it.pair * 2 * kRows,
+                     it.b);
+    load_stripe<HDP>(vs, &tm_v, &bar[st][1], rows, it.h, 0, it.b);
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(&bar[st][0], 1);
+      mbar_init(&bar[st][1], 1);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int st = 0; st < stages; ++st)
+      if (blockIdx.x + st * G < n_items) issue(blockIdx.x + st * G, st);
+
+  for (int i = 0;; ++i) {
+    const int item = blockIdx.x + i * G;
+    if (item >= n_items) break;
+    const int st = i % stages, phase = (i / stages) & 1;
+    const Item it = decode(item, pairs, heads);
+    const char* qs = base + st * stage;
+    const int strip = it.pair * 2 + wg;
+    mbar_wait(&bar[st][0], phase);
+    if (strip < NC)
+      dq_strip<HDP, NC>(qs, qs + pair_tile, qs + 2 * pair_tile,
+                        qs + 2 * pair_tile + tile, &bar[st][1], phase, pair_rows,
+                        wg * kRows, strip, n_tok, heads, hd, it.h, it.b, lse, dq, dsum,
+                        scale, scale_log2);
+    else
+      mbar_wait(&bar[st][1], phase);
+    wgs_sync();  // the stage is consumed
+    if (threadIdx.x == 0 && item + stages * G < n_items) issue(item + stages * G, st);
+  }
+}
+
+// dk and dv of one 64-key strip: ks, vs hold the pair's k and v (pair_rows
+// rows, the strip at row0), qs, dos the head's q and do (64 NC rows);
+// lse_s and d_s the head's lse (log2 units, +inf past n_tok) and D (0 past
+// n_tok). The queries go by in groups of QC 64-row chunks (two where NC is
+// even and HDP <= 64): products m64n(64 QC)k16 and three waits a group.
+template <int HDP, int NC>
+__device__ __forceinline__ void dkdv_strip(const char* ks, const char* vs,
+                                           const char* qs, const char* dos,
+                                           int pair_rows, int row0, int kt, int n_tok,
+                                           int heads, int hd, int h, int b,
+                                           const float* lse_s, const float* d_s,
+                                           __nv_bfloat16* __restrict__ dk,
+                                           __nv_bfloat16* __restrict__ dv, float scale,
+                                           float scale_log2) {
+  using namespace pdm_hop;
+  using S = Stripe<HDP>;
+  constexpr int rows = NC * kRows;
+  // query chunks a group (one at HDP 128, where dk and dv take 128 registers)
+  constexpr int QC = NC % 2 == 0 && HDP <= 64 ? 2 : 1;
+  const int tq = threadIdx.x & 3;
+  const int C = heads * hd;
+  float dk_acc[S::kPanels][S::kBW / 2], dv_acc[S::kPanels][S::kBW / 2];
+#pragma unroll
+  for (int n = 0; n < S::kPanels; ++n)
+#pragma unroll
+    for (int i = 0; i < S::kBW / 2; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
+
+  float sc[QC * 32], dp[QC * 32];
+  uint32_t pa[QC * 4][4];
+#pragma unroll 1
+  for (int q0 = 0; q0 < rows; q0 += QC * kRows) {
+    // S^T = k q^T: rows are the strip's keys, columns the group's queries
+#pragma unroll
+    for (int i = 0; i < QC * 32; ++i) sc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < S::kKSteps; ++kk)
+      wgmma_ss<QC>(sc, desc_k<HDP>(ks, pair_rows, row0, kk), desc_k<HDP>(qs, rows, q0, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(sc);
+    // P^T = exp(s - lse), rounded to bf16 as it is packed
+#pragma unroll
+    for (int i = 0; i < QC * 32; i += 2) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + q0 + (i >> 2) * 8 + 2 * tq);
+      sc[i] = ex2(fmaf(sc[i], scale_log2, -l2.x));
+      sc[i + 1] = ex2(fmaf(sc[i + 1], scale_log2, -l2.y));
+    }
+#pragma unroll
+    for (int j = 0; j < QC * 4; ++j) pack_slice(pa[j], sc, j);
+    // dv += P^T do and dp^T = v do^T
+#pragma unroll
+    for (int i = 0; i < QC * 32; ++i) dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < QC * 4; ++j)
+#pragma unroll
+      for (int n = 0; n < S::kPanels; ++n)
+        wgmma_rs<S::kBW>(dv_acc[n], pa[j], desc_mn<HDP>(dos, rows, q0 / 16 + j, n));
+#pragma unroll
+    for (int kk = 0; kk < S::kKSteps; ++kk)
+      wgmma_ss<QC>(dp, desc_k<HDP>(vs, pair_rows, row0, kk), desc_k<HDP>(dos, rows, q0, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(dp);
+#pragma unroll
+    for (int n = 0; n < S::kPanels; ++n) reg_fence(dv_acc[n]);
+    reg_fence(pa);
+    // ds^T = P dp - P D (P the rounded values), rounded to bf16 as it is
+    // packed; dk += ds^T q
+#pragma unroll
+    for (int i = 0; i < QC * 32; i += 2) {
+      const float2 d2 = *reinterpret_cast<const float2*>(d_s + q0 + (i >> 2) * 8 + 2 * tq);
+      const float p0 = unpack(pa[i >> 3], i >> 2, i & 3);
+      const float p1 = unpack(pa[i >> 3], i >> 2, (i + 1) & 3);
+      sc[i] = p0 * dp[i] - p0 * d2.x;
+      sc[i + 1] = p1 * dp[i + 1] - p1 * d2.y;
+    }
+#pragma unroll
+    for (int j = 0; j < QC * 4; ++j) pack_slice(pa[j], sc, j);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < QC * 4; ++j)
+#pragma unroll
+      for (int n = 0; n < S::kPanels; ++n)
+        wgmma_rs<S::kBW>(dk_acc[n], pa[j], desc_mn<HDP>(qs, rows, q0 / 16 + j, n));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int n = 0; n < S::kPanels; ++n) reg_fence(dk_acc[n]);
+    reg_fence(pa);
+  }
+
+  const long long row_base = (long long)b * n_tok;
+  store_acc<HDP>(dk, dk_acc, scale, row_base, kt * kRows, n_tok, C, h * hd, hd);
+  store_acc<HDP>(dv, dv_acc, 1.f, row_base, kt * kRows, n_tok, C, h * hd, hd);
+}
+
+template <int HDP, int NC>
+__global__ void __launch_bounds__(pdm_hop::kThreads, 1)
+attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const __grid_constant__ CUtensorMap tm_do,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ dsum,
+                                __nv_bfloat16* __restrict__ dk,
+                                __nv_bfloat16* __restrict__ dv, int n_items,
+                                int n_tok, int heads, int hd, float scale,
+                                float scale_log2, int stages) {
+  using namespace pdm_hop;
+  using S = Stripe<HDP>;
+  constexpr int rows = NC * kRows;
+  constexpr int pairs = (NC + 1) / 2, pair_rows = (NC < 2 ? NC : 2) * kRows;
+  constexpr int pair_tile = S::bytes(pair_rows), tile = S::bytes(rows);
+  constexpr int stage = 2 * pair_tile + 2 * tile;
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t bar[2][2];  // [stage]: k and q; v and do
+  __shared__ __align__(8) float lse_s[kMaxTokens];
+  __shared__ __align__(8) float d_s[kMaxTokens];
+
+  char* base = aligned_smem(smem_raw);
+  const int G = gridDim.x, wg = threadIdx.x / kWgThreads;
+
+  auto issue = [&](int item, int st) {
+    const Item it = decode(item, pairs, heads);
+    char* ks = base + st * stage;
+    char* vs = ks + pair_tile;
+    char* qs = vs + pair_tile;
+    char* dos = qs + tile;
+    mbar_expect_tx(&bar[st][0], pair_tile + tile);
+    load_stripe<HDP>(ks, &tm_k, &bar[st][0], pair_rows, it.h, it.pair * 2 * kRows, it.b);
+    load_stripe<HDP>(qs, &tm_q, &bar[st][0], rows, it.h, 0, it.b);
+    mbar_expect_tx(&bar[st][1], pair_tile + tile);
+    load_stripe<HDP>(vs, &tm_v, &bar[st][1], pair_rows, it.h, it.pair * 2 * kRows, it.b);
+    load_stripe<HDP>(dos, &tm_do, &bar[st][1], rows, it.h, 0, it.b);
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(&bar[st][0], 1);
+      mbar_init(&bar[st][1], 1);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int st = 0; st < stages; ++st)
+      if (blockIdx.x + st * G < n_items) issue(blockIdx.x + st * G, st);
+
+  for (int i = 0;; ++i) {
+    const int item = blockIdx.x + i * G;
+    if (item >= n_items) break;
+    const int st = i % stages, phase = (i / stages) & 1;
+    const Item it = decode(item, pairs, heads);
+    const char* ks = base + st * stage;
+    const long long lrow = ((long long)it.b * heads + it.h) * n_tok;
+    for (int r = threadIdx.x; r < rows; r += kThreads) {
+      lse_s[r] = r < n_tok ? lse[lrow + r] * kLog2e : INFINITY;
+      d_s[r] = r < n_tok ? dsum[lrow + r] : 0.f;
+    }
+    wgs_sync();  // lse_s and d_s are the item's
+    mbar_wait(&bar[st][0], phase);
+    mbar_wait(&bar[st][1], phase);
+    const int kt = it.pair * 2 + wg;
+    if (kt < NC)
+      dkdv_strip<HDP, NC>(ks, ks + pair_tile, ks + 2 * pair_tile,
+                          ks + 2 * pair_tile + tile, pair_rows, wg * kRows, kt, n_tok,
+                          heads, hd, it.h, it.b, lse_s, d_s, dk, dv, scale, scale_log2);
+    wgs_sync();  // the stage, lse_s and d_s are consumed
+    if (threadIdx.x == 0 && item + stages * G < n_items) issue(item + stages * G, st);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16, 256 < T <= 1024: two passes on mma.sync
 
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads)
@@ -59,30 +467,29 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ dout,
                            const float* __restrict__ lse,
                            __nv_bfloat16* __restrict__ dq,
-                           float* __restrict__ dsum, int n_tok, int heads,
+                           float* __restrict__ dsum, int n_tok, int heads, int hd,
                            long long ld, float scale, float scale_log2) {
   constexpr int S = HD + 8;
-  __shared__ __align__(16) __nv_bfloat16 qs[kTile * S];  // q, then do
-  __shared__ __align__(16) __nv_bfloat16 ks[kTile * S];
+  __shared__ __align__(16) __nv_bfloat16 ks[kTile * S];  // q, do, then k
   __shared__ __align__(16) __nv_bfloat16 vs[kTile * S];
 
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const int C = heads * HD;
+  const int C = heads * hd;
   const bool busy = q0 + warp * 16 < n_tok;
-  const long long img = (long long)b * n_tok * ld + (long long)h * HD;
-  const long long dimg = (long long)b * n_tok * C + (long long)h * HD;
+  const long long img = (long long)b * n_tok * ld + (long long)h * hd;
+  const long long dimg = (long long)b * n_tok * C + (long long)h * hd;
   const long long lrow = ((long long)b * heads + h) * n_tok;
 
   uint32_t qa[HD / 16][4], da[HD / 16][4];
-  load_rows<HD>(qs, q + img, q0, n_tok, ld, S);
+  load_rows<HD>(ks, q + img, q0, n_tok, ld, S, hd);
   __syncthreads();
-  load_a<HD>(qa, qs, warp, lane);
+  load_a<HD>(qa, ks, warp, lane);
   __syncthreads();
-  load_rows<HD>(qs, dout + dimg, q0, n_tok, C, S);
+  load_rows<HD>(ks, dout + dimg, q0, n_tok, C, S, hd);
   __syncthreads();
-  load_a<HD>(da, qs, warp, lane);
+  load_a<HD>(da, ks, warp, lane);
 
   // lse of rows g and g + 8 in log2 units; +inf past n_tok makes P = 0
   float lse2[2];
@@ -97,8 +504,8 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   float D[2] = {0.f, 0.f};
   for (int k0 = 0; k0 < n_tok; k0 += kTile) {
     __syncthreads();
-    load_rows<HD>(ks, k + img, k0, n_tok, ld, S);
-    load_rows<HD>(vs, v + img, k0, n_tok, ld, S);
+    load_rows<HD>(ks, k + img, k0, n_tok, ld, S, hd);
+    load_rows<HD>(vs, v + img, k0, n_tok, ld, S, hd);
     __syncthreads();
     if (!busy) continue;
     tile_scores<HD>(s, qa, ks, lane, k0, n_tok, scale_log2);
@@ -118,8 +525,8 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int d = 0; d < HD / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
   for (int k0 = 0; k0 < n_tok; k0 += kTile) {
     __syncthreads();
-    load_rows<HD>(ks, k + img, k0, n_tok, ld, S);
-    load_rows<HD>(vs, v + img, k0, n_tok, ld, S);
+    load_rows<HD>(ks, k + img, k0, n_tok, ld, S, hd);
+    load_rows<HD>(vs, v + img, k0, n_tok, ld, S, hd);
     __syncthreads();
     if (!busy) continue;
     tile_scores<HD>(s, qa, ks, lane, k0, n_tok, scale_log2);
@@ -139,8 +546,8 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   if (!busy) return;
-  store_rows<HD>(dq + h * HD, acc, scale, (long long)b * n_tok,
-                 q0 + warp * 16, n_tok, C, lane);
+  store_rows<HD>(dq + (long long)h * hd, acc, scale, (long long)b * n_tok,
+                 q0 + warp * 16, n_tok, C, lane, hd);
   if (tq == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -160,7 +567,7 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const float* __restrict__ dsum,
                              __nv_bfloat16* __restrict__ dk,
                              __nv_bfloat16* __restrict__ dv, int n_tok,
-                             int heads, long long ld, float scale,
+                             int heads, int hd, long long ld, float scale,
                              float scale_log2) {
   constexpr int S = HD + 8;
   __shared__ __align__(16) __nv_bfloat16 qs[kTile * S];
@@ -171,16 +578,16 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tq = lane & 3;
-  const int C = heads * HD;
+  const int C = heads * hd;
   const bool busy = k0 + warp * 16 < n_tok;
-  const long long img = (long long)b * n_tok * ld + (long long)h * HD;
-  const long long dimg = (long long)b * n_tok * C + (long long)h * HD;
+  const long long img = (long long)b * n_tok * ld + (long long)h * hd;
+  const long long dimg = (long long)b * n_tok * C + (long long)h * hd;
   const long long lrow = ((long long)b * heads + h) * n_tok;
 
   // A fragments of this warp's 16 key rows of k and of v
   uint32_t ka[HD / 16][4], va[HD / 16][4];
-  load_rows<HD>(qs, k + img, k0, n_tok, ld, S);
-  load_rows<HD>(dos, v + img, k0, n_tok, ld, S);
+  load_rows<HD>(qs, k + img, k0, n_tok, ld, S, hd);
+  load_rows<HD>(dos, v + img, k0, n_tok, ld, S, hd);
   __syncthreads();
   load_a<HD>(ka, qs, warp, lane);
   load_a<HD>(va, dos, warp, lane);
@@ -195,8 +602,8 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   uint32_t a[kTile / 16][4];
   for (int q0 = 0; q0 < n_tok; q0 += kTile) {
     __syncthreads();
-    load_rows<HD>(qs, q + img, q0, n_tok, ld, S);
-    load_rows<HD>(dos, dout + dimg, q0, n_tok, C, S);
+    load_rows<HD>(qs, q + img, q0, n_tok, ld, S, hd);
+    load_rows<HD>(dos, dout + dimg, q0, n_tok, C, S, hd);
     for (int i = threadIdx.x; i < kTile; i += kTcThreads) {
       const int row = q0 + i;
       lse_s[i] = row < n_tok ? lse[lrow + row] * kLog2e : INFINITY;
@@ -230,8 +637,10 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   if (!busy) return;
   const long long row_base = (long long)b * n_tok;
-  store_rows<HD>(dk + h * HD, dk_acc, scale, row_base, k0 + warp * 16, n_tok, C, lane);
-  store_rows<HD>(dv + h * HD, dv_acc, 1.f, row_base, k0 + warp * 16, n_tok, C, lane);
+  store_rows<HD>(dk + (long long)h * hd, dk_acc, scale, row_base, k0 + warp * 16,
+                 n_tok, C, lane, hd);
+  store_rows<HD>(dv + (long long)h * hd, dv_acc, 1.f, row_base, k0 + warp * 16,
+                 n_tok, C, lane, hd);
 }
 
 // ---------------------------------------------------------------------------
@@ -243,7 +652,7 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict
                             const float* __restrict__ v,
                             const float* __restrict__ dout,
                             const float* __restrict__ lse, float* __restrict__ dq,
-                            float* __restrict__ dsum, int n_tok, int heads,
+                            float* __restrict__ dsum, int n_tok, int heads, int hd,
                             long long ld, float scale) {
   constexpr int BK = kTileElems / HD;
   __shared__ __align__(16) float ks[kTileElems];
@@ -252,24 +661,24 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict
   const int h = blockIdx.y, b = blockIdx.z;
   const int t = blockIdx.x * kBQ + threadIdx.x;
   const bool active = t < n_tok;
-  const int C = heads * HD;
-  const long long img = (long long)b * n_tok * ld + (long long)h * HD;
-  const long long drow = ((long long)b * n_tok + t) * C + (long long)h * HD;
+  const int C = heads * hd;
+  const long long img = (long long)b * n_tok * ld + (long long)h * hd;
+  const long long drow = ((long long)b * n_tok + t) * C + (long long)h * hd;
   const long long lrow = ((long long)b * heads + h) * n_tok;
 
   float qr[HD], dor[HD];
 #pragma unroll
   for (int d = 0; d < HD; ++d) {
-    qr[d] = active ? q[img + (long long)t * ld + d] : 0.f;
-    dor[d] = active ? dout[drow + d] : 0.f;
+    qr[d] = active && d < hd ? q[img + (long long)t * ld + d] : 0.f;
+    dor[d] = active && d < hd ? dout[drow + d] : 0.f;
   }
   const float l = active ? lse[lrow + t] : 0.f;
 
   // sweep 1: D = sum_k P * dp
   float D = 0.f;
   for (int k0 = 0; k0 < n_tok; k0 += BK) {
-    load_tile_f32<HD>(ks, k + img, k0, n_tok, ld);
-    load_tile_f32<HD>(vs, v + img, k0, n_tok, ld);
+    load_tile_f32<HD>(ks, k + img, k0, n_tok, ld, hd);
+    load_tile_f32<HD>(vs, v + img, k0, n_tok, ld, hd);
     __syncthreads();
     const int nk = min(BK, n_tok - k0);
     if (active) {
@@ -286,8 +695,8 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict
 #pragma unroll
   for (int d = 0; d < HD; ++d) acc[d] = 0.f;
   for (int k0 = 0; k0 < n_tok; k0 += BK) {
-    load_tile_f32<HD>(ks, k + img, k0, n_tok, ld);
-    load_tile_f32<HD>(vs, v + img, k0, n_tok, ld);
+    load_tile_f32<HD>(ks, k + img, k0, n_tok, ld, hd);
+    load_tile_f32<HD>(vs, v + img, k0, n_tok, ld, hd);
     __syncthreads();
     const int nk = min(BK, n_tok - k0);
     if (active) {
@@ -311,12 +720,21 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict
 
   if (active) {
 #pragma unroll
-    for (int d = 0; d < HD; ++d) dq[drow + d] = acc[d] * scale;
+    for (int d = 0; d < HD; ++d)
+      if (d < hd) dq[drow + d] = acc[d] * scale;
     dsum[lrow + t] = D;
   }
 }
 
 constexpr int kBQT = 16;  // query rows per shared tile of the fp32 dk/dv kernel
+
+// dynamic shared memory of the fp32 dk/dv kernel (floats): the block's own
+// key rows of k and v (padded: thread t reads row t conflict-free), a tile
+// of q and do rows, and their lse and D
+template <int HD>
+constexpr int dkdv_f32_smem() {
+  return 2 * kBQ * (HD + 1) + 2 * kBQT * HD + 2 * kBQT;
+}
 
 template <int HD>
 __global__ void __launch_bounds__(kBQ)
@@ -327,27 +745,31 @@ attention_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                               const float* __restrict__ lse,
                               const float* __restrict__ dsum,
                               float* __restrict__ dk, float* __restrict__ dv,
-                              int n_tok, int heads, long long ld, float scale) {
-  constexpr int P = HD + 1;  // padded rows: thread t reads row t conflict-free
-  __shared__ float kown[kBQ * P];
-  __shared__ float vown[kBQ * P];
-  __shared__ __align__(16) float qs[kBQT * HD];
-  __shared__ __align__(16) float dos[kBQT * HD];
-  __shared__ float lse_s[kBQT], d_s[kBQT];
+                              int n_tok, int heads, int hd, long long ld,
+                              float scale) {
+  constexpr int P = HD + 1;
+  extern __shared__ __align__(16) float smem_f[];
+  float* qs = smem_f;                  // kBQT x HD (16-byte aligned first)
+  float* dos = qs + kBQT * HD;
+  float* kown = dos + kBQT * HD;       // kBQ x P
+  float* vown = kown + kBQ * P;
+  float* lse_s = vown + kBQ * P;       // kBQT
+  float* d_s = lse_s + kBQT;
 
   const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * kBQ;
   const int t = k0 + threadIdx.x;
   const bool active = t < n_tok;
-  const int C = heads * HD;
-  const long long img = (long long)b * n_tok * ld + (long long)h * HD;
-  const long long dimg = (long long)b * n_tok * C + (long long)h * HD;
+  const int C = heads * hd;
+  const long long img = (long long)b * n_tok * ld + (long long)h * hd;
+  const long long dimg = (long long)b * n_tok * C + (long long)h * hd;
   const long long lrow = ((long long)b * heads + h) * n_tok;
 
   for (int e = threadIdx.x; e < kBQ * HD; e += kBQ) {
     const int r = e / HD, c = e - r * HD;
     const int row = k0 + r;
-    kown[r * P + c] = row < n_tok ? k[img + (long long)row * ld + c] : 0.f;
-    vown[r * P + c] = row < n_tok ? v[img + (long long)row * ld + c] : 0.f;
+    const bool ok = row < n_tok && c < hd;
+    kown[r * P + c] = ok ? k[img + (long long)row * ld + c] : 0.f;
+    vown[r * P + c] = ok ? v[img + (long long)row * ld + c] : 0.f;
   }
 
   float dk_acc[HD], dv_acc[HD];
@@ -361,8 +783,9 @@ attention_bwd_dkdv_f32_kernel(const float* __restrict__ q,
     for (int e = threadIdx.x; e < kBQT * HD; e += kBQ) {
       const int r = e / HD, c = e - r * HD;
       const int row = q0 + r;
-      qs[e] = row < n_tok ? q[img + (long long)row * ld + c] : 0.f;
-      dos[e] = row < n_tok ? dout[dimg + (long long)row * C + c] : 0.f;
+      const bool ok = row < n_tok && c < hd;
+      qs[e] = ok ? q[img + (long long)row * ld + c] : 0.f;
+      dos[e] = ok ? dout[dimg + (long long)row * C + c] : 0.f;
     }
     if (threadIdx.x < kBQT) {
       const int row = q0 + threadIdx.x;
@@ -394,59 +817,142 @@ attention_bwd_dkdv_f32_kernel(const float* __restrict__ q,
   }
 
   if (active) {
-    const long long o = ((long long)b * n_tok + t) * C + (long long)h * HD;
+    const long long o = ((long long)b * n_tok + t) * C + (long long)h * hd;
 #pragma unroll
     for (int d = 0; d < HD; ++d) {
-      dk[o + d] = dk_acc[d] * scale;
-      dv[o + d] = dv_acc[d];
+      if (d < hd) {
+        dk[o + d] = dk_acc[d] * scale;
+        dv[o + d] = dv_acc[d];
+      }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
 
+// the four stripe maps of a single-pass kernel: q, k, v and do with their
+// box rows (the strip's 64 or the head's whole padded T)
+template <int HDP>
+bool bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
+              const void* dout, int B, int n_tok, int heads, int hd, long long ld,
+              int q_rows, int kv_rows) {
+  const int C = heads * hd;
+  return pdm_hop::stripe_map<HDP>(&m[0], q, B, n_tok, heads, hd, ld, q_rows) &&
+         pdm_hop::stripe_map<HDP>(&m[1], k, B, n_tok, heads, hd, ld, kv_rows) &&
+         pdm_hop::stripe_map<HDP>(&m[2], v, B, n_tok, heads, hd, ld, kv_rows) &&
+         pdm_hop::stripe_map<HDP>(&m[3], dout, B, n_tok, heads, hd, C, q_rows);
+}
+
+template <int HDP, int NC>
+cudaError_t launch_dq_wgmma(const CUtensorMap (&m)[4], const float* lse, void* dq,
+                            float* dsum, int B, int n_tok, int heads, int hd,
+                            float scale, cudaStream_t stream) {
+  using S = pdm_hop::Stripe<HDP>;
+  const int pair_rows = (NC < 2 ? NC : 2) * pdm_hop::kRows;
+  const int items = B * heads * ((NC + 1) / 2);
+  const int stage = 2 * S::bytes(pair_rows) + 2 * S::bytes(NC * pdm_hop::kRows);
+  const pdm_hop::Ring ring = pdm_hop::ring_for(items, stage, 64);
+  const int smem = ring.stages * stage + 1024;
+  auto kernel = attention_bwd_dq_wgmma_kernel<HDP, NC>;
+  cudaError_t err = pdm_hop::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<ring.blocks, pdm_hop::kThreads, smem, stream>>>(
+      m[0], m[1], m[2], m[3], lse, static_cast<__nv_bfloat16*>(dq), dsum, items, n_tok,
+      heads, hd, scale, scale * kLog2e, ring.stages);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, void* dq, float* dsum,
-                      int B, int n_tok, int heads, long long ld, float scale,
+                      int B, int n_tok, int heads, int hd, long long ld, float scale,
                       cudaStream_t stream) {
-  if (dtype == pdm::kBFloat16) {
+  if (dtype == pdm::kBFloat16 && n_tok <= pdm_hop::kMaxTokens) {
+    const int nc = (n_tok + pdm_hop::kRows - 1) / pdm_hop::kRows;
+    const int rows = nc * pdm_hop::kRows, pair_rows = (nc < 2 ? nc : 2) * pdm_hop::kRows;
+    CUtensorMap m[4];
+    if (!bwd_maps<HD>(m, q, k, v, dout, B, n_tok, heads, hd, ld, pair_rows, rows))
+      return cudaErrorInvalidValue;
+    switch (nc) {
+      case 1: return launch_dq_wgmma<HD, 1>(m, lse, dq, dsum, B, n_tok, heads, hd, scale, stream);
+      case 2: return launch_dq_wgmma<HD, 2>(m, lse, dq, dsum, B, n_tok, heads, hd, scale, stream);
+      case 3: return launch_dq_wgmma<HD, 3>(m, lse, dq, dsum, B, n_tok, heads, hd, scale, stream);
+      default: return launch_dq_wgmma<HD, 4>(m, lse, dq, dsum, B, n_tok, heads, hd, scale, stream);
+    }
+  } else if (dtype == pdm::kBFloat16) {
     const dim3 grid((n_tok + kTile - 1) / kTile, heads, B);
     attention_bwd_dq_tc_kernel<HD><<<grid, kTcThreads, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-        lse, static_cast<__nv_bfloat16*>(dq), dsum, n_tok, heads, ld, scale,
+        lse, static_cast<__nv_bfloat16*>(dq), dsum, n_tok, heads, hd, ld, scale,
         scale * kLog2e);
   } else if (dtype == pdm::kFloat32) {
     const dim3 grid((n_tok + kBQ - 1) / kBQ, heads, B);
     attention_bwd_dq_f32_kernel<HD><<<grid, kBQ, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        static_cast<float*>(dq), dsum, n_tok, heads, ld, scale);
+        static_cast<float*>(dq), dsum, n_tok, heads, hd, ld, scale);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
+template <int HDP, int NC>
+cudaError_t launch_dkdv_wgmma(const CUtensorMap (&m)[4], const float* lse,
+                              const float* dsum, void* dk, void* dv, int B, int n_tok,
+                              int heads, int hd, float scale, cudaStream_t stream) {
+  using S = pdm_hop::Stripe<HDP>;
+  const int pair_rows = (NC < 2 ? NC : 2) * pdm_hop::kRows;
+  const int items = B * heads * ((NC + 1) / 2);
+  const int stage = 2 * S::bytes(pair_rows) + 2 * S::bytes(NC * pdm_hop::kRows);
+  const pdm_hop::Ring ring =
+      pdm_hop::ring_for(items, stage, 2 * pdm_hop::kMaxTokens * 4 + 64);
+  const int smem = ring.stages * stage + 1024;
+  auto kernel = attention_bwd_dkdv_wgmma_kernel<HDP, NC>;
+  cudaError_t err = pdm_hop::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<ring.blocks, pdm_hop::kThreads, smem, stream>>>(
+      m[0], m[1], m[2], m[3], lse, dsum, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), items, n_tok, heads, hd, scale, scale * kLog2e,
+      ring.stages);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch_dkdv(int dtype, const void* q, const void* k, const void* v,
                         const void* dout, const float* lse, const float* dsum,
-                        void* dk, void* dv, int B, int n_tok, int heads,
+                        void* dk, void* dv, int B, int n_tok, int heads, int hd,
                         long long ld, float scale, cudaStream_t stream) {
-  if (dtype == pdm::kBFloat16) {
+  if (dtype == pdm::kBFloat16 && n_tok <= pdm_hop::kMaxTokens) {
+    const int nc = (n_tok + pdm_hop::kRows - 1) / pdm_hop::kRows;
+    const int rows = nc * pdm_hop::kRows, pair_rows = (nc < 2 ? nc : 2) * pdm_hop::kRows;
+    CUtensorMap m[4];
+    if (!bwd_maps<HD>(m, q, k, v, dout, B, n_tok, heads, hd, ld, rows, pair_rows))
+      return cudaErrorInvalidValue;
+    switch (nc) {
+      case 1: return launch_dkdv_wgmma<HD, 1>(m, lse, dsum, dk, dv, B, n_tok, heads, hd, scale, stream);
+      case 2: return launch_dkdv_wgmma<HD, 2>(m, lse, dsum, dk, dv, B, n_tok, heads, hd, scale, stream);
+      case 3: return launch_dkdv_wgmma<HD, 3>(m, lse, dsum, dk, dv, B, n_tok, heads, hd, scale, stream);
+      default: return launch_dkdv_wgmma<HD, 4>(m, lse, dsum, dk, dv, B, n_tok, heads, hd, scale, stream);
+    }
+  } else if (dtype == pdm::kBFloat16) {
     const dim3 grid((n_tok + kTile - 1) / kTile, heads, B);
     attention_bwd_dkdv_tc_kernel<HD><<<grid, kTcThreads, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
         lse, dsum, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-        n_tok, heads, ld, scale, scale * kLog2e);
+        n_tok, heads, hd, ld, scale, scale * kLog2e);
   } else if (dtype == pdm::kFloat32) {
     const dim3 grid((n_tok + kBQ - 1) / kBQ, heads, B);
-    attention_bwd_dkdv_f32_kernel<HD><<<grid, kBQ, 0, stream>>>(
+    const int smem = dkdv_f32_smem<HD>() * 4;
+    auto kernel = attention_bwd_dkdv_f32_kernel<HD>;
+    cudaError_t err = pdm_hop::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kBQ, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse, dsum,
-        static_cast<float*>(dk), static_cast<float*>(dv), n_tok, heads, ld, scale);
+        static_cast<float*>(dk), static_cast<float*>(dv), n_tok, heads, hd, ld, scale);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -459,8 +965,10 @@ cudaError_t launch_dkdv(int dtype, const void* q, const void* k, const void* v,
 // (B, T, heads*hd) of the same dtype; lse: contiguous (B, heads, T) fp32
 // from the forward. Writes dq (contiguous, q's dtype) and dsum, the row
 // sums D (B, heads, T) fp32 that pdm_attention_bwd_dkdv reads. dtype:
-// pdm::kFloat32 or pdm::kBFloat16 (bf16: 16-byte aligned stripes). hd: 16,
-// 32 or 64. Returns cudaGetLastError().
+// pdm::kFloat32 or pdm::kBFloat16 (bf16: 16-byte aligned stripes, ld a
+// multiple of 8). hd: a multiple of 8 up to 128. Returns
+// cudaGetLastError() (cudaErrorInvalidValue for an unsupported argument or
+// a tensor map cuTensorMapEncodeTiled refuses).
 extern "C" int pdm_attention_bwd_dq(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, void* dq,
                                     void* dsum, int B, int n_tok, int heads,
@@ -470,11 +978,16 @@ extern "C" int pdm_attention_bwd_dq(const void* q, const void* k, const void* v,
   auto* l = static_cast<const float*>(lse);
   auto* D = static_cast<float*>(dsum);
   cudaError_t err;
-  switch (hd) {
-    case 16: err = launch_dq<16>(dtype, q, k, v, dout, l, dq, D, B, n_tok, heads, ld, scale, s); break;
-    case 32: err = launch_dq<32>(dtype, q, k, v, dout, l, dq, D, B, n_tok, heads, ld, scale, s); break;
-    case 64: err = launch_dq<64>(dtype, q, k, v, dout, l, dq, D, B, n_tok, heads, ld, scale, s); break;
-    default: err = cudaErrorInvalidValue;
+  if (hd < 8 || hd > 128 || hd % 8) {
+    err = cudaErrorInvalidValue;
+  } else if (hd <= 16) {
+    err = launch_dq<16>(dtype, q, k, v, dout, l, dq, D, B, n_tok, heads, hd, ld, scale, s);
+  } else if (hd <= 32) {
+    err = launch_dq<32>(dtype, q, k, v, dout, l, dq, D, B, n_tok, heads, hd, ld, scale, s);
+  } else if (hd <= 64) {
+    err = launch_dq<64>(dtype, q, k, v, dout, l, dq, D, B, n_tok, heads, hd, ld, scale, s);
+  } else {
+    err = launch_dq<128>(dtype, q, k, v, dout, l, dq, D, B, n_tok, heads, hd, ld, scale, s);
   }
   return static_cast<int>(err);
 }
@@ -491,11 +1004,16 @@ extern "C" int pdm_attention_bwd_dkdv(const void* q, const void* k,
   auto* l = static_cast<const float*>(lse);
   auto* D = static_cast<const float*>(dsum);
   cudaError_t err;
-  switch (hd) {
-    case 16: err = launch_dkdv<16>(dtype, q, k, v, dout, l, D, dk, dv, B, n_tok, heads, ld, scale, s); break;
-    case 32: err = launch_dkdv<32>(dtype, q, k, v, dout, l, D, dk, dv, B, n_tok, heads, ld, scale, s); break;
-    case 64: err = launch_dkdv<64>(dtype, q, k, v, dout, l, D, dk, dv, B, n_tok, heads, ld, scale, s); break;
-    default: err = cudaErrorInvalidValue;
+  if (hd < 8 || hd > 128 || hd % 8) {
+    err = cudaErrorInvalidValue;
+  } else if (hd <= 16) {
+    err = launch_dkdv<16>(dtype, q, k, v, dout, l, D, dk, dv, B, n_tok, heads, hd, ld, scale, s);
+  } else if (hd <= 32) {
+    err = launch_dkdv<32>(dtype, q, k, v, dout, l, D, dk, dv, B, n_tok, heads, hd, ld, scale, s);
+  } else if (hd <= 64) {
+    err = launch_dkdv<64>(dtype, q, k, v, dout, l, D, dk, dv, B, n_tok, heads, hd, ld, scale, s);
+  } else {
+    err = launch_dkdv<128>(dtype, q, k, v, dout, l, D, dk, dv, B, n_tok, heads, hd, ld, scale, s);
   }
   return static_cast<int>(err);
 }

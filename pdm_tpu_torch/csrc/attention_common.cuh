@@ -1,7 +1,10 @@
-// Building blocks shared by the attention kernels (attention.cu, forward;
-// attention_bwd.cu, backward): tensor-core fragments through ldmatrix and
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate), tile loads of one head's
-// column stripe into shared memory, and the fp32 CUDA-core helpers.
+// Building blocks shared by the two-pass attention kernels (attention.cu,
+// forward; attention_bwd.cu, backward; T > 256, and fp32): tensor-core
+// fragments through ldmatrix and mma.sync m16n8k16 (bf16 in, fp32
+// accumulate), tile loads of one head's column stripe into shared memory
+// (zero-padded from the head dim hd to the instantiated HD), and the fp32
+// CUDA-core helpers. The single-pass Hopper kernels' blocks are in
+// attention_hopper.cuh.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, tq = lane % 4):
 //   A (16x16, row-major): a[0] row g, cols 2tq..2tq+1; a[1] row g+8, same
@@ -58,20 +61,21 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// Rows [row0, row0 + kTile) of one head stripe (HD bf16 each, rows `ld`
-// apart) into shared memory rows `stride` elements apart; rows past n_tok
-// are zero. 16-byte loads: the wrapper checks the alignment.
+// Rows [row0, row0 + kTile) of one head stripe (hd bf16 each, rows `ld`
+// apart) into shared memory rows `stride` elements apart, zero-padded to HD
+// columns; rows past n_tok are zero. 16-byte loads: the wrapper checks the
+// alignment (hd is a multiple of 8).
 template <int HD>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
                                           const __nv_bfloat16* __restrict__ src,
                                           int row0, int n_tok, long long ld,
-                                          int stride) {
+                                          int stride, int hd = HD) {
   constexpr int kVecs = HD / 8;  // uint4 per row
   for (int e = threadIdx.x; e < kTile * kVecs; e += kTcThreads) {
     const int r = e / kVecs, c = e - r * kVecs;
     const int row = row0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n_tok)
+    if (row < n_tok && c * 8 < hd)
       val = *reinterpret_cast<const uint4*>(src + (long long)row * ld + c * 8);
     *reinterpret_cast<uint4*>(dst + r * stride + c * 8) = val;
   }
@@ -165,12 +169,14 @@ __device__ __forceinline__ void tile_product(float (&acc)[HD / 8][4],
 }
 
 // Rows g and g + 8 of a 16 x HD accumulator, times `mul`, as bf16 into the
-// contiguous (B, T, heads*HD) tensor `out` at token rows row_base + {g, g+8}.
+// contiguous (B, T, C) tensor `out` at token rows row_base + {g, g+8};
+// columns past hd are padding and are not written.
 template <int HD>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
                                            const float (&acc)[HD / 8][4],
                                            float mul, long long row_base,
-                                           int row0, int n_tok, int C, int lane) {
+                                           int row0, int n_tok, int C, int lane,
+                                           int hd = HD) {
   const int g = lane >> 2, tq = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -179,8 +185,9 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
     __nv_bfloat16* o = out + (row_base + row) * C;
 #pragma unroll
     for (int d = 0; d < HD / 8; ++d)
-      *reinterpret_cast<uint32_t*>(o + d * 8 + 2 * tq) =
-          pack_bf16(acc[d][2 * r] * mul, acc[d][2 * r + 1] * mul);
+      if (d * 8 < hd)
+        *reinterpret_cast<uint32_t*>(o + d * 8 + 2 * tq) =
+            pack_bf16(acc[d][2 * r] * mul, acc[d][2 * r + 1] * mul);
   }
 }
 
@@ -200,16 +207,18 @@ __device__ __forceinline__ float quad_sum(float v) {
 constexpr int kBQ = 64;           // rows (threads) per block
 constexpr int kTileElems = 4096;  // elements per shared-memory tile
 
-// rows [k0, k0 + kTileElems / HD) of one head stripe into a dense tile
+// rows [k0, k0 + kTileElems / HD) of one head stripe (hd columns) into a
+// dense tile of HD columns, zero-padded
 template <int HD>
 __device__ __forceinline__ void load_tile_f32(float* dst,
                                               const float* __restrict__ src,
-                                              int k0, int n_tok, long long ld) {
+                                              int k0, int n_tok, long long ld,
+                                              int hd = HD) {
   constexpr int BK = kTileElems / HD;
   for (int e = threadIdx.x; e < BK * HD; e += kBQ) {
     const int r = e / HD, c = e - r * HD;
     const int row = k0 + r;
-    dst[e] = row < n_tok ? src[(long long)row * ld + c] : 0.f;
+    dst[e] = row < n_tok && c < hd ? src[(long long)row * ld + c] : 0.f;
   }
 }
 

@@ -5,5 +5,5 @@ from .predictions import (
     training_target as training_target,
 )
 from .unet import UNet2D as UNet2D, unet_from_config as unet_from_config
-from .unet_ddpm import UNetDDPM as UNetDDPM
+from .unet_ddpm import UNetDDPM as UNetDDPM, init_unet_ddpm as init_unet_ddpm
 from .weights import from_flax_params as from_flax_params

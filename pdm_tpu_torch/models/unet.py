@@ -15,10 +15,13 @@ embedding MLP run in fp32; GroupNorm output is cast to ``dtype``; the
 network's output is fp32. Activations are NCHW tensors in
 ``torch.channels_last`` memory, so ``x.permute(0, 2, 3, 1).reshape(B, H*W,
 C)`` is a view and both kernels (``ops/groupnorm.py``, ``ops/attention.py``)
-read the same (B, S, C) memory the JAX kernels read. With
-``PDM_FUSED_BLOCK=1`` (opt-in, as in the JAX package) an attention block
-runs ``ops/attention_block.py``'s whole-block kernel instead of its
-projections, attention kernel and residual add.
+read the same (B, S, C) memory the JAX kernels read. An attention block
+runs the attention kernel inside JAX's geometry gate
+(``ops.attention.use_fused_attention``) and JAX's XLA-branch computation
+outside it (one head of 256 channels, say). With ``PDM_FUSED_BLOCK=1``
+(opt-in, as in the JAX package) an attention block whose shape the
+whole-block kernels take runs ``ops/attention_block.py``'s kernel instead
+of its projections, attention and residual add.
 
 The model takes continuous ``tau in [0, 1]``. It is differentiable: both
 kernels carry their own backward kernels (``autograd.Function``s in
@@ -43,9 +46,11 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 
 from ..core.device import DeviceLike, resolve_device
-from ..ops.attention import fused_spatial_attention
+from ..ops.attention import (
+    attention_reference, fused_spatial_attention, use_fused_attention,
+)
 from ..ops.attention_block import (
-    fused_attention_block, use_fused_attention_block,
+    fused_attention_block, kernels_take, use_fused_attention_block,
 )
 from ..ops.groupnorm import fused_group_norm_act
 
@@ -188,11 +193,14 @@ class AttentionBlock(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         _, C, H, W = x.shape
+        T = H * W
         h = _to_bsc(self.group_norm(x))
-        if use_fused_attention_block(H * W, C, self.heads):
+        if (use_fused_attention_block(T, C, self.heads)
+                and kernels_take(T, C, self.heads)):
             # the opt-in whole-block kernel (PDM_FUSED_BLOCK=1): projections,
             # attention, out projection and residual in one call, the
-            # weights read in place
+            # weights read in place; a shape its kernels do not take runs
+            # the standard path below
             proj = self.to_out[0]
             out = fused_attention_block(
                 _to_bsc(x), h, self.to_q.weight, self.to_k.weight,
@@ -205,7 +213,12 @@ class AttentionBlock(nn.Module):
         w_qkv = torch.cat([self.to_q.weight, self.to_k.weight, self.to_v.weight])
         b_qkv = torch.cat([self.to_q.bias, self.to_k.bias, self.to_v.bias])
         q, k, v = F.linear(h, w_qkv, b_qkv).split(C, dim=-1)
-        out = fused_spatial_attention(q, k, v, self.heads, self.scale)
+        if use_fused_attention(T, C, self.heads):
+            out = fused_spatial_attention(q, k, v, self.heads, self.scale)
+        else:
+            # JAX's XLA branch (pdm_tpu/models/unet.py:238-254): fp32
+            # logits and softmax, P cast to the module dtype, P v in it
+            out = attention_reference(q, k, v, self.heads, self.scale)
         out = self.to_out[0](out)  # to_out.1 is diffusers' Dropout(0.0)
         return x + _from_bsc(out, H, W)
 

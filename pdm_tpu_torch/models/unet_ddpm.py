@@ -9,20 +9,30 @@ The module starts in eval mode (the JAX forward's ``deterministic=True``);
 the trainer switches it with :meth:`UNetDDPM.train` and back with
 :meth:`UNetDDPM.eval`, and builds the EMA model for its eval hook with
 :meth:`UNetDDPM.with_params`.
+
+:func:`init_unet_ddpm` starts a UNet from flax's initialisation, as the
+JAX ``init_unet_ddpm`` does, in place of torch's layer defaults.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Mapping
+import math
+from typing import Mapping, Sequence
 
 import torch
-from torch import Tensor
+from torch import Tensor, nn
 
 from ..core.device import DeviceLike, resolve_device
 from ..schedulers.base import Scheduler
 from .base import DDPM
-from .unet import UNet2D
+from .unet import GroupNormAct, UNet2D
+
+# flax's lecun_normal (variance_scaling(1, "fan_in", "truncated_normal")):
+# a normal truncated at +-2 sigma', with sigma' = sqrt(1 / fan_in) divided
+# by the std of a unit normal truncated at +-2, so the draws' std is
+# sqrt(1 / fan_in)
+TRUNCATED_NORMAL_STD = 0.87962566103423978
 
 
 class UNetDDPM(DDPM):
@@ -67,3 +77,59 @@ class UNetDDPM(DDPM):
         module.load_state_dict(params)
         return UNetDDPM(self.scheduler, module, self.parametrization,
                         self.tau_scale, device=self.device)
+
+
+def lecun_sigma(weight: Tensor) -> float:
+    """sigma' of flax's lecun_normal for an ``nn.Linear`` (C_out, C_in) or
+    ``nn.Conv2d`` (C_out, C_in, kh, kw) weight: fan_in = C_in kh kw."""
+    fan_in = weight[0].numel()
+    return math.sqrt(1.0 / fan_in) / TRUNCATED_NORMAL_STD
+
+
+@torch.no_grad()
+def init_unet_ddpm(
+    generator: torch.Generator,
+    scheduler: Scheduler,
+    module: UNet2D,
+    obj_size: Sequence[int],
+    parametrization: str = "eps",
+) -> UNetDDPM:
+    """Counterpart of the JAX ``init_unet_ddpm``: re-initialise every
+    parameter of ``module`` with flax's defaults, drawn from ``generator``
+    in ``named_parameters`` order, and wrap it in a :class:`UNetDDPM` on
+    the module's device.
+
+    Conv and linear weights: lecun-normal (a normal truncated at
+    +-2 sigma', sigma' = sqrt(1 / fan_in) / 0.8796...); their biases 0;
+    GroupNorm scale 1 and bias 0. The draws are made in fp32 on the
+    generator's device and cast to each parameter's dtype and device, so a
+    CPU generator gives the same weights to a module on the card.
+    ``obj_size`` is (C, H, W) of an object, checked against the module's
+    input channels (the JAX version runs a dummy forward at that size).
+    """
+    if len(obj_size) != 3 or obj_size[0] != module.conv_in.in_channels:
+        raise ValueError(f"obj_size {tuple(obj_size)} is not (C, H, W) with "
+                         f"C = {module.conv_in.in_channels}")
+    kernels, zeros, ones = set(), set(), set()
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            kernels.add(m.weight)
+            zeros.add(m.bias)
+        elif isinstance(m, GroupNormAct):
+            ones.add(m.weight)
+            zeros.add(m.bias)
+    for name, p in module.named_parameters():
+        if p in kernels:
+            sigma = lecun_sigma(p)
+            w = torch.empty(p.shape, dtype=torch.float32, device=generator.device)
+            nn.init.trunc_normal_(w, 0.0, sigma, -2.0 * sigma, 2.0 * sigma,
+                                  generator=generator)
+            p.copy_(w)
+        elif p in zeros:
+            p.zero_()
+        elif p in ones:
+            p.fill_(1.0)
+        else:
+            raise ValueError(f"no flax initialiser for parameter {name}")
+    device = next(module.parameters()).device
+    return UNetDDPM(scheduler, module, parametrization, device=device)

@@ -3,6 +3,7 @@ from .attention import (
     attention_bwd_reference as attention_bwd_reference,
     attention_reference as attention_reference,
     fused_spatial_attention as fused_spatial_attention,
+    use_fused_attention as use_fused_attention,
 )
 from .attention_block import (
     attention_block_bwd as attention_block_bwd,

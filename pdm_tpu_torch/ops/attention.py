@@ -12,7 +12,14 @@ never fall back from one to the other.
 Layout is the JAX package's: q, k, v are (B, T, C) with C = heads * hd,
 read as per-head column stripes. They may be the column thirds of one
 fused (B, T, 3C) qkv projection (token rows 3C apart); the kernels read
-them in place.
+them in place. The kernels take every head dim that is a multiple of 8 up
+to ``KERNEL_MAX_HEAD_DIM`` (128); in bf16 at T <= 256 (every flagship
+shape) the launcher picks the single-pass wgmma kernels, at longer rows
+the two-pass ones.
+
+:func:`use_fused_attention` is the JAX package's geometry gate; the UNet's
+attention block calls the kernel inside it and runs the plain computation
+(:func:`attention_reference`, JAX's XLA branch) outside it.
 
 When grad is enabled and an input requires it, the call goes through an
 ``autograd.Function`` whose forward saves q, k, v and the per-row
@@ -33,10 +40,15 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 
-# head dims the kernels are instantiated for (q fragments and the output
-# accumulator live in registers, so hd is a template parameter; the bf16
-# tensor-core kernel works in 16-wide slices of hd)
-KERNEL_HEAD_DIMS = (16, 32, 64)
+# pdm_tpu/ops/attention.py:45-46, the geometry the JAX gate admits
+MAX_FUSED_TOKENS = 1024
+MAX_FUSED_SCORE_CELLS = 1 << 21  # heads * T * T
+
+# the kernels take any head dim that is a multiple of 8 up to this bound:
+# they zero-pad it to the instantiated width of 16, 32, 64 or 128 (the
+# fragments and accumulators live in registers, so the width is a template
+# parameter)
+KERNEL_MAX_HEAD_DIM = 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -65,6 +77,23 @@ def _reference_with_lse(q, k, v, heads, scale) -> Tuple[Tensor, Tensor]:
     return out.transpose(1, 2).reshape(B, T, C), lse
 
 
+def use_fused_attention(T: int, C: int, heads: int) -> bool:
+    """The JAX gate's geometry (``pdm_tpu/ops/attention.py:309-323``) and
+    the kernels' head-dim bound: T <= 1024, heads * T^2 <= 2^21, the head
+    dim a multiple of 8 up to 128, T a multiple of 8. The JAX gate's
+    ``PDM_FUSED_ATTN`` opt-out and its TPU-backend condition have no
+    counterpart: the tensors' device chooses between kernel and plain
+    version."""
+    return (
+        T <= MAX_FUSED_TOKENS
+        and heads * T * T <= MAX_FUSED_SCORE_CELLS
+        and C % heads == 0
+        and (C // heads) % 8 == 0
+        and C // heads <= KERNEL_MAX_HEAD_DIM
+        and T % 8 == 0
+    )
+
+
 def _check(q: Tensor, k: Tensor, v: Tensor, heads: int) -> int:
     """Validate a kernel call; returns the shared token-row stride."""
     if not (q.shape == k.shape == v.shape) or q.ndim != 3:
@@ -76,9 +105,9 @@ def _check(q: Tensor, k: Tensor, v: Tensor, heads: int) -> int:
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     B, T, C = q.shape
-    if C % heads or C // heads not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim C/heads = {C}/{heads} not in "
-                         f"{KERNEL_HEAD_DIMS}")
+    if C % heads or (C // heads) % 8 or not 0 < C // heads <= KERNEL_MAX_HEAD_DIM:
+        raise ValueError(f"head dim C/heads = {C}/{heads}: the kernels take "
+                         f"multiples of 8 up to {KERNEL_MAX_HEAD_DIM}")
     ld = q.stride(1)
     for t in (q, k, v):
         if t.stride(2) != 1 or t.stride(1) != ld or t.stride(0) != T * ld:
@@ -89,9 +118,10 @@ def _check(q: Tensor, k: Tensor, v: Tensor, heads: int) -> int:
         raise ValueError(f"token-row stride {ld} < C = {C}")
     if q.dtype == torch.bfloat16 and (
             ld % 8 or any(t.data_ptr() % 16 for t in (q, k, v))):
-        raise ValueError("bf16 q, k, v are read in 16-byte vectors: they need "
-                         "16-byte aligned storage and a token-row stride that "
-                         f"is a multiple of 8 (stride {ld})")
+        raise ValueError("bf16 q, k, v are read in 16-byte vectors and TMA "
+                         "boxes: they need 16-byte aligned storage and a "
+                         "token-row stride that is a multiple of 8 (stride "
+                         f"{ld})")
     return ld
 
 

@@ -39,10 +39,7 @@ from torch import Tensor
 from torch.autograd.function import once_differentiable
 
 from . import _build
-
-# pdm_tpu/ops/attention.py:45-46, the geometry the JAX gate admits
-MAX_FUSED_TOKENS = 1024
-MAX_FUSED_SCORE_CELLS = 1 << 21
+from .attention import MAX_FUSED_SCORE_CELLS, MAX_FUSED_TOKENS
 
 # what the kernels take: head dims they are instantiated for, at most 8
 # heads (one thread-block cluster per image, one block per head), and at
@@ -342,13 +339,22 @@ def fused_attention_block(
                     heads, scale)[0]
 
 
+def kernels_take(T: int, C: int, heads: int) -> bool:
+    """Whether the whole-block kernels take this geometry (``_check``'s
+    shape limits): a head dim of 16, 32 or 64, at most 8 heads, at most
+    256 tokens."""
+    return (C % heads == 0 and C // heads in KERNEL_HEAD_DIMS
+            and heads <= KERNEL_MAX_HEADS and T <= KERNEL_MAX_TOKENS)
+
+
 def use_fused_attention_block(T: int, C: int, heads: int) -> bool:
     """The JAX gate (``use_fused_attention_block``): opt-in through
     ``PDM_FUSED_BLOCK=1``, read at every call, and the geometry the TPU
     kernel admits. The JAX gate's "TPU backend" condition has no
     counterpart: the tensors' device chooses between kernel and plain
-    version, and on CUDA the wrapper raises for a shape the kernels do
-    not take."""
+    version. The gate admits shapes the kernels do not take
+    (:func:`kernels_take`): the UNet's attention block sends those down
+    its standard path, and the wrapper raises for them on CUDA."""
     if os.environ.get("PDM_FUSED_BLOCK", "0") != "1":
         return False
     return (

@@ -5,7 +5,8 @@ held against the JAX package's Pallas kernel in interpret mode (output and
 the per-row logsumexp) at fp32, tolerance 2e-5 — the kernels' own
 interpret-mode tolerance in tests/test_attention.py. The CUDA kernel
 itself is held against the plain version on the card by
-tests/test_torch_cuda.py.
+tests/test_torch_cuda.py. The gate (use_fused_attention) is held against
+the JAX gate's geometry over a grid of shapes.
 """
 
 import jax
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from pdm_tpu.ops import attention as j_attention
 from pdm_tpu.ops.attention import _fsa_call, fused_spatial_attention as j_fsa
 
 from pdm_tpu_torch.ops import attention as ta
@@ -84,15 +86,18 @@ def test_attention_bf16_rounds_probabilities_like_reference():
 def test_attention_kernel_checks_are_enforced():
     q = torch.zeros(2, 16, 64)
     wide = torch.zeros(2, 16, 128)
-    with pytest.raises(ValueError, match="head dim"):
-        ta._check(wide, wide, wide, heads=1)  # hd 128 has no instantiation
+    ta._check(wide, wide, wide, heads=1)  # hd 128: the widest instantiation
     ta._check(q, q, q, heads=2)  # hd 32 is supported
+    ta._check(q, q, q, heads=8)  # hd 8: zero-padded to 16 in the kernels
+    with pytest.raises(ValueError, match="head dim"):
+        ta._check(q, q, q, heads=16)  # hd 4 is not a multiple of 8
+    too_wide = torch.zeros(2, 16, 136)
+    with pytest.raises(ValueError, match="head dim"):
+        ta._check(too_wide, too_wide, too_wide, heads=1)  # hd 136 > 128
     with pytest.raises(ValueError, match="shape"):
         ta._check(q, q, torch.zeros(2, 8, 64), heads=2)
     with pytest.raises(TypeError):
         ta._check(q.double(), q.double(), q.double(), heads=2)
-    with pytest.raises(ValueError, match="head dim"):
-        ta._check(q, q, q, heads=8)  # hd 8: the tensor-core kernel needs 16
     with pytest.raises(ValueError, match="stride"):
         ta._check(q.transpose(0, 1), q.transpose(0, 1), q.transpose(0, 1), 2)
     # bf16 is read in 16-byte vectors: storage off by one element raises
@@ -101,6 +106,25 @@ def test_attention_kernel_checks_are_enforced():
         ta._check(odd, odd, odd, heads=2)
     ta._check(q.bfloat16(), q.bfloat16(), q.bfloat16(), heads=2)
 
+
+
+@pytest.mark.parametrize("hd", [8, 24, 64, 128, 256])
+@pytest.mark.parametrize("T", [8, 16, 256, 1024, 1032])
+def test_gate_agrees_with_jax_geometry(monkeypatch, T, hd):
+    """use_fused_attention is the JAX gate's geometry on a TPU backend
+    (T <= 1024, heads T^2 <= 2^21, head dim and T multiples of 8) and the
+    kernels' bound, head dim <= 128. The head counts put heads T^2 on both
+    sides of 2^21 at T 256 (32 heads: exactly 2^21; 33: above) and T 1024
+    (2: exactly; 4: above)."""
+    monkeypatch.delenv("PDM_FUSED_ATTN", raising=False)
+    monkeypatch.setattr(j_attention.jax, "default_backend", lambda: "tpu")
+    for heads in (1, 2, 4, 32, 33):
+        C = heads * hd
+        want = j_attention.use_fused_attention(T, C, heads) and hd <= 128
+        assert ta.use_fused_attention(T, C, heads) == want, (T, hd, heads)
+    # a channel count that heads do not divide is outside both
+    assert not ta.use_fused_attention(T, 3 * hd + 1, 3)
+    assert not j_attention.use_fused_attention(T, 3 * hd + 1, 3)
 
 
 # backward vs the JAX kernel's VJP: fp32 by summation order (1e-5); bf16

@@ -254,3 +254,46 @@ def test_tiny_unet_with_the_opt_in_matches_jax(monkeypatch):
     assert len(calls) == 4
     scale = float(np.abs(want).max())
     assert float(np.abs(got - want).max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("head_dim", [8, None])
+def test_unet_sends_shapes_the_kernels_refuse_down_the_standard_path(
+        monkeypatch, head_dim):
+    """PDM_FUSED_BLOCK=1 and a geometry the JAX gate admits but the
+    whole-block kernels do not take (8 heads of 8 at C 64; one head of 64
+    is taken): the refused blocks call the standard path's attention and
+    give exactly the output of PDM_FUSED_BLOCK=0."""
+    import pdm_tpu_torch.models.unet as unet_mod
+
+    cfg = {**TINY, "attention_head_dim": head_dim, "block_out_channels": [16, 64]}
+    net = unet_from_config(3, cfg, device="cpu")
+    rng = np.random.RandomState(2)
+    net.load_state_dict({k: torch.from_numpy(
+        (rng.standard_normal(tuple(v.shape)) * 0.1).astype(np.float32))
+        for k, v in net.state_dict().items()})
+    x = torch.from_numpy(rng.standard_normal((2, 3, 16, 16)).astype(np.float32))
+    tau = torch.tensor([0.25, 0.75])
+    taken = tb.kernels_take(64, 64, 8 if head_dim == 8 else 1)
+    assert taken == (head_dim is None)
+    calls = {"block": 0, "attention": 0}
+
+    def spy(key, fn):
+        def call(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return call
+
+    monkeypatch.setattr(unet_mod, "fused_attention_block",
+                        spy("block", unet_mod.fused_attention_block))
+    monkeypatch.setattr(unet_mod, "fused_spatial_attention",
+                        spy("attention", unet_mod.fused_spatial_attention))
+    monkeypatch.setenv("PDM_FUSED_BLOCK", "0")
+    with torch.no_grad():
+        standard = net(x, tau)
+    monkeypatch.setenv("PDM_FUSED_BLOCK", "1")
+    with torch.no_grad():
+        got = net(x, tau)
+    assert calls == ({"block": 4, "attention": 4} if taken
+                     else {"block": 0, "attention": 8})
+    if not taken:
+        assert torch.equal(got, standard)

@@ -100,6 +100,39 @@ def test_attention_kernel_ragged_and_long_rows(cuda_device, T, heads, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [16, 64, 256, 512])
+@pytest.mark.parametrize("hd", list(range(8, 129, 8)))
+def test_attention_kernels_at_every_head_dim(cuda_device, hd, T, dtype):
+    """Rows 1 and 2 at every head dim the kernels take (multiples of 8 up to
+    128, zero-padded to 16, 32, 64 or 128) on the column thirds of one
+    (B, T, 3C) projection: the single-pass bf16 kernels at T 16, 64 and 256,
+    the two-pass ones at 512, fp32 at all four. Forward within one rounding
+    of the output (2^-7; fp32 1e-5), lse 1e-5, gradients to BWD_TOL."""
+    B, heads = 2, 2
+    C = heads * hd
+    g = torch.Generator(device=cuda_device).manual_seed(hd + T)
+    qkv = torch.randn(B, T, 3 * C, generator=g, device=cuda_device).to(dtype)
+    q, k, v = qkv.split(C, dim=-1)
+    do = torch.randn(B, T, C, generator=g, device=cuda_device).to(dtype)
+    scale = 1.0 / np.sqrt(hd)
+    f0, b0 = ta.fused_spatial_attention.launches, ta.attention_bwd.launches
+    out, lse = ta.attention_with_lse(q, k, v, heads, scale)
+    ref, ref_lse = ta._reference_with_lse(q, k, v, heads, scale)
+    got = ta.attention_bwd(q, k, v, lse, do, heads, scale)
+    want = ta.attention_bwd_reference(q, k, v, lse, do, heads, scale)
+    torch.cuda.synchronize()
+    assert ta.fused_spatial_attention.launches == f0 + 1
+    assert ta.attention_bwd.launches == b0 + 2
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == (B, T, C)
+        _assert_close_to_scale(a, b, *BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S,C,act", [
     (1024, 128, "silu"), (1024, 384, "silu"), (256, 512, "silu"),
     (256, 256, "none"), (16, 256, "none"),
@@ -235,6 +268,38 @@ def test_tiny_unet_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,widths,kernel", [
+    (8, [32, 64], True),       # 8 heads of 8
+    (None, [32, 64], True),    # one head of 64
+    (None, [32, 256], False),  # one head of 256: outside the gate
+])
+def test_tiny_unet_head_dims_on_card_match_cpu(cuda_device, head_dim, widths,
+                                               kernel):
+    """attention_head_dim 8 and null in fp32, card against CPU to 1e-4 of
+    the output scale: inside the attention gate each attention block
+    launches row 1 once; a head dim of 256 runs the model's XLA branch on
+    the card, with no row-1 launch."""
+    cfg = {**TINY, "attention_head_dim": head_dim, "block_out_channels": widths}
+    cpu = unet_from_config(3, cfg, device="cpu")
+    rng = np.random.RandomState(5)
+    cpu.load_state_dict({k: torch.from_numpy(
+        (rng.standard_normal(tuple(v.shape)) * 0.1).astype(np.float32))
+        for k, v in cpu.state_dict().items()})
+    card = unet_from_config(3, cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(rng.standard_normal((2, 3, 16, 16)).astype(np.float32))
+    tau = torch.tensor([0.2, 0.9])
+    n_attn = sum(1 for n, _ in card.named_modules() if n.endswith("to_q"))
+    a0 = ta.fused_spatial_attention.launches
+    with torch.no_grad():
+        want = cpu(x, tau)
+        got = card(x.to(cuda_device), tau.to(cuda_device)).cpu()
+    assert ta.fused_spatial_attention.launches - a0 == (n_attn if kernel else 0)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
 def test_tiny_unet_train_step_on_card_matches_cpu(cuda_device):
     """One fp32 train step of a tiny UNet (dropout 0, the same tau and
     eps) on the card (kernels) and on the CPU (plain versions): loss and
@@ -332,22 +397,38 @@ def test_attention_block_kernels_match_plain_on_card(cuda_device, B, T, heads,
 def test_attention_block_gate_raises_for_shapes_the_kernels_do_not_take(
         cuda_device, monkeypatch):
     """With PDM_FUSED_BLOCK=1 the gate opens for any head dim that is a
-    multiple of 8 (as JAX's); on the card a head dim with no kernel
-    instantiation raises instead of falling back to the standard path."""
+    multiple of 8 (as JAX's). The whole-block wrapper still raises on the
+    card for a head dim with no instantiation; the UNet's attention block
+    sends such a shape down its standard path instead (row 1, no row-5
+    launch) and matches the CPU."""
     monkeypatch.setenv("PDM_FUSED_BLOCK", "1")
     for heads, hd in ((1, 128), (8, 8)):
         C = heads * hd
         assert tb.use_fused_attention_block(64, C, heads)
+        assert not tb.kernels_take(64, C, heads)
         x, h, ws, bs, wo, bo = block_inputs(
             torch.Generator(device=cuda_device).manual_seed(0), cuda_device, 2,
             64, C, torch.bfloat16)
         with pytest.raises(ValueError, match="head dim"):
             tb.fused_attention_block(x, h, *ws, bs, wo, bo, heads, 0.1)
-    net = unet_from_config(3, {**TINY, "attention_head_dim": 8},
-                           device=cuda_device)
-    with pytest.raises(ValueError, match="head dim"), torch.no_grad():
-        net(torch.zeros(1, 3, 16, 16, device=cuda_device),
-            torch.zeros(1, device=cuda_device))
+    cfg = {**TINY, "attention_head_dim": 8}
+    cpu = unet_from_config(3, cfg, device="cpu")
+    rng = np.random.RandomState(6)
+    cpu.load_state_dict({k: torch.from_numpy(
+        (rng.standard_normal(tuple(v.shape)) * 0.1).astype(np.float32))
+        for k, v in cpu.state_dict().items()})
+    net = unet_from_config(3, cfg, device=cuda_device)
+    net.load_state_dict(cpu.state_dict())
+    n_attn = sum(1 for n, _ in net.named_modules() if n.endswith("to_q"))
+    x = torch.from_numpy(rng.standard_normal((2, 3, 16, 16)).astype(np.float32))
+    tau = torch.tensor([0.3, 0.6])
+    a0, f0 = ta.fused_spatial_attention.launches, tb.fused_attention_block.launches
+    with torch.no_grad():
+        want = cpu(x, tau)
+        got = net(x.to(cuda_device), tau.to(cuda_device)).cpu()
+    assert ta.fused_spatial_attention.launches - a0 == n_attn
+    assert tb.fused_attention_block.launches == f0
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 @pytest.mark.cuda

@@ -96,6 +96,48 @@ def test_from_flax_params_matches_jax_unet(dtype, tol):
     assert float(np.abs(got - want).max()) <= tol * scale
 
 
+@pytest.mark.parametrize("head_dim,size", [(None, 16), (8, 16), (None, 12),
+                                           (8, 12)])
+def test_attention_head_dims_match_jax_unet(monkeypatch, head_dim, size):
+    """attention_head_dim null (one head of all C channels) and 8, port vs
+    JAX on the CPU in fp32 to 1e-5 of the output scale. At 16x16 the
+    attention blocks' T = 64 is inside the attention gate, so they call
+    fused_spatial_attention (its plain version on CPU tensors); at 12x12
+    T = 36 is not a multiple of 8, so they run the model's XLA branch,
+    as JAX's blocks do."""
+    import pdm_tpu_torch.models.unet as unet_mod
+
+    cfg = {**TINY, "attention_head_dim": head_dim}
+    jnet = dataclasses.replace(j_unet_from_config(3, cfg), norm_groups=4)
+    params = _random_jax_params(jnet, size, seed=5)
+    x, tau = _inputs(2, size, seed=6)
+    want = np.asarray(jax.jit(lambda p, x, t: jnet.apply(
+        {"params": p}, x, t, deterministic=True))(params, jnp.asarray(x),
+                                                  jnp.asarray(tau)))
+    net = unet_from_config(3, {**cfg, "norm_groups": 4}, device="cpu")
+    net.load_state_dict(from_flax_params(params), strict=True)
+    calls = {"kernel": 0, "xla": 0}
+
+    def spy(key, fn):
+        def call(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return call
+
+    monkeypatch.setattr(unet_mod, "fused_spatial_attention",
+                        spy("kernel", unet_mod.fused_spatial_attention))
+    monkeypatch.setattr(unet_mod, "attention_reference",
+                        spy("xla", unet_mod.attention_reference))
+    with torch.no_grad():
+        got = net(torch.from_numpy(x).permute(0, 3, 1, 2),
+                  torch.from_numpy(tau)).permute(0, 2, 3, 1).numpy()
+    assert calls == ({"kernel": 4, "xla": 0} if size == 16
+                     else {"kernel": 0, "xla": 4})
+    scale = float(np.abs(want).max())
+    assert scale > 1e-2
+    assert float(np.abs(got - want).max()) <= 1e-5 * scale
+
+
 def test_unet_ddpm_forward_casts_to_input_dtype():
     """UNetDDPM takes NCHW, broadcasts a scalar tau, and casts the fp32
     network output to xt.dtype (a bf16 rounding point under half

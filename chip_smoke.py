@@ -61,9 +61,11 @@ any error or disagreement:
    (B = 1024 starts, N = 50,000, D = 3072, 32 temperatures) and at edge
    shapes (gmm1d's D = 1 with N = 1e6; high_dim_exp's D = 100, N = 1e5,
    200 temperatures; no tile's multiple; one start), each within a
-   tolerance derived from the Grams' rounding (sweep_logit_error); the
-   kernel in fp32 against one moments pass per temperature; times beside
-   the bound, the plain version and the two Grams alone through cuBLAS.
+   tolerance derived from the Grams' rounding (sweep_logit_error), and
+   two calls bitwise equal; the kernel in fp32 against one moments pass
+   per temperature; times beside the bound, the plain version and the two
+   Grams alone through cuBLAS. fp32 runs the 128-row kernel, the bf16
+   modes the 64-row one (each shape prints its plan).
 9. The statistics main path: thermo_sweep on the card at CIFAR-10 scale
    (fp32, global-floor regularization) with the sweep's launch counter
    zeroed just before and read just after (two launches per batch);
@@ -71,17 +73,22 @@ any error or disagreement:
    device-resident sweep on the same draws; metric_stats with adaptive
    k-NN; the entropy and metric schedules from the sweep (tau -> log_temp
    -> tau on the card and the CPU) and a 10-step DDIM sample of the bf16
-   flagship on each.
+   flagship on each; a warm sweep's wall time against the card's busy
+   time (profiler kernel sum): the idle share.
 10. The single-temperature moments kernel (the analytic denoiser's op)
    against its plain version on the same card inputs, in all three
    precision modes, with the payload (and at the main shape without), at
    CIFAR-10 scale (B = 1000 queries, N = 50,000, D = K = 3072, the data as
    payload) and at high_dim_exp's D = 100, gmm1d's D = 1 with N = 1e6, the
-   MC metric's K = 2D payload and one query at no tile's multiple; queries
-   noised from data points with one temperature per row over the
-   sampler's range. Each within what the Grams' rounding allows
-   (moments_logit_error, moments_check); times beside the bound, the plain
-   version and the Gram and payload products alone through cuBLAS.
+   MC metric's K = 2D payload, one query at no tile's multiple, and the
+   MC metric's K = 2D = 6144 at CIFAR-10's D (above the cluster kernel's
+   threshold); queries noised from data points with one temperature per
+   row over the sampler's range. Each within what the Grams' rounding
+   allows (moments_logit_error, moments_check) and two calls bitwise
+   equal; times beside the bound, the plain version and the Gram and
+   payload products alone through cuBLAS. Each shape prints the kernel its
+   plan chose: tall (fp32), cluster (bf16 modes, K % 4 == 0 up to 3072)
+   or tiled (the bf16 modes' other calls), so all three launch.
 11. The analytic main path: TrueDDPM on LinearBetaScheduler(1e-4,
    2.478e4) over 50,000 CIFAR-shaped points, DDIM 10 steps at batch 1000,
    the moments launch counter zeroed just before and read just after (two
@@ -250,7 +257,11 @@ MOMENTS_MAIN = ("cifar10", 1000, 50_000, 3072, 3072)
 MOMENTS_EDGES = (("high_dim", 1000, 50_000, 100, 100),
                  ("gmm1d", 100, 1_000_000, 1, 1),
                  ("mc_metric", 256, 20_000, 100, 200),
-                 ("edges", 1, 5003, 333, 131))
+                 ("edges", 1, 5003, 333, 131),
+                 # the MC metric's K = 2D payload at CIFAR-10's D: above the
+                 # cluster kernel's K <= 3072, so the bf16 modes run the
+                 # tiled kernel here (ops/boltzmann_kernel.py::kernel_choice)
+                 ("over_threshold", 256, 20_000, 3072, 6144))
 MOMENTS_LOG10_T = (-4.0, math.log10(2.478e4))
 MOMENTS_SUBSET = 64  # rows held against the plain version, over the T range
 # operations per (row, point) of the moments epilogue, as the sweep's
@@ -633,6 +644,11 @@ def sweep_kernel_rows(time_ms, dev):
                                          mxu_precision=mode)
                 torch.cuda.synchronize()
                 launched = sw.boltzmann_sweep.launches - before
+                again = sw.boltzmann_sweep(x0, eps, prep, temps, values=v,
+                                           mxu_precision=mode)
+                same = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+                plan = sw.plan_sweep(mode, B, prep.yt_hi.shape[1], sw._resident_blocks(
+                    "sweep", dev.index or 0, sw.MODE_CODES[mode], int(with_v)))
                 want = sw.boltzmann_sweep_reference(
                     x0[:k], eps[:k], prep, temps, values=v, mxu_precision=mode)
                 sub = sw.BoltzmannMoments(*(None if f is None else f[:, :k]
@@ -642,9 +658,10 @@ def sweep_kernel_rows(time_ms, dev):
                 row = {"label": label, "shape": [B, N, D, nt], "log10_temps":
                        [t_lo, t_hi], "mode": mode, "values": with_v,
                        "launches": launched, "max_abs_err": err,
-                       "worst_of_tolerance": worst,
+                       "worst_of_tolerance": worst, "bitwise_repeat": same,
+                       "plan": plan._asdict(),
                        "logit_tol_min_max": [float(delta.min()), float(delta.max())]}
-                ok = launched == 2 and finite and worst <= 1.0
+                ok = launched == 2 and finite and worst <= 1.0 and same
                 if not with_v:
                     ms, host_ms = time_ms(lambda: sw.boltzmann_sweep(
                         x0, eps, prep, temps, mxu_precision=mode), reps=3, inner=1)
@@ -668,7 +685,8 @@ def sweep_kernel_rows(time_ms, dev):
                                pairs_per_s=B * N * nt / ms * 1e3)
                 rows.append(row)
                 log(f"sweep {label} B={B} N={N} D={D} temps={nt} {mode}"
-                    f"{' +payload' if with_v else ''}: launches {launched}, "
+                    f"{' +payload' if with_v else ''}: {plan.tile_rows}-row blocks, "
+                    f"{plan.n_chunks} chunks; launches {launched}, bitwise repeat {same}, "
                     f"max_abs_err {err:.3g} (worst {worst:.3g} of the tolerance; "
                     f"logit tol {row['logit_tol_min_max'][0]:.3g}-"
                     f"{row['logit_tol_min_max'][1]:.3g})"
@@ -680,8 +698,8 @@ def sweep_kernel_rows(time_ms, dev):
                     + f" {'ok' if ok else 'MISMATCH'}")
                 if not ok:
                     fail(f"sweep kernel disagrees with its plain version (or "
-                         f"launched {launched} kernels) at {label} {mode} "
-                         f"payload={with_v}")
+                         f"launched {launched} kernels, or two calls differ) at "
+                         f"{label} {mode} payload={with_v}")
             del prep
             torch.cuda.empty_cache()
         if label == SWEEP_MAIN[0]:
@@ -832,6 +850,17 @@ def stats_main_path(data, ddpm, dev) -> int:
         fail(f"thermo_sweep: {launches} sweep launches (want 2 per batch) or "
              f"outputs not finite")
     sweep_stages(data, temps, gen, dev)
+    # the card's idle share of a warm sweep: its wall time against the
+    # kernels' sum in a profiler trace of two more (the first kernels after
+    # the trace starts can be dropped, so the share is an upper bound)
+    t0 = time.perf_counter()
+    thermo_sweep(data, temps, n_samples, B, generator=gen, regularize=True, device=dev)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    busy = profile_steps(lambda: [thermo_sweep(data, temps, n_samples, B, generator=gen,
+                                               regularize=True, device=dev)
+                                  for _ in range(2)], 2, "stats profile")
+    log(f"stats main path: a warm thermo_sweep takes {warm_ms:.4f} ms, the card busy "
+        f"{busy:.4f} ms of it (profiler kernel sum): idle {max(0.0, 1.0 - busy / warm_ms):.1%}")
 
     # bench.py's sweep rate: prepared dataset, 4 sweeps of 96 temperatures
     bB, bnt, (b_lo, b_hi), reps = BENCH_SWEEP
@@ -972,6 +1001,7 @@ def moments_kernel_rows(time_ms, dev):
     import torch
 
     from pdm_tpu_torch.ops import boltzmann as bz
+    from pdm_tpu_torch.ops import boltzmann_kernel as bk
     from pdm_tpu_torch.ops import boltzmann_sweep as sw
     from pdm_tpu_torch.ops.precision import full_fp32_matmul, split
 
@@ -1007,6 +1037,8 @@ def moments_kernel_rows(time_ms, dev):
                 got = kernel()
                 torch.cuda.synchronize()
                 launched = bz.boltzmann_moments.launches - before
+                same = all(torch.equal(a, b) for a, b in zip(got, kernel()) if a is not None)
+                plan = bk.device_plan(bk.operands(x, prep, it, s, values=vals, mode=mode))
                 want = bz.boltzmann_moments_reference(x[sub], y, it[sub], s[sub], values=vals,
                                                       mxu_precision=mode)
                 got_sub = bz.BoltzmannMoments(*(None if f is None else f[sub] for f in got))
@@ -1020,15 +1052,18 @@ def moments_kernel_rows(time_ms, dev):
                 row = {"label": label, "shape": [B, N, D, K if with_v else 0],
                        "mode": mode, "values": with_v, "launches": launched,
                        "max_abs_err": err, "worst_of_tolerance": worst,
+                       "bitwise_repeat": same, "plan": plan._asdict(),
                        "logit_tol_min_max": [float(delta.min()), float(delta.max())],
                        "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
                        "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
                        "tflops": 2 * B * N * (D * SWEEP_PASSES[mode] + (K if with_v else 0))
                        / ms / 1e9}
                 rows.append(row)
-                ok = launched == 2 and finite and worst <= 1.0
+                ok = launched == 2 and finite and worst <= 1.0 and same
                 log(f"moments {label} B={B} N={N} D={D} K={row['shape'][3]} {mode}: "
-                    f"launches {launched}, max_abs_err {err:.3g} (worst {worst:.3g} of the "
+                    f"{plan.kernel} kernel ({plan.tile_rows}-row blocks, clusters of "
+                    f"{plan.cluster}, {plan.n_chunks} chunks); launches {launched}, bitwise "
+                    f"repeat {same}, max_abs_err {err:.3g} (worst {worst:.3g} of the "
                     f"tolerance; logit tol {row['logit_tol_min_max'][0]:.3g}-"
                     f"{row['logit_tol_min_max'][1]:.3g}) kernel_ms {ms:.4f} (host "
                     f"{host_ms:.4f}) plain_ms {plain_ms:.4f} library_ms (products only) "
@@ -1036,7 +1071,8 @@ def moments_kernel_rows(time_ms, dev):
                     f"TFLOP/s {'ok' if ok else 'MISMATCH'}")
                 if not ok:
                     fail(f"moments kernel disagrees with its plain version (or launched "
-                         f"{launched} kernels) at {label} {mode} payload={with_v}")
+                         f"{launched} kernels, or two calls differ) at {label} {mode} "
+                         f"payload={with_v}")
             del prep, gram_lib
             torch.cuda.empty_cache()
         del x, y, v, p_lib

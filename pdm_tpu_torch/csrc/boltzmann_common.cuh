@@ -1,36 +1,36 @@
-// Building blocks of the Boltzmann-moment kernels (boltzmann_sweep.cu): the
-// dataset Gram of a 64-row query tile against a 128-column dataset tile,
-// and the online-softmax moment update of one query row.
+// Building blocks of the Boltzmann-moment kernels (boltzmann_sweep.cu,
+// boltzmann_moments.cu): the dataset Gram of a query tile against a
+// 128-column dataset tile, the online-softmax moment update, and the
+// exact merge of two parts' accumulators.
 //
 // Layouts. Queries and the dataset come transposed, contraction (D) major:
 // a query operand is (D, Bp) and the dataset (D, Np), so a tile of TK
 // contraction rows is TK contiguous row segments in device memory and lands
-// in shared memory with 16-byte cp.async copies and no register staging.
-// Contraction rows past D are zero-filled by the copy, so D needs no
-// padding and the extra products add exact zeros.
+// in shared memory with no register staging: one TMA box per operand (fp32)
+// or 16-byte cp.async copies (bf16). Contraction rows past D are
+// zero-filled by the copy, so D needs no padding and the extra products
+// add exact zeros.
 //
-// Two Gram engines, each for one query operand or for two at once
-// (kTwo: x0 and eps share every dataset tile load, as the two Grams of the
-// sweep do; the single-temperature moments kernel has x alone and runs
-// the one-operand form, which neither loads nor multiplies a second one):
-//   * fp32 on the CUDA cores (FFMA), never TF32. 256 threads, each owns a
-//     4-row x 8-column patch of each Gram (32 accumulators an operand); per
-//     contraction step it reads a float4 of queries per operand and two of
-//     the dataset from shared memory (broadcast across the warp).
+// Gram engines, each for one query operand or for two at once (the sweep's
+// x0 and eps share every dataset tile load):
+//   * fp32 on the CUDA cores (FFMA), never TF32: the tall engine
+//     (TallGram), 128 query rows a tile, each thread an 8 x 8 patch of one
+//     Gram (256 threads) or a 4 x 8 patch of each of two (512 threads).
+//     Each Gram entry is one FFMA chain over the contraction in order.
 //   * bf16 on the tensor cores (mma.sync m16n8k16, fp32 accumulate), one
-//     pass (hi*hi) or three (hi*hi + hi*lo + lo*hi): each warp owns 16
-//     rows x 64 columns of each Gram; A and B fragments come from the
-//     (k-major) tiles through ldmatrix.trans.
-// Both run a 3-stage cp.async pipeline over the contraction and leave the
-// tile's Grams in registers, each accumulator at the (row, column) their
-// comments give. The online-softmax moment update and the exact merge of
-// two parts' accumulators follow.
+//     pass (hi*hi) or three (hi*hi + hi*lo + lo*hi), 64-row tiles: each warp
+//     owns 16 rows x 64 columns of each Gram; A and B fragments come from
+//     the (k-major) tiles through ldmatrix.trans.
+// Each runs a ring over the contraction (TMA for fp32, cp.async for bf16)
+// and leaves the tile's Grams in registers, each accumulator at the
+// (row, column) its comments give.
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "attention_hopper.cuh"
 #include "common.cuh"
 
 namespace pdm_boltz {
@@ -71,117 +71,252 @@ struct GramOperands {
   long long ld_y;  // ... of the dataset
 };
 
-// Runs the contraction of one tile: `load(stage, kt)` issues the copies of
-// contraction step kt into ring slot `stage`, `compute(stage)` consumes it.
-template <int TK, typename Load, typename Compute>
-__device__ __forceinline__ void pipeline(int D, Load load, Compute compute) {
-  const int n_k = (D + TK - 1) / TK;
+// Runs a contraction of n_k steps through a ring of ST stages:
+// load(slot, step) issues step's copies, compute(slot, step) consumes it.
+template <int ST, typename Load, typename Compute>
+__device__ __forceinline__ void ring_pipeline(int n_k, Load load, Compute compute) {
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < ST - 1; ++s) {
     if (s < n_k) load(s, s);
     cp_async_commit();
   }
   for (int kt = 0; kt < n_k; ++kt) {
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<ST - 2>();
     __syncthreads();  // step kt is in; every thread is done with kt - 1
-    const int nk = kt + kStages - 1;
-    if (nk < n_k) load(nk % kStages, nk);
+    const int nk = kt + ST - 1;
+    if (nk < n_k) load(nk % ST, nk);
     cp_async_commit();
-    compute(kt % kStages);
+    compute(kt % ST, kt);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free for the caller
 }
 
+// The contraction of one tile over D rows, TK a stage, in the kStages ring:
+// `load(stage, kt)` issues the copies of step kt, `compute(stage)` consumes it.
+template <int TK, typename Load, typename Compute>
+__device__ __forceinline__ void pipeline(int D, Load load, Compute compute) {
+  ring_pipeline<kStages>((D + TK - 1) / TK, load, [&](int stage, int) { compute(stage); });
+}
+
 // ---------------------------------------------------------------------------
-// fp32 on the CUDA cores
+// A TMA ring: ST shared-memory stages, each filled by TMA tile copies
+// (cp.async.bulk.tensor) and completed on its `full` mbarrier. Thread 0
+// issues every stage's copies: before it refills a stage it waits on the
+// stage's `empty` mbarrier, on which each warp arrives once it is done with
+// the stage. The consumers wait only for the stage they read, so there is
+// no block-wide barrier per stage and no thread computes a copy's address
+// but thread 0. A stage is refilled one step after it was read (thread 0
+// first computes its own step), so ST - 2 stages are in flight ahead of the
+// slowest warp. `step` counts the stages consumed, the same in every
+// thread, and carries the barriers' phases from one run to the next, so
+// one ring serves any number of runs and runs of different contents.
 
-constexpr int kTK32 = 16;  // contraction rows per stage
-
-// floats of one ring slot: kTK32 rows of each query operand, then of the dataset
-template <bool kTwo>
-__host__ __device__ constexpr int stage_floats32() {
-  return kTK32 * ((kTwo ? 2 : 1) * kTB + kTN);
-}
-template <bool kTwo>
-__host__ __device__ constexpr int smem_gram32() {
-  return kStages * stage_floats32<kTwo>() * 4;
-}
-
-// ax/ae[i][j]: tile row r0 + i, tile column c0 + j (j < 4) or c0 + 28 + j
-// (j >= 4), with r0, c0 from fp32_patch. ae is untouched unless kTwo.
-__device__ __forceinline__ void fp32_patch(int& r0, int& c0) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  r0 = (warp & 3) * 16 + (lane >> 3) * 4;
-  c0 = (warp >> 2) * 64 + (lane & 7) * 4;
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
-__device__ __forceinline__ int fp32_col(int c0, int j) { return j < 4 ? c0 + j : c0 + 28 + j; }
+// the generic proxy's earlier accesses to shared memory are ordered before
+// later TMA (async proxy) writes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
-template <bool kTwo>
-__device__ __forceinline__ void gram_fp32(float (&ax)[4][8], float (&ae)[4][8],
-                                          const GramOperands& op, float* smem) {
-  constexpr int kQ = kTwo ? 2 : 1;  // query operands
-  const float* xg = static_cast<const float*>(op.x_hi);
-  const float* eg = static_cast<const float*>(op.e_hi);
-  const float* yg = static_cast<const float*>(op.y_hi);
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      ax[i][j] = 0.f;
-      if constexpr (kTwo) ae[i][j] = 0.f;
-    }
+// the box at (column col, row row) of a 2-D tensor map
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row)
+      : "memory");
+}
 
-  auto load = [&](int stage, int kt) {
-    float* xs = smem + stage * stage_floats32<kTwo>();
-    float* ys = xs + kQ * kTK32 * kTB;
-    const int k0 = kt * kTK32;
-    {  // queries: 16 rows x 16 float4, one per thread per operand
-      const int k = tid >> 4, c4 = (tid & 15) * 4;
-      const bool ok = k0 + k < op.D;
-      const long long off = ok ? (long long)(k0 + k) * op.ld_q + c4 : 0;
-      cp_async16(xs + k * kTB + c4, xg + off, ok);
-      if constexpr (kTwo) cp_async16(xs + kTK32 * kTB + k * kTB + c4, eg + off, ok);
-    }
+// Wait for the phase of parity `phase` of an mbarrier to complete. The
+// thread sleeps in try_wait (a suspend-time hint of 10 ms) instead of
+// spinning: a spinning warp takes issue slots from the warps computing
+// beside it (the row-7 Gram ran 15% slower). A variant that read the
+// clock and trapped after 2 s of waiting cost the payload kernel 3%, so
+// the wait is unbounded, as CUTLASS's; every stage it waits for is issued.
+__device__ __forceinline__ void ring_wait(uint64_t* bar, int phase) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1, 10000000;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(phase)
+      : "memory");
+}
+
+template <int ST>
+struct TmaRing {
+  static constexpr int kBarBytes = 2 * ST * 8;
+  uint64_t* full;
+  uint64_t* empty;
+  uint32_t step;
+
+  // Every thread of the block calls it once, before the first run; `bars`
+  // is kBarBytes of 8-byte aligned shared memory.
+  __device__ void init(uint64_t* bars) {
+    full = bars;
+    empty = bars + ST;
+    step = 0;
+    if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {  // dataset: 16 rows x 32 float4
-      const int idx = tid + i * kThreads;
-      const int k = idx >> 5, c4 = (idx & 31) * 4;
-      const bool ok = k0 + k < op.D;
-      const long long off = ok ? (long long)(k0 + k) * op.ld_y + c4 : 0;
-      cp_async16(ys + k * kTN + c4, yg + off, ok);
-    }
-  };
-  int r0, c0;
-  fp32_patch(r0, c0);
-  auto compute = [&](int stage) {
-    const float* xs = smem + stage * stage_floats32<kTwo>();
-    const float* ys = xs + kQ * kTK32 * kTB;
-#pragma unroll
-    for (int kk = 0; kk < kTK32; ++kk) {
-      const float4 xv = *reinterpret_cast<const float4*>(xs + kk * kTB + r0);
-      const float4 y0 = *reinterpret_cast<const float4*>(ys + kk * kTN + c0);
-      const float4 y1 = *reinterpret_cast<const float4*>(ys + kk * kTN + c0 + 32);
-      const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-      const float yr[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) ax[i][j] = fmaf(xr[i], yr[j], ax[i][j]);
-      if constexpr (kTwo) {
-        const float4 ev = *reinterpret_cast<const float4*>(xs + (kTK32 + kk) * kTB + r0);
-        const float er[4] = {ev.x, ev.y, ev.z, ev.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) ae[i][j] = fmaf(er[i], yr[j], ae[i][j]);
+      for (int s = 0; s < ST; ++s) {
+        pdm_hop::mbar_init(full + s, 1);
+        pdm_hop::mbar_init(empty + s, blockDim.x / 32);
       }
+      pdm_hop::fence_barrier_init();
     }
-  };
-  pipeline<kTK32>(op.D, load, compute);
+    __syncthreads();
+  }
+
+  // n steps: issue(slot, kt, bar) issues step kt's copies (`bytes` in all)
+  // into stage slot on bar, compute(slot, kt) consumes it. Every thread of
+  // the block calls it; the region's earlier contents are dead on entry and
+  // the ring's on return.
+  template <typename Issue, typename Compute>
+  __device__ __forceinline__ void run(int n, uint32_t bytes, Issue issue, Compute compute) {
+    fence_proxy_async();
+    __syncthreads();  // the block is done with the region
+    auto fill = [&](int kt) {
+      const uint32_t g = step + kt;
+      const int slot = g % ST;
+      if (g >= ST) ring_wait(empty + slot, ((g / ST) + 1) & 1);  // use g - ST is read
+      pdm_hop::mbar_expect_tx(full + slot, bytes);
+      issue(slot, kt, full + slot);
+    };
+    if (threadIdx.x == 0)
+      for (int kt = 0; kt < ST - 1 && kt < n; ++kt) fill(kt);
+    for (int kt = 0; kt < n; ++kt) {
+      const uint32_t g = step + kt;
+      const int slot = g % ST;
+      ring_wait(full + slot, (g / ST) & 1);
+      compute(slot, kt);
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(empty + slot);
+      if (threadIdx.x == 0 && kt + ST - 1 < n) fill(kt + ST - 1);
+    }
+    step += n;
+    __syncthreads();  // every warp is done with the ring
+  }
+};
+
+// The 2-D map over a row-major fp32 array (rows, cols) with ld elements
+// between rows (ld * 4 a multiple of 16, base 16-byte aligned), boxes of
+// box_rows x box_cols; boxes past the array read zeros. Returns false if
+// the encoding is refused.
+static inline bool tile_map(CUtensorMap* map, const void* base, long long rows, long long cols,
+                            long long ld, int box_rows, int box_cols) {
+  pdm_hop::EncodeTiledFn encode = pdm_hop::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
+
+// ---------------------------------------------------------------------------
+// fp32 on the CUDA cores, tall: 128 query rows against a 128-column tile.
+//
+// Each of the block's threads owns a PR x PC patch of each of NQ Grams,
+// made of float4 runs (PR / 4 rows kRS apart, PC / 4 columns kCS apart);
+// the warp's lanes take 8 consecutive column groups and 4 row groups, so
+// every shared read is one broadcast wavefront. A tile's contraction runs
+// through a TMA ring (TmaRing) of ST stages of TK rows: a stage is the
+// TK x 128 boxes of each query operand and of the dataset, contraction
+// rows past D read as zeros. The 128-row tile reads half the query bytes
+// per product of a 64-row one.
+
+// The tensor maps of the tall kernels: query operands (D, Bp), the
+// dataset (D, Np), the payload (n, K); kernels take them as a
+// __grid_constant__ parameter, so TMA reads them in place.
+struct TallMaps {
+  CUtensorMap q0, q1, y, v;
+};
+
+template <int PR, int PC, int NQ, int TK, int ST>
+struct TallGram {
+  static constexpr int kRows = 128, kCols = 128;
+  static constexpr int kRG = kRows / PR, kCG = kCols / PC;
+  static constexpr int kThreads = kRG * kCG;
+  static constexpr int kRS = kRows / (PR / 4), kCS = kCols / (PC / 4);
+  static constexpr int kTK = TK;
+  static constexpr int kStageFloats = TK * (NQ * kRows + kCols);
+  static constexpr int kSmem = ST * kStageFloats * 4;
+  using Ring = TmaRing<ST>;
+
+  // the thread's row group rg and column group cg
+  __device__ static void patch(int& rg, int& cg) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    cg = (warp % (kCG / 8)) * 8 + (lane & 7);
+    rg = (warp / (kCG / 8)) * 4 + (lane >> 3);
+  }
+  // tile row of acc[.][i][.], tile column of acc[.][.][j]
+  __device__ static int row(int rg, int i) { return rg * 4 + (i >> 2) * kRS + (i & 3); }
+  __device__ static int col(int cg, int j) { return cg * 4 + (j >> 2) * kCS + (j & 3); }
+
+  // acc[q] = the Gram of query operand q (maps.q0, then maps.q1), rows
+  // [row0, row0 + 128), against dataset columns [col0, col0 + 128) of
+  // maps.y, over D contraction rows; `smem` (128-byte aligned) holds the
+  // ring's stages
+  __device__ static void run(float (&acc)[NQ][PR][PC], const TallMaps& maps, int row0,
+                             int col0, int D, float* smem, Ring& ring) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int i = 0; i < PR; ++i)
+#pragma unroll
+        for (int j = 0; j < PC; ++j) acc[q][i][j] = 0.f;
+    auto issue = [&](int slot, int kt, uint64_t* bar) {
+      float* xs = smem + slot * kStageFloats;
+      tma_load_2d(xs, &maps.q0, bar, row0, kt * TK);
+      if constexpr (NQ == 2) tma_load_2d(xs + TK * kRows, &maps.q1, bar, row0, kt * TK);
+      tma_load_2d(xs + NQ * TK * kRows, &maps.y, bar, col0, kt * TK);
+    };
+    int rg, cg;
+    patch(rg, cg);
+    auto compute = [&](int slot, int) {
+      const float* xs = smem + slot * kStageFloats;
+      const float* ys = xs + NQ * TK * kRows;
+#pragma unroll
+      for (int kk = 0; kk < TK; ++kk) {
+        float xr[NQ][PR], yr[PC];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+#pragma unroll
+          for (int v = 0; v < PR / 4; ++v) {
+            const float4 t =
+                *reinterpret_cast<const float4*>(xs + (q * TK + kk) * kRows + rg * 4 + v * kRS);
+            xr[q][4 * v] = t.x;
+            xr[q][4 * v + 1] = t.y;
+            xr[q][4 * v + 2] = t.z;
+            xr[q][4 * v + 3] = t.w;
+          }
+#pragma unroll
+        for (int v = 0; v < PC / 4; ++v) {
+          const float4 t = *reinterpret_cast<const float4*>(ys + kk * kCols + cg * 4 + v * kCS);
+          yr[4 * v] = t.x;
+          yr[4 * v + 1] = t.y;
+          yr[4 * v + 2] = t.z;
+          yr[4 * v + 3] = t.w;
+        }
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+#pragma unroll
+          for (int i = 0; i < PR; ++i)
+#pragma unroll
+            for (int j = 0; j < PC; ++j) acc[q][i][j] = fmaf(xr[q][i], yr[j], acc[q][i][j]);
+      }
+    };
+    ring.run((D + TK - 1) / TK, kStageFloats * 4, issue, compute);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -335,30 +470,69 @@ __device__ __forceinline__ float fold_moments(Moments& a, float m_new, float ps,
   return scale;
 }
 
-// Add the logits l_c = -(invt * c0[c] + irt * d0[c]) - esq, c < ncols, to
-// `a` (as the TPU kernel's per-tile update): the max first, then the sums
-// at the new max, with the old sums rescaled. A row whose max is still
-// -inf adds nothing.
+// e^x for x <= 0 on the MUFU unit: 2^(x log2 e). ex2.approx's relative
+// error is about 2^-22; rounding x log2 e adds |x| 2^-24 relative, which
+// grows with |x| but is weighed by the term itself: a term's error
+// e^x |x| 2^-24 stays below 2^-24 / e of the largest term (1) at every x.
+// Results below 2^-126 flush to 0. It rounds p differently from expf
+// (the moments kernels' and the plain version's): a change of rounding
+// point that the sweep's tolerance covers. With expf the epilogue-bound
+// sweeps ran 5-15% (bf16) to ~30% (fp32 at D 1) slower (PERF.md).
+__device__ __forceinline__ float exp_neg(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+constexpr int kTPT = 8;  // temperatures a thread updates at once
+
+// Add the logits l_tc = -(invt[t] c0[c] + irt[t] d0[c]) - esq, c < ncols,
+// to the accumulators a[t] of one row at kTPT temperatures (as the TPU
+// kernel's per-tile update): each column's C0 and D0 are read once for all
+// of them. Per temperature the max first, then the sums at the new max,
+// with the old sums rescaled, summed over c in order; a temperature whose
+// max is still -inf adds nothing. The max is taken over u = invt c0 + irt
+// d0 (max_c fl(-u_c - esq) = fl(-min_c u_c - esq): rounding is monotone),
+// and g = m - l is -(l - m) exactly.
 template <bool kWithValues>
-__device__ __forceinline__ void update_moments(Moments& a, const float* c0, const float* d0,
-                                               const float* __restrict__ v, int ncols,
-                                               float invt, float irt, float esq) {
-  float mx = -INFINITY;
-  for (int c = 0; c < ncols; ++c) mx = fmaxf(mx, -(invt * c0[c] + irt * d0[c]) - esq);
-  const float m_new = fmaxf(a.m, mx);
-  if (m_new == -INFINITY) return;
-  float ps = 0.f, pg = 0.f, pgg = 0.f, pv = 0.f;
+__device__ __forceinline__ void update_moments(Moments (&a)[kTPT], const float* c0,
+                                               const float* d0, const float* __restrict__ v,
+                                               int ncols, const float (&invt)[kTPT],
+                                               const float (&irt)[kTPT], float esq) {
+  float m_new[kTPT];
+#pragma unroll
+  for (int t = 0; t < kTPT; ++t) m_new[t] = INFINITY;
+#pragma unroll 2
   for (int c = 0; c < ncols; ++c) {
-    const float l = -(invt * c0[c] + irt * d0[c]) - esq;
-    const float p = expf(l - m_new);
-    const float g = m_new - l;
-    const float pgc = p * g;
-    ps += p;
-    pg += pgc;
-    pgg += pgc * g;
-    if constexpr (kWithValues) pv += p * v[c];
+    const float cc = c0[c], dd = d0[c];
+#pragma unroll
+    for (int t = 0; t < kTPT; ++t) m_new[t] = fminf(m_new[t], fmaf(invt[t], cc, irt[t] * dd));
   }
-  fold_moments(a, m_new, ps, pg, pgg, pv);
+  float ps[kTPT], pg[kTPT], pgg[kTPT], pv[kTPT];
+#pragma unroll
+  for (int t = 0; t < kTPT; ++t) {
+    m_new[t] = fmaxf(a[t].m, -m_new[t] - esq);
+    ps[t] = pg[t] = pgg[t] = pv[t] = 0.f;
+  }
+#pragma unroll 2
+  for (int c = 0; c < ncols; ++c) {
+    const float cc = c0[c], dd = d0[c];
+    const float vc = kWithValues ? v[c] : 0.f;
+#pragma unroll
+    for (int t = 0; t < kTPT; ++t) {
+      const float l = -fmaf(invt[t], cc, irt[t] * dd) - esq;
+      const float x = l - m_new[t];  // -g
+      const float p = exp_neg(x);
+      const float pgc = -(p * x);
+      ps[t] += p;
+      pg[t] += pgc;
+      pgg[t] = fmaf(-pgc, x, pgg[t]);
+      if constexpr (kWithValues) pv[t] = fmaf(p, vc, pv[t]);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kTPT; ++t)
+    if (m_new[t] > -INFINITY) fold_moments(a[t], m_new[t], ps[t], pg[t], pgg[t], pv[t]);
 }
 
 // Exact merge of `b` into `a`: the shift-stabilized join of two disjoint

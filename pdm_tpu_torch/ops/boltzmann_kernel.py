@@ -3,25 +3,32 @@
 Counterpart of ``pdm_tpu/ops/boltzmann_pallas.py``: it launches the
 hand-written kernels of ``csrc/boltzmann_moments.cu`` (they replace the TPU
 kernel ``_pallas_moments``) for :func:`ops.boltzmann.boltzmann_moments` on
-CUDA tensors, in every precision mode: a partials kernel, where each block
-owns one 64-row query tile and one chunk of the dataset, and a merge kernel
-that joins the chunks exactly. Two launches per call, counted on
+CUDA tensors, in every precision mode: a partials kernel and a merge kernel
+that joins the dataset's chunks exactly. Two launches per call, counted on
 ``boltzmann_moments.launches``.
 
-The dataset goes in as the sweep's pack (``ops/boltzmann_sweep.prepare_y``:
-transposed to (D, Np), padded to 128-column tiles, bf16 hi/lo for the bf16
-modes, half squared norms); a raw dataset is packed per call, so a caller
-that reuses one dataset (``models/base.py::TrueDDPM``) passes its pack. The
-payload is read as it is, (N, K) fp32 row-major: with ``compute_mean`` on a
-raw dataset it is the dataset itself, never a copy. The kernel has no
-backward (nor has the TPU kernel), so an input that requires grad raises
-rather than being detached.
+The partials kernel is one of three, chosen by shape (:func:`plan_moments`,
+a pure function of the call's mode, payload and sizes and of how many
+blocks the card holds):
+
+* fp32: the tall kernel, a block per 128 query rows and dataset chunk,
+  whose Gram and payload products run the tall fp32 engine (8 x 8
+  patches, its operands through TMA rings); the payload sums are added
+  into device memory once per 128-column sub-tile and 128-column K-tile;
+* bf16 and bf16_3x with a payload of K % 4 == 0 columns up to
+  ``CLUSTER_MAX_K`` (3072: 8 blocks of 384 columns): the cluster kernel.
+  A cluster of blocks shares a 64-row query tile and a chunk; each block
+  computes the logits of its own 256-column tiles, and keeps its share of
+  the payload sums in registers for the whole chunk;
+* the bf16 modes' other calls (no payload, K % 4 != 0, or K above the
+  threshold): the tiled kernel, a block per 64-row tile and chunk.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -30,14 +37,61 @@ from . import _build
 from . import boltzmann as _boltzmann
 from .boltzmann import BoltzmannMoments
 from .boltzmann_sweep import (
-    MODE_CODES, TILE_COLS, TILE_ROWS, PreparedY, check_pack, chunks, pack,
-    round_up,
+    MODE_CODES, TALL_TILE_ROWS, TILE_COLS, TILE_ROWS, PreparedY,
+    _resident_blocks, check_pack, pack, round_up, split_chunks,
 )
 from .precision import split
 
 # the payload's form, as the kernel takes it: none, K % 4 == 0 on 16-byte
 # aligned rows (16-byte copies), any K (4-byte copies)
 PAYLOAD_NONE, PAYLOAD_VEC4, PAYLOAD_SCALAR = 0, 1, 2
+
+CLUSTER_TILE_COLS = 256  # dataset columns of a cluster kernel's tile
+CLUSTER_WIDTHS = (128, 384)  # payload columns a cluster kernel's block holds
+CLUSTER_MAX = 8  # blocks per cluster (the portable limit)
+# the largest payload the cluster kernel holds on chip: the threshold above
+# which the bf16 modes run the tiled kernel
+CLUSTER_MAX_K = CLUSTER_MAX * CLUSTER_WIDTHS[-1]
+
+
+class MomentsPlan(NamedTuple):
+    """How one call runs: the partials kernel and the dataset's split."""
+
+    kernel: str  # "tall", "cluster" or "tiled"
+    cluster: int  # blocks per cluster (1 but for the cluster kernel)
+    width: int  # payload columns per block (cluster kernel; else 0)
+    tile_rows: int  # query rows per block
+    tile_cols: int  # dataset columns per tile of a chunk
+    n_chunks: int
+    per_chunk: int  # tiles per chunk
+
+
+def kernel_choice(mode: str, payload: int, K: int) -> Tuple[str, int, int]:
+    """(kernel, blocks per cluster, payload columns per block) for a call's
+    precision mode, payload form (PAYLOAD_*) and payload width K."""
+    if mode == "fp32":
+        return "tall", 1, 0
+    if payload == PAYLOAD_VEC4 and K <= CLUSTER_MAX_K:
+        width = CLUSTER_WIDTHS[0] if K <= CLUSTER_MAX * CLUSTER_WIDTHS[0] \
+            else CLUSTER_WIDTHS[1]
+        return "cluster", -(-K // width), width
+    return "tiled", 1, 0
+
+
+def _tile_rows(kernel: str) -> int:
+    return TALL_TILE_ROWS if kernel == "tall" else TILE_ROWS
+
+
+def plan_moments(mode: str, payload: int, K: int, n_rows: int, n_pad: int,
+                 slots: int) -> MomentsPlan:
+    """The launch plan of a call with ``n_rows`` queries over a dataset
+    padded to ``n_pad`` columns, where the card holds ``slots`` blocks
+    (tall, tiled) or clusters of the chosen kernel."""
+    kernel, cluster, width = kernel_choice(mode, payload, K)
+    rows = _tile_rows(kernel)
+    tile = CLUSTER_TILE_COLS if kernel == "cluster" else TILE_COLS
+    n_chunks, per_chunk = split_chunks(slots, -(-n_rows // rows), -(-n_pad // tile))
+    return MomentsPlan(kernel, cluster, width, rows, tile, n_chunks, per_chunk)
 
 
 def _refuse_grad(**tensors) -> None:
@@ -101,7 +155,8 @@ def operands(x: Tensor, y, inv_temp, y_scale=1.0, *,
         payload = PAYLOAD_VEC4
     else:
         payload = PAYLOAD_SCALAR
-    b_pad = round_up(B, TILE_ROWS)
+    K = 0 if v is None else v.shape[1]
+    b_pad = round_up(B, _tile_rows(kernel_choice(prep.mode, payload, K)[0]))
     xt = torch.zeros((D, b_pad), dtype=torch.float32, device=dev)
     xt[:, :B] = xf.T
     x_hi, x_lo = split(xt, prep.mode)
@@ -115,6 +170,36 @@ def operands(x: Tensor, y, inv_temp, y_scale=1.0, *,
     return MomentsOperands(x_hi, x_lo, prep, row, v, payload, B)
 
 
+@functools.lru_cache(maxsize=None)
+def _cluster_slots(device_index: int, mode_code: int, width: int,
+                   cluster: int) -> int:
+    """Clusters of the cluster kernel the card holds at once."""
+    n = ctypes.c_int(0)
+    name = "pdm_boltzmann_moments_cluster_slots"
+    fn = _build.entry(name, [_I, _I, _I, ctypes.POINTER(ctypes.c_int)])
+    with torch.cuda.device(device_index):
+        _build.check(fn(mode_code, width, cluster, ctypes.byref(n)), name)
+    if n.value < 1:
+        raise RuntimeError(f"{name}: the card holds no cluster of {cluster} "
+                           f"blocks (mode {mode_code}, width {width})")
+    return n.value
+
+
+def device_plan(ops: MomentsOperands) -> MomentsPlan:
+    """plan_moments for laid-out operands on their card."""
+    dev = ops.x_hi.device
+    K = 0 if ops.values is None else ops.values.shape[1]
+    kernel, cluster, width = kernel_choice(ops.prep.mode, ops.payload, K)
+    idx, code = dev.index or 0, MODE_CODES[ops.prep.mode]
+    if kernel == "cluster":
+        slots = _cluster_slots(idx, code, width, cluster)
+    else:
+        slots = _resident_blocks("moments_tall" if kernel == "tall" else "moments",
+                                 idx, code, ops.payload)
+    return plan_moments(ops.prep.mode, ops.payload, K, ops.n_rows,
+                        ops.prep.yt_hi.shape[1], slots)
+
+
 def launch(ops: MomentsOperands) -> BoltzmannMoments:
     """The partials and merge launches on laid-out operands."""
     prep, v, B = ops.prep, ops.values, ops.n_rows
@@ -122,8 +207,8 @@ def launch(ops: MomentsOperands) -> BoltzmannMoments:
     D, b_pad = ops.x_hi.shape
     n_pad = prep.yt_hi.shape[1]
     K = 0 if v is None else v.shape[1]
-    n_chunks, per_chunk = chunks("moments", dev, prep.mode, ops.payload,
-                                 b_pad // TILE_ROWS, n_pad // TILE_COLS)
+    plan = device_plan(ops)
+    n_chunks, per_chunk = plan.n_chunks, plan.per_chunk
     partials = torch.empty((n_chunks, 4, b_pad), dtype=torch.float32, device=dev)
     out = torch.empty((4, B), dtype=torch.float32, device=dev)
     sy = mean = None
@@ -136,12 +221,19 @@ def launch(ops: MomentsOperands) -> BoltzmannMoments:
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        fn = _build.entry("pdm_boltzmann_moments_partials", _PARTIALS_ARGS)
-        err = fn(ptr(ops.x_hi), ptr(ops.x_lo), ptr(prep.yt_hi), ptr(prep.yt_lo),
-                 ptr(prep.ysq), ptr(ops.row[0]), ptr(ops.row[1]), ptr(ops.row[2]),
-                 ptr(v), ptr(partials), ptr(sy), b_pad, D, n_pad, prep.n, K,
-                 n_chunks, per_chunk, MODE_CODES[prep.mode], ops.payload, stream)
-        _build.check(err, "pdm_boltzmann_moments_partials")
+        args = (ptr(ops.x_hi), ptr(ops.x_lo), ptr(prep.yt_hi), ptr(prep.yt_lo),
+                ptr(prep.ysq), ptr(ops.row[0]), ptr(ops.row[1]), ptr(ops.row[2]),
+                ptr(v), ptr(partials), ptr(sy), b_pad, D, n_pad, prep.n, K,
+                n_chunks, per_chunk, MODE_CODES[prep.mode])
+        if plan.kernel == "cluster":
+            name = "pdm_boltzmann_moments_cluster"
+            err = _build.entry(name, _CLUSTER_ARGS)(
+                *args, plan.width, plan.cluster, stream)
+        else:
+            name = ("pdm_boltzmann_moments_tall" if plan.kernel == "tall"
+                    else "pdm_boltzmann_moments_partials")
+            err = _build.entry(name, _PARTIALS_ARGS)(*args, ops.payload, stream)
+        _build.check(err, name)
         _boltzmann.boltzmann_moments.launches += 1
         fn = _build.entry("pdm_boltzmann_moments_merge", _MERGE_ARGS)
         err = fn(ptr(partials), ptr(sy), ptr(out), ptr(mean), B, b_pad,
@@ -163,4 +255,5 @@ def boltzmann_moments_cuda(x: Tensor, y, inv_temp, y_scale=1.0, *,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PARTIALS_ARGS = [_P] * 11 + [_I] * 9 + [_P]
+_CLUSTER_ARGS = [_P] * 11 + [_I] * 10 + [_P]
 _MERGE_ARGS = [_P] * 4 + [_I] * 4 + [_P]

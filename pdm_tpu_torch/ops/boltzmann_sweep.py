@@ -18,11 +18,12 @@ D0 tiles: two Grams and an elementwise epilogue per temperature, the
 On CUDA tensors :func:`boltzmann_sweep` launches the hand-written kernels
 of ``csrc/boltzmann_sweep.cu`` (they replace the TPU kernel
 ``_sweep_kernel``) in every precision mode: a partials kernel, where each
-block owns one 64-row tile and one chunk of the dataset, and a merge
-kernel that joins the chunks' partials with the exact shift-stabilized
-merge. On CPU tensors it runs :func:`boltzmann_sweep_reference`, the plain
-version with the kernel's decomposition and rounding points. Neither
-gives way to the other. Launch counter: ``boltzmann_sweep.launches`` (two
+block owns one tile of starts (128 rows in fp32, 64 in the bf16 modes)
+and one chunk of the dataset, and a merge kernel that joins the chunks'
+partials with the exact shift-stabilized merge; :func:`plan_sweep` (a
+pure function) gives a call's tile and chunks. On CPU tensors it runs
+:func:`boltzmann_sweep_reference`, the plain version with the kernel's
+decomposition and rounding points. Neither gives way to the other. Launch counter: ``boltzmann_sweep.launches`` (two
 per call).
 
 :func:`boltzmann_sweep_per_temp` is the independent oracle: one plain
@@ -50,6 +51,7 @@ from .boltzmann import BoltzmannMoments, boltzmann_moments_reference
 from .precision import split, split_matmul, sweep_precision_mode
 
 TILE_ROWS = 64  # queries per block (kTB in the source)
+TALL_TILE_ROWS = 128  # queries per block of the fp32 kernels (kTBT in the sources)
 TILE_COLS = 128  # dataset points per sub-tile (kTN in the source)
 MODE_CODES = {"fp32": 0, "bf16_3x": 1, "bf16": 2}
 # fp32 words of the plain version's (n_temps, B, chunk) logit temporaries
@@ -210,16 +212,45 @@ def _resident_blocks(kernel: str, device_index: int, mode_code: int,
     return max(1, per_sm.value) * sms
 
 
-def chunks(kernel: str, device: torch.device, mode: str, variant: int,
-           row_tiles: int, n_sub: int) -> Tuple[int, int]:
-    """(n_chunks, sub-tiles per chunk): the dataset split so that all
-    row-tile x chunk blocks of a partials kernel are resident at once (one
-    wave)."""
-    slots = _resident_blocks(kernel, device.index or 0, MODE_CODES[mode],
-                             variant)
-    n_chunks = max(1, min(n_sub, slots // row_tiles))
-    per_chunk = -(-n_sub // n_chunks)
-    return -(-n_sub // per_chunk), per_chunk
+@functools.lru_cache(maxsize=None)
+def split_chunks(slots: int, row_tiles: int, n_tiles: int) -> Tuple[int, int]:
+    """(n_chunks, tiles per chunk): a dataset of ``n_tiles`` column tiles
+    cut into chunks for ``row_tiles`` x n_chunks blocks (or clusters), of
+    which the card holds ``slots`` at once. The count minimizes waves per
+    chunk, each chunk costing 1% more (its partials and its share of the
+    merge): at the main shapes one wave of as many chunks as fit; where the
+    row tiles fill the card badly, as 16 row tiles on 15 slots, more waves
+    of smaller chunks. Chunks are whole tiles; none is empty."""
+    slots, best, best_cost = max(1, slots), 1, float("inf")
+    for n in range(1, min(n_tiles, 2 * slots) + 1):
+        waves = -(-row_tiles * n // slots)
+        cost = waves / n * (1.0 + 0.01 * n)
+        if cost < best_cost:
+            best, best_cost = n, cost
+    per_chunk = -(-n_tiles // best)
+    return -(-n_tiles // per_chunk), per_chunk
+
+
+class SweepPlan(NamedTuple):
+    """How one sweep call runs: query rows per block and the split."""
+
+    tile_rows: int
+    n_chunks: int
+    per_chunk: int  # 128-column sub-tiles per chunk
+
+
+def plan_sweep(mode: str, n_rows: int, n_pad: int, slots: int) -> SweepPlan:
+    """The launch plan of a sweep over ``n_rows`` starts and a dataset
+    padded to ``n_pad`` columns, where the card holds ``slots`` blocks of
+    the mode's partials kernel."""
+    rows = sweep_tile_rows(mode)
+    return SweepPlan(rows, *split_chunks(slots, -(-n_rows // rows), n_pad // TILE_COLS))
+
+
+def sweep_tile_rows(mode: str) -> int:
+    """Queries per block of the sweep's partials kernel in ``mode``: the
+    fp32 kernel takes 128-row tiles, the bf16 modes' 64-row ones."""
+    return TALL_TILE_ROWS if mode == "fp32" else TILE_ROWS
 
 
 def check_pack(prep: PreparedY, dev: torch.device) -> None:
@@ -257,8 +288,11 @@ def _sweep_cuda(xf: Tensor, ef: Tensor, prep: PreparedY, temps: Tensor,
             raise ValueError(f"{name} must be on {dev}: {t.device}")
     if v is not None and v.device != dev:
         raise ValueError(f"values must be on {dev}: {v.device}")
-    b_pad = round_up(B, TILE_ROWS)
     n_pad = prep.yt_hi.shape[1]
+    plan = plan_sweep(prep.mode, B, n_pad, _resident_blocks(
+        "sweep", dev.index or 0, MODE_CODES[prep.mode], int(v is not None)))
+    n_chunks, per_chunk = plan.n_chunks, plan.per_chunk
+    b_pad = round_up(B, plan.tile_rows)
     nt = temps.shape[0]
     xt = torch.zeros((D, b_pad), dtype=torch.float32, device=dev)
     et = torch.zeros_like(xt)
@@ -275,8 +309,6 @@ def _sweep_cuda(xf: Tensor, ef: Tensor, prep: PreparedY, temps: Tensor,
         vp = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
         vp[:prep.n] = v
     n_q = 5 if v is not None else 4
-    n_chunks, per_chunk = chunks("sweep", dev, prep.mode, int(v is not None),
-                                 b_pad // TILE_ROWS, n_pad // TILE_COLS)
     partials = torch.empty((n_chunks, n_q, nt, b_pad), dtype=torch.float32,
                            device=dev)
     out = torch.empty((n_q, nt, B), dtype=torch.float32, device=dev)

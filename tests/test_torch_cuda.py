@@ -501,6 +501,8 @@ def _sweep_case(dev, B, N, D, nt, seed, log10_t=(-1.0, 3.0)):
     (77, 5003, 333, 7),  # no tile's multiple
     (1, 2000, 1, 5),  # one start, one feature
     (130, 9000, 100, 200),  # 200 temperatures: partials beyond shared memory
+    (129, 3001, 257, 33),  # one row past the fp32 kernel's 128-row tile
+    (1, 5003, 333, 7),  # one start, no tile's multiple
 ])
 def test_sweep_kernel_matches_plain_on_card(cuda_device, B, N, D, nt, mode):
     """Both launches (partials, merge) per call, with and without the
@@ -606,6 +608,10 @@ def _moments_case(dev, B, N, D, K, seed):
     (256, 4096, 768, 768),  # whole tiles, the data as payload
     (77, 5003, 333, 13),  # no tile's multiple; K % 4 != 0 (4-byte copies)
     (1, 300, 1, 1),  # one query, one feature
+    (64, 2000, 64, 3072),  # K at the cluster threshold (bf16: the cluster kernel)
+    (64, 2000, 64, 3076),  # K above it (bf16: the tiled kernel)
+    (5, 5003, 33, 131),  # K 131 (4-byte copies), no tile's multiple
+    (129, 3001, 40, 8),  # one row past the tall kernel's 128-row tile
 ])
 def test_moments_kernel_matches_plain_on_card(cuda_device, B, N, D, K, mode):
     """Two launches per call, with and without the payload, from a raw
@@ -627,6 +633,33 @@ def test_moments_kernel_matches_plain_on_card(cuda_device, B, N, D, K, mode):
             if a is not None:
                 torch.testing.assert_close(a, b, rtol=0, atol=0)
         assert check(got, want, mode) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fp32", "bf16_3x", "bf16"])
+@pytest.mark.parametrize("op", ["moments", "sweep"])
+def test_kernels_are_bitwise_deterministic(cuda_device, op, mode):
+    """Two calls on the same inputs give the same bits (no atomics, every
+    sum in a fixed order): the moments kernels with a payload of K 3072,
+    which the bf16 modes' cluster kernel takes in clusters of 8 blocks
+    (the cross-block fold through distributed shared memory), and the
+    sweep with a payload."""
+    if op == "moments":
+        x, y, inv_t, scale, v, _ = _moments_case(cuda_device, 64, 2000, 64, 3072, 11)
+        prep = sw.prepare_y(y, mode)
+        run = lambda: bz.boltzmann_moments(x, prep, inv_t, scale, values=v,  # noqa: E731
+                                           mxu_precision=mode)
+    else:
+        x0, eps, y, temps, vals, _ = _sweep_case(cuda_device, 200, 3000, 96, 9, 12)
+        prep = sw.prepare_y(y, mode)
+        run = lambda: sw.boltzmann_sweep(x0, eps, prep, temps, values=vals,  # noqa: E731
+                                         mxu_precision=mode)
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    for fa, fb in zip(a, b):
+        assert (fa is None) == (fb is None)
+        if fa is not None:
+            assert torch.equal(fa, fb)
 
 
 @pytest.mark.cuda

@@ -14,6 +14,10 @@ per-temperature oracle and k-NN (pdm_tpu_torch.ops.{boltzmann_sweep,knn}).
   file's tolerances (log_z 1e-5, var 1e-4 relative).
 * ``knn_sqdist`` against the JAX package's: the same fp32 expansion in
   another summation order, 1e-5 relative.
+* The sweep's launch plan (``plan_sweep``, a pure function): 128-row
+  blocks in fp32, 64-row ones in the bf16 modes, and chunks that take each
+  dataset column once at every main and edge shape of chip_smoke's
+  phase 8.
 """
 
 import os
@@ -35,7 +39,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.dirname(HERE))
 from chip_smoke import (  # noqa: E402
-    per_temp_logit_error, sweep_check, sweep_logit_error,
+    SWEEP_EDGES, SWEEP_MAIN, per_temp_logit_error, sweep_check, sweep_logit_error,
 )
 from torch_port_fixtures import two_torch_threads  # noqa: E402,F401
 
@@ -161,3 +165,21 @@ def test_knn_matches_jax(n, d, k, chunk):
     np.fill_diagonal(dist, np.inf)
     np.testing.assert_allclose(got, np.sort(dist, axis=1)[:, k - 1], rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16_3x", "bf16"])
+@pytest.mark.parametrize("shape", [SWEEP_MAIN, *SWEEP_EDGES], ids=lambda s: s[0])
+def test_plan_covers_every_column_once(shape, mode):
+    """Each shape of chip_smoke's phase 8 gets a plan at slot counts like
+    the card's (132 blocks of the fp32 kernel, 264 of the bf16 ones) and
+    below: chunk c takes the 128-column sub-tiles [c per_chunk, (c + 1)
+    per_chunk), so the chunks take each sub-tile exactly once when none is
+    empty and the last reaches the last sub-tile."""
+    _, B, N, _, _, _ = shape
+    n_pad = sw.round_up(N, sw.TILE_COLS)
+    n_tiles = n_pad // sw.TILE_COLS
+    for slots in (1, 132, 264):
+        plan = sw.plan_sweep(mode, B, n_pad, slots)
+        assert plan.tile_rows == (128 if mode == "fp32" else 64)
+        assert plan.n_chunks >= 1 and plan.per_chunk >= 1
+        assert (plan.n_chunks - 1) * plan.per_chunk < n_tiles <= plan.n_chunks * plan.per_chunk

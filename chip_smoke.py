@@ -18,7 +18,10 @@ any error or disagreement:
    warm L2, the host's enqueue hidden behind a sleep kernel); the host's
    own cost per call is reported beside it. Attention (row 1) also at the
    edge shapes ATTN_EDGES in bf16: head dims that pad to 16, 32, 64 and
-   128, and T 512 (the two-pass kernel).
+   128, and T 512 (the two-pass kernel); GroupNorm (row 3) also at
+   GN_EDGES (one group of 512 channels, 3 channels a group, fp32 at the
+   largest tile), each shape called twice (bitwise equal) with its launch
+   plan printed.
 3. The full-width flagship UNet in fp32 on the card (kernels) against the
    same weights on the CPU (plain versions) at batch 2, and a 10-step
    fp32 DDIM sample on both from the same starting noise.
@@ -35,7 +38,9 @@ any error or disagreement:
    at ATTN_EDGES in bf16), and the forward kernels at the training batch, against
    their plain versions, with times beside the bound, the plain version
    and one library call's backward alone (torch.autograd.grad over
-   scaled_dot_product_attention, and over group_norm then silu). Then
+   scaled_dot_product_attention, and over group_norm then silu); the
+   GroupNorm backward (row 4) also at GN_EDGES, each shape called twice
+   (bitwise equal) with its launch plan printed. Then
    rows 1 and 2, untimed, at every head dim they take (8 to 128 by 8) at
    T 16, 64, 256 and 512, bf16 and fp32.
 6. The full-width fp32 flagship train step (batch 2, dropout off, the
@@ -186,9 +191,15 @@ ATTN_EDGES = ((16, 8, 8), (64, 24, 4), (256, 40, 4), (256, 128, 2),
 ATTN_SWEEP_T = (16, 64, 256, 512)
 ATTN_SWEEP_HD = tuple(range(8, 129, 8))
 # operations per element of the GroupNorm backward (fp32), over its three
-# passes: statistics 3, normalizing twice 4, partials 3, dx 6; the SiLU
-# VJP (~10) is taken twice
-GN_BWD_OPS = {"silu": 36, "none": 16}
+# passes: statistics 3; normalizing 2, the SiLU VJP ~10, partials 2, dn 1;
+# normalizing again 2 and dx 4 (dn stays on chip from the second pass)
+GN_BWD_OPS = {"silu": 24, "none": 14}
+# GroupNorm edge shapes beside the main path's (B, S, C, groups, dtype,
+# act): one group of 512 channels (the backward once refused more than 256
+# a group; at S 1024 its plan streams), 3 channels a group, and fp32 at the
+# largest tile at the fp32 train step's batch
+GN_EDGES = ((128, 64, 512, 1, "bfloat16", "silu"), (64, 1024, 512, 1, "bfloat16", "silu"),
+            (64, 64, 96, 32, "bfloat16", "silu"), (2, 1024, 384, 32, "float32", "silu"))
 
 # The opt-in whole attention block (rows 5 and 6, PDM_FUSED_BLOCK=1): the
 # flagship's attention geometries (T, C, heads) with their calls per model
@@ -1825,55 +1836,74 @@ def main() -> int:
                          f"{row['shape']} {dname}")
         return rows
 
-    def group_norm_fwd_rows(batch):
-        rows = []
-        for (S, C, act), calls in sorted(gn_calls.items(), reverse=True):
-            x = torch.randn(batch, S, C, generator=g, device=dev).bfloat16()
-            scale = 1.0 + 0.2 * torch.randn(C, generator=g, device=dev)
-            bias = 0.1 * torch.randn(C, generator=g, device=dev)
-            y = gn_op.fused_group_norm_act(x, scale, bias, 32, 1e-6, act)
-            ref = gn_op.group_norm_reference(x, scale, bias, 32, 1e-6, act).bfloat16()
-            torch.cuda.synchronize()
-            err, ok, rtol, atol = compare(y, ref, "bfloat16")
-            worst = compare_fraction(y, ref, "bfloat16")
-            side = int(round(math.sqrt(S)))
-            x4 = x.view(batch, side, side, C).permute(0, 3, 1, 2)  # channels_last
-            sc_b, bi_b = scale.bfloat16(), bias.bfloat16()
+    def group_norm_shapes(batch, edges):
+        """The main path's GroupNorm shapes at `batch` (bf16, 32 groups)
+        with their calls per step, then (`edges`) the edge shapes."""
+        return ([((batch, S, C, 32, "bfloat16", act), calls)
+                 for (S, C, act), calls in sorted(gn_calls.items(), reverse=True)]
+                + [(edge, 0) for edge in (GN_EDGES if edges else ())])
 
-            def library(x4=x4, sc_b=sc_b, bi_b=bi_b, act=act):
-                z = F.group_norm(x4, 32, sc_b, bi_b, 1e-6)
+    def gn_inputs(B, S, C, dname, with_dy=False):
+        dtype = getattr(torch, dname)
+        x = torch.randn(B, S, C, generator=g, device=dev).to(dtype)
+        dy = torch.randn(B, S, C, generator=g, device=dev).to(dtype) if with_dy else None
+        scale = 1.0 + 0.2 * torch.randn(C, generator=g, device=dev)
+        bias = 0.1 * torch.randn(C, generator=g, device=dev)
+        return x, dy, scale, bias
+
+    def group_norm_fwd_rows(batch, edges):
+        rows = []
+        for (B, S, C, G, dname, act), calls in group_norm_shapes(batch, edges):
+            x, _, scale, bias = gn_inputs(B, S, C, dname)
+            y = gn_op.fused_group_norm_act(x, scale, bias, G, 1e-6, act)
+            y2 = gn_op.fused_group_norm_act(x, scale, bias, G, 1e-6, act)
+            ref = gn_op.group_norm_reference(x, scale, bias, G, 1e-6, act).to(x.dtype)
+            torch.cuda.synchronize()
+            err, ok, rtol, atol = compare(y, ref, dname)
+            worst = compare_fraction(y, ref, dname)
+            same = bool(torch.equal(y, y2))
+            plan = gn_op.plan_group_norm(B, S, C, G, x.element_size(), False)
+            side = int(round(math.sqrt(S)))
+            x4 = x.view(B, side, side, C).permute(0, 3, 1, 2)  # channels_last
+            sc_b, bi_b = scale.to(x.dtype), bias.to(x.dtype)
+
+            def library(x4=x4, sc_b=sc_b, bi_b=bi_b, act=act, G=G):
+                z = F.group_norm(x4, G, sc_b, bi_b, 1e-6)
                 return F.silu(z) if act == "silu" else z
 
-            b_ms, b_by = bound(2 * batch * S * C * 2 + 2 * C * 4,
-                               (12 if act == "silu" else 8) * batch * S * C,
-                               "float32")
+            b_ms, b_by = bound(2 * x.numel() * x.element_size() + 2 * C * 4,
+                               (12 if act == "silu" else 8) * x.numel(), "float32")
             ms, host_ms = time_ms(
-                lambda: gn_op.fused_group_norm_act(x, scale, bias, 32, 1e-6, act))
+                lambda: gn_op.fused_group_norm_act(x, scale, bias, G, 1e-6, act))
             row = {
-                "shape": [batch, S, C], "act": act, "dtype": "bfloat16",
-                "calls_per_step": calls, "max_abs_err": err,
-                "worst_of_tolerance": worst, "rtol": rtol,
+                "shape": [B, S, C], "groups": G, "act": act, "dtype": dname,
+                "calls_per_step": calls, "plan": list(plan), "max_abs_err": err,
+                "worst_of_tolerance": worst, "bitwise_repeat": same, "rtol": rtol,
                 "atol": atol, "ms": ms, "host_ms": host_ms,
                 "plain_ms": time_ms(lambda: gn_op.group_norm_reference(
-                    x, scale, bias, 32, 1e-6, act).bfloat16(), inner=5)[0],
+                    x, scale, bias, G, 1e-6, act).to(x.dtype), inner=5)[0],
                 "library_ms": time_ms(library)[0],
                 "bound_ms": b_ms, "bound_by": b_by,
             }
             rows.append(row)
-            log(f"groupnorm bfloat16 B={batch} S={S} C={C} act={act} x{calls}/fwd: "
-                f"max_abs_err {err:.3g} (tol rtol {rtol} atol {atol}) kernel_ms "
-                f"{ms:.4f} (host {host_ms:.4f}) plain_ms {row['plain_ms']:.4f} library_ms "
-                f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}) "
-                f"{'ok' if ok else 'MISMATCH'}")
+            log(f"groupnorm {dname} B={B} S={S} C={C} groups={G} act={act} "
+                f"x{calls}/fwd plan {tuple(plan)}: max_abs_err {err:.3g} (tol rtol "
+                f"{rtol} atol {atol}; worst {worst:.3g} of it; two calls bitwise "
+                f"equal: {same}) kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms "
+                f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
+                f"{b_ms:.4f} ({b_by}) {'ok' if ok and same else 'MISMATCH'}")
             if not ok:
                 fail(f"GroupNorm kernel disagrees with its plain version at "
-                     f"{row['shape']} act={act}")
+                     f"{row['shape']} groups={G} {dname} act={act}")
+            if not same:
+                fail(f"GroupNorm kernel not bitwise repeatable at {row['shape']} "
+                     f"groups={G} {dname} act={act}")
         return rows
 
     attn_main = sorted(attn_calls.items(), reverse=True)
     attn_rows = (attention_fwd_rows(BATCH, (torch.bfloat16,), attn_shapes)
                  + attention_fwd_rows(BATCH, (torch.float32,), attn_main))
-    gn_rows = group_norm_fwd_rows(BATCH)
+    gn_rows = group_norm_fwd_rows(BATCH, edges=True)
 
     # ---- phase 3: full-width fp32 UNet and a short sample, card vs CPU ----
     log(f"phase 3 at {time.perf_counter() - t_start:.1f} s")
@@ -1958,7 +1988,7 @@ def main() -> int:
     # ---- phase 5: backward kernels (and forward at the training batch) ----
     log(f"phase 5 at {time.perf_counter() - t_start:.1f} s")
     attn_train_rows = attention_fwd_rows(TRAIN_BATCH, (torch.bfloat16,), attn_main)
-    gn_train_rows = group_norm_fwd_rows(TRAIN_BATCH)
+    gn_train_rows = group_norm_fwd_rows(TRAIN_BATCH, edges=False)
 
     def grad_ms(out, inputs, cot):
         return time_ms(lambda: torch.autograd.grad(out, inputs, cot,
@@ -2016,55 +2046,58 @@ def main() -> int:
     attention_head_dim_sweep(attn_op, dev, g)
 
     gn_bwd_rows = []
-    for (S, C, act), calls in sorted(gn_calls.items(), reverse=True):
-        B = TRAIN_BATCH
-        x = torch.randn(B, S, C, generator=g, device=dev).bfloat16()
-        dy = torch.randn(B, S, C, generator=g, device=dev).bfloat16()
-        scale = 1.0 + 0.2 * torch.randn(C, generator=g, device=dev)
-        bias = 0.1 * torch.randn(C, generator=g, device=dev)
-        got = gn_op.group_norm_bwd(x, scale, bias, dy, 32, 1e-6, act)
-        want = gn_op.group_norm_bwd_reference(x, scale, bias, dy, 32, 1e-6, act)
+    for (B, S, C, G, dname, act), calls in group_norm_shapes(TRAIN_BATCH, edges=True):
+        x, dy, scale, bias = gn_inputs(B, S, C, dname, with_dy=True)
+        got = gn_op.group_norm_bwd(x, scale, bias, dy, G, 1e-6, act)
+        again = gn_op.group_norm_bwd(x, scale, bias, dy, G, 1e-6, act)
+        want = gn_op.group_norm_bwd_reference(x, scale, bias, dy, G, 1e-6, act)
         torch.cuda.synchronize()
-        rtol, atol = BWD_TOL["bfloat16"]
+        rtol, atol = BWD_TOL[dname]
         checks = [compare_to_scale(got[0], want[0], rtol, atol)] + [
             compare_to_scale(a_, b_, *PARAM_GRAD_TOL)
             for a_, b_ in zip(got[1:], want[1:])]
         err, ok = max(c[0] for c in checks), all(c[1] for c in checks)
         worst = max([tol_fraction(got[0], want[0], rtol, atol)] + [
             tol_fraction(a_, b_, *PARAM_GRAD_TOL) for a_, b_ in zip(got[1:], want[1:])])
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+        plan = gn_op.plan_group_norm(B, S, C, G, x.element_size(), True)
         side = int(round(math.sqrt(S)))
         x4 = (x.view(B, side, side, C).permute(0, 3, 1, 2).detach().clone()
               .requires_grad_())  # channels_last
-        sc_b = scale.bfloat16().requires_grad_()
-        bi_b = bias.bfloat16().requires_grad_()
-        lib_out = F.group_norm(x4, 32, sc_b, bi_b, 1e-6)
+        sc_b = scale.to(x.dtype).requires_grad_()
+        bi_b = bias.to(x.dtype).requires_grad_()
+        lib_out = F.group_norm(x4, G, sc_b, bi_b, 1e-6)
         if act == "silu":
             lib_out = F.silu(lib_out)
-        b_ms, b_by = bound(3 * B * S * C * 2 + 4 * C * 4,
-                           GN_BWD_OPS[act] * B * S * C, "float32")
+        b_ms, b_by = bound(3 * x.numel() * x.element_size() + 4 * C * 4,
+                           GN_BWD_OPS[act] * x.numel(), "float32")
         ms, host_ms = time_ms(lambda: gn_op.group_norm_bwd(
-            x, scale, bias, dy, 32, 1e-6, act))
+            x, scale, bias, dy, G, 1e-6, act))
         row = {
-            "shape": [B, S, C], "act": act, "dtype": "bfloat16",
-            "calls_per_step": calls, "max_abs_err": err,
-            "worst_of_tolerance": worst, "rtol": rtol,
+            "shape": [B, S, C], "groups": G, "act": act, "dtype": dname,
+            "calls_per_step": calls, "plan": list(plan), "max_abs_err": err,
+            "worst_of_tolerance": worst, "bitwise_repeat": same, "rtol": rtol,
             "atol_of_scale": atol, "ms": ms, "host_ms": host_ms,
             "plain_ms": time_ms(lambda: gn_op.group_norm_bwd_reference(
-                x, scale, bias, dy, 32, 1e-6, act), inner=3)[0],
+                x, scale, bias, dy, G, 1e-6, act), inner=3)[0],
             "library_ms": grad_ms(lib_out, (x4, sc_b, bi_b), dy.view(
                 B, side, side, C).permute(0, 3, 1, 2)),
             "bound_ms": b_ms, "bound_by": b_by,
         }
         gn_bwd_rows.append(row)
-        log(f"groupnorm backward bfloat16 B={B} S={S} C={C} act={act} "
-            f"x{calls}/step: max_abs_err {err:.3g} (dx tol rtol {rtol} atol "
-            f"{atol} of scale; dscale/dbias {PARAM_GRAD_TOL}) kernel_ms "
+        log(f"groupnorm backward {dname} B={B} S={S} C={C} groups={G} act={act} "
+            f"x{calls}/step plan {tuple(plan)}: max_abs_err {err:.3g} (dx tol rtol "
+            f"{rtol} atol {atol} of scale; dscale/dbias {PARAM_GRAD_TOL}; worst "
+            f"{worst:.3g} of it; two calls bitwise equal: {same}) kernel_ms "
             f"{ms:.4f} (host {host_ms:.4f}) plain_ms {row['plain_ms']:.4f} "
             f"library_ms {row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}) "
-            f"{'ok' if ok else 'MISMATCH'}")
+            f"{'ok' if ok and same else 'MISMATCH'}")
         if not ok:
             fail(f"GroupNorm backward kernel disagrees with its plain version "
-                 f"at {row['shape']} act={act}")
+                 f"at {row['shape']} groups={G} {dname} act={act}")
+        if not same:
+            fail(f"GroupNorm backward kernel not bitwise repeatable at "
+                 f"{row['shape']} groups={G} {dname} act={act}")
         del lib_out, x4
     torch.cuda.empty_cache()
 

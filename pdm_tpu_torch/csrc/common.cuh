@@ -1,5 +1,5 @@
 // Shared helpers for the port's kernels: element loads/stores in fp32 or
-// bf16 with fp32 arithmetic, aligned vectors, and a block-wide sum.
+// bf16 with fp32 arithmetic, aligned vectors, and a warp-wide sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,19 +34,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// Sum of v over the block (blockDim.x a multiple of 32, at most 1024).
-// Every thread gets the total. `scratch` holds 32 floats of shared memory.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();  // scratch may still be read from a previous call
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  v = lane < n_warps ? scratch[lane] : 0.f;
-  return warp_sum(v);
 }
 
 }  // namespace pdm

@@ -18,13 +18,21 @@ When grad is enabled and an input requires it, the call goes through an
 ``autograd.Function`` that saves x, scale and bias and whose backward is
 :func:`group_norm_bwd`, as the JAX package's ``custom_vjp`` does. Launch
 counters: ``fused_group_norm_act.launches`` (forward) and
-``group_norm_bwd.launches`` (backward).
+``group_norm_bwd.launches`` (backward), one launch a call each.
+
+Both kernels take every ``C % groups == 0`` and run one launch plan
+(:func:`plan_group_norm`, a pure function of the shape): the kr blocks of a
+thread-block cluster split an image's rows, kc clusters its channels in
+whole groups, and each block holds its rows x C / kc share in shared
+memory (``hold``) or, where it does not fit, re-reads whole rows from
+device memory in each pass.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import math
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,10 +42,116 @@ from torch.autograd.function import once_differentiable
 from . import _build
 
 ACTS = ("none", "silu")
-# channels per group the backward kernel takes (kMaxCpg in the source)
-MAX_BWD_GROUP_CHANNELS = 256
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Launch plan (csrc/groupnorm_common.cuh). A block's share of an image, in
+# bytes (x for the forward; x and an fp32 slot an element, dy then dn, for
+# the backward), is cut to about TILE_BYTES by splitting the rows across a
+# cluster of up to MAX_CLUSTER_BLOCKS blocks (each keeping at least
+# MIN_ROWS rows), then the channels in whole groups, while a block's row
+# segment stays at least MIN_SEGMENT_BYTES wide (two 32-byte sectors);
+# channels are split further while the grid has fewer than FILL_BLOCKS
+# blocks. A block takes TARGET_THREADS threads (half as many for images of
+# at most MIN_ROWS rows). A share that does not fit in MAX_SMEM_BYTES
+# streams instead (whole rows, re-read in each pass). The values were
+# measured best among those tried on the flagship's shapes (PERF.md §6).
+TILE_BYTES = {False: 32 << 10, True: 64 << 10}  # forward, backward
+MAX_CLUSTER_BLOCKS = 8
+MIN_ROWS = 16
+MIN_SEGMENT_BYTES = 64
+FILL_BLOCKS = 2 * 132  # two blocks for each of the H100's SMs
+TARGET_THREADS = 256
+MAX_SMEM_BYTES = 232448
+
+
+class GroupNormPlan(NamedTuple):
+    """One launch of a GroupNorm kernel; mirrors ``GnPlan`` in
+    csrc/groupnorm_common.cuh. Block (i, j, b) of the grid (kr, kc, B)
+    owns rows [i rows, (i + 1) rows) (clipped to S) and channels
+    [j cb, (j + 1) cb) of image b; the kr blocks of a column are a
+    cluster. Its threads t < lanes_v * lanes_p take column vectors
+    t % lanes_v + k lanes_v and rows t // lanes_v + k lanes_p."""
+    kr: int
+    kc: int
+    rows: int
+    cb: int
+    vec: int
+    lanes_v: int
+    lanes_p: int
+    threads: int
+    hold: int
+    smem: int
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _smem_bytes(lanes_v, lanes_p, vec, cb, gb, rows, itemsize, nq, hold):
+    """Shared memory of a plan (csrc/groupnorm_common.cuh::smem_bytes):
+    the sums' arrays, then the tile: x and, for the backward, an fp32 slot
+    an element (dy, then dn)."""
+    floats = (_round4(2 * lanes_v * lanes_p * vec) + (1 + nq) * _round4(2 * cb)
+              + (1 + nq) * _round4(2 * gb))
+    tile = -(-rows * cb * itemsize // 16) * 16 + (4 * rows * cb if nq == 2 else 0)
+    return 4 * floats + (tile if hold else 0)
+
+
+def _geometry(S, C, groups, itemsize, nq, kr, kc, align, hold):
+    rows = -(-S // kr)
+    cb = C // kc
+    vec = next(v for v in (4, 2, 1)
+               if cb % v == 0 and align % (v * itemsize) == 0)
+    vpr = cb // vec
+    target = TARGET_THREADS if S > MIN_ROWS else TARGET_THREADS // 2
+    lanes_v = min(vpr, target)
+    lanes_p = max(1, min(target // lanes_v, rows))
+    threads = -(-lanes_v * lanes_p // 32) * 32
+    smem = _smem_bytes(lanes_v, lanes_p, vec, cb, cb // (C // groups), rows,
+                       itemsize, nq, hold)
+    return GroupNormPlan(kr, kc, rows, cb, vec, lanes_v, lanes_p, threads,
+                         int(hold), smem)
+
+
+def plan_group_norm(B: int, S: int, C: int, groups: int, itemsize: int,
+                    backward: bool, align: int = 16) -> GroupNormPlan:
+    """The launch plan of the forward (``backward`` False) or backward
+    kernel for x of shape (B, S, C) with ``itemsize``-byte elements whose
+    pointers share ``align``-byte alignment (16 or less). Pure: the
+    same arguments give the same plan, so a call is bitwise repeatable."""
+    if groups <= 0 or C % groups:
+        raise ValueError(f"C={C} not divisible into {groups} groups")
+    nq = 2 if backward else 1
+    budget = TILE_BYTES[backward]
+    image = S * C * (itemsize + 4 if backward else itemsize)
+    kr = 1
+    while (kr < MAX_CLUSTER_BLOCKS and image > budget * kr
+           and -(-S // (2 * kr)) >= MIN_ROWS):
+        kr *= 2
+    splits = [d for d in range(1, groups + 1) if groups % d == 0
+              and (d == 1 or (C // d) * itemsize >= MIN_SEGMENT_BYTES)]
+    i = next((i for i, d in enumerate(splits) if image <= budget * kr * d),
+             len(splits) - 1)
+    while i + 1 < len(splits) and B * kr * splits[i] < FILL_BLOCKS:
+        i += 1
+    plan = _geometry(S, C, groups, itemsize, nq, kr, splits[i], align, True)
+    if plan.smem <= MAX_SMEM_BYTES:
+        return plan
+    # stream: whole rows (the fewest channel blocks whose arrays fit)
+    for kc in (d for d in range(1, groups + 1) if groups % d == 0):
+        plan = _geometry(S, C, groups, itemsize, nq, kr, kc, align, False)
+        if plan.smem <= MAX_SMEM_BYTES:
+            return plan
+    raise ValueError(f"no GroupNorm plan for C={C} in {groups} groups")
+
+
+def _alignment(*tensors: Tensor) -> int:
+    """The largest power of two up to 16 dividing every data pointer."""
+    addr = 16
+    for t in tensors:
+        addr = math.gcd(addr, t.data_ptr())
+    return addr
 
 
 def group_norm_reference(
@@ -89,12 +203,15 @@ def _forward(x: Tensor, scale: Tensor, bias: Tensor, groups: int, eps: float,
     _check(x, scale, bias, groups)
     B, S, C = x.shape
     out = torch.empty_like(x)
+    plan = _GnPlan(*plan_group_norm(B, S, C, groups, x.element_size(),
+                                        False, _alignment(x, out)))
     fn = _build.entry("pdm_group_norm_fwd", _FWD_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), B, S, C, groups, float(eps),
-                 int(act == "silu"), _DTYPE_CODES[x.dtype], stream)
+                 out.data_ptr(), ctypes.byref(plan), B, S, C, groups,
+                 float(eps), int(act == "silu"), _DTYPE_CODES[x.dtype],
+                 stream)
     _build.check(err, "pdm_group_norm_fwd")
     fused_group_norm_act.launches += 1
     return out
@@ -156,20 +273,19 @@ def group_norm_bwd(
         raise ValueError(f"dy must match x ({x.dtype} {tuple(x.shape)}): "
                          f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
     B, S, C = x.shape
-    if C // groups > MAX_BWD_GROUP_CHANNELS:
-        raise ValueError(f"the backward kernel takes at most "
-                         f"{MAX_BWD_GROUP_CHANNELS} channels per group: "
-                         f"{C // groups}")
     dy = dy.contiguous()
     dx = torch.empty_like(x)
     parts = torch.empty((2, B, C), dtype=torch.float32, device=x.device)
+    plan = _GnPlan(*plan_group_norm(B, S, C, groups, x.element_size(),
+                                        True, _alignment(x, dy, dx)))
     fn = _build.entry("pdm_group_norm_bwd", _BWD_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dy.data_ptr(), scale.data_ptr(),
                  bias.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
-                 parts[1].data_ptr(), B, S, C, groups, float(eps),
-                 int(act == "silu"), _DTYPE_CODES[x.dtype], stream)
+                 parts[1].data_ptr(), ctypes.byref(plan), B, S, C, groups,
+                 float(eps), int(act == "silu"), _DTYPE_CODES[x.dtype],
+                 stream)
     _build.check(err, "pdm_group_norm_bwd")
     group_norm_bwd.launches += 1
     dscale, dbias = parts.sum(dim=1)
@@ -214,6 +330,13 @@ def fused_group_norm_act(
 fused_group_norm_act.launches = 0
 group_norm_bwd.launches = 0
 
+
+
+class _GnPlan(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in GroupNormPlan._fields]
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
-_BWD_ARGS = [_P] * 7 + [_I] * 4 + [ctypes.c_float, _I, _I, _P]
+_PLAN = ctypes.POINTER(_GnPlan)
+_FWD_ARGS = [_P, _P, _P, _P, _PLAN, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
+_BWD_ARGS = [_P] * 7 + [_PLAN] + [_I] * 4 + [ctypes.c_float, _I, _I, _P]

@@ -133,18 +133,20 @@ def test_attention_kernels_at_every_head_dim(cuda_device, hd, T, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,C,act", [
-    (1024, 128, "silu"), (1024, 384, "silu"), (256, 512, "silu"),
-    (256, 256, "none"), (16, 256, "none"),
+@pytest.mark.parametrize("S,C,act,groups", [
+    (1024, 128, "silu", 32), (1024, 384, "silu", 32), (256, 512, "silu", 32),
+    (256, 256, "none", 32), (16, 256, "none", 32), (16, 512, "silu", 32),
+    (64, 512, "silu", 1),   # one group of 512 channels
+    (64, 96, "silu", 32),   # 3 channels a group
 ])
-def test_group_norm_kernel_matches_plain_on_card(cuda_device, S, C, act):
+def test_group_norm_kernel_matches_plain_on_card(cuda_device, S, C, act, groups):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn(64, S, C, generator=g, device=cuda_device).bfloat16()
     scale = 1.0 + 0.2 * torch.randn(C, generator=g, device=cuda_device)
     bias = 0.1 * torch.randn(C, generator=g, device=cuda_device)
     before = tg.fused_group_norm_act.launches
-    y = tg.fused_group_norm_act(x, scale, bias, 32, EPS, act)
-    ref = tg.group_norm_reference(x, scale, bias, 32, EPS, act).bfloat16()
+    y = tg.fused_group_norm_act(x, scale, bias, groups, EPS, act)
+    ref = tg.group_norm_reference(x, scale, bias, groups, EPS, act).bfloat16()
     torch.cuda.synchronize()
     assert tg.fused_group_norm_act.launches == before + 1
     torch.testing.assert_close(y.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
@@ -212,18 +214,22 @@ def test_attention_autograd_on_card_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,C,act,dtype", [
-    (1024, 128, "silu", torch.bfloat16), (1024, 384, "silu", torch.bfloat16),
-    (256, 512, "silu", torch.bfloat16), (256, 256, "none", torch.bfloat16),
-    (16, 256, "none", torch.bfloat16), (64, 96, "silu", torch.float32),
+@pytest.mark.parametrize("S,C,act,dtype,groups", [
+    (1024, 128, "silu", torch.bfloat16, 32), (1024, 384, "silu", torch.bfloat16, 32),
+    (256, 512, "silu", torch.bfloat16, 32), (256, 256, "none", torch.bfloat16, 32),
+    (16, 256, "none", torch.bfloat16, 32), (64, 96, "silu", torch.float32, 32),
+    (16, 512, "silu", torch.bfloat16, 32),
+    (64, 96, "silu", torch.bfloat16, 32),   # 3 channels a group
+    (64, 512, "silu", torch.bfloat16, 1),   # one group of 512 channels
+    (64, 512, "silu", torch.float32, 1),
 ])
 def test_group_norm_backward_kernel_matches_plain_on_card(cuda_device, S, C,
-                                                          act, dtype):
-    """The flagship training shapes at B=128 (and one fp32 case whose
-    3 channels per group take the scalar path): dx within one rounding of
-    the output, dscale/dbias (fp32 sums over B, S) within 1e-4 of scale."""
+                                                          act, dtype, groups):
+    """The flagship training shapes at B=128 (and fp32 cases at B=8), 3
+    channels a group, and one group of 512 channels (the backward once
+    refused more than 256 a group): dx within one rounding of the output,
+    dscale/dbias (fp32 sums over B, S) within 1e-4 of scale."""
     B = 128 if dtype == torch.bfloat16 else 8
-    groups = 32
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn(B, S, C, generator=g, device=cuda_device).to(dtype)
     dy = torch.randn(B, S, C, generator=g, device=cuda_device).to(dtype)
@@ -238,6 +244,61 @@ def test_group_norm_backward_kernel_matches_plain_on_card(cuda_device, S, C,
     _assert_close_to_scale(dx, want[0], *BWD_TOL[dtype])
     _assert_close_to_scale(ds, want[1], 1e-4, 1e-4)
     _assert_close_to_scale(db, want[2], 1e-4, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,C,groups,dtype", [
+    (8, 1024, 384, 32, torch.bfloat16),  # clusters of 8 blocks, 4 channel slices
+    (4, 64, 512, 1, torch.float32),      # one group: a cluster of 4 blocks
+    (8, 1024, 512, 1, torch.bfloat16),   # the backward's plan streams
+])
+def test_group_norm_kernels_are_bitwise_deterministic(cuda_device, B, S, C,
+                                                      groups, dtype):
+    """Both GroupNorm kernels give bitwise equal results on two calls: the
+    cluster adds its blocks' sums in rank order, no atomics."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x, dy = (torch.randn(B, S, C, generator=g, device=cuda_device).to(dtype)
+             for _ in range(2))
+    scale = 1.0 + 0.2 * torch.randn(C, generator=g, device=cuda_device)
+    bias = 0.1 * torch.randn(C, generator=g, device=cuda_device)
+    plans = [tg.plan_group_norm(B, S, C, groups, x.element_size(), bwd)
+             for bwd in (False, True)]
+    assert max(p.kr for p in plans) > 1
+    y = [tg.fused_group_norm_act(x, scale, bias, groups, EPS, "silu")
+         for _ in range(2)]
+    grads = [tg.group_norm_bwd(x, scale, bias, dy, groups, EPS, "silu")
+             for _ in range(2)]
+    assert torch.equal(y[0], y[1])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.cuda
+def test_group_norm_autograd_at_one_group_on_card_matches_cpu(cuda_device):
+    """groups 1, C 512 (cpg 512) through the autograd Function: the forward
+    kernel, then the backward kernel (one launch each), against the plain
+    versions on the CPU; the output to 1e-5, dx to BWD_TOL, dscale/dbias to
+    1e-4 of their scale."""
+    B, S, C = 4, 64, 512
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy((rng.standard_normal((B, S, C)) * 2 + 0.5).astype(np.float32))
+    scale = torch.from_numpy((1 + 0.2 * rng.standard_normal(C)).astype(np.float32))
+    bias = torch.from_numpy((0.1 * rng.standard_normal(C)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((B, S, C)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        tx, ts, tb = (t.detach().clone().to(dev).requires_grad_() for t in (x, scale, bias))
+        f0, b0 = tg.fused_group_norm_act.launches, tg.group_norm_bwd.launches
+        y = tg.fused_group_norm_act(tx, ts, tb, 1, EPS, "silu")
+        y.backward(dy.to(dev))
+        out[str(dev)] = (y.detach().cpu(), tx.grad.cpu(), ts.grad.cpu(), tb.grad.cpu(),
+                         (tg.fused_group_norm_act.launches - f0,
+                          tg.group_norm_bwd.launches - b0))
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    assert cpu[4] == (0, 0) and card[4] == (1, 1)
+    torch.testing.assert_close(card[0], cpu[0], rtol=1e-5, atol=1e-5)
+    _assert_close_to_scale(card[1], cpu[1], *BWD_TOL[torch.float32])
+    _assert_close_to_scale(card[2], cpu[2], 1e-4, 1e-4)
+    _assert_close_to_scale(card[3], cpu[3], 1e-4, 1e-4)
 
 
 @pytest.mark.cuda

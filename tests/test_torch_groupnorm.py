@@ -132,3 +132,105 @@ def test_group_norm_backward_matches_jax_vjp(dtype, act, B, S, C):
                     np.asarray(want_dx.astype(jnp.float32)), *BWD_TOL[dtype])
     _assert_close_to_scale(ts.grad.numpy(), np.asarray(want_ds), 1e-5, 1e-5)
     _assert_close_to_scale(tb.grad.numpy(), np.asarray(want_db), 1e-5, 1e-5)
+
+
+# The launch plan (tg.plan_group_norm, a pure function; the kernels take it
+# as given): the flagship's (S, C) at the sampler's and the trainer's batch,
+# and edge shapes (B, S, C, groups, itemsize): one group of 512 channels,
+# which the backward streams at S 1024; 3 channels a group; fp32 at the
+# largest tile; ragged S and C.
+FLAGSHIP_SC = [(1024, 128), (1024, 256), (1024, 384), (256, 512), (256, 384),
+               (256, 256), (256, 128), (64, 512), (64, 256), (16, 512),
+               (16, 256)]
+PLAN_CASES = (
+    [(64, S, C, 32, 2, False) for S, C in FLAGSHIP_SC]
+    + [(128, S, C, 32, 2, bwd) for S, C in FLAGSHIP_SC for bwd in (False, True)]
+    + [(B, S, C, G, isz, bwd) for B, S, C, G, isz in (
+        (128, 64, 512, 1, 2), (8, 64, 512, 1, 4), (128, 1024, 512, 1, 2),
+        (64, 64, 96, 32, 2), (2, 1024, 384, 32, 4), (8, 64, 96, 32, 4),
+        (3, 17, 100, 10, 2), (3, 17, 100, 10, 4)) for bwd in (False, True)])
+
+
+def _coverage(plan, S, C):
+    """How often the plan's blocks and threads visit each (row, channel)."""
+    count = np.zeros((S, C), np.int32)
+    vpr = plan.cb // plan.vec
+    for i in range(plan.kr):
+        r0 = i * plan.rows
+        r1 = min(S, r0 + plan.rows)
+        for j in range(plan.kc):
+            for t in range(plan.lanes_v * plan.lanes_p):
+                lane = t // plan.lanes_v
+                for cv in range(t % plan.lanes_v, vpr, plan.lanes_v):
+                    c = j * plan.cb + cv * plan.vec
+                    count[r0 + lane:r1:plan.lanes_p, c:c + plan.vec] += 1
+    return count
+
+
+@pytest.mark.parametrize("B,S,C,groups,itemsize,backward", PLAN_CASES)
+def test_plan_covers_every_row_and_channel_once(B, S, C, groups, itemsize,
+                                                backward):
+    plan = tg.plan_group_norm(B, S, C, groups, itemsize, backward)
+    assert plan == tg.plan_group_norm(B, S, C, groups, itemsize, backward)
+    assert 1 <= plan.kr <= tg.MAX_CLUSTER_BLOCKS and plan.rows * plan.kr >= S
+    assert groups % plan.kc == 0 and plan.cb == C // plan.kc  # whole groups
+    assert plan.cb % plan.vec == 0 and plan.vec <= 4
+    assert plan.lanes_v * plan.lanes_p <= plan.threads <= tg.TARGET_THREADS
+    assert plan.threads % 32 == 0 and plan.smem <= tg.MAX_SMEM_BYTES
+    assert (_coverage(plan, S, C) == 1).all()
+
+
+@pytest.mark.parametrize("B,S,C,groups,itemsize,backward", PLAN_CASES)
+def test_plan_picks_the_documented_variant(B, S, C, groups, itemsize,
+                                           backward):
+    """The tile stays on chip wherever it fits; a block's share is at most
+    the tile budget unless the splits run out; row segments of at least
+    MIN_SEGMENT_BYTES (or whole rows); the streaming variant reads whole
+    rows; vectors of 4 elements wherever the widths allow."""
+    plan = tg.plan_group_norm(B, S, C, groups, itemsize, backward)
+    share = plan.rows * plan.cb * (itemsize + 4 if backward else itemsize)
+    if plan.hold:
+        assert plan.smem >= share
+        assert plan.kc == 1 or plan.cb * itemsize >= tg.MIN_SEGMENT_BYTES
+        assert (share <= tg.TILE_BYTES[backward] or plan.kr == tg.MAX_CLUSTER_BLOCKS
+                or -(-S // (2 * plan.kr)) < tg.MIN_ROWS)
+    else:
+        assert plan.kc == 1 and plan.smem < share  # whole rows, re-read
+    if (C // plan.kc) % 4 == 0:
+        assert plan.vec == 4
+    flagship = groups == 32 and (S, C) in FLAGSHIP_SC and itemsize == 2
+    if flagship:
+        assert plan.hold == 1
+    if (B, S, C, groups, backward) == (128, 1024, 512, 1, True):
+        assert plan.hold == 0  # 2 MB an image: 256 KB a block at 8 blocks
+
+
+def test_plan_respects_alignment_and_refuses_bad_groups():
+    assert tg.plan_group_norm(64, 1024, 384, 32, 2, False, align=8).vec == 4
+    assert tg.plan_group_norm(64, 1024, 384, 32, 4, True, align=4).vec == 1
+    with pytest.raises(ValueError, match="groups"):
+        tg.plan_group_norm(2, 16, 100, 3, 2, False)
+    assert tg._alignment(torch.zeros(8)[1:]) == 4
+
+
+@pytest.mark.parametrize("act", ["silu", "none"])
+def test_plain_versions_at_one_group_of_512_match_jax(act):
+    """groups 1, C 512 (cpg 512, which the backward kernel used to refuse):
+    the port's plain forward against JAX's group_norm_reference, and its
+    autograd through the plain backward against jax.vjp of it."""
+    B, S, C = 2, 64, 512
+    x, scale, bias = _inputs(B, S, C, seed=512)
+    g = np.random.RandomState(9).standard_normal((B, S, C)).astype(np.float32)
+    jx, js, jb = jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias)
+    want, vjp = jax.vjp(lambda x, s, b: j_ref(x, s, b, 1, EPS, act), jx, js, jb)
+    want_dx, want_ds, want_db = vjp(jnp.asarray(g))
+    tx = torch.from_numpy(x).requires_grad_()
+    ts, tb = (torch.from_numpy(a).requires_grad_() for a in (scale, bias))
+    got = tg.fused_group_norm_act(tx, ts, tb, 1, EPS, act)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=TOL, atol=TOL)
+    got.backward(torch.from_numpy(g))
+    _assert_close_to_scale(tx.grad.numpy(), np.asarray(want_dx),
+                           *BWD_TOL["float32"])
+    _assert_close_to_scale(ts.grad.numpy(), np.asarray(want_ds), 1e-5, 1e-5)
+    _assert_close_to_scale(tb.grad.numpy(), np.asarray(want_db), 1e-5, 1e-5)

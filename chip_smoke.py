@@ -112,14 +112,21 @@ any error or disagreement:
    autograd Function: dx, dh, dW_q/k/v, db_qkv, dW_out, db_out), bf16 and
    fp32, with times beside the bound, the plain version and the library
    composition (F.linear, scaled_dot_product_attention, F.linear, add;
-   for the backward that composition's autograd).
+   for the backward that composition's autograd); each kernel called twice
+   (bitwise equal), the launch plan printed. Then, untimed, the edge
+   shapes BLOCK_EDGES (T 16 at head dims 16 and 32 with 8 heads, T 64, a
+   ragged T with packing, two packed images a strip, three key chunks, 75
+   packed groups, more clusters than the card holds at once), bf16 and
+   fp32, each twice, bitwise equal; the forward's rows (out, lse) and the
+   backward's (dh, weight and bias gradients) are held and reported apart.
 14. The whole-block sampling path, PDM_FUSED_BLOCK=1 set for phases 14-16
    only: one bf16 model evaluation against the default path on the same
    input, then the bf16 flagship's DDPM-1000 at batch 64 as phase 4, with
    exactly 8 row-5 launches, no row-1 launch and 69 GroupNorm launches
    per step, the card's busy time and a profiler breakdown; then the
-   default and whole-block paths in turns (default, whole block, whole
-   block, default; 200 steps each).
+   default and whole-block paths in ten alternating pairs of short turns
+   (TURN_STEPS steps each), whose per-pair differences say whether the
+   whole block's 48 fewer launches a step move the host-bound rate.
 15. The whole-block training path: the bf16 train step at batch 128 as
    phase 7, with exact launch counts (row 5 8 and row 6 24 per step, rows
    1 and 2 none, GroupNorm 69 and 69) and the card's busy time; then the
@@ -205,6 +212,13 @@ GN_EDGES = ((128, 64, 512, 1, "bfloat16", "silu"), (64, 1024, 512, 1, "bfloat16"
 # flagship's attention geometries (T, C, heads) with their calls per model
 # evaluation (seven blocks at 16x16, the mid block at 4x4)
 BLOCK_GEOMS = ((256, 256, 4, 7), (16, 256, 4, 1))
+# and untimed, shapes off the flagship's path: (B, T, heads, head dim) with
+# T 16 at head dims 16 and 32 and 8 heads, T 64 (one image a strip, the
+# packing's edge), a ragged T with packing (40: one image and 24 rows of
+# padding a strip), two packed images a strip (T 24, B 9: a partial
+# group), three key chunks and a padding strip (T 192), T 100 at head dim 16
+BLOCK_EDGES = ((5, 16, 8, 16), (5, 16, 8, 32), (4, 64, 8, 64), (5, 40, 4, 32),
+               (9, 24, 2, 64), (3, 192, 2, 64), (3, 100, 4, 16), (600, 16, 4, 64))
 # rows 5 and 6 against their plain versions, (rtol, atol as a fraction of
 # the tensor's max |value|): fp32 by summation order; bf16 by a rounding
 # (of q, k, v, P or att forward; of datt, P, ds or dqkv backward) that the
@@ -219,7 +233,8 @@ BLOCK_BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2 ** -6, 2 ** -6)}
 FUSED_VS_DEFAULT_TOL = 2e-2
 # per-step launches of the whole-block training path: 8 blocks, once
 # forward and once backward (three kernels), no row 1 or 2 launch
-TURN_STEPS = 200       # sampler steps per turn of the two paths' comparison
+TURN_STEPS = 50        # sampler steps per turn of the two paths' comparison
+TURN_PAIRS = 10        # alternating (default, whole block) pairs of turns
 TRAIN_TURN_STEPS = 10  # train steps per turn
 BLOCK_TRAIN_LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0,
                         "block_fwd": 8, "block_bwd": 24,
@@ -1423,8 +1438,12 @@ def block_kernel_rows(time_ms, dev):
             x, h, ws, bs, wo, bo = block_inputs(g, dev, batch, T, C, dtype)
             args = (x, h, ws, bs, wo, bo, heads, scale)
             out, lse = tb._forward(*args)
+            out2, lse2 = tb._forward(*args)
             ref, ref_lse = tb._reference_with_lse(x, h, *ws, bs, wo, bo, heads, scale)
             torch.cuda.synchronize()
+            same = torch.equal(out, out2) and torch.equal(lse, lse2)
+            plan = (tb.plan_block(batch, T, hd, backward=False)._asdict()
+                    if dtype == torch.bfloat16 else None)
             rtol, atol = BLOCK_TOL[dname]
             err, ok = compare_to_scale(out, ref, rtol, atol)
             lse_err, lse_ok = compare_to_scale(lse, ref_lse, rtol, atol)
@@ -1438,8 +1457,8 @@ def block_kernel_rows(time_ms, dev):
                 "shape": [batch, T, C], "heads": heads, "dtype": dname,
                 "calls_per_step": calls if dtype == torch.bfloat16 else 0,
                 "max_abs_err": err, "lse_max_abs_err": lse_err,
-                "tol_fraction": frac, "rtol": rtol,
-                "atol_of_scale": atol, "ms": ms, "host_ms": host_ms,
+                "tol_fraction": frac, "rtol": rtol, "bitwise_repeat": same,
+                "plan": plan, "atol_of_scale": atol, "ms": ms, "host_ms": host_ms,
                 "plain_ms": time_ms(lambda: tb._reference_with_lse(
                     x, h, *ws, bs, wo, bo, heads, scale), inner=5)[0],
                 "library_ms": time_ms(block_library(*args))[0],
@@ -1451,10 +1470,13 @@ def block_kernel_rows(time_ms, dev):
                 f"{err:.3g} (lse {lse_err:.3g}; tol rtol {rtol} atol {atol:.3g} of "
                 f"scale; worst {frac:.3g} of it) kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms "
                 f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
-                f"{b_ms:.4f} ({b_by}) {'ok' if ok and lse_ok else 'MISMATCH'}")
+                f"{b_ms:.4f} ({b_by}); two calls bitwise equal: {same}; plan {plan} "
+                f"{'ok' if ok and lse_ok else 'MISMATCH'}")
             if not (ok and lse_ok):
                 fail(f"whole-block kernel disagrees with its plain version at "
                      f"{row['shape']} {dname}")
+            if not same:
+                fail(f"whole-block kernel not bitwise repeatable at {row['shape']} {dname}")
             if batch != TRAIN_BATCH:
                 continue
 
@@ -1467,7 +1489,13 @@ def block_kernel_rows(time_ms, dev):
                 leaves[0], leaves[1], *leaves[2:5], leaves[5:8], leaves[8],
                 leaves[9], heads, scale), leaves, gco)
             want = tb.attention_block_bwd_reference(h, *ws, bs, wo, lse, gco, heads, scale)
+            once = tb.attention_block_bwd(h, *ws, bs, wo, lse, gco, heads, scale)
+            twice = tb.attention_block_bwd(h, *ws, bs, wo, lse, gco, heads, scale)
             torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(once, twice))
+            plan = (tb.plan_block(batch, T, hd, backward=True)._asdict()
+                    if dtype == torch.bfloat16 else None)
+            del once, twice
             rtol, atol = BLOCK_BWD_TOL[dname]
             named = {"dh": (got[1], want[0]), "dw_q": (got[2], want[1]),
                      "dw_k": (got[3], want[2]), "dw_v": (got[4], want[3]),
@@ -1499,7 +1527,10 @@ def block_kernel_rows(time_ms, dev):
                 "calls_per_step": calls if dtype == torch.bfloat16 else 0,
                 "max_abs_err": err,
                 "errors": {k: c[0] for k, c in checks.items()},
-                "tol_fraction": frac,
+                "tol_fraction": frac, "bitwise_repeat": same, "plan": plan,
+                "weight_grad_chunks": tb._weight_grad_chunks(
+                    batch * T, C, dtype == torch.bfloat16,
+                    torch.cuda.get_device_properties(dev).multi_processor_count),
                 "rtol": rtol, "atol_of_scale": atol, "ms": ms, "host_ms": host_ms,
                 "plain_ms": time_ms(lambda: tb.attention_block_bwd_reference(
                     h, *ws, bs, wo, lse, gco, heads, scale), inner=3)[0],
@@ -1519,14 +1550,78 @@ def block_kernel_rows(time_ms, dev):
                 f"db_out {PARAM_GRAD_TOL}; dx exact) kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms "
                 f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
                 f"{b_ms:.4f} ({b_by}); dqkv and att round trip "
-                f"{row['intermediate_mb']:.1f} MB {'ok' if ok else 'MISMATCH'}")
+                f"{row['intermediate_mb']:.1f} MB; two calls bitwise equal: {same}; "
+                f"plan {plan}, {row['weight_grad_chunks']} weight-gradient chunks "
+                f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
                 bad = [k for k, c in checks.items() if not c[1]]
                 fail(f"whole-block backward kernels disagree with their plain "
                      f"version at {row['shape']} {dname}: {bad}")
+            if not same:
+                fail(f"whole-block backward kernels not bitwise repeatable at "
+                     f"{row['shape']} {dname}")
             del lib_out, lib_leaves, leaves, got, want
     torch.cuda.empty_cache()
     return fwd[BATCH], fwd[TRAIN_BATCH], bwd_rows
+
+
+def block_edge_rows(dev):
+    """Rows 5 and 6 at BLOCK_EDGES, bf16 and fp32, untimed: the forward and
+    lse and every gradient of the backward against the plain versions to
+    BLOCK_TOL / BLOCK_BWD_TOL, each kernel called twice (bitwise equal).
+    Returns (forward rows: out and lse; backward rows: dh, the weight and
+    the bias gradients), one per shape and dtype (no calls on the main
+    path)."""
+    import torch
+    from pdm_tpu_torch.ops import attention_block as tb
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    fwd_rows, bwd_rows = [], []
+    for B, T, heads, hd in BLOCK_EDGES:
+        C = heads * hd
+        scale = 1.0 / math.sqrt(hd)
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            x, h, ws, bs, wo, bo = block_inputs(g, dev, B, T, C, dtype)
+            out, lse = tb._forward(x, h, ws, bs, wo, bo, heads, scale)
+            out2, lse2 = tb._forward(x, h, ws, bs, wo, bo, heads, scale)
+            ref, ref_lse = tb._reference_with_lse(x, h, *ws, bs, wo, bo, heads, scale)
+            gco = torch.randn(B, T, C, generator=g, device=dev).to(dtype)
+            got = tb.attention_block_bwd(h, *ws, bs, wo, lse, gco, heads, scale)
+            got2 = tb.attention_block_bwd(h, *ws, bs, wo, lse, gco, heads, scale)
+            want = tb.attention_block_bwd_reference(h, *ws, bs, wo, lse, gco, heads, scale)
+            torch.cuda.synchronize()
+            fwd_pairs = {"out": (out, ref), "lse": (lse, ref_lse)}
+            bwd_pairs = {name: (got[i], want[i]) for name, i in
+                         (("dh", 0), ("dw_q", 1), ("dw_k", 2), ("dw_v", 3), ("dw_out", 7))}
+            bwd_pairs["db_qkv"] = (torch.cat(got[4:7]), torch.cat(want[4:7]))
+            for kind, pairs, tol, same, rows in (
+                    ("forward", fwd_pairs, BLOCK_TOL,
+                     torch.equal(out, out2) and torch.equal(lse, lse2), fwd_rows),
+                    ("backward", bwd_pairs, BLOCK_BWD_TOL,
+                     all(torch.equal(a, b) for a, b in zip(got, got2)), bwd_rows)):
+                errs = {k: compare_to_scale(a, b, *tol[dname]) for k, (a, b) in pairs.items()}
+                frac = max(tol_fraction(a, b, *tol[dname]) for a, b in pairs.values())
+                ok = all(c[1] for c in errs.values())
+                plan = (tb.plan_block(B, T, hd, backward=kind == "backward")._asdict()
+                        if dtype == torch.bfloat16 else None)
+                rows.append({"shape": [B, T, C], "heads": heads, "dtype": dname,
+                             "calls_per_step": 0, "edge": True,
+                             "max_abs_err": max(c[0] for c in errs.values()),
+                             "tol_fraction": frac, "bitwise_repeat": same, "plan": plan})
+                log(f"whole block edge {kind} {dname} B={B} T={T} heads={heads} hd={hd}: "
+                    f"worst {frac:.3g} of {'BLOCK_TOL' if kind == 'forward' else 'BLOCK_BWD_TOL'}"
+                    f" ({', '.join(pairs)}), two calls bitwise equal: {same}; plan {plan} "
+                    f"{'ok' if ok and same else 'MISMATCH'}")
+                if not ok:
+                    fail(f"whole-block {kind} kernel disagrees with its plain version at "
+                         f"the edge {[B, T, heads, hd]} {dname}: "
+                         f"{[k for k, c in errs.items() if not c[1]]}")
+                if not same:
+                    fail(f"whole-block {kind} kernel not bitwise repeatable at the edge "
+                         f"{[B, T, heads, hd]} {dname}")
+    torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
 
 
 def backward_probe(weights, sched, dev, x6, tau6, eps6) -> dict:
@@ -2231,6 +2326,7 @@ def main() -> int:
     # ---- phase 13: the whole-block kernels against their plain versions ----
     log(f"phase 13 at {time.perf_counter() - t_start:.1f} s")
     block_rows, block_train_rows, block_bwd_rows = block_kernel_rows(time_ms, dev)
+    block_fwd_edges, block_bwd_edges = block_edge_rows(dev)
 
     # the whole-block path is opt-in: on for phases 14-16 only
     opt_in_before = os.environ.get("PDM_FUSED_BLOCK")
@@ -2289,21 +2385,33 @@ def main() -> int:
             f"ms/step, card busy {eval_ms:.3f} ms)")
         profile_steps(lambda: sampler_of(PROFILE_STEPS).batch_sample(gen),
                       PROFILE_STEPS, label="whole-block profile")
-        # the two paths in turns in this run (default, whole block, whole
-        # block, default): the host's speed drifts between phases
+        # the two paths in ten alternating pairs of short turns in this run
+        # (the order inside a pair alternates too): the host's speed drifts
+        # between phases, so only the per-pair differences compare them
         turns = {"0": [], "1": []}
-        for flag in ("0", "1", "1", "0"):
-            os.environ["PDM_FUSED_BLOCK"] = flag
-            leg = sampler_of(TURN_STEPS)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            leg.batch_sample(gen)
-            torch.cuda.synchronize()
-            turns[flag].append((time.perf_counter() - t0) / TURN_STEPS * 1e3)
+        for pair in range(TURN_PAIRS):
+            for flag in (("0", "1") if pair % 2 == 0 else ("1", "0")):
+                os.environ["PDM_FUSED_BLOCK"] = flag
+                leg = sampler_of(TURN_STEPS)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                leg.batch_sample(gen)
+                torch.cuda.synchronize()
+                turns[flag].append((time.perf_counter() - t0) / TURN_STEPS * 1e3)
         os.environ["PDM_FUSED_BLOCK"] = "1"
-        log(f"sampling in turns, {TURN_STEPS} DDPM steps each: default path "
-            f"{turns['0'][0]:.3f} / {turns['0'][1]:.3f} ms/step, whole-block path "
-            f"{turns['1'][0]:.3f} / {turns['1'][1]:.3f} ms/step")
+        gain = [d - f for d, f in zip(turns["0"], turns["1"])]
+        sampling_turns = {
+            "steps_per_turn": TURN_STEPS, "default_ms": turns["0"],
+            "whole_block_ms": turns["1"], "default_minus_whole_block_ms": gain,
+            "median_gain_ms": statistics.median(gain),
+            "pairs_whole_block_faster": sum(g_ > 0 for g_ in gain)}
+        log(f"sampling in {TURN_PAIRS} alternating pairs of turns, {TURN_STEPS} DDPM "
+            f"steps each: default path median {statistics.median(turns['0']):.3f} "
+            f"ms/step, whole-block path median {statistics.median(turns['1']):.3f}; "
+            f"default minus whole block per pair median {sampling_turns['median_gain_ms']:.3f} "
+            f"ms (range {min(gain):.3f} to {max(gain):.3f}), whole block faster in "
+            f"{sampling_turns['pairs_whole_block_faster']} of {TURN_PAIRS} pairs; "
+            + json.dumps(sampling_turns))
 
         # ---- phase 15: the whole-block training path ----
         log(f"phase 15 at {time.perf_counter() - t_start:.1f} s")
@@ -2419,15 +2527,16 @@ def main() -> int:
             "library_ms": per_step("library_ms"),
         }
 
-    def entry(name, source, replaces, paths):
+    def entry(name, source, replaces, design, paths, edges=()):
         """paths: (path, rows, launches, steps) for each main path that
-        runs the kernel; the first gives the headline numbers."""
+        runs the kernel; the first gives the headline numbers. edges: rows
+        of shapes off the main paths (checked, untimed)."""
         per = {path: per_path(rows, launches, n) for path, rows, launches, n in paths}
         head = per[paths[0][0]]
-        rows = [r for _, path_rows, _, _ in paths for r in path_rows]
+        rows = [r for _, path_rows, _, _ in paths for r in path_rows] + list(edges)
         return {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
+            "replaces": replaces, "design": design,
             "launches": sum(v["launches"] for v in per.values()),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "worst_of_tolerance": max(
@@ -2444,33 +2553,43 @@ def main() -> int:
     kernels = [
         entry("fused_spatial_attention", "pdm_tpu_torch/csrc/attention.cu",
               "pdm_tpu/ops/attention.py:75",
+              "single pass on wgmma, q, k, v by TMA (T <= 256)",
               [("sampling", attn_rows, attn_launches, N_STEPS),
                ("training", attn_train_rows, train_launches["attention_fwd"],
                 TRAIN_STEPS)]),
         entry("attention_bwd", "pdm_tpu_torch/csrc/attention_bwd.cu",
               "pdm_tpu/ops/attention.py:123",
+              "dq, then dk/dv: persistent wgmma kernels on a TMA ring (T <= 256)",
               [("training", attn_bwd_rows, train_launches["attention_bwd"],
                 TRAIN_STEPS)]),
         entry("fused_group_norm_act", "pdm_tpu_torch/csrc/groupnorm.cu",
               "pdm_tpu/ops/groupnorm.py:99",
+              "a cluster's whole-row tiles in shared memory, read once",
               [("sampling", gn_rows, gn_launches, N_STEPS),
                ("training", gn_train_rows, train_launches["group_norm_fwd"],
                 TRAIN_STEPS)]),
         entry("group_norm_bwd", "pdm_tpu_torch/csrc/groupnorm_bwd.cu",
               "pdm_tpu/ops/groupnorm.py:112",
+              "a cluster's whole-row tiles, dn kept on chip",
               [("training", gn_bwd_rows, train_launches["group_norm_bwd"],
                 TRAIN_STEPS)]),
     ]
     kernels += [
         entry("fused_attention_block", "pdm_tpu_torch/csrc/attention_block.cu",
               "pdm_tpu/ops/attention_block.py:90",
+              "a cluster per image group on a TMA ring into wgmma, q, k, v "
+              "straight into swizzled tiles, W_out loaded during the "
+              "attention, packed images at T <= 64",
               [("whole-block sampling", block_rows, fused_launches, N_STEPS),
                ("whole-block training", block_train_rows,
-                block_train_launches["block_fwd"], TRAIN_STEPS)]),
+                block_train_launches["block_fwd"], TRAIN_STEPS)], block_fwd_edges),
         entry("attention_block_bwd", "pdm_tpu_torch/csrc/attention_block_bwd.cu",
               "pdm_tpu/ops/attention_block.py:104",
+              "as the forward with row 2's VJP, dh's weights loaded during "
+              "it; 128 x 256 wgmma weight gradient tiles, split-K, merged in "
+              "order",
               [("whole-block training", block_bwd_rows,
-                block_train_launches["block_bwd"], TRAIN_STEPS)]),
+                block_train_launches["block_bwd"], TRAIN_STEPS)], block_bwd_edges),
     ]
     head = next(r for r in sweep_rows if r["label"] == SWEEP_MAIN[0]
                 and r["mode"] == "fp32" and not r["values"])
@@ -2478,6 +2597,7 @@ def main() -> int:
                                   "bound_by", "library_ms")}
     kernels.append({
         "name": "boltzmann_sweep", "route": "cuda",
+        "design": "tall fp32 kernel on a TMA ring; 64-row mma.sync in bf16",
         "source": "pdm_tpu_torch/csrc/boltzmann_sweep.cu",
         "replaces": "pdm_tpu/ops/boltzmann_sweep.py:105",
         "launches": stats_launches,
@@ -2498,6 +2618,7 @@ def main() -> int:
                                      "bound_by", "library_ms")}
     kernels.append({
         "name": "boltzmann_moments", "route": "cuda",
+        "design": "tall fp32 kernel on TMA rings; cluster kernel for bf16 payloads",
         "source": "pdm_tpu_torch/csrc/boltzmann_moments.cu",
         "replaces": "pdm_tpu/ops/boltzmann_pallas.py:163",
         "launches": true_launches,

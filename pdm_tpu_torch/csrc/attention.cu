@@ -81,95 +81,6 @@ using namespace pdm_attn;
 // ---------------------------------------------------------------------------
 // bf16, T <= 256: one pass on wgmma
 
-// One 64-row query strip st of an (image, head) whose q, k, v stripes are
-// in shared memory (rows = 64 NC each): S, the softmax, P v, and the
-// strip's output and lse. NC, the number of 64-key chunks, is a template
-// parameter so that no branch sits between a product's issue and its wait.
-template <int HDP, int NC>
-__device__ __forceinline__ void fwd_strip(const char* qs, const char* ks,
-                                          const char* vs, int st, int n_tok, int heads,
-                                          int hd, int h, int b, float scale_log2,
-                                          __nv_bfloat16* out, float* lse) {
-  using namespace pdm_hop;
-  using S = Stripe<HDP>;
-  constexpr int rows = NC * kRows;
-  const int warp = (threadIdx.x & (kWgThreads - 1)) >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-
-  // S = q k^T: the strip's 64 rows against all keys, m64n(64 NC)k16
-  float s[NC * 32];
-#pragma unroll
-  for (int i = 0; i < NC * 32; ++i) s[i] = 0.f;
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < S::kKSteps; ++kk)
-    wgmma_ss<NC>(s, desc_k<HDP>(qs, rows, st * kRows, kk), desc_k<HDP>(ks, rows, 0, kk));
-  wgmma_commit();
-  wgmma_wait_all();
-  reg_fence(s);
-
-  // keys past n_tok (the last chunk's padding) at -inf
-  if (n_tok < rows) {
-#pragma unroll
-    for (int i = 0; i < NC * 32; ++i)
-      if ((i >> 2) * 8 + 2 * tq + (i & 1) >= n_tok) s[i] = -INFINITY;
-  }
-  // exact row max and softmax sum of rows g and g + 8; the scale folds
-  // into the exponent, p = 2^(s c - m c) with c = scale log2(e)
-  float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int i = 0; i < NC * 32; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[i]);
-  m[0] = quad_max(m[0]);
-  m[1] = quad_max(m[1]);
-  const float mc[2] = {m[0] * scale_log2, m[1] * scale_log2};
-  float l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < NC * 32; ++i) {
-    s[i] = ex2(fmaf(s[i], scale_log2, -mc[(i >> 1) & 1]));
-    l[(i >> 1) & 1] += s[i];
-  }
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
-  const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
-
-  // p = exp(s - m) / l rounded to bf16: the A fragments of P v
-  uint32_t pa[NC * 4][4];
-#pragma unroll
-  for (int i = 0; i < NC * 32; ++i) s[i] *= inv_l[(i >> 1) & 1];
-#pragma unroll
-  for (int j = 0; j < NC * 4; ++j) pack_slice(pa[j], s, j);
-
-  // O = P v
-  float o[S::kPanels][S::kBW / 2];
-#pragma unroll
-  for (int n = 0; n < S::kPanels; ++n)
-#pragma unroll
-    for (int i = 0; i < S::kBW / 2; ++i) o[n][i] = 0.f;
-  wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < NC * 4; ++j)
-#pragma unroll
-    for (int n = 0; n < S::kPanels; ++n)
-      wgmma_rs<S::kBW>(o[n], pa[j], desc_mn<HDP>(vs, rows, j, n));
-  wgmma_commit();
-  wgmma_wait_all();
-#pragma unroll
-  for (int n = 0; n < S::kPanels; ++n) reg_fence(o[n]);
-  reg_fence(pa);
-
-  const int C = heads * hd;
-  store_acc<HDP>(out, o, 1.f, (long long)b * n_tok, st * kRows, n_tok, C, h * hd, hd);
-  if (tq == 0) {
-    const float ln2 = 0.6931471805599453f;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = st * kRows + warp * 16 + g + 8 * r;
-      if (row < n_tok)
-        lse[((long long)b * heads + h) * n_tok + row] = mc[r] * ln2 + logf(l[r]);
-    }
-  }
-}
-
 // One warpgroup per (head, image): thread 0 loads the head's q, k, v
 // stripes (64 NC rows each) through TMA, then the strips run in turn.
 template <int HDP, int NC>
@@ -210,12 +121,18 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   }
+  const PlainRows lay{n_tok, (long long)b * n_tok, ((long long)b * heads + h) * n_tok};
   mbar_wait(&bar[0], 0);
 #pragma unroll 1
   for (int st = 0; st < NC; ++st) {
     mbar_wait(&bar[2 + st], 0);
     if (st == 0) mbar_wait(&bar[1], 0);
-    fwd_strip<HDP, NC>(qs, ks, vs, st, n_tok, heads, hd, h, b, scale_log2, out, lse);
+    fwd_strip<HDP, NC>(qs, ks, vs, rows, rows, st, lay, scale_log2,
+                       [&](const auto& o, float mul, int row0) {
+                         store_rows<HDP>(out, o, mul, lay, row0, (long long)heads * hd,
+                                         h * hd, hd);
+                       },
+                       lse);
   }
 }
 

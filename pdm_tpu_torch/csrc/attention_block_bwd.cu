@@ -27,28 +27,39 @@
 // Design. The TPU kernel accumulates the weight gradients in one fp32
 // block that every program of its sequential grid adds into; here blocks
 // run in parallel and nothing carries over between them, so three kernels:
-//  1. per image one cluster, one block per head (as the forward): block j
-//     recomputes q_j, k_j, v_j and datt_j = do W_out[:, j cols] into shared
-//     memory (streamed through the cp.async ring), recomputes att_j (to
-//     device memory), runs the attention VJP from shared memory (dq and the
-//     row sums D by query strips, then dk and dv by key strips, as row 2)
-//     and writes its dqkv columns; after a cluster barrier it computes dh's
-//     columns [j HD, (j+1) HD) = dqkv W_qkv[:, j cols], streaming every
-//     head's dqkv back through L2 (they are in device memory for kernel 2
-//     anyway, so no accumulator waits in shared memory for its peers);
-//  2. a split-K product over the B T rows: block (output tile of 64 x 64,
-//     row chunk) computes its chunk's dW_qkv / dW_out tile (and, for the
-//     first column tile, db_qkv's column sums) into its own fp32 partials
-//     slice;
+//  1. per group of images one cluster, one block per head j (the forward's
+//     BlockPlan, two warpgroups): q_j and k_j, then v_j (h W^T + b), then
+//     datt_j = do W_out[:, j cols] stream through the three-stage TMA ring
+//     (64-deep stages of 32 KB; W_out's columns read N-major in place),
+//     above 64 tokens each sweep's last stages bringing the next one's
+//     first chunks, and
+//     round straight into head j's four swizzled tiles beside the ring
+//     (225 KB in all at T 256, HD 64: one block an SM); thread 0 then
+//     issues the weight columns of dh's first three stages, and each
+//     warpgroup runs, on its strips, row 1's single-pass attention (att,
+//     to device memory for dW_out), then row 2's dq pass (S and dp in
+//     registers, D and ds from one sweep of the keys, dq = ds k) and its
+//     dk/dv pass (S^T, P^T, dv += P^T datt, dp^T, dk += ds^T q), all on
+//     wgmma, writing dqkv through per-warp staging rows in the ring's
+//     activation boxes (whole rows a store); after a cluster barrier dh's
+//     columns of head j = dqkv W_{q,k,v}[:, j cols] stream through the
+//     ring (dqkv from L2: an image's 3 T C values, 384 KB at the flagship,
+//     do not fit a block's shared memory; at T <= 64 a group's 192 KB are
+//     spread over the cluster, PERF.md says what reading them there could
+//     save);
+//  2. the weight and bias gradients as a split-K product over the B T
+//     rows on wgmma: block (128 x 256 output tile, row chunk) takes both
+//     operands MN-major from TMA (two 64 x 64 boxes of dqkv or do and four
+//     of h or att per 64-row stage, four stages), db_qkv's column sums
+//     from the stage in shared memory, and writes its fp32 partials slice;
 //  3. a merge that adds the chunks' partials in a fixed order and writes
 //     the gradients in the parameters' dtypes.
 // No atomics: the result is deterministic.
 //
-// bf16 (the main path) runs on the tensor cores (mma.sync m16n8k16);
-// fp32 (parity runs) on the CUDA cores, thread t owning token row t, with
-// q and datt parked in a (B, T, 2C) fp32 scratch that the dk/dv sweep
+// fp32 (parity runs) runs on the CUDA cores, thread t owning token row t,
+// with q and datt parked in a (B, T, 2C) fp32 scratch that the dk/dv sweep
 // reads in tiles (a head's q, k, v and datt do not fit a block's shared
-// memory in fp32).
+// memory in fp32), and 64 x 64 weight-gradient tiles.
 
 #include "attention_block_common.cuh"
 
@@ -58,184 +69,181 @@ using namespace pdm_block;
 using bf = __nv_bfloat16;
 
 // ---------------------------------------------------------------------------
-// kernel 1, bf16: tensor cores
+// kernel 1, bf16: wgmma on TMA
+
+struct BwdMaps {
+  CUtensorMap h, dout, dqkv;     // rows maps: A operands of the ring
+  CUtensorMap wq, wk, wv;        // weight rows, boxes {64, HD} (K-major)
+  CUtensorMap wq_n, wk_n, wv_n, wout_n;  // weight columns, boxes {HD, 64} (N-major)
+};
+
+// The backward's streamed loads that take weight columns N-major: datt's
+// chunk i (the pair's boxes of do, W_out's 64 rows of head j's columns)
+// and dh's (the pair's boxes of dqkv, W_{q,k,v}'s; DhWLoad issues the
+// weight columns, which come while the attention VJP runs, and DhActLoad
+// the boxes, after every head's dqkv is written).
+template <int HD, bool Packed>
+struct DattLoad {
+  const CUtensorMap *dout, *wout_n;
+  int nkc, j, img0, per_strip;
+  __device__ __forceinline__ void operator()(int i, char* st, uint64_t* bar) const {
+    const int p = i / nkc, kc = (i - p * nkc) * kChunk;
+    load_pair<Packed>(st, dout, bar, kc, p, img0, per_strip);
+    pdm_hop::tma_load_2d(st + 2 * kBox, wout_n, bar, j * HD, kc);
+  }
+};
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-attention_block_bwd_tc_kernel(const bf* __restrict__ h, const bf* wq, const bf* wk, const bf* wv,
-                              const void* bq, const void* bk, const void* bv, const bf* wout,
-                              const float* __restrict__ lse, const bf* __restrict__ dout, bf* dqkv,
-                              bf* __restrict__ att, bf* __restrict__ dh, int n_tok, int heads,
-                              float scale, float scale_log2, int bias_bf16) {
-  constexpr int S = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+struct DhWLoad {
+  const CUtensorMap* w[3];
+  int nkc, j;
+  __device__ __forceinline__ void operator()(int i, char* st, uint64_t* bar) const {
+    const int k = i % (3 * nkc), part = k / nkc;
+    pdm_hop::tma_load_2d(st + 2 * kBox, w[part], bar, j * HD, (k - part * nkc) * kChunk);
+  }
+};
+
+template <bool Packed>
+struct DhActLoad {
+  const CUtensorMap* dqkv;
+  int C, nkc, img0, per_strip;
+  __device__ __forceinline__ void operator()(int p, int k, char* st, uint64_t* bar) const {
+    const int part = k / nkc;
+    load_pair<Packed>(st, dqkv, bar, part * C + (k - part * nkc) * kChunk, p, img0, per_strip);
+  }
+};
+
+template <int HD, int NC>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_block_bwd_wgmma_kernel(const __grid_constant__ BwdMaps m, const void* bq,
+                                 const void* bk, const void* bv, const float* __restrict__ lse,
+                                 bf* __restrict__ att, bf* dqkv, bf* __restrict__ dh,
+                                 float* dsum, int B, int n_tok, int heads, int trs,
+                                 float scale, float scale_log2, int bias_bf16) {
+  using namespace pdm_hop;
+  constexpr bool kPacked = NC == 1;
+  constexpr int kStrips = kPacked ? 2 : NC + (NC & 1);
+  constexpr int kPairs = kStrips / 2;
+  constexpr int kRowsT = kStrips * 64;
+  constexpr int kTile = Stripe<HD>::bytes(kRowsT);
+  constexpr int kStage = stage_bytes(HD, true);
+  constexpr uint32_t kNTx = 2 * kBox + 64 * HD * 2;  // a pair's boxes, 64 weight rows N-major
+  constexpr int kRun = kPacked ? 2 : NC;              // strips with tokens
+  constexpr int kStat = 2 * kMaxTok * 4;              // lse and D by tile row
+  static_assert(box_rows_fit(kStat, HD * 2 + 16), "VJP staging");
+  extern __shared__ char smem_tma[];
+  __shared__ StageRing<kStages> ring;
+
   cg::cluster_group cluster = cg::this_cluster();
   const int j = static_cast<int>(cluster.block_rank());
-  const int b = blockIdx.y;
   const int C = heads * HD;
-  const int tp = round_up(n_tok, kTile);
-  const int n_strips = (n_tok + 15) / 16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  bf* qs = reinterpret_cast<bf*>(smem_raw);
-  bf* ks = qs + tile_elems(tp, HD);
-  bf* vs = ks + tile_elems(tp, HD);
-  bf* das = vs + tile_elems(tp, HD);
-  bf* ring = das + tile_elems(tp, HD);
-  float* lse_s = reinterpret_cast<float*>(ring + ring_elems(tp, HD));  // log2 units
-  float* d_s = lse_s + tp;
-  const long long img = (long long)b * n_tok * C;
-  const long long img3 = 3 * img;
-  const long long lrow = ((long long)b * heads + j) * n_tok;
-
-  bf* const qkv[3] = {qs, ks, vs};
-  const bf* const w[3] = {wq, wk, wv};
-  const void* const bias[3] = {bq, bk, bv};
-  project_qkv<HD>(qkv, h + img, w, bias, bias_bf16, j, n_tok, C, tp, ring);
-
-  {  // datt_j = do W_out[:, j cols], rounded
-    Acc<HD> acc;
-    zero<HD>(acc);
-    stream_gemm<HD, false>(acc, dout + img, C, n_tok, n_strips, stack1(wout, C, C), j * HD, C,
-                           ring, tp);
-    for_each_pair<HD>(acc, n_strips, [&](int row, int col, float v0, float v1) {
-      *reinterpret_cast<uint32_t*>(das + row * S + col) = pack_bf16(v0, v1);
-    });
-    zero_rows<HD>(das, n_strips * 16, tp);
-  }
-  for (int r = threadIdx.x; r < tp; r += kThreads) {
-    lse_s[r] = r < n_tok ? lse[lrow + r] * kLog2e : INFINITY;  // P = 0 past T
-    d_s[r] = 0.f;
+  const int wg = threadIdx.x / kWgThreads, warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
+  const int nkc = (C + kChunk - 1) / kChunk;
+  const int per = kPacked ? 64 >> trs : 1;
+  const int img0 = kPacked ? blockIdx.y * 2 * per : blockIdx.y;
+  const Rows<kPacked> lay = block_rows<kPacked>(n_tok, B, img0, trs, heads, j);
+  char* mem = aligned_smem(smem_tma);  // the ring, then the q, k, v, datt tiles
+  char* qs = mem + kStages * kStage;
+  char* ks = qs + kTile;
+  char* vs = ks + kTile;
+  char* das = vs + kTile;
+  if (threadIdx.x == 0) {
+    ring_init(ring);
+    fence_barrier_init();
   }
   __syncthreads();
 
-  // att_j recomputed as the forward, to device memory for dW_out
-#pragma unroll 1
-  for (int s = 0; s < kStrips; ++s) {
-    const int strip = warp + s * kWarps;
-    if (strip >= n_strips) continue;
-    float o[HD / 8][4], m[2], l[2];
-    attend_strip<HD>(o, m, l, qs, ks, vs, strip, n_tok, scale_log2);
-    store_rows<HD>(att + j * HD, o, 1.f, (long long)b * n_tok, strip * 16, n_tok, C, lane);
-  }
-
-  // dq and D by query strips (row 2's dq kernel, operands resident)
-  float sc[kTile / 8][4], dp[kTile / 8][4];
-#pragma unroll 1
-  for (int s = 0; s < kStrips; ++s) {
-    const int strip = warp + s * kWarps;
-    if (strip >= n_strips) continue;
-    uint32_t qa[HD / 16][4], da[HD / 16][4];
-    load_a<HD>(qa, qs, strip, lane);
-    load_a<HD>(da, das, strip, lane);
-    float lse2[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) lse2[r] = lse_s[strip * 16 + g + 8 * r];
-    float D[2] = {0.f, 0.f};
-    for (int k0 = 0; k0 < n_tok; k0 += kTile) {
-      tile_scores<HD>(sc, qa, ks + k0 * S, lane, k0, n_tok, scale_log2);
-      tile_dot<HD>(dp, da, vs + k0 * S, lane);
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          D[e >> 1] += round_bf16(exp2f(sc[n][e] - lse2[e >> 1])) * dp[n][e];
-    }
-    D[0] = quad_sum(D[0]);
-    D[1] = quad_sum(D[1]);
-    float acc[HD / 8][4];
-#pragma unroll
-    for (int d = 0; d < HD / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-    for (int k0 = 0; k0 < n_tok; k0 += kTile) {
-      tile_scores<HD>(sc, qa, ks + k0 * S, lane, k0, n_tok, scale_log2);
-      tile_dot<HD>(dp, da, vs + k0 * S, lane);
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = round_bf16(exp2f(sc[n][e] - lse2[e >> 1]));
-          sc[n][e] = round_bf16(p * dp[n][e] - p * D[e >> 1]);
-        }
-      uint32_t a[kTile / 16][4];
-#pragma unroll
-      for (int jj = 0; jj < kTile / 16; ++jj) pack_a(a[jj], sc, jj);
-      tile_product<HD>(acc, a, ks + k0 * S, lane);
-    }
-    store_rows<HD>(dqkv + j * HD, acc, scale, (long long)b * n_tok, strip * 16, n_tok, 3 * C,
-                   lane);
-    if (tq == 0) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = strip * 16 + g + 8 * r;
-        if (row < n_tok) d_s[row] = D[r];
-      }
-    }
-  }
-  __syncthreads();
-
-  // dk and dv by key strips (row 2's dk/dv kernel, operands resident)
-#pragma unroll 1
-  for (int s = 0; s < kStrips; ++s) {
-    const int strip = warp + s * kWarps;
-    if (strip >= n_strips) continue;
-    uint32_t ka[HD / 16][4], va[HD / 16][4];
-    load_a<HD>(ka, ks, strip, lane);
-    load_a<HD>(va, vs, strip, lane);
-    float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
-#pragma unroll
-    for (int d = 0; d < HD / 8; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk_acc[d][e] = dv_acc[d][e] = 0.f;
-    uint32_t a[kTile / 16][4];
-    for (int q0 = 0; q0 < n_tok; q0 += kTile) {
-      tile_dot<HD>(sc, ka, qs + q0 * S, lane);  // P^T: the strip's keys x the tile's queries
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sc[n][e] = round_bf16(
-              exp2f(sc[n][e] * scale_log2 - lse_s[q0 + n * 8 + 2 * tq + (e & 1)]));
-#pragma unroll
-      for (int jj = 0; jj < kTile / 16; ++jj) pack_a(a[jj], sc, jj);
-      tile_product<HD>(dv_acc, a, das + q0 * S, lane);  // dv += P^T datt
-      tile_dot<HD>(dp, va, das + q0 * S, lane);         // dp^T = v datt^T
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = sc[n][e];
-          dp[n][e] = round_bf16(p * dp[n][e] - p * d_s[q0 + n * 8 + 2 * tq + (e & 1)]);
-        }
-#pragma unroll
-      for (int jj = 0; jj < kTile / 16; ++jj) pack_a(a[jj], dp, jj);
-      tile_product<HD>(dk_acc, a, qs + q0 * S, lane);  // dk += ds^T q
-    }
-    const long long row_base = (long long)b * n_tok;
-    store_rows<HD>(dqkv + C + j * HD, dk_acc, scale, row_base, strip * 16, n_tok, 3 * C, lane);
-    store_rows<HD>(dqkv + 2 * C + j * HD, dv_acc, 1.f, row_base, strip * 16, n_tok, 3 * C,
-                   lane);
-  }
-
-  // every head's dqkv is in device memory: dh's columns of head j
-  __threadfence();
-  cluster.sync();
+  // 1. q, k, v and datt of head j, straight into the tiles: three sweeps,
+  // each one's last stages bringing the next one's first chunks above 64
+  // tokens (at T <= 64, four chunks a sweep, that cost 6%: PERF.md)
+  RingPos pos{0, 0};
+  const int ahead_n = kPacked ? 0 : kPairs * nkc;
+  const ProjLoad<HD, 2, kPacked> qk{&m.h, {&m.wq, &m.wk}, nkc, j, img0, per};
+  const ProjLoad<HD, 1, kPacked> pv{&m.h, {&m.wv}, nkc, j, img0, per};
+  const DattLoad<HD, kPacked> datt{&m.dout, &m.wout_n, nkc, j, img0, per};
   {
-    Stack<bf> wqkv;
-    wqkv.p[0] = wq;
-    wqkv.p[1] = wk;
-    wqkv.p[2] = wv;
-    wqkv.part = C;
-    wqkv.ld = C;
-    Acc<HD> acc;
-    zero<HD>(acc);
-    stream_gemm<HD, false>(acc, dqkv + img3, 3 * C, n_tok, n_strips, wqkv, j * HD, 3 * C, ring,
-                           tp);
-    for_each_pair<HD>(acc, n_strips, [&](int row, int col, float v0, float v1) {
-      if (row < n_tok)
-        *reinterpret_cast<uint32_t*>(dh + img + (long long)row * C + j * HD + col) =
-            pack_bf16(v0, v1);
-    });
+    const void* const b2[2] = {bq, bk};
+    char* const t2[2] = {qs, ks};
+    project_tiles<HD, 2, kPacked>(ring, mem, kStage, pos, qk, b2, t2, kPairs, bias_bf16,
+                                  ahead(ahead_n, pv.tx, pv));
+    const void* const b1[1] = {bv};
+    char* const t1[1] = {vs};
+    project_tiles<HD, 1, kPacked>(ring, mem, kStage, pos, pv, b1, t1, kPairs, bias_bf16,
+                                  ahead(ahead_n, kNTx, datt));
   }
+  head_sweep<HD, true>(
+      ring, mem, kStage, pos, kPairs, nkc, kNTx,
+      [&](int p, int kc, char* st, uint64_t* bar) { datt(p * nkc + kc, st, bar); }, NoLoad{},
+      [&](int p, const float (&acc)[HD / 2]) {  // datt, rounded, into its tile
+        const int row0 = (2 * p + wg) * 64 + (warp & 3) * 16 + g;
+#pragma unroll
+        for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            st_tile<HD>(das, row0 + 8 * r, i * 8 + 2 * tq,
+                        pack_bf16(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]));
+      });
+  fence_proxy_async_shared();  // the tiles' generic stores, before wgmma reads them
+  __syncthreads();
+
+  // 2. head j's attention VJP, while dh's weight columns for its first
+  // stages load; the ring's activation boxes hold the queries' lse and D by
+  // tile row and each warp's staging rows for att, dq, dk, dv
+  const DhWLoad<HD> dh_w{{&m.wq_n, &m.wk_n, &m.wv_n}, nkc, j};
+  ring_prefetch(ring, mem, kStage, pos, ahead(kPairs * 3 * nkc, kNTx, dh_w));
+  float* lse_s = reinterpret_cast<float*>(mem);  // log2 units
+  float* d_s = lse_s + kMaxTok;
+  char* buf = box_rows(mem, kStage, kStat, HD * 2 + 16, warp);
+#pragma unroll 1
+  for (int s = wg; s < kRun; s += 2) {
+    // att recomputed as the forward, then dq and D
+    fwd_strip<HD, NC>(qs, ks, vs, kRowsT, kRowsT, s, lay, scale_log2,
+                      [&](const auto& o, float mul, int row0) {
+                        store_staged<HD>(att, o[0], mul, lay, row0, C, j * HD, buf);
+                      },
+                      nullptr);
+    dq_strip<HD, NC, false>(qs, das, ks, vs, nullptr, 0, kRowsT, s * 64, kRowsT, s, lay, lse,
+                            [&](const auto& acc, float mul, int row0) {
+                              store_staged<HD>(dqkv, acc[0], mul, lay, row0, 3LL * C, j * HD,
+                                               buf);
+                            },
+                            dsum, scale, scale_log2);
+  }
+  __syncthreads();  // D of every row is written
+  for (int r = threadIdx.x; r < kRowsT; r += pdm_block::kThreads) {
+    const bool has = lay.has(r);
+    lse_s[r] = has ? lse[lay.lidx(r)] * kLog2e : INFINITY;  // P = 0 for padding
+    d_s[r] = has ? dsum[lay.lidx(r)] : 0.f;
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int s = wg; s < kRun; s += 2)
+    dkdv_strip<HD, NC>(ks, vs, qs, das, kRowsT, s * 64, kRowsT, s, lay, lse_s, d_s,
+                       [&](int which, const auto& acc, float mul, int row0) {
+                         store_staged<HD>(dqkv, acc[0], mul, lay, row0, 3LL * C,
+                                          (1 + which) * C + j * HD, buf);
+                       },
+                       scale, scale_log2);
+
+  // 3. every head's dqkv is written: dh's columns of head j, staged
+  // through the idle tiles
+  fence_proxy_async_shared();
+  fence_proxy_async_global();
+  cluster.sync();
+  fence_proxy_async_global();
+  char* hbuf = qs + warp * 16 * (HD * 2 + 16);
+  const DhActLoad<kPacked> dh_a{&m.dqkv, C, nkc, img0, per};
+  head_sweep<HD, true>(
+      ring, mem, kStage, pos, kPairs, 3 * nkc, kNTx,
+      [&](int p, int k, char* st, uint64_t* bar) {
+        dh_a(p, k, st, bar);
+        dh_w(p * 3 * nkc + k, st, bar);
+      },
+      dh_a,
+      [&](int p, const float (&acc)[HD / 2]) {
+        store_staged<HD>(dh, acc, 1.f, lay, (2 * p + wg) * 64, C, j * HD, hbuf);
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -398,10 +406,100 @@ attention_block_bwd_f32_kernel(const float* __restrict__ h, const float* wq, con
 // rows is sum_r G[r, o] H[r, c]. A chunk's partials: the 4C x C tile
 // sums, then db_qkv's 3C column sums of dqkv.
 
-constexpr int kWT = 64;        // output tile edge
-constexpr int kWR = 32;        // rows per stage (bf16)
-constexpr int kWS = kWT + 8;   // shared row stride (bf16)
-constexpr int kWThreads = 128;
+constexpr int kWO = 128;  // bf16 output tile: rows (two warpgroups of 64)
+constexpr int kWC = 256;  // and columns (one wgmma m64n256k16 a 16-row step)
+constexpr int kWStage = kWO * 64 * 2 + kWC * 64 * 2;  // 48 KB: 2 + 4 boxes of 64 x 64
+
+struct WgradMaps {
+  CUtensorMap dqkv, dout, h, att;  // 2-D {width, B T}, boxes {64, 64}
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+attention_block_wgrad_wgmma_kernel(const __grid_constant__ WgradMaps m,
+                                   float* __restrict__ partials, int R, int C,
+                                   int rows_per_chunk, int n_ctiles) {
+  using namespace pdm_hop;
+  extern __shared__ char smem_tma[];
+  __shared__ StageRing<kStages> ring;
+  __shared__ float red[pdm_block::kThreads];
+  const int nq = (3 * C + kWO - 1) / kWO;
+  const int otile = blockIdx.x / n_ctiles, c0 = (blockIdx.x % n_ctiles) * kWC;
+  const bool qkv = otile < nq;
+  const CUtensorMap* G = qkv ? &m.dqkv : &m.dout;
+  const CUtensorMap* H = qkv ? &m.h : &m.att;
+  const int o0 = (qkv ? otile : otile - nq) * kWO;
+  const int o_lim = qkv ? 3 * C : C, o_out = qkv ? 0 : 3 * C;
+  const bool sums = qkv && c0 == 0;
+  const int r_begin = blockIdx.y * rows_per_chunk;
+  const int r_end = min(R, r_begin + rows_per_chunk);
+  const int nk = r_end > r_begin ? (r_end - r_begin + 63) / 64 : 0;
+  const int wg = threadIdx.x / kWgThreads, warp = (threadIdx.x & 127) >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  char* mem = aligned_smem(smem_tma);
+  if (threadIdx.x == 0) {
+    ring_init(ring);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  float acc[kWC / 2];
+#pragma unroll
+  for (int i = 0; i < kWC / 2; ++i) acc[i] = 0.f;
+  // db_qkv: thread t sums column t % 128 of the G tile over half of each
+  // stage's rows (the 128-byte swizzle: 16-byte unit u of row r sits at
+  // unit u ^ (r % 8))
+  const int sc = threadIdx.x & (kWO - 1), half = threadIdx.x / kWO;
+  float colsum = 0.f;
+  RingPos pos{0, 0};
+  ring_sweep<kStages>(
+      ring, mem, kWStage, pos, nk, kWStage,
+      [&](int i, char* st, uint64_t* bar) {
+        const int r0 = r_begin + i * 64;
+#pragma unroll
+        for (int p = 0; p < kWO / 64; ++p) tma_load_2d(st + p * kBox, G, bar, o0 + p * 64, r0);
+#pragma unroll
+        for (int p = 0; p < kWC / 64; ++p)
+          tma_load_2d(st + (kWO / 64 + p) * kBox, H, bar, c0 + p * 64, r0);
+      },
+      [&](int, const char* st) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_t<kWC, 1, 1>(acc, desc_mn<64>(st + wg * kBox, 64, kk, 0),
+                                desc_mn<64>(st + (kWO / 64) * kBox, 64, kk, 0));
+        if (sums) {
+          const char* panel = st + (sc >> 6) * kBox;
+          const int u = (sc & 63) >> 3, e = sc & 7;
+#pragma unroll 8
+          for (int r = half * 32; r < half * 32 + 32; ++r)
+            colsum += __bfloat162float(*reinterpret_cast<const bf*>(
+                panel + r * 128 + ((u ^ (r & 7)) << 4) + e * 2));
+        }
+      },
+      [](int) {});
+  reg_fence(acc);
+
+  float* part = partials + (long long)blockIdx.y * (4LL * C * C + 3 * C);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int o = o0 + wg * 64 + warp * 16 + g + 8 * r;
+    if (o >= o_lim) continue;
+    float* row = part + (long long)(o_out + o) * C;
+#pragma unroll
+    for (int i = 0; i < kWC / 8; ++i) {
+      const int c = c0 + i * 8 + 2 * tq;
+      if (c < C)
+        *reinterpret_cast<float2*>(row + c) = make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+    }
+  }
+  if (sums) {
+    red[threadIdx.x] = colsum;
+    __syncthreads();
+    if (threadIdx.x < kWO && o0 + threadIdx.x < o_lim)
+      part[4LL * C * C + o0 + threadIdx.x] = red[threadIdx.x] + red[threadIdx.x + kWO];
+  }
+}
+
+constexpr int kWT = 64;  // fp32 output tile edge
 
 struct WgradTile {
   const void* g;
@@ -424,86 +522,6 @@ __device__ __forceinline__ WgradTile wgrad_tile(const void* h, const void* dout,
   t.c0 = blockIdx.x * kWT;
   t.sums = qkv && blockIdx.x == 0;
   return t;
-}
-
-__global__ void __launch_bounds__(kWThreads)
-attention_block_wgrad_tc_kernel(const bf* h, const bf* dout, const bf* dqkv, const bf* att,
-                                float* __restrict__ partials, int R, int C, int rows_per_chunk) {
-  __shared__ __align__(16) bf gs[2][kWR * kWS];
-  __shared__ __align__(16) bf hs[2][kWR * kWS];
-  const WgradTile tile = wgrad_tile(h, dout, dqkv, att, C);
-  const bf* G = static_cast<const bf*>(tile.g);
-  const bf* H = static_cast<const bf*>(tile.h);
-  const int r_begin = blockIdx.z * rows_per_chunk;
-  const int r_end = min(R, r_begin + rows_per_chunk);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-
-  auto load = [&](int r0, int buf) {
-    for (int e = threadIdx.x; e < kWR * (kWT / 8); e += kWThreads) {
-      const int r = e / (kWT / 8), c = (e - r * (kWT / 8)) * 8;
-      const int row = r0 + r;
-      const bool ok_g = row < r_end && tile.o0 + c < tile.o_lim;
-      const bool ok_h = row < r_end && tile.c0 + c < C;
-      cp_async16(gs[buf] + r * kWS + c, ok_g ? G + (long long)row * tile.ldg + tile.o0 + c : G,
-                 ok_g);
-      cp_async16(hs[buf] + r * kWS + c, ok_h ? H + (long long)row * C + tile.c0 + c : H, ok_h);
-    }
-  };
-
-  float acc[kWT / 8][4];
-#pragma unroll
-  for (int n = 0; n < kWT / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float colsum = 0.f;
-  const int n_t = r_end > r_begin ? (r_end - r_begin + kWR - 1) / kWR : 0;
-  if (n_t > 0) {
-    load(r_begin, 0);
-    cp_async_commit();
-  }
-  for (int it = 0; it < n_t; ++it) {
-    if (it + 1 < n_t) {
-      load(r_begin + (it + 1) * kWR, (it + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf* gb = gs[it & 1];
-    const bf* hb = hs[it & 1];
-#pragma unroll
-    for (int kk = 0; kk < kWR / 16; ++kk) {
-      // A = G^T (o x r): ldmatrix.trans of the (r x o) tile
-      uint32_t a[4];
-      ldsm_x4_trans(a, gb + (kk * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * kWS + warp * 16 +
-                           ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int dp = 0; dp < kWT / 16; ++dp) {
-        uint32_t bb[4];
-        ldsm_x4_trans(bb, hb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kWS + dp * 16 +
-                              (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], a, bb[0], bb[1]);
-        mma_bf16(acc[2 * dp + 1], a, bb[2], bb[3]);
-      }
-    }
-    if (tile.sums && threadIdx.x < kWT) {
-      for (int r = 0; r < kWR; ++r) colsum += __bfloat162float(gb[r * kWS + threadIdx.x]);
-    }
-    __syncthreads();
-  }
-
-  float* part = partials + (long long)blockIdx.z * (4LL * C * C + 3 * C);
-#pragma unroll
-  for (int n = 0; n < kWT / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int o = tile.o0 + warp * 16 + g + 8 * (e >> 1);
-      const int c = tile.c0 + n * 8 + 2 * tq + (e & 1);
-      if (o < tile.o_lim && c < C) part[(long long)(tile.o_out + o) * C + c] = acc[n][e];
-    }
-  }
-  if (tile.sums && threadIdx.x < kWT && tile.o0 + threadIdx.x < tile.o_lim)
-    part[4LL * C * C + tile.o0 + threadIdx.x] = colsum;
 }
 
 constexpr int kWF = 16;  // rows per stage (fp32)
@@ -588,23 +606,55 @@ attention_block_wgrad_merge_kernel(const float* __restrict__ partials, void* dwq
 
 // ---------------------------------------------------------------------------
 
+template <int HD, int NC>
+cudaError_t launch_bwd_wgmma(const BwdMaps& m, const BlockPlan& p, const void* bq,
+                             const void* bk, const void* bv, const float* lse, void* att,
+                             void* dqkv, void* dh, float* dsum, int B, int n_tok, int heads,
+                             float scale, int bias_bf16, cudaStream_t stream) {
+  return launch_cluster(attention_block_bwd_wgmma_kernel<HD, NC>, heads, p.groups, p.smem,
+                        stream, m, bq, bk, bv, lse, static_cast<bf*>(att),
+                        static_cast<bf*>(dqkv), static_cast<bf*>(dh), dsum, B, n_tok, heads,
+                        p.trs, scale, scale * kLog2e, bias_bf16);
+}
+
+// the tensor maps of a bf16 launch
 template <int HD>
-cudaError_t launch_bwd(int dtype, const void* h, const void* wq, const void* wk, const void* wv,
-                       const void* bq, const void* bk, const void* bv, const void* wout,
-                       const float* lse, const void* dout, void* dqkv, void* att, void* dh,
-                       void* scratch, int B, int n_tok, int heads, float scale, int bias_bf16,
-                       cudaStream_t stream) {
+bool bwd_maps(BwdMaps* m, const BlockPlan& p, const void* h, const void* dout,
+              const void* wq, const void* wk, const void* wv, const void* wout,
+              const void* dqkv, int B, int n_tok, int heads) {
+  using namespace pdm_hop;
+  const int C = heads * HD;
+  const bool packed = p.nc == 1;
+  const int box_rows = packed ? 1 << p.trs : 64, box_imgs = packed ? p.per_strip : 1;
+  return rows_map(&m->h, h, B, n_tok, C, C, kChunk, box_rows, box_imgs) &&
+         rows_map(&m->dout, dout, B, n_tok, C, C, kChunk, box_rows, box_imgs) &&
+         rows_map(&m->dqkv, dqkv, B, n_tok, 3 * C, 3LL * C, kChunk, box_rows, box_imgs) &&
+         mat_map(&m->wq, wq, C, C, kChunk, HD) && mat_map(&m->wk, wk, C, C, kChunk, HD) &&
+         mat_map(&m->wv, wv, C, C, kChunk, HD) && mat_map(&m->wq_n, wq, C, C, HD, kChunk) &&
+         mat_map(&m->wk_n, wk, C, C, HD, kChunk) && mat_map(&m->wv_n, wv, C, C, HD, kChunk) &&
+         mat_map(&m->wout_n, wout, C, C, HD, kChunk);
+}
+
+template <int HD>
+cudaError_t launch_bwd(int dtype, const BlockPlan* plan, const void* h, const void* wq,
+                       const void* wk, const void* wv, const void* bq, const void* bk,
+                       const void* bv, const void* wout, const float* lse, const void* dout,
+                       void* dqkv, void* att, void* dh, void* scratch, float* dsum, int B,
+                       int n_tok, int heads, float scale, int bias_bf16, cudaStream_t stream) {
   if (n_tok < 1 || n_tok > kMaxTok || heads < 1 || heads > 8 || B < 1)
     return cudaErrorInvalidValue;
   if (dtype == pdm::kBFloat16) {
-    const int tp = round_up(n_tok, kTile);
-    const int smem = (4 * tile_elems(tp, HD) + ring_elems(tp, HD)) * 2 + 2 * tp * 4;
-    return launch_cluster(attention_block_bwd_tc_kernel<HD>, heads, B, smem, stream,
-                          static_cast<const bf*>(h), static_cast<const bf*>(wq),
-                          static_cast<const bf*>(wk), static_cast<const bf*>(wv), bq, bk, bv,
-                          static_cast<const bf*>(wout), lse, static_cast<const bf*>(dout),
-                          static_cast<bf*>(dqkv), static_cast<bf*>(att), static_cast<bf*>(dh),
-                          n_tok, heads, scale, scale * kLog2e, bias_bf16);
+    if (plan == nullptr || dsum == nullptr || !plan_ok(*plan, B, n_tok, heads, HD, true))
+      return cudaErrorInvalidValue;
+    BwdMaps m;
+    if (!bwd_maps<HD>(&m, *plan, h, dout, wq, wk, wv, wout, dqkv, B, n_tok, heads))
+      return cudaErrorInvalidValue;
+    switch (plan->nc) {
+      case 1: return launch_bwd_wgmma<HD, 1>(m, *plan, bq, bk, bv, lse, att, dqkv, dh, dsum, B, n_tok, heads, scale, bias_bf16, stream);
+      case 2: return launch_bwd_wgmma<HD, 2>(m, *plan, bq, bk, bv, lse, att, dqkv, dh, dsum, B, n_tok, heads, scale, bias_bf16, stream);
+      case 3: return launch_bwd_wgmma<HD, 3>(m, *plan, bq, bk, bv, lse, att, dqkv, dh, dsum, B, n_tok, heads, scale, bias_bf16, stream);
+      default: return launch_bwd_wgmma<HD, 4>(m, *plan, bq, bk, bv, lse, att, dqkv, dh, dsum, B, n_tok, heads, scale, bias_bf16, stream);
+    }
   }
   if (dtype == pdm::kFloat32) {
     if (scratch == nullptr) return cudaErrorInvalidValue;
@@ -626,22 +676,27 @@ cudaError_t launch_bwd(int dtype, const void* h, const void* wq, const void* wk,
 // wq, wk, wv, wout: contiguous (C, C) nn.Linear weights of h's dtype;
 // bq, bk, bv: (C,) of bias_dtype; lse: (B, heads, T) fp32 from the
 // forward. Writes dqkv (B, T, 3C), att (B, T, C) and dh (B, T, C) in h's
-// dtype. fp32 needs scratch, a (B, T, 2C) fp32 buffer (bf16: unused).
-// hd: 16, 32 or 64; heads <= 8; T <= 256. Returns the launch's CUDA error.
+// dtype. bf16 needs the scratch dsum (B, heads, T) fp32 and the launch
+// plan of ops/attention_block.py::plan_block (checked here); fp32 needs
+// scratch, a (B, T, 2C) fp32 buffer. hd: 16, 32 or 64; heads <= 8;
+// T <= 256. Returns the launch's CUDA error.
 extern "C" int pdm_attention_block_bwd(const void* h, const void* wq, const void* wk,
                                        const void* wv, const void* bq, const void* bk,
                                        const void* bv, const void* wout, const void* lse,
                                        const void* dout, void* dqkv, void* att, void* dh,
-                                       void* scratch, int B, int n_tok, int heads, int hd,
-                                       float scale, int dtype, int bias_dtype, void* stream) {
+                                       void* scratch, void* dsum, const void* plan, int B,
+                                       int n_tok, int heads, int hd, float scale, int dtype,
+                                       int bias_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
+  auto* p = static_cast<const BlockPlan*>(plan);
+  auto* D = static_cast<float*>(dsum);
   const int bb = bias_dtype == pdm::kBFloat16;
   cudaError_t err;
   switch (hd) {
-    case 16: err = launch_bwd<16>(dtype, h, wq, wk, wv, bq, bk, bv, wout, l, dout, dqkv, att, dh, scratch, B, n_tok, heads, scale, bb, s); break;
-    case 32: err = launch_bwd<32>(dtype, h, wq, wk, wv, bq, bk, bv, wout, l, dout, dqkv, att, dh, scratch, B, n_tok, heads, scale, bb, s); break;
-    case 64: err = launch_bwd<64>(dtype, h, wq, wk, wv, bq, bk, bv, wout, l, dout, dqkv, att, dh, scratch, B, n_tok, heads, scale, bb, s); break;
+    case 16: err = launch_bwd<16>(dtype, p, h, wq, wk, wv, bq, bk, bv, wout, l, dout, dqkv, att, dh, scratch, D, B, n_tok, heads, scale, bb, s); break;
+    case 32: err = launch_bwd<32>(dtype, p, h, wq, wk, wv, bq, bk, bv, wout, l, dout, dqkv, att, dh, scratch, D, B, n_tok, heads, scale, bb, s); break;
+    case 64: err = launch_bwd<64>(dtype, p, h, wq, wk, wv, bq, bk, bv, wout, l, dout, dqkv, att, dh, scratch, D, B, n_tok, heads, scale, bb, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -650,19 +705,31 @@ extern "C" int pdm_attention_block_bwd(const void* h, const void* wq, const void
 // Kernel 2. The (4C x C) weight-gradient partials and db_qkv's column
 // sums of each of n_chunks row chunks of the R = B T rows into partials
 // (n_chunks, 4 C C + 3 C) fp32, from kernel 1's dqkv and att, h and dout.
+// bf16: 128 x 256 output tiles on wgmma, chunks of a multiple of 64 rows;
+// fp32: 64 x 64 tiles on the CUDA cores.
 extern "C" int pdm_attention_block_wgrad(const void* h, const void* dout, const void* dqkv,
                                          const void* att, void* partials, int R, int C,
                                          int n_chunks, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (R < 1 || C < 8 || C % 8 || n_chunks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int per = round_up((R + n_chunks - 1) / n_chunks, kWR);
-  const dim3 grid((C + kWT - 1) / kWT, (3 * C + kWT - 1) / kWT + (C + kWT - 1) / kWT, n_chunks);
   auto* out = static_cast<float*>(partials);
   if (dtype == pdm::kBFloat16) {
-    attention_block_wgrad_tc_kernel<<<grid, kWThreads, 0, s>>>(
-        static_cast<const bf*>(h), static_cast<const bf*>(dout), static_cast<const bf*>(dqkv),
-        static_cast<const bf*>(att), out, R, C, per);
+    using pdm_hop::mat_map;
+    WgradMaps m;
+    if (!mat_map(&m.dqkv, dqkv, R, 3 * C, 64, 64) || !mat_map(&m.dout, dout, R, C, 64, 64) ||
+        !mat_map(&m.h, h, R, C, 64, 64) || !mat_map(&m.att, att, R, C, 64, 64))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int per = round_up((R + n_chunks - 1) / n_chunks, 64);
+    const int n_ctiles = (C + kWC - 1) / kWC;
+    const int n_otiles = (3 * C + kWO - 1) / kWO + (C + kWO - 1) / kWO;
+    const int smem = kStages * kWStage + 1024;
+    cudaError_t err = pdm_hop::allow_smem(attention_block_wgrad_wgmma_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attention_block_wgrad_wgmma_kernel<<<dim3(n_otiles * n_ctiles, n_chunks), kThreads, smem,
+                                         s>>>(m, out, R, C, per, n_ctiles);
   } else if (dtype == pdm::kFloat32) {
+    const int per = (R + n_chunks - 1) / n_chunks;
+    const dim3 grid((C + kWT - 1) / kWT, (3 * C + kWT - 1) / kWT + (C + kWT - 1) / kWT, n_chunks);
     attention_block_wgrad_f32_kernel<<<grid, 256, 0, s>>>(
         static_cast<const float*>(h), static_cast<const float*>(dout),
         static_cast<const float*>(dqkv), static_cast<const float*>(att), out, R, C, per);

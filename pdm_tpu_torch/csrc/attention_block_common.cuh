@@ -1,66 +1,288 @@
 // Building blocks shared by the whole-attention-block kernels
 // (attention_block.cu, forward; attention_block_bwd.cu, backward).
 //
-// Both run one thread-block cluster per image and one block per head
-// (cluster rank j = head j), 8 warps, with the head's q, k, v (and, in the
-// backward, datt) resident in shared memory. In bf16 the products run on
-// the tensor cores (mma.sync m16n8k16 through attention_common.cuh), warp
-// w owning the 16-row strips w and w + 8 of the T tokens; in fp32 they run
-// on the CUDA cores, thread t owning token row t.
+// Both run one thread-block cluster per group of images and one block per
+// head (cluster rank j = head j), 8 warps. In fp32 the products run on the
+// CUDA cores, thread t owning token row t, with the head's k and v (and, in
+// the backward, q and datt parked in a device-memory scratch) in shared
+// memory, one image a cluster.
 //
-// bf16 shared-memory layout: resident (Tp x HD) tiles in rows of HD + 8
-// elements (Tp = T rounded up to 64, the attention's key tile), then a
-// two-stage cp.async ring for the streamed products: an A tile (Tp x 32)
-// in rows of 40 elements (80 bytes: eight rows of an ldmatrix hit eight
-// distinct bank groups) and a B tile, HD x 32 (rows of 40) or 32 x HD
-// (rows of HD + 8).
+// bf16 (the main path) runs on Hopper's machinery (attention_hopper.cuh):
+// two warpgroups, wgmma products, operands brought in by TMA. A block's
+// token rows are 64-row strips (BlockPlan): at T > 64 one image, T / 64
+// strips rounded up to an even count; at T <= 64 two strips of P = 64 / Tr
+// images each (packed, Tr the power of two >= T: the block-diagonal mask
+// of PackedRows), so both warpgroups work at the mid block's T 16. The
+// streamed products (the projections, the out projection, dh) go through a
+// three-stage TMA ring (StageRing) of 64-deep stages: a strip pair's
+// 64-column chunk of the activations (two 128-byte swizzled 64 x 64 boxes,
+// one per warpgroup) and the weight rows or columns of head j for that
+// chunk, read in
+// place from nn.Linear's (C_out, C_in) weights. The projections round once
+// straight into head j's swizzled q, k, v (and datt) tiles beside the
+// ring, which the single-pass attention (fwd_strip, dq_strip, dkdv_strip)
+// reads in place; outputs leave through per-warp staging rows in shared
+// memory, so each store writes whole row segments.
 #pragma once
 
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
 #include "attention_common.cuh"
+#include "attention_hopper.cuh"
 
 namespace pdm_block {
 
 using namespace pdm_attn;
 namespace cg = cooperative_groups;
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = pdm_hop::kThreads;  // 8 warps, two warpgroups
 constexpr int kMaxTok = 256;   // tokens a block keeps resident
-constexpr int kStrips = kMaxTok / 16 / kWarps;  // 16-row strips per warp
-constexpr int kKT = 32;        // contraction depth of one streamed stage
-constexpr int kSK = kKT + 8;   // its shared row stride (elements)
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kKT = 32;        // contraction depth of one fp32 stage
+using pdm_hop::kLog2e;
 constexpr float kLn2 = 0.6931471805599453f;
 
 __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-// bf16 elements of one resident (Tp x HD) tile and of the streamed ring
-__host__ __device__ constexpr int tile_elems(int tp, int hd) { return tp * (hd + 8); }
-// a B tile: HD rows of kKT (NT) or kKT rows of HD (NN)
-__host__ __device__ constexpr int b_elems(int hd) {
-  return hd * kSK > kKT * (hd + 8) ? hd * kSK : kKT * (hd + 8);
-}
-__host__ __device__ constexpr int stage_elems(int tp, int hd) { return tp * kSK + b_elems(hd); }
-__host__ __device__ constexpr int ring_elems(int tp, int hd) { return 2 * stage_elems(tp, hd); }
-
-// 16 bytes global -> shared; zero-filled when !pred (src then unread)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ float load_bias(const void* b, int i, int bias_bf16) {
   return bias_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(b)[i])
                    : static_cast<const float*>(b)[i];
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the launch plan (ops/attention_block.py::plan_block makes it; the
+// kernels take it as it comes and refuse one they cannot run)
+
+constexpr int kStages = 3;              // TMA ring depth
+constexpr int kChunk = 64;              // contraction columns per stage
+constexpr int kBox = kChunk * 64 * 2;   // one strip's 64 x 64 bf16 box
+
+struct BlockPlan {
+  int nc;         // 64-key chunks of a query strip (1: packed)
+  int strips;     // 64-row strips of a block's tiles (even)
+  int trs;        // log2 of a packed image's rows Tr (6 at T > 64)
+  int per_strip;  // P: images per strip
+  int imgs;       // images per group (one cluster's tiles)
+  int groups;     // groups of images: ceil(B / imgs)
+  int stages;     // ring depth
+  int smem;       // dynamic shared memory of the launch
+};
+
+// a stage: a strip pair's boxes and the weight rows of the widest sweep
+// (q, k, v: 3 HD rows of 64 columns forward; q, k: 2 HD backward)
+__host__ __device__ constexpr int stage_bytes(int hd, bool backward) {
+  return 2 * kBox + (backward ? 2 : 3) * hd * 128;
+}
+// a head's tiles: q, k, v (and datt) of every strip
+__host__ __device__ constexpr int tiles_bytes(int strips, int hd, bool backward) {
+  return (backward ? 4 : 3) * strips * 64 * hd * 2;
+}
+
+// What the kernels rely on: the strips hold every key (a strip's keys are
+// nc 64-row chunks, at most 4), a packed strip holds P whole images of Tr
+// >= T rows, the groups cover B, and the ring and tiles fit the shared
+// memory asked for, which the device allows.
+__host__ inline bool plan_ok(const BlockPlan& p, int B, int n_tok, int heads, int hd,
+                             bool backward) {
+  if (B < 1 || n_tok < 1 || n_tok > kMaxTok || heads < 1 || heads > 8 ||
+      !(hd == 16 || hd == 32 || hd == 64) || p.stages != kStages || p.strips < 2 ||
+      p.strips % 2 || p.groups < 1 || (long long)p.groups * p.imgs < B)
+    return false;
+  const bool packed = p.nc == 1 && n_tok <= 64;
+  if (packed) {
+    if (p.strips != 2 || p.trs < 0 || p.trs > 6 || (1 << p.trs) < n_tok ||
+        p.per_strip << p.trs != 64 || p.imgs != 2 * p.per_strip)
+      return false;
+  } else if (p.nc < 2 || p.nc > 4 || p.nc * 64 < n_tok || p.strips < p.nc ||
+             p.per_strip != 1 || p.imgs != 1) {
+    return false;
+  }
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return false;
+  return p.smem >= p.stages * stage_bytes(hd, backward) +
+                       tiles_bytes(p.strips, hd, backward) + 1024 &&
+         p.smem <= optin;
+}
+
+// The rows of a block's tiles: image img0 (T > 64) or images img0.. packed
+// Tr = 2^trs rows apart (T <= 64).
+template <bool Packed>
+using Rows = typename std::conditional<Packed, pdm_hop::PackedRows, pdm_hop::PlainRows>::type;
+
+template <bool Packed>
+__device__ __forceinline__ Rows<Packed> block_rows(int n_tok, int B, int img0, int trs,
+                                                   int heads, int h) {
+  if constexpr (Packed) {
+    return pdm_hop::PackedRows{n_tok, B, img0, trs, heads, h};
+  } else {
+    return pdm_hop::PlainRows{n_tok, (long long)img0 * n_tok,
+                              ((long long)img0 * heads + h) * n_tok};
+  }
+}
+
+// Strip s of a block as TMA coordinates (token row, image) of a rows map
+// whose boxes are {64, 64, 1} (T > 64) or {64, Tr, P} (packed)
+struct StripAt {
+  int row, img;
+};
+template <bool Packed>
+__device__ __forceinline__ StripAt strip_at(int s, int img0, int per_strip) {
+  return Packed ? StripAt{0, img0 + s * per_strip} : StripAt{s * 64, img0};
+}
+
+// A stage's boxes of strips 2p and 2p + 1 from the rows map `map` at
+// column col (thread 0)
+template <bool Packed>
+__device__ __forceinline__ void load_pair(char* st, const CUtensorMap* map, uint64_t* bar,
+                                          int col, int p, int img0, int per_strip) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const StripAt at = strip_at<Packed>(2 * p + s, img0, per_strip);
+    pdm_hop::tma_load_3d(st + s * kBox, map, bar, col, at.row, at.img);
+  }
+}
+
+// the A operand of warpgroup wg's strip in a stage: K-major, 64 rows
+__device__ __forceinline__ uint64_t desc_a(const char* stage, int wg, int kk) {
+  return pdm_hop::desc_k<64>(stage + wg * kBox, 64, 0, kk);
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float (&acc)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+}
+
+// The loads of chunk i of a projection sweep over the strip pairs: the
+// pair's 64-column chunk kc of the rows map `h` and head j's HD rows of
+// the NP weights for those columns (tx bytes in all).
+template <int HD, int NP, bool Packed>
+struct ProjLoad {
+  static constexpr uint32_t tx = 2 * kBox + NP * HD * 128;
+  const CUtensorMap* h;
+  const CUtensorMap* w[NP];
+  int nkc, j, img0, per_strip;
+  __device__ __forceinline__ void operator()(int i, char* st, uint64_t* bar) const {
+    const int p = i / nkc, kc = (i - p * nkc) * kChunk;
+    load_pair<Packed>(st, h, bar, kc, p, img0, per_strip);
+#pragma unroll
+    for (int part = 0; part < NP; ++part)
+      pdm_hop::tma_load_2d(st + 2 * kBox + part * HD * 128, w[part], bar, kc, j * HD);
+  }
+};
+
+// NP projections of head j (h W_i[j rows]^T + b_i, the bias in fp32,
+// rounded once) written straight into the swizzled tiles[i]: one ring
+// sweep of `ld`'s chunks over the strip pairs, one wgmma m64n(NP HD)k16
+// per 16 columns, a pair's epilogue while the next pair's chunks load (and
+// then `next_sweep`'s first ones). The thread's biases are read once,
+// before the sweep.
+template <int HD, int NP, bool Packed, int S, typename NextLoad = pdm_hop::NoLoad>
+__device__ __forceinline__ void project_tiles(
+    pdm_hop::StageRing<S>& ring, char* ring_mem, int stage, pdm_hop::RingPos& pos,
+    const ProjLoad<HD, NP, Packed>& ld, const void* const (&b)[NP], char* const (&tiles)[NP],
+    int pairs, int bias_bf16,
+    const pdm_hop::Ahead<NextLoad>& next_sweep = pdm_hop::Ahead<NextLoad>{0, 0u, NextLoad{}}) {
+  using namespace pdm_hop;
+  const int wg = threadIdx.x / kWgThreads, warp = (threadIdx.x & (kWgThreads - 1)) >> 5;
+  const int g = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
+  const int nkc = ld.nkc;
+  float bias[NP][HD / 8][2];
+#pragma unroll
+  for (int part = 0; part < NP; ++part)
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        bias[part][i][e] = load_bias(b[part], ld.j * HD + i * 8 + 2 * tq + e, bias_bf16);
+  float acc[NP * HD / 2];
+  zero(acc);
+  ring_sweep<S>(
+      ring, ring_mem, stage, pos, pairs * nkc, ld.tx, ld, NoLoad{},
+      [&](int, const char* st) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_t<NP * HD>(acc, desc_a(st, wg, kk),
+                              desc_k<64>(st + 2 * kBox, NP * HD, 0, kk));
+      },
+      [&](int i) {
+        if ((i + 1) % nkc) return;
+        reg_fence(acc);
+        const int row0 = (2 * (i / nkc) + wg) * 64 + warp * 16 + g;
+#pragma unroll
+        for (int part = 0; part < NP; ++part)
+#pragma unroll
+          for (int c = 0; c < HD / 8; ++c)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int k = 4 * (part * HD / 8 + c) + 2 * r;
+              st_tile<HD>(tiles[part], row0 + 8 * r, c * 8 + 2 * tq,
+                          pack_bf16(acc[k] + bias[part][c][0], acc[k + 1] + bias[part][c][1]));
+            }
+        zero(acc);
+      },
+      next_sweep);
+}
+
+// One ring sweep of the strip pairs' products with N = HD columns of head
+// j: load(p, kc, stage, bar) issues a chunk's boxes (tx bytes land in the
+// block's stage), rest(p, kc, stage, bar) those of a chunk issued ahead
+// that did not come with it, the B operand at stage + 2 kBox (K-major
+// weight rows, or N-major weight columns when NM), and store(p, acc) the
+// pair's epilogue.
+template <int HD, bool NM, int S, typename Load, typename Rest, typename Store,
+          typename NextLoad = pdm_hop::NoLoad>
+__device__ __forceinline__ void head_sweep(
+    pdm_hop::StageRing<S>& ring, char* ring_mem, int stage, pdm_hop::RingPos& pos, int pairs,
+    int nkc, uint32_t tx, Load load, Rest rest, Store store,
+    const pdm_hop::Ahead<NextLoad>& next_sweep = pdm_hop::Ahead<NextLoad>{0, 0u, NextLoad{}}) {
+  using namespace pdm_hop;
+  const int wg = threadIdx.x / kWgThreads;
+  float acc[HD / 2];
+  zero(acc);
+  ring_sweep<S>(
+      ring, ring_mem, stage, pos, pairs * nkc, tx,
+      [&](int i, char* st, uint64_t* bar) {
+        const int p = i / nkc;
+        load(p, i - p * nkc, st, bar);
+      },
+      [&](int i, char* st, uint64_t* bar) {
+        const int p = i / nkc;
+        rest(p, i - p * nkc, st, bar);
+      },
+      [&](int, const char* st) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if constexpr (NM)
+            wgmma_ss_t<HD, 0, 1>(acc, desc_a(st, wg, kk), desc_mn<HD>(st + 2 * kBox, 64, kk, 0));
+          else
+            wgmma_ss_t<HD>(acc, desc_a(st, wg, kk), desc_k<64>(st + 2 * kBox, HD, 0, kk));
+        }
+      },
+      [&](int i) {
+        if ((i + 1) % nkc) return;
+        reg_fence(acc);
+        store(i / nkc, acc);
+        zero(acc);
+      },
+      next_sweep);
+}
+
+// Warp `warp`'s staging rows (16 rows of rs bytes) while the ring's
+// weight regions take loads: in the stages' activation boxes, warp after
+// warp, stage 0's from byte `head` on.
+__host__ __device__ constexpr bool box_rows_fit(int head, int rs) {
+  return (2 * kBox - head) / (16 * rs) + (kStages - 1) * (2 * kBox / (16 * rs)) >= kThreads / 32;
+}
+__device__ __forceinline__ char* box_rows(char* mem, int stage, int head, int rs, int warp) {
+  const int per0 = (2 * kBox - head) / (16 * rs), per = 2 * kBox / (16 * rs);
+  if (warp < per0) return mem + head + warp * 16 * rs;
+  const int w = warp - per0;
+  return mem + (1 + w / per) * stage + (w % per) * 16 * rs;
 }
 
 // Up to three row-major matrices stacked along their rows (the q, k and
@@ -84,236 +306,6 @@ __device__ __forceinline__ Stack<T> stack1(const T* p, int part, long long ld) {
   s.part = part;
   s.ld = ld;
   return s;
-}
-
-// ---------------------------------------------------------------------------
-// bf16: per-warp accumulators of its strips, 16 rows x HD columns each
-
-template <int HD>
-using Acc = float[kStrips][HD / 8][4];
-
-template <int HD>
-__device__ __forceinline__ void zero(Acc<HD>& acc) {
-#pragma unroll
-  for (int s = 0; s < kStrips; ++s)
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) acc[s][n][0] = acc[s][n][1] = acc[s][n][2] = acc[s][n][3] = 0.f;
-}
-
-// acc += A B^T over KS 16-deep steps: A rows of the warp's strips (stride
-// sa), B the HD rows of a shared tile (stride sb), both contiguous along
-// the contraction.
-template <int HD, int KS>
-__device__ __forceinline__ void mma_nt(Acc<HD>& acc, const __nv_bfloat16* a_s, int sa,
-                                       const __nv_bfloat16* b_s, int sb, int n_strips) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row_off = (lane & 7) + (lane >> 4) * 8;
-  const int col_off = ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int s = 0; s < kStrips; ++s) {
-    const int strip = warp + s * kWarps;
-    if (strip >= n_strips) continue;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, a_s + (strip * 16 + (lane & 15)) * sa + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, b_s + (np * 16 + row_off) * sb + kk * 16 + col_off);
-        mma_bf16(acc[s][2 * np], a, b[0], b[1]);
-        mma_bf16(acc[s][2 * np + 1], a, b[2], b[3]);
-      }
-    }
-  }
-}
-
-// acc += A B over KS 16-deep steps: B a shared (16 KS x HD) tile whose
-// rows run along the contraction (stride sb).
-template <int HD, int KS>
-__device__ __forceinline__ void mma_nn(Acc<HD>& acc, const __nv_bfloat16* a_s, int sa,
-                                       const __nv_bfloat16* b_s, int sb, int n_strips) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row_off = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int col_off = (lane >> 4) * 8;
-#pragma unroll
-  for (int s = 0; s < kStrips; ++s) {
-    const int strip = warp + s * kWarps;
-    if (strip >= n_strips) continue;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, a_s + (strip * 16 + (lane & 15)) * sa + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, b_s + (kk * 16 + row_off) * sb + dp * 16 + col_off);
-        mma_bf16(acc[s][2 * dp], a, b[0], b[1]);
-        mma_bf16(acc[s][2 * dp + 1], a, b[2], b[3]);
-      }
-    }
-  }
-}
-
-// acc += A (T x K, rows lda apart in global memory; rows past n_tok read
-// as zero) times B over the whole contraction K, streamed through the
-// two-stage ring. NT: B is the stack's HD rows (B^T's columns), each
-// contiguous along K. Otherwise B is the stack's K rows, the HD columns
-// from col0 on. K is a multiple of 8.
-template <int HD, bool NT>
-__device__ void stream_gemm(Acc<HD>& acc, const __nv_bfloat16* __restrict__ a, long long lda,
-                            int n_tok, int n_strips, const Stack<__nv_bfloat16>& b, int col0,
-                            int K, __nv_bfloat16* ring, int tp) {
-  const int rows = n_strips * 16;
-  __nv_bfloat16* a_buf[2] = {ring, ring + stage_elems(tp, HD)};
-  __nv_bfloat16* b_buf[2] = {ring + tp * kSK, ring + stage_elems(tp, HD) + tp * kSK};
-  auto load = [&](int kt, int buf) {
-    const int k0 = kt * kKT;
-    constexpr int kVec = kKT / 8;  // 16-byte vectors per A row
-    for (int e = threadIdx.x; e < rows * kVec; e += kThreads) {
-      const int r = e / kVec, c = (e - r * kVec) * 8;
-      const bool ok = r < n_tok && k0 + c < K;
-      cp_async16(a_buf[buf] + r * kSK + c, ok ? a + (long long)r * lda + k0 + c : a, ok);
-    }
-    if (NT) {
-      for (int e = threadIdx.x; e < HD * kVec; e += kThreads) {
-        const int r = e / kVec, c = (e - r * kVec) * 8;
-        const bool ok = k0 + c < K;
-        const __nv_bfloat16* src = b.row(r);
-        cp_async16(b_buf[buf] + r * kSK + c, ok ? src + k0 + c : src, ok);
-      }
-    } else {
-      constexpr int kCol = HD / 8;  // 16-byte vectors per B row
-      for (int e = threadIdx.x; e < kKT * kCol; e += kThreads) {
-        const int r = e / kCol, c = (e - r * kCol) * 8;
-        const bool ok = k0 + r < K;
-        const __nv_bfloat16* src = b.row(ok ? k0 + r : 0) + col0 + c;
-        cp_async16(b_buf[buf] + r * (HD + 8) + c, src, ok);
-      }
-    }
-  };
-  const int n_k = (K + kKT - 1) / kKT;
-  load(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < n_k; ++kt) {
-    if (kt + 1 < n_k) {
-      load(kt + 1, (kt + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (NT)
-      mma_nt<HD, kKT / 16>(acc, a_buf[kt & 1], kSK, b_buf[kt & 1], kSK, n_strips);
-    else
-      mma_nn<HD, kKT / 16>(acc, a_buf[kt & 1], kSK, b_buf[kt & 1], HD + 8, n_strips);
-    __syncthreads();
-  }
-}
-
-// Visit each accumulator pair of the warp's strips: f(row, col, v0, v1)
-// for columns col, col + 1 of token row `row` (rows of every strip, also
-// those past T).
-template <int HD, typename F>
-__device__ __forceinline__ void for_each_pair(const Acc<HD>& acc, int n_strips, F f) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int s = 0; s < kStrips; ++s) {
-    const int strip = warp + s * kWarps;
-    if (strip >= n_strips) continue;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      const int col = n * 8 + 2 * tq;
-      f(strip * 16 + g, col, acc[s][n][0], acc[s][n][1]);
-      f(strip * 16 + g + 8, col, acc[s][n][2], acc[s][n][3]);
-    }
-  }
-}
-
-// Zero rows [from, tp) of a resident tile (read by the 64-row attention
-// tiles past the last strip).
-template <int HD>
-__device__ __forceinline__ void zero_rows(__nv_bfloat16* t, int from, int tp) {
-  constexpr int kVec = (HD + 8) / 8;
-  for (int e = threadIdx.x; e < (tp - from) * kVec; e += kThreads)
-    reinterpret_cast<uint4*>(t + from * (HD + 8))[e] = make_uint4(0u, 0u, 0u, 0u);
-}
-
-// q, k, v of head j (columns j HD.. of h W_x^T + b_x) for every token,
-// rounded once to bf16 into the resident tiles qkv[0..2].
-template <int HD>
-__device__ void project_qkv(__nv_bfloat16* const (&qkv)[3], const __nv_bfloat16* h_img,
-                            const __nv_bfloat16* const (&w)[3], const void* const (&bias)[3],
-                            int bias_bf16, int j, int n_tok, int C, int tp,
-                            __nv_bfloat16* ring) {
-  const int n_strips = (n_tok + 15) / 16;
-  Acc<HD> acc;
-#pragma unroll 1
-  for (int p = 0; p < 3; ++p) {
-    zero<HD>(acc);
-    stream_gemm<HD, true>(acc, h_img, C, n_tok, n_strips,
-                          stack1(w[p] + (long long)j * HD * C, HD, C), 0, C, ring, tp);
-    __nv_bfloat16* dst = qkv[p];
-    const void* b = bias[p];
-    for_each_pair<HD>(acc, n_strips, [&](int row, int col, float v0, float v1) {
-      const float b0 = load_bias(b, j * HD + col, bias_bf16);
-      const float b1 = load_bias(b, j * HD + col + 1, bias_bf16);
-      *reinterpret_cast<uint32_t*>(dst + row * (HD + 8) + col) = pack_bf16(v0 + b0, v1 + b1);
-    });
-    zero_rows<HD>(dst, n_strips * 16, tp);
-  }
-  __syncthreads();
-}
-
-// Softmax attention of one 16-row query strip against the resident k, v
-// tiles, as the forward kernel of row 1: pass 1 the rows' max m and sum l
-// (log2 units), pass 2 P = exp2(s - m) / l rounded to bf16 and o += P v.
-template <int HD>
-__device__ void attend_strip(float (&o)[HD / 8][4], float (&m)[2], float (&l)[2],
-                             const __nv_bfloat16* qs, const __nv_bfloat16* ks,
-                             const __nv_bfloat16* vs, int strip, int n_tok,
-                             float scale_log2) {
-  constexpr int S = HD + 8;
-  const int lane = threadIdx.x & 31;
-  uint32_t qa[HD / 16][4];
-  load_a<HD>(qa, qs, strip, lane);
-  m[0] = m[1] = -INFINITY;
-  l[0] = l[1] = 0.f;
-  float s[kTile / 8][4];
-  for (int k0 = 0; k0 < n_tok; k0 += kTile) {
-    tile_scores<HD>(s, qa, ks + k0 * S, lane, k0, n_tok, scale_log2);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-      const float m_new = fmaxf(m[r], quad_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n)
-        sum += exp2f(s[n][2 * r] - m_new) + exp2f(s[n][2 * r + 1] - m_new);
-      l[r] = l[r] * exp2f(m[r] - m_new) + sum;
-      m[r] = m_new;
-    }
-  }
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
-  const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  for (int k0 = 0; k0 < n_tok; k0 += kTile) {
-    tile_scores<HD>(s, qa, ks + k0 * S, lane, k0, n_tok, scale_log2);
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = round_bf16(exp2f(s[n][e] - m[e >> 1]) * inv_l[e >> 1]);
-    uint32_t a[kTile / 16][4];
-#pragma unroll
-    for (int jj = 0; jj < kTile / 16; ++jj) pack_a(a[jj], s, jj);
-    tile_product<HD>(o, a, vs + k0 * S, lane);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -393,16 +385,16 @@ __device__ float attend_row_f32(float (&att)[HD], const float (&qr)[HD], const f
 
 // ---------------------------------------------------------------------------
 
-// One cluster of `heads` blocks per image: grid (heads, B), the kernel's
-// dynamic shared memory set.
+// One cluster of `heads` blocks per group of images: grid (heads, groups),
+// the kernel's dynamic shared memory set.
 template <typename... KArgs, typename... Args>
-cudaError_t launch_cluster(void (*kernel)(KArgs...), int heads, int B, int smem,
+cudaError_t launch_cluster(void (*kernel)(KArgs...), int heads, int groups, int smem,
                            cudaStream_t stream, Args... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(heads, B, 1);
+  cfg.gridDim = dim3(heads, groups, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;

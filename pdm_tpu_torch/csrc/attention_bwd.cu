@@ -83,7 +83,7 @@ namespace {
 
 using namespace pdm_attn;
 
-constexpr float kLog2e = 1.4426950408889634f;
+using pdm_hop::kLog2e;
 
 // ---------------------------------------------------------------------------
 // bf16, T <= 256: single pass on wgmma
@@ -105,113 +105,6 @@ __device__ __forceinline__ Item decode(int item, int pairs, int heads) {
   it.h = rest % heads;
   it.b = rest / heads;
   return it;
-}
-
-// dq and D of one 64-row query strip: qs, dos hold the pair's q and do
-// (pair_rows rows, the strip at row0), ks, vs the head's k and v (64 NC
-// rows). NC is a template parameter so that no branch sits between a
-// product's issue and its wait.
-template <int HDP, int NC>
-__device__ __forceinline__ void dq_strip(const char* qs, const char* dos,
-                                         const char* ks, const char* vs,
-                                         uint64_t* dov_bar, int phase, int pair_rows,
-                                         int row0, int st, int n_tok, int heads, int hd,
-                                         int h, int b, const float* __restrict__ lse,
-                                         __nv_bfloat16* __restrict__ dq,
-                                         float* __restrict__ dsum, float scale,
-                                         float scale_log2) {
-  using namespace pdm_hop;
-  using S = Stripe<HDP>;
-  constexpr int rows = NC * kRows;
-  const int warp = (threadIdx.x & (kWgThreads - 1)) >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int C = heads * hd;
-  const long long lrow = ((long long)b * heads + h) * n_tok;
-  // lse of rows g and g + 8 in log2 units; +inf past n_tok makes P = 0
-  float lse2[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = st * kRows + warp * 16 + g + 8 * r;
-    lse2[r] = row < n_tok ? lse[lrow + row] * kLog2e : INFINITY;
-  }
-
-  // S = q k^T over the strip's whole key row, m64n(64 NC)k16
-  float s[NC * 32];
-#pragma unroll
-  for (int i = 0; i < NC * 32; ++i) s[i] = 0.f;
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < S::kKSteps; ++kk)
-    wgmma_ss<NC>(s, desc_k<HDP>(qs, pair_rows, row0, kk), desc_k<HDP>(ks, rows, 0, kk));
-  wgmma_commit();
-  wgmma_wait_all();
-  reg_fence(s);
-
-  // P = exp(s - lse), rounded to bf16 as it is packed (keys past n_tok: 0)
-  uint32_t pa[NC * 4][4];
-#pragma unroll
-  for (int i = 0; i < NC * 32; ++i) s[i] = ex2(fmaf(s[i], scale_log2, -lse2[(i >> 1) & 1]));
-  if (n_tok < rows) {
-#pragma unroll
-    for (int i = 0; i < NC * 32; ++i)
-      if ((i >> 2) * 8 + 2 * tq + (i & 1) >= n_tok) s[i] = 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < NC * 4; ++j) pack_slice(pa[j], s, j);
-
-  // dp = do v^T (in the same registers), D = sum_k P * dp
-#pragma unroll
-  for (int i = 0; i < NC * 32; ++i) s[i] = 0.f;
-  mbar_wait(dov_bar, phase);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < S::kKSteps; ++kk)
-    wgmma_ss<NC>(s, desc_k<HDP>(dos, pair_rows, row0, kk), desc_k<HDP>(vs, rows, 0, kk));
-  wgmma_commit();
-  wgmma_wait_all();
-  reg_fence(s);
-  float D[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < NC * 32; ++i)
-    D[(i >> 1) & 1] += unpack(pa[i >> 3], i >> 2, i & 3) * s[i];
-  D[0] = quad_sum(D[0]);
-  D[1] = quad_sum(D[1]);
-
-  // ds = P dp - P D, rounded to bf16 as it is repacked (the A operand of
-  // ds k)
-#pragma unroll
-  for (int i = 0; i < NC * 32; ++i) {
-    const float p = unpack(pa[i >> 3], i >> 2, i & 3);
-    s[i] = p * s[i] - p * D[(i >> 1) & 1];
-  }
-#pragma unroll
-  for (int j = 0; j < NC * 4; ++j) pack_slice(pa[j], s, j);
-  float acc[S::kPanels][S::kBW / 2];
-#pragma unroll
-  for (int n = 0; n < S::kPanels; ++n)
-#pragma unroll
-    for (int i = 0; i < S::kBW / 2; ++i) acc[n][i] = 0.f;
-  wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < NC * 4; ++j)
-#pragma unroll
-    for (int n = 0; n < S::kPanels; ++n)
-      wgmma_rs<S::kBW>(acc[n], pa[j], desc_mn<HDP>(ks, rows, j, n));
-  wgmma_commit();
-  wgmma_wait_all();
-#pragma unroll
-  for (int n = 0; n < S::kPanels; ++n) reg_fence(acc[n]);
-  reg_fence(pa);
-
-  store_acc<HDP>(dq, acc, scale, (long long)b * n_tok, st * kRows, n_tok, C, h * hd,
-                 hd);
-  if (tq == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = st * kRows + warp * 16 + g + 8 * r;
-      if (row < n_tok) dsum[lrow + row] = D[r];
-    }
-  }
 }
 
 template <int HDP, int NC>
@@ -271,114 +164,21 @@ attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const char* qs = base + st * stage;
     const int strip = it.pair * 2 + wg;
     mbar_wait(&bar[st][0], phase);
+    const PlainRows lay{n_tok, (long long)it.b * n_tok,
+                        ((long long)it.b * heads + it.h) * n_tok};
     if (strip < NC)
-      dq_strip<HDP, NC>(qs, qs + pair_tile, qs + 2 * pair_tile,
-                        qs + 2 * pair_tile + tile, &bar[st][1], phase, pair_rows,
-                        wg * kRows, strip, n_tok, heads, hd, it.h, it.b, lse, dq, dsum,
-                        scale, scale_log2);
+      dq_strip<HDP, NC, true>(qs, qs + pair_tile, qs + 2 * pair_tile, qs + 2 * pair_tile + tile,
+                        &bar[st][1], phase, pair_rows, wg * kRows, rows, strip, lay, lse,
+                        [&](const auto& acc, float mul, int row0) {
+                          store_rows<HDP>(dq, acc, mul, lay, row0, (long long)heads * hd,
+                                          it.h * hd, hd);
+                        },
+                        dsum, scale, scale_log2);
     else
       mbar_wait(&bar[st][1], phase);
     wgs_sync();  // the stage is consumed
     if (threadIdx.x == 0 && item + stages * G < n_items) issue(item + stages * G, st);
   }
-}
-
-// dk and dv of one 64-key strip: ks, vs hold the pair's k and v (pair_rows
-// rows, the strip at row0), qs, dos the head's q and do (64 NC rows);
-// lse_s and d_s the head's lse (log2 units, +inf past n_tok) and D (0 past
-// n_tok). The queries go by in groups of QC 64-row chunks (two where NC is
-// even and HDP <= 64): products m64n(64 QC)k16 and three waits a group.
-template <int HDP, int NC>
-__device__ __forceinline__ void dkdv_strip(const char* ks, const char* vs,
-                                           const char* qs, const char* dos,
-                                           int pair_rows, int row0, int kt, int n_tok,
-                                           int heads, int hd, int h, int b,
-                                           const float* lse_s, const float* d_s,
-                                           __nv_bfloat16* __restrict__ dk,
-                                           __nv_bfloat16* __restrict__ dv, float scale,
-                                           float scale_log2) {
-  using namespace pdm_hop;
-  using S = Stripe<HDP>;
-  constexpr int rows = NC * kRows;
-  // query chunks a group (one at HDP 128, where dk and dv take 128 registers)
-  constexpr int QC = NC % 2 == 0 && HDP <= 64 ? 2 : 1;
-  const int tq = threadIdx.x & 3;
-  const int C = heads * hd;
-  float dk_acc[S::kPanels][S::kBW / 2], dv_acc[S::kPanels][S::kBW / 2];
-#pragma unroll
-  for (int n = 0; n < S::kPanels; ++n)
-#pragma unroll
-    for (int i = 0; i < S::kBW / 2; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
-
-  float sc[QC * 32], dp[QC * 32];
-  uint32_t pa[QC * 4][4];
-#pragma unroll 1
-  for (int q0 = 0; q0 < rows; q0 += QC * kRows) {
-    // S^T = k q^T: rows are the strip's keys, columns the group's queries
-#pragma unroll
-    for (int i = 0; i < QC * 32; ++i) sc[i] = 0.f;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < S::kKSteps; ++kk)
-      wgmma_ss<QC>(sc, desc_k<HDP>(ks, pair_rows, row0, kk), desc_k<HDP>(qs, rows, q0, kk));
-    wgmma_commit();
-    wgmma_wait_all();
-    reg_fence(sc);
-    // P^T = exp(s - lse), rounded to bf16 as it is packed
-#pragma unroll
-    for (int i = 0; i < QC * 32; i += 2) {
-      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + q0 + (i >> 2) * 8 + 2 * tq);
-      sc[i] = ex2(fmaf(sc[i], scale_log2, -l2.x));
-      sc[i + 1] = ex2(fmaf(sc[i + 1], scale_log2, -l2.y));
-    }
-#pragma unroll
-    for (int j = 0; j < QC * 4; ++j) pack_slice(pa[j], sc, j);
-    // dv += P^T do and dp^T = v do^T
-#pragma unroll
-    for (int i = 0; i < QC * 32; ++i) dp[i] = 0.f;
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < QC * 4; ++j)
-#pragma unroll
-      for (int n = 0; n < S::kPanels; ++n)
-        wgmma_rs<S::kBW>(dv_acc[n], pa[j], desc_mn<HDP>(dos, rows, q0 / 16 + j, n));
-#pragma unroll
-    for (int kk = 0; kk < S::kKSteps; ++kk)
-      wgmma_ss<QC>(dp, desc_k<HDP>(vs, pair_rows, row0, kk), desc_k<HDP>(dos, rows, q0, kk));
-    wgmma_commit();
-    wgmma_wait_all();
-    reg_fence(dp);
-#pragma unroll
-    for (int n = 0; n < S::kPanels; ++n) reg_fence(dv_acc[n]);
-    reg_fence(pa);
-    // ds^T = P dp - P D (P the rounded values), rounded to bf16 as it is
-    // packed; dk += ds^T q
-#pragma unroll
-    for (int i = 0; i < QC * 32; i += 2) {
-      const float2 d2 = *reinterpret_cast<const float2*>(d_s + q0 + (i >> 2) * 8 + 2 * tq);
-      const float p0 = unpack(pa[i >> 3], i >> 2, i & 3);
-      const float p1 = unpack(pa[i >> 3], i >> 2, (i + 1) & 3);
-      sc[i] = p0 * dp[i] - p0 * d2.x;
-      sc[i + 1] = p1 * dp[i + 1] - p1 * d2.y;
-    }
-#pragma unroll
-    for (int j = 0; j < QC * 4; ++j) pack_slice(pa[j], sc, j);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < QC * 4; ++j)
-#pragma unroll
-      for (int n = 0; n < S::kPanels; ++n)
-        wgmma_rs<S::kBW>(dk_acc[n], pa[j], desc_mn<HDP>(qs, rows, q0 / 16 + j, n));
-    wgmma_commit();
-    wgmma_wait_all();
-#pragma unroll
-    for (int n = 0; n < S::kPanels; ++n) reg_fence(dk_acc[n]);
-    reg_fence(pa);
-  }
-
-  const long long row_base = (long long)b * n_tok;
-  store_acc<HDP>(dk, dk_acc, scale, row_base, kt * kRows, n_tok, C, h * hd, hd);
-  store_acc<HDP>(dv, dv_acc, 1.f, row_base, kt * kRows, n_tok, C, h * hd, hd);
 }
 
 template <int HDP, int NC>
@@ -447,10 +247,16 @@ attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(&bar[st][0], phase);
     mbar_wait(&bar[st][1], phase);
     const int kt = it.pair * 2 + wg;
+    const PlainRows lay{n_tok, (long long)it.b * n_tok,
+                        ((long long)it.b * heads + it.h) * n_tok};
     if (kt < NC)
-      dkdv_strip<HDP, NC>(ks, ks + pair_tile, ks + 2 * pair_tile,
-                          ks + 2 * pair_tile + tile, pair_rows, wg * kRows, kt, n_tok,
-                          heads, hd, it.h, it.b, lse_s, d_s, dk, dv, scale, scale_log2);
+      dkdv_strip<HDP, NC>(ks, ks + pair_tile, ks + 2 * pair_tile, ks + 2 * pair_tile + tile,
+                          pair_rows, wg * kRows, rows, kt, lay, lse_s, d_s,
+                          [&](int which, const auto& acc, float mul, int row0) {
+                            store_rows<HDP>(which ? dv : dk, acc, mul, lay, row0,
+                                            (long long)heads * hd, it.h * hd, hd);
+                          },
+                          scale, scale_log2);
     wgs_sync();  // the stage, lse_s and d_s are consumed
     if (threadIdx.x == 0 && item + stages * G < n_items) issue(item + stages * G, st);
   }

@@ -24,6 +24,18 @@ gradients from :func:`attention_block_bwd`. Launch counters:
 ``fused_attention_block.launches`` (forward kernels) and
 ``attention_block_bwd.launches`` (backward kernels, three per call).
 
+The bf16 kernels run one launch plan (:func:`plan_block`, a pure function
+of the shape; ``BlockPlan`` in ``csrc/attention_block_common.cuh`` takes it
+as it comes and refuses one the kernels cannot run): one thread-block
+cluster per group of images, one block per head, two warpgroups on
+64-row strips. Above 64 tokens a group is one image (T / 64 strips,
+rounded up to an even count); at T <= 64 it is two strips of P = 64 / Tr
+images each, Tr the power of two >= T, so that the mid block's T = 16
+fills a 64-row ``wgmma`` tile with four images (:func:`tile_rows` maps a
+group's tile rows to tokens). The bf16 wrappers also allocate the
+device-memory scratches the kernels pass every head's att (forward) and
+the row sums D (backward) through.
+
 The path is opt-in, as in the JAX package: :func:`use_fused_attention_block`
 opens only with ``PDM_FUSED_BLOCK=1``, read at every call.
 """
@@ -32,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 from torch import Tensor
@@ -50,6 +62,63 @@ KERNEL_MAX_HEADS = 8
 KERNEL_MAX_TOKENS = 256
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# bf16 launch plan (csrc/attention_block_common.cuh): a three-stage TMA
+# ring of 64-deep stages, a block's shared memory at most sm_90's opt-in
+# (the kernels also check the device's)
+KERNEL_STAGES = 3
+MAX_SMEM_BYTES = 232_448
+
+
+class BlockPlan(NamedTuple):
+    """One bf16 launch of the whole-block kernels; ``BlockPlan`` in
+    csrc/attention_block_common.cuh has the same fields."""
+    nc: int         # 64-key chunks of a query strip (1: packed images)
+    strips: int     # 64-row strips of a block's tiles (even)
+    trs: int        # log2 of a packed image's rows Tr (6 above 64 tokens)
+    per_strip: int  # P: images per strip
+    imgs: int       # images per group
+    groups: int     # groups of images: the grid's clusters
+    stages: int     # TMA ring depth
+    smem: int       # dynamic shared memory bytes
+
+
+def plan_block(B: int, T: int, hd: int, backward: bool) -> BlockPlan:
+    """The bf16 launch plan of the forward (``backward`` False) or of the
+    backward's first kernel at batch B, T tokens, head dim hd. Above 64
+    tokens one image a cluster; at T <= 64 each 64-row strip packs P = 64 /
+    Tr images Tr rows apart (Tr the power of two >= T) and a block takes two
+    strips. Shared memory: the ring (a stage holds two 64 x 64 boxes of the
+    activations and 3 hd weight rows of 64 columns, 2 hd backward), the
+    head's q, k, v (and datt) tiles beside it, and 1 KB of alignment."""
+    if T > 64:
+        nc = -(-T // 64)
+        strips, trs, per_strip, imgs = nc + (nc & 1), 6, 1, 1
+    else:
+        nc, strips, trs = 1, 2, (T - 1).bit_length()
+        per_strip = 64 >> trs
+        imgs = 2 * per_strip
+    stage = 2 * 64 * 64 * 2 + (2 if backward else 3) * hd * 128
+    tiles = (4 if backward else 3) * strips * 64 * hd * 2
+    smem = KERNEL_STAGES * stage + tiles + 1024
+    return BlockPlan(nc, strips, trs, per_strip, imgs, -(-B // imgs),
+                     KERNEL_STAGES, smem)
+
+
+def tile_rows(plan: BlockPlan, B: int, T: int, group: int) -> list:
+    """(image, token) of every row of group ``group``'s tiles, None for
+    padding: image ``group`` with token t at row t above 64 tokens; packed,
+    image ``group * imgs + row // Tr`` with token ``row % Tr``. The kernels'
+    ``PlainRows`` and ``PackedRows`` (csrc/attention_hopper.cuh) map rows
+    so, and TMA reads the boxes of ``fwd_maps`` and ``bwd_maps`` so."""
+    rows = []
+    for r in range(plan.strips * 64):
+        if plan.nc == 1:
+            img, t = group * plan.imgs + (r >> plan.trs), r & ((1 << plan.trs) - 1)
+        else:
+            img, t = group, r
+        rows.append((img, t) if t < T and img < B else None)
+    return rows
 
 
 def _project(h: Tensor, w: Tensor, b: Tensor) -> Tensor:
@@ -197,17 +266,22 @@ def _forward(x, h, ws, bs, w_out, b_out, heads, scale
     B, T, C = h.shape
     x, h, w_q, w_k, w_v, w_out = (_ready(t) for t in (x, h, *ws, w_out))
     b_q, b_k, b_v, b_out = (t.contiguous() for t in (*bs, b_out))
-    out = torch.empty((B, T, C), dtype=x.dtype, device=h.device)
-    lse = torch.empty((B, heads, T), dtype=torch.float32, device=h.device)
+    dev = h.device
+    out = torch.empty((B, T, C), dtype=x.dtype, device=dev)
+    lse = torch.empty((B, heads, T), dtype=torch.float32, device=dev)
+    plan, att = None, None
+    if h.dtype == torch.bfloat16:  # every head's att passes through it
+        plan = _CPlan(*plan_block(B, T, C // heads, backward=False))
+        att = torch.empty((B, T, C), dtype=h.dtype, device=dev)
     fn = _build.entry("pdm_attention_block_fwd", _FWD_ARGS)
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), h.data_ptr(), w_q.data_ptr(), w_k.data_ptr(),
                  w_v.data_ptr(), b_q.data_ptr(), b_k.data_ptr(),
                  b_v.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), B, T, heads, C // heads,
-                 float(scale), _DTYPE_CODES[h.dtype],
-                 _DTYPE_CODES[b_out.dtype], stream)
+                 out.data_ptr(), lse.data_ptr(), _ptr(att),
+                 _plan_ref(plan), B, T, heads, C // heads, float(scale),
+                 _DTYPE_CODES[h.dtype], _DTYPE_CODES[b_out.dtype], stream)
     _build.check(err, "pdm_attention_block_fwd")
     fused_attention_block.launches += 1
     return out, lse
@@ -220,9 +294,10 @@ def attention_block_bwd(
 ) -> Tuple[Tensor, ...]:
     """(dh, dw_q, dw_k, dw_v, db_q, db_k, db_v, dw_out) of the block for
     the cotangent ``g`` of its output, from the forward's lse. Three
-    kernels on CUDA tensors (per image: recompute, the attention VJP and
-    dh; then the weight and bias gradients as split-K partials over the
-    B T rows; then their exact merge), the plain version on CPU tensors."""
+    kernels on CUDA tensors (per group of images: recompute, the attention
+    VJP and dh; then the weight and bias gradients as split-K partials over
+    the B T rows; then their exact merge), the plain version on CPU
+    tensors."""
     B, T, C = h.shape
     ws, bs = (w_q, w_k, w_v), tuple(b_qkv)
     if h.device.type == "cpu":
@@ -248,11 +323,16 @@ def attention_block_bwd(
     dqkv = torch.empty((B, T, 3 * C), dtype=dt, device=dev)
     att = torch.empty((B, T, C), dtype=dt, device=dev)
     dh = torch.empty((B, T, C), dtype=dt, device=dev)
-    # fp32 only: q and datt parked for the dk/dv sweep (in bf16 a head's
-    # operands all stay in shared memory)
-    scratch = (torch.empty((B, T, 2 * C), dtype=torch.float32, device=dev)
-               if dt == torch.float32 else None)
-    n_chunks = _weight_grad_chunks(B * T, C)
+    # fp32: q and datt parked for the dk/dv sweep; bf16: the row sums D
+    scratch, plan, dsum = None, None, None
+    if dt == torch.float32:
+        scratch = torch.empty((B, T, 2 * C), dtype=torch.float32, device=dev)
+    else:
+        plan = _CPlan(*plan_block(B, T, C // heads, backward=True))
+        dsum = torch.empty((B, heads, T), dtype=torch.float32, device=dev)
+    n_chunks = _weight_grad_chunks(
+        B * T, C, dt == torch.bfloat16,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
     partials = torch.empty((n_chunks, 4 * C * C + 3 * C), dtype=torch.float32,
                            device=dev)
     dws = [torch.empty((C, C), dtype=w.dtype, device=dev) for w in ws]
@@ -268,10 +348,9 @@ def attention_block_bwd(
                     w_v.data_ptr(), b_q.data_ptr(), b_k.data_ptr(),
                     b_v.data_ptr(), w_out.data_ptr(), lse.data_ptr(),
                     do.data_ptr(), dqkv.data_ptr(), att.data_ptr(),
-                    dh.data_ptr(),
-                    None if scratch is None else scratch.data_ptr(), B, T, heads,
-                    C // heads, float(scale), code,
-                    bcode, stream)
+                    dh.data_ptr(), _ptr(scratch), _ptr(dsum), _plan_ref(plan),
+                    B, T, heads, C // heads,
+                    float(scale), code, bcode, stream)
         _build.check(err, "pdm_attention_block_bwd")
         attention_block_bwd.launches += 1
         err = fn_wg(h.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
@@ -288,12 +367,17 @@ def attention_block_bwd(
     return (dh, *dws, *dbs, dw_out)
 
 
-def _weight_grad_chunks(rows: int, C: int) -> int:
-    """Row chunks of the split-K weight-gradient kernel: about four blocks
-    per SM of an H100 over its (4C/64) x (C/64) output tiles, each chunk
-    at least 256 rows."""
+def _weight_grad_chunks(rows: int, C: int, bf16: bool, sms: int) -> int:
+    """Row chunks of the split-K weight-gradient kernel, each at least 256
+    rows, on a card of ``sms`` SMs. bf16: one block an SM over its 128 x
+    256 output tiles (3C/128 + C/128 rows of tiles, C/256 columns, each
+    rounded up), the chunks no more than fill the SMs; fp32: about four
+    blocks an SM over its (4C/64) x (C/64) tiles."""
+    if bf16:
+        tiles = (-(-3 * C // 128) + -(-C // 128)) * -(-C // 256)
+        return max(1, min(sms // tiles, rows // 256, 64))
     tiles = -(-4 * C // 64) * -(-C // 64)
-    return max(1, min(-(-528 // tiles), rows // 256, 64))
+    return max(1, min(-(-4 * sms // tiles), rows // 256, 64))
 
 
 class _BlockFn(torch.autograd.Function):
@@ -371,8 +455,20 @@ def use_fused_attention_block(T: int, C: int, heads: int) -> bool:
 fused_attention_block.launches = 0
 attention_block_bwd.launches = 0
 
+class _CPlan(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in BlockPlan._fields]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _plan_ref(plan):
+    return None if plan is None else ctypes.byref(plan)
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = [_P] * 12 + [_I] * 4 + [ctypes.c_float, _I, _I, _P]
-_BWD_ARGS = [_P] * 14 + [_I] * 4 + [ctypes.c_float, _I, _I, _P]
+_FWD_ARGS = [_P] * 14 + [_I] * 4 + [ctypes.c_float, _I, _I, _P]
+_BWD_ARGS = [_P] * 16 + [_I] * 4 + [ctypes.c_float, _I, _I, _P]
 _WGRAD_ARGS = [_P] * 5 + [_I] * 4 + [_P]
 _MERGE_ARGS = [_P] * 8 + [_I] * 4 + [_P]

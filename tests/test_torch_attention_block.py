@@ -19,7 +19,10 @@ are held against the JAX package's Pallas kernel in interpret mode
 
 The tiny UNet with ``PDM_FUSED_BLOCK=1`` on the port's CPU path against
 the JAX UNet's standard XLA path (JAX's gate stays closed off the TPU)
-agrees in fp32 to 1e-5 of the output scale. The three-step trainer run
+agrees in fp32 to 1e-5 of the output scale. The bf16 kernels' launch plan
+(``plan_block``, pure) is checked over every geometry ``kernels_take``
+admits: shared memory under the H100's opt-in, strips and packing, every
+token of every image in exactly one group's tiles. The three-step trainer run
 with the opt-in is in tests/test_torch_trainer.py (it shares that file's
 compiled JAX train step). The CUDA kernels are held against the plain
 versions on the card by tests/test_torch_cuda.py.
@@ -297,3 +300,84 @@ def test_unet_sends_shapes_the_kernels_refuse_down_the_standard_path(
                      else {"block": 0, "attention": 8})
     if not taken:
         assert torch.equal(got, standard)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernels' launch plan (ops/attention_block.py::plan_block, checked
+# by BlockPlan in csrc/attention_block_common.cuh)
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("hd", tb.KERNEL_HEAD_DIMS)
+def test_plan_fits_every_geometry_the_kernels_take(hd, backward):
+    """Every (T, heads) kernels_take admits at this head dim: shared memory
+    under the H100's 227 KB opt-in, a three-stage ring, an even number of
+    strips covering the keys, packing only at T <= 64 with Tr >= T and
+    P Tr = 64, one cluster of `heads` blocks (at most 8)."""
+    for heads in range(1, tb.KERNEL_MAX_HEADS + 1):
+        for T in range(1, tb.KERNEL_MAX_TOKENS + 1):
+            assert tb.kernels_take(T, heads * hd, heads)
+            for B in (1, 3, 64, 128):
+                p = tb.plan_block(B, T, hd, backward)
+                assert p.smem + 1024 <= tb.MAX_SMEM_BYTES  # static memory beside it
+                assert p.stages == tb.KERNEL_STAGES == 3
+                assert p.strips % 2 == 0 and p.strips * 64 >= T
+                assert p.groups * p.imgs >= B > (p.groups - 1) * p.imgs
+                if T > 64:
+                    assert (p.nc, p.per_strip, p.imgs, p.trs) == (-(-T // 64), 1, 1, 6)
+                    assert p.strips - p.nc in (0, 1)
+                else:
+                    tr = 1 << p.trs
+                    assert p.nc == 1 and p.strips == 2
+                    assert T <= tr < 2 * T and p.per_strip * tr == 64
+                    assert p.imgs == 2 * p.per_strip
+
+
+@pytest.mark.parametrize("T", [1, 3, 8, 9, 16, 17, 24, 32, 33, 40, 63, 64, 65,
+                               100, 128, 129, 192, 193, 255, 256])
+def test_plan_covers_every_token_of_every_image_once(T):
+    """Each (image, token) row lies in exactly one group's tiles; a packed
+    strip holds whole images (a query's keys are its image's rows of its
+    own strip), and its mid block at T 16 fills a strip with four images."""
+    for B in (1, 5, 64):
+        p = tb.plan_block(B, T, 64, False)
+        seen = {}
+        for group in range(p.groups):
+            rows = tb.tile_rows(p, B, T, group)
+            for r, it in enumerate(rows):
+                if it is None:
+                    continue
+                assert it not in seen
+                seen[it] = (group, r // 64)
+        assert set(seen) == {(b, t) for b in range(B) for t in range(T)}
+        if p.nc == 1:  # every image inside one strip
+            for b in range(B):
+                assert len({seen[(b, t)] for t in range(T)}) == 1
+    if T == 16:
+        assert tb.plan_block(64, 16, 64, False).per_strip == 4
+
+
+def test_plan_is_a_pure_function_of_the_shape():
+    assert tb.plan_block(64, 256, 64, False) == tb.plan_block(64, 256, 64, False)
+    assert tb.plan_block(64, 256, 64, False).groups == 64
+    assert tb.plan_block(64, 16, 64, True).groups == 8  # 8 images a cluster
+    # the backward's ring stages carry two head dims of weight rows, the
+    # forward's three; its tiles hold datt as well
+    f, b = tb.plan_block(2, 256, 64, False), tb.plan_block(2, 256, 64, True)
+    assert f.smem - 1024 == 3 * (16384 + 3 * 64 * 128) + 3 * 256 * 128
+    assert b.smem - 1024 == 3 * (16384 + 2 * 64 * 128) + 4 * 256 * 128
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_weight_grad_chunks_fill_the_card_without_short_chunks(bf16):
+    """Split-K chunks of the weight-gradient kernel: at least 256 rows each
+    and at most 64; in bf16 the 128 x 256 output tiles times the chunks
+    never exceed the card's SMs (132 on an H100 SXM, 114 on a PCIe card)."""
+    for C in (16, 64, 256, 512):
+        for rows in (16, 2048, 128 * 256, 128 * 1024):
+            n = tb._weight_grad_chunks(rows, C, bf16, 132)
+            assert 1 <= n <= 64 and (n == 1 or rows // n >= 256)
+            if bf16:
+                tiles = (-(-3 * C // 128) + -(-C // 128)) * -(-C // 256)
+                assert n * tiles <= 132 or n == 1
+    assert tb._weight_grad_chunks(128 * 256, 256, True, 132) == 16
+    assert tb._weight_grad_chunks(128 * 256, 256, True, 114) == 14

@@ -419,17 +419,30 @@ def test_tiny_unet_train_step_on_card_matches_cpu(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,heads,hd", [
-    (2, 64, 2, 32),     # small
+    (2, 64, 2, 32),     # small; T 64: one image a strip, the packing's edge
     (3, 100, 4, 16),    # ragged: T not a multiple of 16 or 64
     (64, 256, 4, 64),   # the flagship's 16x16 blocks
-    (64, 16, 4, 64),    # its 4x4 mid block
+    (64, 16, 4, 64),    # its 4x4 mid block: four images a 64-row strip
+    (5, 16, 8, 16),     # T 16 at head dims 16 and 32, 8 heads
+    (5, 16, 8, 32),
+    (4, 64, 8, 64),     # T 64, 8 heads
+    (5, 40, 4, 32),     # ragged T with packing: one image a strip, 24 rows padding
+    (9, 24, 2, 64),     # two images a strip, 8 rows padding each, 9 % 4 images
+    (3, 192, 2, 64),    # three key chunks and a padding strip
+    (3, 64, 1, 64),     # one head: a cluster of one block
+    (2, 48, 3, 16),     # C 48: one contraction chunk, zero-filled past C
+    (2, 130, 5, 32),    # C 160: a ragged last chunk; 5 heads, 3 key chunks
+    (600, 16, 4, 64),   # 75 packed groups: more clusters than fit at once
+    (96, 100, 4, 32),   # 96 groups of one ragged image, likewise
 ])
 def test_attention_block_kernels_match_plain_on_card(cuda_device, B, T, heads,
                                                      hd, dtype):
     """Rows 5 and 6: the forward (and its lse) and every gradient of the
     backward against the plain versions on the same card inputs, to
     chip_smoke's BLOCK_TOL / BLOCK_BWD_TOL (db_qkv as one vector: db_k is
-    zero in exact arithmetic); one launch forward, three backward."""
+    zero in exact arithmetic); one launch forward, three backward; a second
+    call of each bitwise equal to the first. The last two shapes launch
+    more clusters than the card holds at once."""
     C = heads * hd
     g = torch.Generator(device=cuda_device).manual_seed(B + T)
     x, h, ws, bs, wo, bo = block_inputs(g, cuda_device, B, T, C, dtype)
@@ -443,6 +456,11 @@ def test_attention_block_kernels_match_plain_on_card(cuda_device, B, T, heads,
     torch.cuda.synchronize()
     assert tb.fused_attention_block.launches == f0 + 1
     assert tb.attention_block_bwd.launches == b0 + 3
+    out2, lse2 = tb._forward(x, h, ws, bs, wo, bo, heads, scale)
+    got2 = tb.attention_block_bwd(h, *ws, bs, wo, lse, gco, heads, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(got, got2))
     dname = str(dtype).split(".")[1]
     _assert_close_to_scale(out, ref, *BLOCK_TOL[dname])
     _assert_close_to_scale(lse, ref_lse, *BLOCK_TOL[dname])

@@ -133,7 +133,29 @@ any error or disagreement:
    two paths in turns on the same trainer (10 steps each).
 16. The whole-block path in fp32 at full width, card vs CPU: the UNet
    forward at batch 2 and the train step as phase 6.
-17. One JSON line {"kernels": [...]} with all eight kernels (each with its
+17. The config path, as scripts/train_diffusion.py and make_eval_fn drive
+   the JAX package, in a temporary working directory: load_config() (the
+   port's copy of config.yaml) and ddpm_from_config build the bf16
+   flagship (47.2 M parameters, the hand-built module's names, shapes and
+   dtypes); a PDMC cache of 50,000 seeded uint8 32x32x3 images
+   (runtime.write_cache, the native runtime asserted) loads through
+   get_data_tensor bitwise as numpy decodes it; DDPMTrainer from
+   config.ddpm_training (batch 128, lr 2e-4, warmup 5000, clip 10, EMA
+   0.9999, a CSVLogger and a PhaseTimer) takes 5 steps on that tensor and
+   5 from the same data as HostResidentData (pinned staging), each with the
+   launch counters zeroed just before and read just after (rows 1-4 at
+   phase 7's counts per step), every host-resident batch bitwise the rows
+   np.random.default_rng((0, it)) names; a checkpoint, then
+   ddpm_from_config(pretrained=True) bitwise the saved EMA; the eval hook's
+   DDIM-100 grid (800 row-1 and 6,900 row-3 launches), read back from its
+   PNG, with FID's absence warned and fid.required refused; the seeded
+   flagship written as a diffusers directory under legacy attention names
+   (.safetensors and .bin) and imported through --ddpm.diffusers_path, its
+   bf16 forward bitwise the same weights loaded directly; model_name true
+   over the same cache, DDIM 10 at the sample group's batch of 1000 (row 7
+   twice a step, every step's x0 against the plain version as phase 11);
+   the data layer's load time and the host-resident gather's rate.
+18. One JSON line {"kernels": [...]} with all eight kernels (each with its
    worst error as a fraction of its tolerance), then the last line
    {"ok": true, "device": {...}}.
 """
@@ -301,6 +323,15 @@ MEMORIZED = 1e-2  # a sample within this times sqrt(D) of a training image
 HIGH_DIM = {"dim": 100, "n_train": 50_000, "n_temps": 200, "sweep_samples": 1000,
             "sweep_batch": 500, "steps": 20, "n_gen": 10_000, "batch": 1000}
 GMM1D_N = 1_000_000
+# The config path (phase 17): the default config.yaml (the cifar10 bf16
+# flagship, ddpm_training's batch of 128) over a PDMC cache of CONFIG_N
+# seeded uint8 32x32x3 images (CIFAR-10's train split has 50,000)
+CONFIG_N = 50_000
+CONFIG_SEED = 17
+CONFIG_STEPS = 5       # train steps on each data path
+CONFIG_PARAMS_M = 47.2  # the flagship's parameters, millions
+EVAL_STEPS = 100       # make_eval_fn's DDIM steps
+GATHER_REPS = 50       # host-resident gathers timed for the data path's rate
 
 
 def gram_rounding(two_m: float, d: int, kernel_steps: float) -> float:
@@ -1127,6 +1158,433 @@ def nearest_distance(x, data, chunk: int = 1 << 14):
     return (xf - df[arg]).norm(dim=1)
 
 
+def true_step_errors(ddpm, sampler, x_init, states):
+    """Every step's x0 (the moments' mean) of a TrueDDPM DDIM sample with
+    track_states against the plain version on the same xt, the inputs the
+    sampler gave the model, within what the Grams' rounding allows
+    (moments_logit_error, moments_check). Returns (max_abs_err, the worst
+    error as a fraction of its tolerance, each step's (xt, log_temp,
+    inv_temp, y_scale))."""
+    import torch
+
+    from pdm_tpu_torch.diffusion.sampling import _step_tables
+    from pdm_tpu_torch.ops import boltzmann as bz
+
+    sched, data = ddpm.scheduler, ddpm.train_data
+    B, N, D = x_init.shape[0], data.shape[0], data[0].numel()
+    n_steps = sampler.n_steps
+    lt_steps = _step_tables(sampler._grid())["log_temp"]
+    flat = data.reshape(N, -1)
+    v_range, v_max = float(flat.max() - flat.min()), float(flat.abs().max())
+    worst_all, err_all, step_inputs = 0.0, 0.0, []
+    with torch.inference_mode():
+        for i in range(n_steps):
+            xt = x_init if i == 0 else states[n_steps - i]
+            tau = torch.clamp(sched.tau_from_log_temp(lt_steps[i]), 0.0, 1.0)
+            lt = torch.broadcast_to(sched.log_temp_from_tau(tau), (B,))
+            it, s = 1.0 / torch.sigmoid(lt), torch.sqrt(torch.sigmoid(-lt))
+            got = bz.boltzmann_moments(xt, ddpm.pack(), it, s, values=data)
+            want = bz.boltzmann_moments_reference(xt, data, it, s, compute_mean=True)
+            sq = [float((0.5 * (t * t).reshape(t.shape[0], -1).sum(1)).max()) for t in (xt, data)]
+            delta = moments_logit_error(*sq, D, it.cpu().numpy(), s.cpu().numpy(),
+                                        kernel_gram_steps("fp32", D))
+            err, worst = moments_check(got, want, delta, top_two_gap(xt, data, it, s),
+                                       v_range, v_max, N)
+            worst_all, err_all = max(worst_all, worst), max(err_all, err)
+            step_inputs.append((xt, lt_steps[i], it, s))
+    return err_all, worst_all, step_inputs
+
+
+def legacy_attention_names(state_dict):
+    """A state dict under the attention leaf names that diffusers
+    checkpoints older than its Attention refactor store."""
+    out = {}
+    for k, v in state_dict.items():
+        for new, old in ((".to_q.", ".query."), (".to_k.", ".key."),
+                         (".to_v.", ".value."), (".to_out.0.", ".proj_attn.")):
+            k = k.replace(new, old)
+        out[k] = v
+    return out
+
+
+def config_path(dev, weights, smi: str) -> dict:
+    """Phase 17: the flagship's config path, as scripts/train_diffusion.py
+    and make_eval_fn drive it, in a temporary working directory (the
+    config's relative checkpoints/, logs/ and eval_samples/ land there)
+    with PDM_DATA_CACHE pointing into it. Returns each path's launches and
+    the data layer's numbers."""
+    cwd, cache_before = os.getcwd(), os.environ.get("PDM_DATA_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        os.environ["PDM_DATA_CACHE"] = os.path.join(tmp, "data_cache")
+        try:
+            return _config_path(dev, weights, smi)
+        finally:
+            os.chdir(cwd)
+            if cache_before is None:
+                os.environ.pop("PDM_DATA_CACHE", None)
+            else:
+                os.environ["PDM_DATA_CACHE"] = cache_before
+
+
+def _config_path(dev, weights, smi: str) -> dict:
+    import csv
+    import warnings
+
+    import torch
+
+    from pdm_tpu_torch import runtime
+    from pdm_tpu_torch.config.loader import (
+        load_config, parse_args_from_config, update_config_from_args,
+    )
+    from pdm_tpu_torch.diffusion.sampling import DDPMSampler
+    from pdm_tpu_torch.diffusion.trainer import DDPMTrainer
+    from pdm_tpu_torch.models.diffusers_import import write_safetensors
+    from pdm_tpu_torch.models.from_config import ddpm_from_config
+    from pdm_tpu_torch.models.unet import unet_from_config
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+    from pdm_tpu_torch.ops import attention as attn_op
+    from pdm_tpu_torch.ops import boltzmann as bz
+    from pdm_tpu_torch.ops import groupnorm as gn_op
+    from pdm_tpu_torch.schedulers.from_config import scheduler_from_config
+    from pdm_tpu_torch.utils.data import (
+        HostResidentData, get_data_array, get_data_tensor, pdmc_cache_path,
+    )
+    from pdm_tpu_torch.utils.logging import CSVLogger, make_eval_fn, read_png
+    from pdm_tpu_torch.utils.profiling import PhaseTimer
+
+    counters = ((attn_op.fused_spatial_attention, "attention_fwd"),
+                (attn_op.attention_bwd, "attention_bwd"),
+                (gn_op.fused_group_norm_act, "group_norm_fwd"),
+                (gn_op.group_norm_bwd, "group_norm_bwd"))
+
+    def with_args(argv):
+        cfg = load_config()
+        update_config_from_args(cfg, parse_args_from_config(cfg, argv))
+        return cfg
+
+    # 1. the model from the config
+    cfg = load_config()
+    tr = cfg.ddpm_training
+    got_cfg = (cfg.dataset_name, cfg.ddpm.model_name, cfg.ddpm.precision,
+               tr.batch_size, tr.learning_rate, tr.warmup_steps, tr.grad_clip,
+               tr.ema_decay)
+    want_cfg = ("cifar10", "unet", "bf16", 128, 2e-4, 5000, 10.0, 0.9999)
+    if got_cfg != want_cfg:
+        fail(f"config path: config.yaml gives {got_cfg}, want {want_cfg}")
+    t0 = time.perf_counter()
+    ddpm = ddpm_from_config(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    hand = unet_from_config(3, FLAGSHIP, dtype=torch.bfloat16, device="cpu")
+    layout = [(k, tuple(v.shape), v.dtype) for k, v in ddpm.module.state_dict().items()]
+    want_layout = [(k, tuple(v.shape), v.dtype) for k, v in hand.state_dict().items()]
+    n_params = sum(p.numel() for p in ddpm.module.parameters())
+    log(f"config path: load_config() -> {cfg.experiment_name}; ddpm_from_config "
+        f"built the {cfg.ddpm.precision} flagship on {ddpm.device} in {build_s:.2f} s: "
+        f"{n_params:,} parameters in {len(layout)} tensors, module dtype "
+        f"{ddpm.module.dtype}, names/shapes/dtypes equal to the hand-built "
+        f"module: {layout == want_layout}")
+    if (layout != want_layout or round(n_params / 1e6, 1) != CONFIG_PARAMS_M
+            or ddpm.module.dtype != torch.bfloat16 or ddpm.device != dev):
+        fail("config path: ddpm_from_config did not build the bf16 flagship")
+    del hand
+
+    # 2. the data: a PDMC cache of CIFAR-10's shape, through the runtime
+    u8 = np.random.RandomState(CONFIG_SEED).randint(
+        0, 256, (CONFIG_N, 32, 32, 3), dtype=np.uint8)
+    os.makedirs(os.environ["PDM_DATA_CACHE"])
+    runtime.write_cache(pdmc_cache_path("cifar10", True), u8)
+    if not runtime.native_available():
+        fail(f"config path: the native data runtime did not build: "
+             f"{runtime.build_error}")
+    load_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = get_data_tensor(cfg)
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    want_data = (u8.astype(np.float32) * np.float32(2 / 255)
+                 - np.float32(1)).transpose(0, 3, 1, 2)
+    same_data = (tuple(data.shape) == (CONFIG_N, 3, 32, 32)
+                 and data.dtype == torch.float32 and data.device == dev
+                 and np.array_equal(data.cpu().numpy(), want_data))
+    log(f"config path: get_data_tensor over a {CONFIG_N:,}-image PDMC cache "
+        f"({u8.nbytes / 1e6:.1f} MB uint8, native runtime "
+        f"{runtime.library_path().name}): {tuple(data.shape)} {data.dtype} on "
+        f"{data.device} in {load_ms[0]:.1f} ms, again {load_ms[1]:.1f} ms "
+        f"({smi}); bitwise equal to numpy's u8 * float32(2/255) - 1 in CHW: "
+        f"{same_data}")
+    if not same_data:
+        fail("config path: the loaded dataset is not the cache's images")
+    del want_data
+
+    # 3. training from config.ddpm_training on the device-resident tensor
+    timer = PhaseTimer()
+    log_path = os.path.join("logs", f"{cfg.experiment_name}.csv")
+    logger = CSVLogger(log_path, use_wandb=tr.use_wandb,
+                       run_name=cfg.experiment_name)
+    eval_fn = make_eval_fn(cfg, data, logger=logger)
+    aug = cfg.data_augmentation
+    trainer = DDPMTrainer(
+        ddpm, learning_rate=tr.learning_rate, weight_decay=tr.weight_decay,
+        betas=tuple(tr.betas), warmup_steps=tr.warmup_steps,
+        total_iters=tr.total_iters, grad_clip=tr.grad_clip,
+        ema_decay=tr.ema_decay, eval_steps=tr.eval_steps,
+        keep_checkpoints=tr.keep_checkpoints, checkpoint_dir=cfg.checkpoint_dir,
+        eval_fn=eval_fn, log_fn=logger,
+        horizontal_flip=aug.use_augmentation and aug.horizontal_flip,
+        grad_accum=tr.grad_accum, timer=timer)
+    want_launches = {k: v * CONFIG_STEPS for k, v in TRAIN_LAUNCHES.items()}
+    host = HostResidentData(get_data_array(cfg), tr.batch_size)
+    if host.device != dev or not all(b.is_pinned() for b in host._staging):
+        fail("config path: HostResidentData's staging is not pinned for the card")
+    # one untimed, unlogged step on each data path first: the first call of
+    # each kernel and allocation is not a step's cost
+    trainer.log_fn, trainer.timer = None, None
+    for source in (data, host):
+        trainer.train(source, batch_size=tr.batch_size, total_iters=1)
+    trainer.log_fn = logger
+
+    def train(source, timer_now):
+        trainer.timer = timer_now
+        for fn, _ in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state = trainer.train(source, batch_size=tr.batch_size,
+                              total_iters=CONFIG_STEPS, log_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return state, {key: fn.launches for fn, key in counters}, wall
+
+    state, dev_launches, dev_wall = train(data, timer)
+    with open(log_path) as f:
+        rows = list(csv.reader(f))
+    values = [float(r[2]) for r in rows[1:]]
+    metrics = sorted({r[1] for r in rows[1:]})
+    dev_sum = timer.summary()
+    log(f"config path: device-resident training, {CONFIG_STEPS} steps at batch "
+        f"{tr.batch_size} (lr {tr.learning_rate}, warmup {tr.warmup_steps}, clip "
+        f"{tr.grad_clip}, EMA {tr.ema_decay}, flip "
+        f"{aug.use_augmentation and aug.horizontal_flip}) in {dev_wall:.3f} s; "
+        f"launches {dev_launches} (want {want_launches}); CSV {log_path}: "
+        f"{len(rows) - 1} rows of {metrics}, last loss "
+        f"{values[-3] if len(values) >= 3 else float('nan'):.5g}")
+    log("config path: PhaseTimer, device-resident data\n" + timer.report())
+    if dev_launches != want_launches:
+        fail(f"config path: training launch counts {dev_launches} != {want_launches}")
+    if (len(rows) != 1 + 3 * CONFIG_STEPS or rows[0] != ["step", "metric", "value", "time"]
+            or not all(math.isfinite(v) for v in values)
+            or metrics != ["grad_norm", "learning_rate", "loss"]):
+        fail("config path: the CSV log lacks its rows or holds non-finite values")
+
+    # 4. the same steps from host memory: pinned staging, JAX's index stream
+    seen = []
+    gather = host.device_batch
+
+    def recording_batch(idx):
+        out = gather(idx)
+        seen.append((np.asarray(idx).copy(), out))
+        return out
+
+    host.device_batch = recording_batch
+    timer_h = PhaseTimer()
+    state_h, host_launches, host_wall = train(host, timer_h)
+    host.device_batch = gather
+    same_rows = len(seen) == CONFIG_STEPS
+    for it, (idx, out) in enumerate(seen, 1):
+        want_idx = np.random.default_rng((0, it)).integers(0, CONFIG_N, tr.batch_size)
+        same_rows = same_rows and np.array_equal(idx, want_idx) and torch.equal(
+            out, data.index_select(0, torch.from_numpy(want_idx).to(dev)))
+    host_sum = timer_h.summary()
+    log(f"config path: host-resident training, the same {CONFIG_STEPS} steps in "
+        f"{host_wall:.3f} s; launches {host_launches}; every step's batch "
+        f"bitwise data[default_rng((0, it)).integers(0, N, {tr.batch_size})]: "
+        f"{same_rows}")
+    log("config path: PhaseTimer, host-resident data\n" + timer_h.report())
+    log(f"config path: data phase {dev_sum['data']['mean_ms']:.3f} ms/step "
+        f"device-resident vs {host_sum['data']['mean_ms']:.3f} ms/step "
+        f"host-resident; train_step phase {dev_sum['train_step']['mean_ms']:.3f} "
+        f"vs {host_sum['train_step']['mean_ms']:.3f} ms/step ({smi})")
+    if host_launches != want_launches:
+        fail(f"config path: host-resident launch counts {host_launches} != "
+             f"{want_launches}")
+    if not same_rows:
+        fail("config path: the host-resident path gathered other rows than JAX's "
+             "stream names")
+    finite = all(bool(torch.isfinite(t).all()) for t in state_h.params.values())
+    if not finite:
+        fail("config path: host-resident training gave non-finite parameters")
+
+    # 5. checkpoint, then the factory's pretrained path
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(state_h, state_h.step)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = ddpm_from_config(cfg, pretrained=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    loaded_ok = all(torch.equal(p, state_h.ema_params[k].to(p.dtype))
+                    for k, p in loaded.module.named_parameters())
+    log(f"config path: checkpoint step {state_h.step} saved in {save_s:.2f} s under "
+        f"{cfg.checkpoint_dir}; ddpm_from_config(pretrained=True) in {load_s:.2f} s, "
+        f"its weights bitwise the saved EMA's: {loaded_ok}")
+    if not loaded_ok:
+        fail("config path: load_pretrained_unet did not load the saved EMA weights")
+    del state, trainer
+
+    # 6. the eval hook's DDIM-100 grid on the EMA weights
+    attn_op.fused_spatial_attention.launches = 0
+    gn_op.fused_group_norm_act.launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        eval_metrics = eval_fn(loaded, state_h.step)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+    eval_launches = {"attention_fwd": attn_op.fused_spatial_attention.launches,
+                     "group_norm_fwd": gn_op.fused_group_norm_act.launches}
+    want_eval = {"attention_fwd": 8 * EVAL_STEPS, "group_norm_fwd": 69 * EVAL_STEPS}
+    grid = read_png(os.path.join("eval_samples", f"step_{state_h.step}.png"))
+    fid_warned = any("FID unavailable" in str(w.message) for w in caught)
+    log(f"config path: eval hook DDIM-{EVAL_STEPS} at batch "
+        f"{min(500, cfg.dataset_config.fid_samples)} in {eval_s:.2f} s, launches "
+        f"{eval_launches} (want {want_eval}); grid PNG read back {grid.shape} "
+        f"{grid.dtype} mean {float(grid.mean()):.2f} std {float(grid.std()):.2f}; "
+        f"metrics {eval_metrics}; FID unavailable warned: {fid_warned}")
+    if eval_launches != want_eval:
+        fail(f"config path: eval launch counts {eval_launches} != {want_eval}")
+    if grid.shape != (160, 160, 3) or float(grid.std()) == 0.0:
+        fail("config path: the eval grid PNG is not a 5x5 grid of 32x32 RGB images")
+    if not fid_warned or eval_metrics:
+        fail("config path: the eval hook did not warn that FID is unavailable")
+    cfg.fid.required = True
+    try:
+        make_eval_fn(cfg, data)
+    except RuntimeError as e:
+        log(f"config path: fid.required=true raises: {e}")
+    else:
+        fail("config path: fid.required=true did not raise")
+    cfg.fid.required = False
+    del loaded, host, data, eval_fn
+
+    # 7. a diffusers directory of the seeded flagship under legacy names
+    dcfg = {"_class_name": "UNet2DModel", **FLAGSHIP, "num_train_timesteps": 1000}
+    legacy = legacy_attention_names(weights)
+    for fmt in ("safetensors", "bin"):
+        os.makedirs(f"diffusers_{fmt}")
+        with open(os.path.join(f"diffusers_{fmt}", "config.json"), "w") as f:
+            json.dump(dcfg, f)
+    write_safetensors(os.path.join("diffusers_safetensors",
+                                   "diffusion_pytorch_model.safetensors"), legacy)
+    torch.save(legacy, os.path.join("diffusers_bin", "diffusion_pytorch_model.bin"))
+    g = torch.Generator(device=dev).manual_seed(CONFIG_SEED)
+    x = torch.randn(BATCH, 3, 32, 32, generator=g, device=dev)
+    tau = torch.rand(BATCH, generator=g, device=dev)
+    net = unet_from_config(3, FLAGSHIP, dtype=torch.bfloat16, device=dev)
+    net.load_state_dict(weights)
+    direct = UNetDDPM(scheduler_from_config(cfg), net, tau_scale=999.0, device=dev)
+    with torch.inference_mode():
+        want_out = direct(x, tau)
+        for fmt in ("safetensors", "bin"):
+            imported = ddpm_from_config(with_args([
+                "--ddpm.model_name", "diffusers",
+                "--ddpm.diffusers_path", f"diffusers_{fmt}"]))
+            got_out = imported(x, tau)
+            same_out = (imported.tau_scale == 999.0 and got_out.dtype == want_out.dtype
+                        and torch.equal(got_out, want_out))
+            log(f"config path: ddpm.model_name diffusers from "
+                f"diffusion_pytorch_model.{fmt} (legacy attention names): bf16 "
+                f"forward at batch {BATCH} bitwise the directly loaded weights': "
+                f"{same_out}")
+            if not same_out:
+                fail(f"config path: the {fmt} import's forward differs from the "
+                     f"same weights loaded directly")
+            del imported
+    del net, direct
+    torch.cuda.empty_cache()
+
+    # 8. the analytic denoiser from the config, over the same cache
+    cfg_t = with_args(["--ddpm.model_name", "true", "--ddpm.parametrization", "x0"])
+    t0 = time.perf_counter()
+    true = ddpm_from_config(cfg_t)
+    torch.cuda.synchronize()
+    true_s = time.perf_counter() - t0
+    sc = cfg_t.sample
+    sampler = DDPMSampler(
+        ddpm=true, scheduler=scheduler_from_config(
+            cfg_t, noise_schedule_type=sc.noise_schedule_type),
+        n_steps=sc.n_steps, obj_size=cfg_t.dataset_config.obj_size,
+        batch_size=sc.batch_size, n_samples=sc.batch_size,
+        step_type=sc.step_type, precision=sc.precision, track_states=True)
+    bz.boltzmann_moments.launches = 0
+    t0 = time.perf_counter()
+    out = sampler.batch_sample(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    true_wall = time.perf_counter() - t0
+    true_launches = bz.boltzmann_moments.launches
+    x_init = torch.randn((sc.batch_size, *cfg_t.dataset_config.obj_size),
+                         generator=torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    err, worst, _ = true_step_errors(true, sampler, x_init, out["states"])
+    finite = bool(torch.isfinite(out["x"]).all())
+    log(f"config path: ddpm.model_name true ({cfg_t.experiment_name}) over the cache, "
+        f"built in {true_s:.2f} s; {sc.step_type.upper()} {sc.n_steps} steps at batch "
+        f"{sc.batch_size} ({sc.noise_schedule_type}, {sc.precision}) in "
+        f"{true_wall:.4f} s ({true_wall / sc.n_steps * 1e3:.3f} ms/step); moments "
+        f"launches {true_launches} (want {2 * sc.n_steps}); every step's x0 against "
+        f"the plain version: max_abs_err {err:.3g}, worst {worst:.3g} of the "
+        f"tolerance; samples finite {finite}")
+    if true_launches != 2 * sc.n_steps:
+        fail(f"config path: {true_launches} moments launches, want {2 * sc.n_steps}")
+    if worst > 1.0 or not finite:
+        fail("config path: the analytic model's x0 disagrees with the plain version")
+    del true, sampler, out
+    torch.cuda.empty_cache()
+
+    # 9. the data path's rate: the host-resident gather and its copy, beside
+    # numpy's fancy indexing of the same rows
+    host = HostResidentData(get_data_array(cfg), tr.batch_size)
+    batch_bytes = tr.batch_size * 3 * 32 * 32 * 4
+    idxs = [np.random.default_rng((1, i)).integers(0, CONFIG_N, tr.batch_size)
+            for i in range(GATHER_REPS)]
+    for idx in idxs[:3]:
+        host.gather(idx)
+        host.device_batch(idx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for idx in idxs:
+        host.gather(idx)
+    gather_s = (time.perf_counter() - t0) / GATHER_REPS
+    t0 = time.perf_counter()
+    for idx in idxs:
+        host.device_batch(idx)
+    torch.cuda.synchronize()
+    batch_s = (time.perf_counter() - t0) / GATHER_REPS
+    t0 = time.perf_counter()
+    for idx in idxs:
+        host.data[idx]
+    fancy_s = (time.perf_counter() - t0) / GATHER_REPS
+    log(f"config path: data layer ({smi}; {os.cpu_count()} CPUs, "
+        f"{len(os.sched_getaffinity(0))} usable): get_data_tensor "
+        f"{load_ms[0]:.1f} / {load_ms[1]:.1f} ms for {CONFIG_N:,} images; "
+        f"host-resident gather of {tr.batch_size} rows {gather_s * 1e3:.4f} ms "
+        f"({batch_bytes / gather_s / 1e9:.2f} GB/s of fp32 rows; numpy's "
+        f"data[idx] {fancy_s * 1e3:.4f} ms), gather and copy to the card "
+        f"{batch_s * 1e3:.4f} ms ({batch_bytes / batch_s / 1e9:.2f} GB/s)")
+    return {"train_launches": dev_launches, "host_launches": host_launches,
+            "eval_launches": eval_launches, "true_launches": true_launches,
+            "true_ms_per_step": true_wall / sc.n_steps * 1e3,
+            "load_ms": load_ms, "gather_ms": gather_s * 1e3,
+            "numpy_gather_ms": fancy_s * 1e3,
+            "device_batch_ms": batch_s * 1e3,
+            "data_ms_per_step": {"device": dev_sum["data"]["mean_ms"],
+                                 "host": host_sum["data"]["mean_ms"]},
+            "train_step_ms": {"device": dev_sum["train_step"]["mean_ms"],
+                              "host": host_sum["train_step"]["mean_ms"]}}
+
+
 def analytic_main_path(time_ms, dev):
     """Phase 11: TrueDDPM DDIM sampling at CIFAR-10 scale (MOMENTS_MAIN):
     the moments launch counter zeroed just before the sample and read just
@@ -1183,25 +1641,7 @@ def analytic_main_path(time_ms, dev):
     # same xt, the inputs the sampler gave the model
     x_init = torch.randn((B, 3, 32, 32), generator=torch.Generator(device=dev).manual_seed(0),
                          device=dev)
-    lt_steps = _step_tables(sampler._grid())["log_temp"]
-    flat = data.reshape(N, -1)
-    v_range, v_max = float(flat.max() - flat.min()), float(flat.abs().max())
-    worst_all, err_all, step_inputs = 0.0, 0.0, []
-    with torch.inference_mode():
-        for i in range(TRUE_STEPS):
-            xt = x_init if i == 0 else states[TRUE_STEPS - i]
-            tau = torch.clamp(sched.tau_from_log_temp(lt_steps[i]), 0.0, 1.0)
-            lt = torch.broadcast_to(sched.log_temp_from_tau(tau), (B,))
-            it, s = 1.0 / torch.sigmoid(lt), torch.sqrt(torch.sigmoid(-lt))
-            got = bz.boltzmann_moments(xt, ddpm.pack(), it, s, values=data)
-            want = bz.boltzmann_moments_reference(xt, data, it, s, compute_mean=True)
-            sq = [float((0.5 * (t * t).reshape(t.shape[0], -1).sum(1)).max()) for t in (xt, data)]
-            delta = moments_logit_error(*sq, D, it.cpu().numpy(), s.cpu().numpy(),
-                                        kernel_gram_steps("fp32", D))
-            err, worst = moments_check(got, want, delta, top_two_gap(xt, data, it, s),
-                                       v_range, v_max, N)
-            worst_all, err_all = max(worst_all, worst), max(err_all, err)
-            step_inputs.append((xt, lt_steps[i], it, s))
+    err_all, worst_all, step_inputs = true_step_errors(ddpm, sampler, x_init, states)
     log(f"analytic main path: every step's x0 against the plain version on the same xt: "
         f"max_abs_err {err_all:.3g}, worst {worst_all:.3g} of the tolerance "
         f"{'ok' if worst_all <= 1.0 else 'MISMATCH'}")
@@ -2507,8 +2947,14 @@ def main() -> int:
         else:
             os.environ["PDM_FUSED_BLOCK"] = opt_in_before
 
-    # ---- phase 17: the kernels line and the result ----
+    # ---- phase 17: the config path ----
     log(f"phase 17 at {time.perf_counter() - t_start:.1f} s")
+    cfg_path = config_path(dev, weights, smi)
+    cfg_train = (("config training, device-resident data", "train_launches"),
+                 ("config training, host-resident data", "host_launches"))
+
+    # ---- phase 18: the kernels line and the result ----
+    log(f"phase 18 at {time.perf_counter() - t_start:.1f} s")
 
     def per_path(rows, launches, n_steps):
         main = [r for r in rows if r["calls_per_step"]]
@@ -2556,23 +3002,31 @@ def main() -> int:
               "single pass on wgmma, q, k, v by TMA (T <= 256)",
               [("sampling", attn_rows, attn_launches, N_STEPS),
                ("training", attn_train_rows, train_launches["attention_fwd"],
-                TRAIN_STEPS)]),
+                TRAIN_STEPS)]
+              + [(path, attn_train_rows, cfg_path[which]["attention_fwd"], CONFIG_STEPS)
+                 for path, which in cfg_train]),
         entry("attention_bwd", "pdm_tpu_torch/csrc/attention_bwd.cu",
               "pdm_tpu/ops/attention.py:123",
               "dq, then dk/dv: persistent wgmma kernels on a TMA ring (T <= 256)",
               [("training", attn_bwd_rows, train_launches["attention_bwd"],
-                TRAIN_STEPS)]),
+                TRAIN_STEPS)]
+              + [(path, attn_bwd_rows, cfg_path[which]["attention_bwd"], CONFIG_STEPS)
+                 for path, which in cfg_train]),
         entry("fused_group_norm_act", "pdm_tpu_torch/csrc/groupnorm.cu",
               "pdm_tpu/ops/groupnorm.py:99",
               "a cluster's whole-row tiles in shared memory, read once",
               [("sampling", gn_rows, gn_launches, N_STEPS),
                ("training", gn_train_rows, train_launches["group_norm_fwd"],
-                TRAIN_STEPS)]),
+                TRAIN_STEPS)]
+              + [(path, gn_train_rows, cfg_path[which]["group_norm_fwd"], CONFIG_STEPS)
+                 for path, which in cfg_train]),
         entry("group_norm_bwd", "pdm_tpu_torch/csrc/groupnorm_bwd.cu",
               "pdm_tpu/ops/groupnorm.py:112",
               "a cluster's whole-row tiles, dn kept on chip",
               [("training", gn_bwd_rows, train_launches["group_norm_bwd"],
-                TRAIN_STEPS)]),
+                TRAIN_STEPS)]
+              + [(path, gn_bwd_rows, cfg_path[which]["group_norm_bwd"], CONFIG_STEPS)
+                 for path, which in cfg_train]),
     ]
     kernels += [
         entry("fused_attention_block", "pdm_tpu_torch/csrc/attention_block.cu",
@@ -2621,7 +3075,7 @@ def main() -> int:
         "design": "tall fp32 kernel on TMA rings; cluster kernel for bf16 payloads",
         "source": "pdm_tpu_torch/csrc/boltzmann_moments.cu",
         "replaces": "pdm_tpu/ops/boltzmann_pallas.py:163",
-        "launches": true_launches,
+        "launches": true_launches + cfg_path["true_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in moments_rows),
         "worst_of_tolerance": max(r["worst_of_tolerance"] for r in moments_rows),
         "per": "one call (a partials and a merge launch) at the analytic "
@@ -2629,7 +3083,11 @@ def main() -> int:
                "N=50,000, D=K=3072; 'shapes' gives every shape and mode "
                "(library: the Gram and the p.V product alone through cuBLAS)",
         **analytic,
-        "paths": {"analytic sampling": {**true_path, **analytic}},
+        "paths": {"analytic sampling": {**true_path, **analytic},
+                  "config analytic sampling": {
+                      "launches": cfg_path["true_launches"],
+                      "launches_per_step": 2,
+                      "ms_per_step": cfg_path["true_ms_per_step"], **analytic}},
         "shapes": moments_rows,
     })
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,10 +1,15 @@
 """pdm_tpu_torch — the PyTorch/CUDA port of pdm_tpu for NVIDIA Hopper.
 
-The package mirrors ``pdm_tpu``'s layout (``core/``, ``schedulers/``,
-``models/``, ``ops/``, ``diffusion/``, ``stats/``, ``utils/``) so each
-module's counterpart is found by path. It imports torch and numpy only;
-the JAX package is the reference the port is tested against, never a
-dependency.
+The package mirrors ``pdm_tpu``'s layout (``config/``, ``core/``,
+``schedulers/``, ``models/``, ``ops/``, ``diffusion/``, ``stats/``,
+``runtime/``, ``utils/``) so each module's counterpart is found by path.
+It imports torch and numpy (and scipy in ``stats/hypersphere.py``); the
+JAX package is the reference the port is tested against, never a
+dependency, and neither pydantic, PyYAML, PIL nor safetensors is needed
+(``config/`` reads its YAML files itself, ``utils/logging.py`` writes its
+PNGs, ``models/diffusers_import.py`` reads and writes safetensors). The config path of the JAX scripts runs as
+``load_config`` -> ``ddpm_from_config`` -> ``get_data_tensor`` (or a
+host-resident dataset) -> ``DDPMTrainer``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without that argument they raise. The UNet's

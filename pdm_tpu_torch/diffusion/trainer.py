@@ -22,19 +22,28 @@ then eps) and its dropout masks from the generator it is given, or takes
 ``tau`` and ``eps`` explicitly. ``train`` seeds one generator per step
 from (seed, step), so a resumed run draws what an uninterrupted one does.
 
+``train`` takes the dataset on the model's device, or a
+``utils.data.HostResidentData`` kept in host memory: then step ``it``
+gathers the rows ``np.random.default_rng((seed, it))`` names
+(:func:`host_batch_indices`; with seed 0 the JAX trainer's own stream, so
+both packages train on the same rows) and the flip still comes from the
+step's generator. A ``timer`` (``utils.profiling.PhaseTimer``) times the
+"data" and "train_step" phases of each step, the latter up to the card's
+completion of the step.
+
 State is updated in place: ``train_step`` returns the state it was given,
 advanced one step.
 
 Not ported (see ROADMAP.md): ``mesh``, ``fsdp`` and ``model_partition``
-(torch.distributed), host-resident data and the ``timer`` hook. JAX's
-``noise_rng_impl``, ``dropout_rng_impl`` and ``compiler_options`` choose a
-JAX PRNG or XLA flags and have no counterpart; ``data_layout`` has none
-either, since the port's UNet takes NCHW (in channels_last memory) and
-no layout transpose is ever applied.
+(torch.distributed). JAX's ``noise_rng_impl``, ``dropout_rng_impl`` and
+``compiler_options`` choose a JAX PRNG or XLA flags and have no
+counterpart; ``data_layout`` has none either, since the port's UNet takes
+NCHW (in channels_last memory) and no layout transpose is ever applied.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import re
@@ -48,6 +57,9 @@ from torch import Tensor
 from ..core.temperature import alpha_bar_from_log_temp
 from ..models.predictions import training_target
 from ..models.unet_ddpm import UNetDDPM
+from ..utils.data import HostResidentData
+from ..utils.profiling import PhaseTimer
+from ..utils.timing import sync
 
 ADAM_EPS = 1e-8  # optax.scale_by_adam's default
 
@@ -129,6 +141,14 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
+def host_batch_indices(it: int, n: int, batch_size: int, seed: int = 0
+                       ) -> np.ndarray:
+    """The rows step ``it`` gathers from a host-resident dataset of ``n``:
+    keyed by (seed, it), so a run resumed at step k continues with draw
+    k + 1. With seed 0 this is the JAX trainer's stream."""
+    return np.random.default_rng((seed, it)).integers(0, n, batch_size)
+
+
 @dataclasses.dataclass
 class DDPMTrainer:
     ddpm: UNetDDPM
@@ -151,6 +171,8 @@ class DDPMTrainer:
     # split each batch into this many sequential micro-batches; their fp32
     # gradients are summed and averaged before one optimizer step
     grad_accum: int = 1
+    # times the "data" and "train_step" phases of every step
+    timer: Optional[PhaseTimer] = None
 
     def __post_init__(self):
         self.learning_rate_at = learning_rate_schedule(
@@ -164,12 +186,16 @@ class DDPMTrainer:
                    ) -> TrainState:
         """fp32 masters from ``params`` (a state dict such as
         ``from_flax_params``' or an fp32 checkpoint; it is copied without
-        rounding) or, when None, from the module's own weights; the module
-        is then loaded from them. A bf16 module's own weights are already
-        rounded, so pass the fp32 parameters where there are any."""
+        rounding) or, when None, from the model's fp32 ``params`` (the
+        weights it was made from), else the module's own weights; the
+        module is then loaded from them. A bf16 module's own weights are
+        rounded, so the first two come first."""
         module = self.ddpm.module
         names = [name for name, _ in module.named_parameters()]
-        src = dict(module.named_parameters()) if params is None else params
+        src = params
+        if src is None:
+            src = (self.ddpm.params if self.ddpm.params is not None
+                   else dict(module.named_parameters()))
         if set(src) != set(names):
             raise KeyError(f"params do not match the module: missing "
                            f"{sorted(set(names) - set(src))}, unexpected "
@@ -345,23 +371,27 @@ class DDPMTrainer:
 
     def train(
         self,
-        data: Tensor,
+        data,
         batch_size: int,
         total_iters: Optional[int] = None,
         seed: int = 0,
         log_every: int = 100,
         params: Optional[Mapping[str, Tensor]] = None,
     ) -> TrainState:
-        """Training loop over ``data`` (N, C, H, W) on the model's device,
-        with auto-resume from ``latest.txt``. Step ``it`` draws its batch
-        indices, flips, noise and dropout masks from
-        ``step_generator(seed, it)``. ``params`` as in :meth:`init_state`.
-        The module is back in eval mode when it returns."""
+        """Training loop with auto-resume from ``latest.txt``. ``data`` is
+        (N, C, H, W) on the model's device, or a ``HostResidentData`` whose
+        device is the model's. Step ``it`` draws its batch indices (on the
+        device path), flips, noise and dropout masks from
+        ``step_generator(seed, it)``; a host-resident dataset's indices come
+        from :func:`host_batch_indices`. ``params`` as in
+        :meth:`init_state`. The module is back in eval mode when it
+        returns."""
         total = total_iters or self.total_iters
         if batch_size % self.grad_accum:
             raise ValueError(f"batch_size={batch_size} is not divisible by "
                              f"grad_accum={self.grad_accum}")
         device = self.ddpm.device
+        host_resident = isinstance(data, HostResidentData)
         if data.device != device:
             raise ValueError(f"data must be on the model's device {device}: "
                              f"{data.device}")
@@ -371,20 +401,35 @@ class DDPMTrainer:
         if resume is not None:
             state = self.load_checkpoint(state, resume)
             start = resume
-        n = data.shape[0]
+        n = len(data)
         ckpt_every = self.checkpoint_every or self.eval_steps
+
+        def phase(name):
+            if self.timer is None:
+                return contextlib.nullcontext()
+            return self.timer.phase(name)
+
         self.ddpm.train()
         try:
             for it in range(start + 1, total + 1):
                 gen = step_generator(seed, it, device)
-                idx = torch.randint(0, n, (batch_size,), generator=gen,
-                                    device=device)
-                x0 = data.index_select(0, idx)
-                if self.horizontal_flip:
-                    flip = torch.rand((batch_size,), generator=gen,
-                                      device=device) < 0.5
-                    x0 = torch.where(flip[:, None, None, None], x0.flip(-1), x0)
-                state, metrics = self.train_step(state, x0, gen)
+                with phase("data"):
+                    if host_resident:
+                        x0 = data.device_batch(
+                            host_batch_indices(it, n, batch_size, seed))
+                    else:
+                        idx = torch.randint(0, n, (batch_size,), generator=gen,
+                                            device=device)
+                        x0 = data.index_select(0, idx)
+                    if self.horizontal_flip:
+                        flip = torch.rand((batch_size,), generator=gen,
+                                          device=device) < 0.5
+                        x0 = torch.where(flip[:, None, None, None],
+                                         x0.flip(-1), x0)
+                with phase("train_step"):
+                    state, metrics = self.train_step(state, x0, gen)
+                    if self.timer is not None:
+                        sync(metrics)
                 if self.log_fn is not None and it % log_every == 0:
                     self.log_fn(it, {k: float(v) for k, v in metrics.items()})
                 if it % ckpt_every == 0:

@@ -10,6 +10,12 @@ the trainer switches it with :meth:`UNetDDPM.train` and back with
 :meth:`UNetDDPM.eval`, and builds the EMA model for its eval hook with
 :meth:`UNetDDPM.with_params`.
 
+``params`` is the fp32 state dict the module's weights were made from,
+where there is one (JAX's ``UNetDDPM.params``, which flax keeps in fp32
+whatever the compute dtype): :func:`init_unet_ddpm`'s draws, a checkpoint's
+EMA weights, an imported checkpoint. The trainer starts its fp32 masters
+from it, so a bf16 module's masters are not its rounded weights.
+
 :func:`init_unet_ddpm` starts a UNet from flax's initialisation, as the
 JAX ``init_unet_ddpm`` does, in place of torch's layer defaults.
 """
@@ -18,7 +24,7 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Mapping, Sequence
+from typing import Mapping, Optional, Sequence
 
 import torch
 from torch import Tensor, nn
@@ -43,6 +49,7 @@ class UNetDDPM(DDPM):
         parametrization: str = "eps",
         tau_scale: float = 1.0,
         device: DeviceLike = None,
+        params: Optional[Mapping[str, Tensor]] = None,
     ):
         self.device = resolve_device(device)
         self.scheduler = scheduler
@@ -52,6 +59,7 @@ class UNetDDPM(DDPM):
         # imported diffusers checkpoints were trained on integer timesteps
         # 0..N-1 and take N-1 here
         self.tau_scale = tau_scale
+        self.params = params
 
     def forward(self, xt: Tensor, tau: Tensor) -> Tensor:
         tau = torch.as_tensor(tau, dtype=torch.float32, device=xt.device)
@@ -71,12 +79,13 @@ class UNetDDPM(DDPM):
     def with_params(self, params: Mapping[str, Tensor]) -> "UNetDDPM":
         """A new model, in eval mode, whose module is a copy of this one's
         with ``params`` (a state dict, e.g. the trainer's fp32 EMA) loaded
-        and cast to the module's dtype. Counterpart of the JAX
-        ``UNetDDPM.with_params``; this model is left as it is."""
+        and cast to the module's dtype, and kept as its ``params``.
+        Counterpart of the JAX ``UNetDDPM.with_params``; this model is left
+        as it is."""
         module = copy.deepcopy(self.module)
         module.load_state_dict(params)
         return UNetDDPM(self.scheduler, module, self.parametrization,
-                        self.tau_scale, device=self.device)
+                        self.tau_scale, device=self.device, params=params)
 
 
 def lecun_sigma(weight: Tensor) -> float:
@@ -97,7 +106,8 @@ def init_unet_ddpm(
     """Counterpart of the JAX ``init_unet_ddpm``: re-initialise every
     parameter of ``module`` with flax's defaults, drawn from ``generator``
     in ``named_parameters`` order, and wrap it in a :class:`UNetDDPM` on
-    the module's device.
+    the module's device, with the fp32 draws as its ``params`` (on the
+    generator's device).
 
     Conv and linear weights: lecun-normal (a normal truncated at
     +-2 sigma', sigma' = sqrt(1 / fan_in) / 0.8796...); their biases 0;
@@ -110,7 +120,7 @@ def init_unet_ddpm(
     if len(obj_size) != 3 or obj_size[0] != module.conv_in.in_channels:
         raise ValueError(f"obj_size {tuple(obj_size)} is not (C, H, W) with "
                          f"C = {module.conv_in.in_channels}")
-    kernels, zeros, ones = set(), set(), set()
+    kernels, zeros, ones, draws = set(), set(), set(), {}
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             kernels.add(m.weight)
@@ -124,12 +134,13 @@ def init_unet_ddpm(
             w = torch.empty(p.shape, dtype=torch.float32, device=generator.device)
             nn.init.trunc_normal_(w, 0.0, sigma, -2.0 * sigma, 2.0 * sigma,
                                   generator=generator)
-            p.copy_(w)
-        elif p in zeros:
-            p.zero_()
-        elif p in ones:
-            p.fill_(1.0)
+        elif p in zeros or p in ones:
+            w = torch.full(p.shape, 1.0 if p in ones else 0.0,
+                           dtype=torch.float32, device=generator.device)
         else:
             raise ValueError(f"no flax initialiser for parameter {name}")
+        p.copy_(w)
+        draws[name] = w
     device = next(module.parameters()).device
-    return UNetDDPM(scheduler, module, parametrization, device=device)
+    return UNetDDPM(scheduler, module, parametrization, device=device,
+                    params=draws)

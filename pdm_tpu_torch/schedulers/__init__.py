@@ -15,3 +15,4 @@ from .interpolated import (
     metric_scheduler as metric_scheduler,
     metric_scheduler_from_npz as metric_scheduler_from_npz,
 )
+from .from_config import scheduler_from_config as scheduler_from_config

@@ -1,0 +1,216 @@
+"""Training observability: the CSV metrics logger (wandb optional), image
+grids as PNG, and the periodic evaluation hook (a DDIM-100 sample grid on
+the EMA weights).
+
+Counterpart of ``pdm_tpu/utils/logging.py``. ``CSVLogger`` writes the same
+columns and rows for the same calls. ``save_image_grid`` writes the PNG
+itself (``zlib`` and ``struct``: 8-bit gray or RGB, one IDAT, filter 0),
+since PIL is not a dependency of the port; :func:`read_png` reads such a
+file back. ``make_eval_fn`` samples the grid as JAX's hook does; FID is not
+ported yet (ROADMAP.md §1 item 3), so the hook behaves as JAX's does when
+the feature extractor is unavailable: it warns at every eval, and raises at
+construction when ``fid.required`` is true.
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+import struct
+import time
+import warnings
+import zlib
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..core.device import DeviceLike, resolve_device
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+FID_UNAVAILABLE = ("the FID feature extractor is not ported yet "
+                   "(ROADMAP.md §1 item 3)")
+
+
+class CSVLogger:
+    """Append-only CSV of (step, metric, value, time)."""
+
+    def __init__(self, path: str, use_wandb: bool = False, run_name: str = ""):
+        self.path = path
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._new = not os.path.exists(path)
+        self._wandb = None
+        if use_wandb:
+            try:  # optional: CSV logging stays on without it
+                import wandb
+
+                wandb.init(
+                    project="physics-of-diffusion-models",
+                    name=run_name or None,
+                    id=run_name or None,
+                    resume="allow",
+                )
+                self._wandb = wandb
+            except Exception as e:  # a sink that fails must not stop training
+                warnings.warn(f"wandb unavailable ({type(e).__name__}: {e}); "
+                              f"logging to {path} only", stacklevel=2)
+                self._wandb = None
+
+    def __call__(self, step: int, metrics: Dict[str, float]) -> None:
+        with open(self.path, "a", newline="") as f:
+            writer = csv.writer(f)
+            if self._new:
+                writer.writerow(["step", "metric", "value", "time"])
+                self._new = False
+            now = time.time()
+            for k, v in metrics.items():
+                writer.writerow([step, k, v, now])
+        if self._wandb is not None:
+            self._wandb.log(metrics, step=step)
+
+    def log_images(self, step: int, tag: str, images: np.ndarray) -> None:
+        """(N, C, H, W) in [-1, 1] -> wandb image panel (nothing without
+        wandb)."""
+        if self._wandb is None:
+            return
+        from .data import to_uint8
+
+        imgs = np.transpose(to_uint8(np.asarray(images)), (0, 2, 3, 1))
+        if imgs.shape[-1] == 1:
+            imgs = imgs[..., 0]
+        self._wandb.log(
+            {tag: [self._wandb.Image(im) for im in imgs]}, step=step
+        )
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """(H, W) or (H, W, 3) uint8 -> an 8-bit gray or RGB PNG."""
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    if image.ndim == 2:
+        color = 0
+    elif image.ndim == 3 and image.shape[2] == 3:
+        color = 2
+    else:
+        raise ValueError(f"write_png takes (H, W) or (H, W, 3): {image.shape}")
+    h, w = image.shape[:2]
+    rows = image.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    with open(path, "wb") as f:
+        f.write(PNG_SIGNATURE)
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
+        f.write(_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
+        f.write(_chunk(b"IEND", b""))
+
+
+def read_png(path: str) -> np.ndarray:
+    """A PNG as :func:`write_png` writes it (8-bit gray or RGB, no
+    interlace, filter 0) -> (H, W) or (H, W, 3) uint8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"not a PNG: {path}")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"bad CRC in {kind!r} chunk of {path}")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + length
+    if header is None:
+        raise ValueError(f"no IHDR chunk in {path}")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in (0, 2) or interlace:
+        raise ValueError(f"read_png reads 8-bit gray/RGB, non-interlaced "
+                         f"PNGs: depth {depth}, color {color}, interlace "
+                         f"{interlace}")
+    ch = 1 if color == 0 else 3
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, 1 + w * ch)
+    if (raw[:, 0] != 0).any():
+        raise ValueError(f"read_png reads rows without a filter (type 0), as "
+                         f"write_png writes them: {path}")
+    pixels = raw[:, 1:]
+    return pixels.reshape(h, w) if ch == 1 else pixels.reshape(h, w, 3)
+
+
+def image_grid(images: np.ndarray, nrow: int = 5) -> np.ndarray:
+    """(N, C, H, W) in [-1, 1] -> the uint8 grid, (H', W') for one
+    channel, else (H', W', C); ``nrow`` images a row."""
+    from .data import to_uint8
+
+    imgs = to_uint8(images)
+    n, c, h, w = imgs.shape
+    ncol = nrow
+    nrows = int(np.ceil(n / ncol))
+    grid = np.zeros((c, nrows * h, ncol * w), np.uint8)
+    for i in range(n):
+        r, col = divmod(i, ncol)
+        grid[:, r * h: (r + 1) * h, col * w: (col + 1) * w] = imgs[i]
+    arr = np.transpose(grid, (1, 2, 0))
+    return arr[:, :, 0] if c == 1 else arr
+
+
+def save_image_grid(images: np.ndarray, path: str, nrow: int = 5) -> None:
+    """(N, C, H, W) in [-1, 1] -> PNG grid (1 or 3 channels)."""
+    write_png(path, image_grid(images, nrow))
+
+
+def make_eval_fn(
+    config, reference_data, sample_dir: str = "eval_samples", logger=None,
+    device: DeviceLike = None,
+):
+    """Periodic eval hook: a DDIM-100 sample of 25 images on the EMA
+    weights, saved as ``sample_dir/step_{step}.png`` (and forwarded to the
+    logger's wandb panel when wandb is active). The sampler runs at JAX's
+    batch, ``min(500, fid_samples)``, from a generator seeded with the
+    step. ``reference_data`` is the FID reference set, unused until FID is
+    ported."""
+    from ..diffusion.sampling import DDPMSampler
+    from ..schedulers.from_config import scheduler_from_config
+
+    del reference_data
+    if config.fid.required:
+        raise RuntimeError(
+            f"fid.required=true but {FID_UNAVAILABLE}")
+    dev = resolve_device(device)
+    os.makedirs(sample_dir, exist_ok=True)
+    scheduler = scheduler_from_config(config, device=dev)
+
+    def eval_fn(ema_ddpm, step: int) -> Dict[str, float]:
+        sampler = DDPMSampler(
+            ddpm=ema_ddpm,
+            scheduler=scheduler,
+            n_steps=100,
+            obj_size=config.dataset_config.obj_size,
+            batch_size=min(500, config.dataset_config.fid_samples),
+            n_samples=25,
+            step_type="ddim",
+            device=dev,
+        )
+        gen = torch.Generator(device=dev).manual_seed(int(step))
+        grid = sampler.sample(gen)["x"]
+        save_image_grid(grid, os.path.join(sample_dir, f"step_{step}.png"))
+        if logger is not None:
+            logger.log_images(step, "eval_samples", grid)
+        # every eval, not once: a long run must not finish quietly with no
+        # quality metric
+        warnings.warn(
+            f"[eval step {step}] FID unavailable: no quality metric is being "
+            f"recorded ({FID_UNAVAILABLE})",
+            stacklevel=2,
+        )
+        return {}
+
+    return eval_fn

@@ -1,15 +1,44 @@
 """Synthetic datasets of the paper's experiments (numpy, from a seed).
 
-A copy of the GMM generators of ``pdm_tpu/utils/synthetic.py`` (the
-reference's ``scripts/sample_gmm.py`` and ``scripts/reproduce_high_dim.py``
-datasets), draw for draw, so that both packages see the same data.
+A copy of ``pdm_tpu/utils/synthetic.py``, draw for draw, so that both
+packages see the same data: the simplex, cross-polytope, hypersphere and
+gaussian point sets (``generate_dataset`` dispatches on their names) and
+the GMMs of the reference's ``scripts/sample_gmm.py`` and
+``scripts/reproduce_high_dim.py``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+
+
+def generate_simplex(d: int) -> np.ndarray:
+    """d+1 unit-distance-symmetric simplex vertices in R^d."""
+    eye = np.eye(d, dtype=np.float32)
+    last = np.full((1, d), (1 - np.sqrt(1 + d)) / d, dtype=np.float32)
+    return np.concatenate([eye, last], axis=0)
+
+
+def generate_cross_polytope(d: int) -> np.ndarray:
+    eye = np.eye(d, dtype=np.float32)
+    return np.concatenate([eye, -eye], axis=0)
+
+
+def sample_on_hypersphere(
+    d: int, n: Optional[int] = None, radius: Optional[float] = None, seed: int = 0
+) -> np.ndarray:
+    """Uniform samples on the sphere of given radius (default sqrt(d),
+    the reference's normalization)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n or 10 * d, d).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return x * (np.sqrt(d) if radius is None else radius)
+
+
+def generate_gaussian(d: int, n: int = 1000, seed: int = 0) -> np.ndarray:
+    return np.random.RandomState(seed).randn(n, d).astype(np.float32)
 
 
 def generate_gmm_1d(
@@ -56,3 +85,16 @@ def generate_anisotropic_gmm(
         means.astype(np.float32),
         np.stack(covs).astype(np.float32),
     )
+
+
+def generate_dataset(name: str = "hypersphere", d: int = 100) -> np.ndarray:
+    """Name dispatch, as the reference's generate_dataset."""
+    if name == "simplex":
+        return generate_simplex(d)
+    if name == "cross-polytope":
+        return generate_cross_polytope(d)
+    if name == "hypersphere":
+        return sample_on_hypersphere(d)
+    if name == "gaussian":
+        return generate_gaussian(d)
+    raise ValueError(f"Invalid name: {name}")

@@ -146,25 +146,51 @@ any error or disagreement:
    launch counters zeroed just before and read just after (rows 1-4 at
    phase 7's counts per step), every host-resident batch bitwise the rows
    np.random.default_rng((0, it)) names; a checkpoint, then
-   ddpm_from_config(pretrained=True) bitwise the saved EMA; the eval hook's
-   DDIM-100 grid (800 row-1 and 6,900 row-3 launches), read back from its
-   PNG, with FID's absence warned and fid.required refused; the seeded
+   ddpm_from_config(pretrained=True) bitwise the saved EMA; the eval hook
+   (PDM_INCEPTION_WEIGHTS set to phase 18's seeded InceptionV3 npz, its
+   reference statistics over the 50,000 images at construction): the
+   DDIM-100 grid, read back from its PNG, and FID over 64 DDIM-100
+   samples (1,600 row-1 and 13,800 row-3 launches), a finite,
+   non-negative fid_100_steps; without the weights, fid.required refused;
+   the seeded
    flagship written as a diffusers directory under legacy attention names
    (.safetensors and .bin) and imported through --ddpm.diffusers_path, its
    bf16 forward bitwise the same weights loaded directly; model_name true
    over the same cache, DDIM 10 at the sample group's batch of 1000 (row 7
    twice a step, every step's x0 against the plain version as phase 11);
    the data layer's load time and the host-resident gather's rate.
-18. One JSON line {"kernels": [...]} with all eight kernels (each with its
+18. FID and the entry points, in a temporary working directory: the
+   float64 trace_sqrtm_product and frechet_distance at F 2048, full rank
+   and rank 64, against the nuclear norm of the centred features'
+   product in float64 on the CPU (SQRTM_TOL; no eigh, no threshold), the
+   FID of a set with itself 0, the eigh's ms; InceptionV3 with seeded
+   random weights (a JAX-layout npz, PDM_INCEPTION_WEIGHTS set for
+   phases 17-18 only): 16 images' features card vs CPU (INCEPTION_TOL),
+   TF32 off inside the extractor and restored after, ms per 1,000 images
+   at batch 500 and peak memory; a LeNet trained on the card on seeded
+   MNIST-shaped data and its FID card vs CPU; then the four CLIs, in this
+   process through each one's main(argv=...) with the flags a user gives
+   python -m pdm_tpu_torch.scripts.<name> (in-process, so that the launch
+   counters can be read; python -m itself is not run), over PDMC caches
+   of CIFAR-10's shape (50,000 train, 10,000 test): compute_stats_forward,
+   the flagship's train_diffusion for 5 steps with an eval (grid and FID
+   over 512 samples, cut from cifar10's 50,000) at step 5, sample from its
+   checkpoint, compute_fid with n_steps [10] over 512 samples; each with
+   rows 1-4's and row 8's launch counters zeroed just before and read
+   just after (exact counts), its wall time, and its artifact read back
+   (a finite, non-negative FID in the training log and the FID table).
+19. One JSON line {"kernels": [...]} with all eight kernels (each with its
    worst error as a fraction of its tolerance), then the last line
    {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -331,6 +357,25 @@ CONFIG_SEED = 17
 CONFIG_STEPS = 5       # train steps on each data path
 CONFIG_PARAMS_M = 47.2  # the flagship's parameters, millions
 EVAL_STEPS = 100       # make_eval_fn's DDIM steps
+CONFIG_FID_SAMPLES = 64  # fid.samples of the eval hook's FID: one batch
+# FID and the entry points (phase 18): covariances at Inception's feature
+# dimension; InceptionV3 with seeded random weights at batch 500
+# (get_compute_fid's batch); a LeNet on seeded MNIST-shaped data; the CLIs
+# over CIFAR-10-shaped caches (50,000 train, 10,000 test): the flagship
+# trained CLI_TRAIN_STEPS steps, its eval's FID over CLI_FID_SAMPLES
+# samples (cut from cifar10's 50,000) and compute_fid over as many
+FID_DIM = 2048
+FID_SEED = 18
+SQRTM_TOL = 1e-5       # card vs the float64 nuclear norm, relative (fp32 traces)
+INCEPTION_SEED = 19
+INCEPTION_BATCH = 500
+INCEPTION_TOL = 1e-4   # fp32 convs, card vs CPU, of the features' scale
+LENET_SEED = 20
+LENET_N = 21_000
+LENET_EPOCHS = 3
+CLI_TEST_N = 10_000
+CLI_TRAIN_STEPS = 5
+CLI_FID_SAMPLES = 512
 GATHER_REPS = 50       # host-resident gathers timed for the data path's rate
 
 
@@ -1325,7 +1370,11 @@ def _config_path(dev, weights, smi: str) -> dict:
     log_path = os.path.join("logs", f"{cfg.experiment_name}.csv")
     logger = CSVLogger(log_path, use_wandb=tr.use_wandb,
                        run_name=cfg.experiment_name)
+    cfg.fid.samples = CONFIG_FID_SAMPLES
+    t0 = time.perf_counter()
     eval_fn = make_eval_fn(cfg, data, logger=logger)
+    torch.cuda.synchronize()
+    eval_build_s = time.perf_counter() - t0
     aug = cfg.data_augmentation
     trainer = DDPMTrainer(
         ddpm, learning_rate=tr.learning_rate, weight_decay=tr.weight_decay,
@@ -1434,7 +1483,7 @@ def _config_path(dev, weights, smi: str) -> dict:
         fail("config path: load_pretrained_unet did not load the saved EMA weights")
     del state, trainer
 
-    # 6. the eval hook's DDIM-100 grid on the EMA weights
+    # 6. the eval hook's DDIM-100 grid and FID on the EMA weights
     attn_op.fused_spatial_attention.launches = 0
     gn_op.fused_group_norm_act.launches = 0
     with warnings.catch_warnings(record=True) as caught:
@@ -1445,27 +1494,36 @@ def _config_path(dev, weights, smi: str) -> dict:
         eval_s = time.perf_counter() - t0
     eval_launches = {"attention_fwd": attn_op.fused_spatial_attention.launches,
                      "group_norm_fwd": gn_op.fused_group_norm_act.launches}
-    want_eval = {"attention_fwd": 8 * EVAL_STEPS, "group_norm_fwd": 69 * EVAL_STEPS}
+    want_eval = {"attention_fwd": 8 * EVAL_STEPS * 2,
+                 "group_norm_fwd": 69 * EVAL_STEPS * 2}
     grid = read_png(os.path.join("eval_samples", f"step_{state_h.step}.png"))
     fid_warned = any("FID unavailable" in str(w.message) for w in caught)
-    log(f"config path: eval hook DDIM-{EVAL_STEPS} at batch "
-        f"{min(500, cfg.dataset_config.fid_samples)} in {eval_s:.2f} s, launches "
-        f"{eval_launches} (want {want_eval}); grid PNG read back {grid.shape} "
-        f"{grid.dtype} mean {float(grid.mean()):.2f} std {float(grid.std()):.2f}; "
-        f"metrics {eval_metrics}; FID unavailable warned: {fid_warned}")
+    fid = eval_metrics.get("fid_100_steps", float("nan"))
+    log(f"config path: eval hook DDIM-{EVAL_STEPS} grid at batch "
+        f"{min(500, cfg.dataset_config.fid_samples)} and FID over "
+        f"{cfg.fid.samples} samples at batch {min(64, cfg.fid.samples)} against "
+        f"the {CONFIG_N:,} training images (InceptionV3, seeded weights; its "
+        f"reference statistics took {eval_build_s:.2f} s at make_eval_fn) in "
+        f"{eval_s:.2f} s, launches {eval_launches} (want {want_eval}); grid PNG "
+        f"read back {grid.shape} {grid.dtype} mean {float(grid.mean()):.2f} std "
+        f"{float(grid.std()):.2f}; metrics {eval_metrics}; FID unavailable "
+        f"warned: {fid_warned}")
     if eval_launches != want_eval:
         fail(f"config path: eval launch counts {eval_launches} != {want_eval}")
     if grid.shape != (160, 160, 3) or float(grid.std()) == 0.0:
         fail("config path: the eval grid PNG is not a 5x5 grid of 32x32 RGB images")
-    if not fid_warned or eval_metrics:
-        fail("config path: the eval hook did not warn that FID is unavailable")
+    if fid_warned or not (math.isfinite(fid) and fid >= 0):
+        fail("config path: the eval hook gave no finite, non-negative FID")
+    # without the weights: a warning at every eval, and fid.required refuses
     cfg.fid.required = True
-    try:
-        make_eval_fn(cfg, data)
-    except RuntimeError as e:
-        log(f"config path: fid.required=true raises: {e}")
-    else:
-        fail("config path: fid.required=true did not raise")
+    with env_var("PDM_INCEPTION_WEIGHTS", None):
+        try:
+            make_eval_fn(cfg, data)
+        except RuntimeError as e:
+            log(f"config path: without PDM_INCEPTION_WEIGHTS, fid.required=true "
+                f"raises: {e}")
+        else:
+            fail("config path: fid.required=true without weights did not raise")
     cfg.fid.required = False
     del loaded, host, data, eval_fn
 
@@ -1583,6 +1641,339 @@ def _config_path(dev, weights, smi: str) -> dict:
                                  "host": host_sum["data"]["mean_ms"]},
             "train_step_ms": {"device": dev_sum["train_step"]["mean_ms"],
                               "host": host_sum["train_step"]["mean_ms"]}}
+
+
+@contextlib.contextmanager
+def env_var(name: str, value):
+    """``os.environ[name]`` set to ``value`` (removed for None) inside the
+    block, restored after."""
+    before = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = before
+
+
+def write_inception_npz(path: str) -> str:
+    """Seeded random InceptionV3 weights in the JAX package's .npz layout
+    (the pretrained FID weights are not in the repository): kernels
+    He-normal, so the 2048 features stay O(1) through the ReLU layers;
+    BN scale and variance U(0.5, 1.5), mean and bias N(0, 0.1^2)."""
+    from pdm_tpu_torch.models.inception import (
+        InceptionV3Features, inception_arrays,
+    )
+
+    rng = np.random.RandomState(INCEPTION_SEED)
+    state = {}
+    for key, v in InceptionV3Features().state_dict().items():
+        if key.endswith("weight"):
+            fan_in = int(np.prod(v.shape[1:]))
+            arr = rng.standard_normal(tuple(v.shape)) * math.sqrt(2.0 / fan_in)
+        elif key.endswith(("bn_scale", "bn_var")):
+            arr = rng.uniform(0.5, 1.5, tuple(v.shape))
+        else:
+            arr = 0.1 * rng.standard_normal(tuple(v.shape))
+        state[key] = arr.astype(np.float32)
+    import torch
+
+    np.savez(path, **inception_arrays({k: torch.from_numpy(a) for k, a in state.items()}))
+    return path
+
+
+def trace_sqrtm_reference(x1, x2) -> float:
+    """tr sqrtm(S1 S2) from the features themselves, in float64 on the CPU,
+    with no eigh and no threshold: with A, B the centred features over
+    sqrt(n - 1), S1 = A^T A and S2 = B^T B, so the trace is the nuclear
+    norm of A B^T, the sum of the singular values of R1 R2^T where
+    A = Q1 R1 and B = Q2 R2."""
+    rs = [np.linalg.qr((x.astype(np.float64) - x.mean(0, dtype=np.float64))
+                       / np.sqrt(len(x) - 1), mode="r") for x in (x1, x2)]
+    return float(np.linalg.svd(rs[0] @ rs[1].T, compute_uv=False).sum())
+
+
+def frechet_phase(dev, smi: str) -> dict:
+    """Phase 18a: trace_sqrtm_product and frechet_distance at F 2048 on the
+    card, full rank and rank 64, against the nuclear norm of the centred
+    features' product in float64 on the CPU (trace_sqrtm_reference), with
+    the eigh's time."""
+    import torch
+
+    from pdm_tpu_torch.ops.sqrtm import trace_sqrtm_product
+    from pdm_tpu_torch.utils.fid import frechet_distance
+
+    rng = np.random.RandomState(FID_SEED)
+    f = FID_DIM
+    # features with a decaying spectrum and nonzero means, as Inception's
+    scales = np.exp(-np.arange(f) / 400.0).astype(np.float32)
+    out = {}
+    for label, n in (("full rank", 4 * f), ("rank 64", 65)):
+        f1 = rng.standard_normal((n, f)).astype(np.float32) * scales + 0.5
+        f2 = (rng.standard_normal((n, f)).astype(np.float32) * scales * 1.1
+              + 0.55)
+        mus = [a.mean(0).astype(np.float32) for a in (f1, f2)]
+        sigmas = [np.cov(a, rowvar=False).astype(np.float32) for a in (f1, f2)]
+        t0 = time.perf_counter()
+        want_tr = trace_sqrtm_reference(f1, f2)
+        ref_s = time.perf_counter() - t0
+        want_fid = (float(np.sum((mus[0].astype(np.float64) - mus[1]) ** 2))
+                    + float(np.trace(sigmas[0].astype(np.float64)))
+                    + float(np.trace(sigmas[1].astype(np.float64))) - 2 * want_tr)
+        mu_t = [torch.from_numpy(m).to(dev) for m in mus]
+        s_t = [torch.from_numpy(s).to(dev) for s in sigmas]
+        got_tr = float(trace_sqrtm_product(*s_t))
+        got_fid = float(frechet_distance(mu_t[0], s_t[0], mu_t[1], s_t[1]))
+        self_fid = float(frechet_distance(mu_t[0], s_t[0], mu_t[0], s_t[0]))
+        scale = float(np.trace(sigmas[0]) + np.trace(sigmas[1]))
+        tr_err = abs(got_tr - want_tr) / want_tr
+        fid_err = abs(got_fid - want_fid) / scale
+        eigh64 = event_ms(lambda: torch.linalg.eigh(s_t[0].double()))[0]
+        eigh32 = event_ms(lambda: torch.linalg.eigh(s_t[0]))[0]
+        tsp_ms = event_ms(lambda: trace_sqrtm_product(*s_t))[0]
+        fid_ms = event_ms(lambda: frechet_distance(mu_t[0], s_t[0], mu_t[1], s_t[1]))[0]
+        log(f"fid: F {f} {label} (n {n}): trace_sqrtm_product card {got_tr:.9g} vs "
+            f"nuclear norm float64 {want_tr:.9g} (rel err {tr_err:.3g}); FID card "
+            f"{got_fid:.9g} vs {want_fid:.9g} (err {fid_err:.3g} of tr S1 + tr S2); "
+            f"FID of a set with itself {self_fid:.3g}; card eigh float64 "
+            f"{eigh64:.3f} ms (float32 {eigh32:.3f} ms), trace_sqrtm_product "
+            f"{tsp_ms:.3f} ms, frechet_distance {fid_ms:.3f} ms; the reference "
+            f"{ref_s * 1e3:.0f} ms on the CPU ({smi})")
+        if not (tr_err <= SQRTM_TOL and fid_err <= SQRTM_TOL and got_fid >= 0
+                and abs(self_fid) <= 1e-3):
+            fail(f"fid: the card's Frechet distance at F {f} {label} disagrees "
+                 f"with the float64 reference")
+        out[label] = {"eigh64_ms": eigh64, "eigh32_ms": eigh32,
+                      "trace_sqrtm_ms": tsp_ms, "frechet_ms": fid_ms,
+                      "rel_err": tr_err}
+    return out
+
+
+def inception_phase(dev, smi: str, weights_path: str) -> dict:
+    """Phase 18b: InceptionV3 with seeded random weights from a JAX-layout
+    npz: features of 16 images on the card against the CPU, TF32 off
+    inside the extractor and restored after, and its rate at batch 500."""
+    import torch
+
+    from pdm_tpu_torch.models.inception import load_inception
+    from pdm_tpu_torch.utils.fid import inception_feature_fn, quantize_like_uint8
+
+    u8 = np.random.RandomState(INCEPTION_SEED).randint(
+        0, 256, (INCEPTION_BATCH, 3, 32, 32)).astype(np.float32)
+    x = torch.from_numpy(u8 * np.float32(2 / 255) - np.float32(1))
+    fn, dim = inception_feature_fn(device=dev)
+    got = fn(x[:16].to(dev)).cpu().numpy()
+    cpu_fn, _ = inception_feature_fn(device="cpu")
+    t0 = time.perf_counter()
+    want = cpu_fn(x[:16]).numpy()
+    cpu_s = time.perf_counter() - t0
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    # TF32: on before the call, off inside the extractor, on again after
+    model = load_inception(weights_path, device=dev)
+    seen = []
+    model.Conv2d_1a_3x3.register_forward_pre_hook(
+        lambda mod, args: seen.append((torch.backends.cudnn.allow_tf32,
+                                       torch.backends.cuda.matmul.allow_tf32)))
+    torch.backends.cudnn.allow_tf32 = True
+    with torch.no_grad():
+        model(quantize_like_uint8(x[:2].to(dev)))
+    restored = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    xb = x.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn(xb)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    card_ms, host_ms = event_ms(lambda: fn(xb))
+    per_1000 = card_ms * 1000.0 / INCEPTION_BATCH
+    log(f"fid: InceptionV3 ({dim} features, seeded random weights from a "
+        f"JAX-layout npz, 32x32 resized to 299x299): 16 images on the card vs "
+        f"the CPU (CPU {cpu_s:.1f} s): max_abs_err {err:.3g} of scale "
+        f"{scale:.3g}; cudnn/cuBLAS TF32 inside the extractor {seen[0]}, "
+        f"cudnn TF32 after {restored} (on before); batch {INCEPTION_BATCH}: "
+        f"{card_ms:.1f} ms ({per_1000:.1f} ms per 1,000 images, host "
+        f"{host_ms:.1f} ms), peak card memory {peak_gb:.2f} GB above the "
+        f"inputs ({smi})")
+    if got.shape != (16, 2048) or not err <= INCEPTION_TOL * scale:
+        fail("fid: InceptionV3 features on the card disagree with the CPU")
+    if seen[0] != (False, False) or restored is not True:
+        fail("fid: TF32 was not off inside the extractor and restored after")
+    del model, xb
+    torch.cuda.empty_cache()
+    return {"ms_per_1000": per_1000, "batch_ms": card_ms, "peak_gb": peak_gb,
+            "max_abs_err": err, "scale": scale}
+
+
+def lenet_phase(dev, smi: str) -> dict:
+    """Phase 18c: a LeNet trained on the card on seeded MNIST-shaped data
+    (labels: the argmax of ten fixed random projections), written in JAX's
+    npz format, and the LeNet FID path on the card against the CPU."""
+    import torch
+
+    from pdm_tpu_torch.models.lenet import evaluate_lenet, save_lenet, train_lenet
+    from pdm_tpu_torch.utils.fid import get_compute_fid, lenet_feature_fn
+
+    rng = np.random.RandomState(LENET_SEED)
+    x = (rng.randint(0, 256, (LENET_N, 1, 32, 32)) * (2 / 255) - 1).astype(np.float32)
+    proj = rng.standard_normal((1024, 10)).astype(np.float32)
+    y = np.argmax(x.reshape(LENET_N, -1) @ proj, axis=1)
+    t0 = time.perf_counter()
+    model = train_lenet(torch.Generator().manual_seed(0), x[:-1000], y[:-1000],
+                        epochs=LENET_EPOCHS, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    _, acc = evaluate_lenet(model, x[-1000:], y[-1000:])
+    save_lenet(model, "lenet_mnist.npz")
+    fids = {}
+    for where in (dev, "cpu"):
+        fn, dim = lenet_feature_fn("lenet_mnist.npz", device=where)
+        compute = get_compute_fid(x[:5000], fn, dim, device=where)
+        fids[str(where)] = compute(np.clip(x[5000:10000] * 0.9, -1, 1))
+    card, cpu = fids[str(dev)], fids["cpu"]
+    log(f"fid: LeNet trained on the card in {train_s:.2f} s ({LENET_EPOCHS} epochs "
+        f"of {LENET_N - 1000:,} seeded MNIST-shaped images): held-out accuracy "
+        f"{acc:.3f}; LeNet FID of 5,000 shrunk images against 5,000 others: card "
+        f"{card:.6g}, CPU {cpu:.6g} ({smi})")
+    if not (acc > 0.3 and math.isfinite(card) and card >= 0
+            and abs(card - cpu) <= 1e-3 * max(cpu, 1.0)):
+        fail("fid: the LeNet path failed or the card's FID disagrees with the CPU")
+    return {"accuracy": acc, "fid": card, "train_s": train_s}
+
+
+def entry_points(dev, smi: str) -> dict:
+    """Phase 18d: the four CLIs in turn on the card, in this process
+    through each one's main(argv=...) with a user's flags (so that the
+    launch counters can be read; python -m itself is not run), over PDMC
+    caches of CIFAR-10's shape (50,000 train and 10,000 test
+    seeded uint8 images): compute_stats_forward, the flagship's
+    train_diffusion for CLI_TRAIN_STEPS steps with an eval (grid and FID
+    over CLI_FID_SAMPLES samples) at the last, sample from its checkpoint,
+    compute_fid with n_steps [10]. Each with rows 1-4's launch counters
+    zeroed just before and read just after, its wall time, and its
+    artifact read back."""
+    import csv
+
+    import torch
+
+    from pdm_tpu_torch import runtime
+    from pdm_tpu_torch.ops import attention as attn_op
+    from pdm_tpu_torch.ops import boltzmann_sweep as sw
+    from pdm_tpu_torch.ops import groupnorm as gn_op
+    from pdm_tpu_torch.scripts import (
+        compute_fid, compute_stats_forward, sample, train_diffusion,
+    )
+    from pdm_tpu_torch.utils.data import pdmc_cache_path
+
+    counters = ((attn_op.fused_spatial_attention, "attention_fwd"),
+                (attn_op.attention_bwd, "attention_bwd"),
+                (gn_op.fused_group_norm_act, "group_norm_fwd"),
+                (gn_op.group_norm_bwd, "group_norm_bwd"),
+                (sw.boltzmann_sweep, "sweep"))
+    rng = np.random.RandomState(CONFIG_SEED)
+    os.makedirs(os.environ["PDM_DATA_CACHE"])
+    for train, n in ((True, CONFIG_N), (False, CLI_TEST_N)):
+        runtime.write_cache(pdmc_cache_path("cifar10", train),
+                            rng.randint(0, 256, (n, 32, 32, 3), dtype=np.uint8))
+    out = {}
+
+    def run(name, main, argv, want):
+        for fn, _ in counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = main(argv=argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {key: fn.launches for fn, key in counters}
+        log(f"entry points: {name} {' '.join(argv)} in {wall:.2f} s wall; "
+            f"launches {launches} (want {want}) ({smi})")
+        if launches != want:
+            fail(f"entry points: {name} launch counts {launches} != {want}")
+        out[name] = {"wall_s": wall, "launches": launches}
+        return result
+
+    # forward_stats.yaml: 1024 samples in one batch, a partials and a merge
+    run("compute_stats_forward", compute_stats_forward.main, [],
+        {"attention_fwd": 0, "attention_bwd": 0, "group_norm_fwd": 0,
+         "group_norm_bwd": 0, "sweep": 2})
+    stats = dict(np.load("stats/cifar10_forward.npz"))
+    log(f"entry points: stats/cifar10_forward.npz: {stats['temp'].shape[0]} "
+        f"temperatures {stats['temp'][0]:.3g}..{stats['temp'][-1]:.3g}, entropy "
+        f"{stats['entropy'][0]:.6g}..{stats['entropy'][-1]:.6g}")
+    if not all(np.isfinite(v).all() for v in stats.values()):
+        fail("entry points: the forward statistics are not finite")
+
+    batches = 1 + math.ceil(CLI_FID_SAMPLES / 64)  # the grid, then FID's
+    evals = EVAL_STEPS * batches
+    run("train_diffusion", train_diffusion.main,
+        ["--ddpm_training.total_iters", str(CLI_TRAIN_STEPS),
+         "--ddpm_training.eval_steps", str(CLI_TRAIN_STEPS),
+         "--fid.samples", str(CLI_FID_SAMPLES)],
+        {"attention_fwd": 8 * (CLI_TRAIN_STEPS + evals),
+         "attention_bwd": 16 * CLI_TRAIN_STEPS,
+         "group_norm_fwd": 69 * (CLI_TRAIN_STEPS + evals),
+         "group_norm_bwd": 69 * CLI_TRAIN_STEPS, "sweep": 0})
+    exp = "cifar10_unet_eps_linear_beta_schedule"
+    with open(f"logs/{exp}.csv") as f:
+        logged = [r for r in csv.DictReader(f)]
+    train_fid = [float(r["value"]) for r in logged if r["metric"] == "fid_100_steps"]
+    log(f"entry points: logs/{exp}.csv: {len(logged)} rows, fid_100_steps "
+        f"{train_fid} ({CLI_FID_SAMPLES} DDIM-100 samples against the {CONFIG_N:,} "
+        f"training images); checkpoints: {sorted(os.listdir(f'checkpoints/{exp}'))}")
+    if len(train_fid) != 1 or not (math.isfinite(train_fid[0]) and train_fid[0] >= 0):
+        fail("entry points: the training log holds no finite, non-negative FID")
+
+    sample_n = 10  # sample.yaml's n_steps
+    run("sample", sample.main, [],
+        {"attention_fwd": 8 * sample_n, "attention_bwd": 0,
+         "group_norm_fwd": 69 * sample_n, "group_norm_bwd": 0, "sweep": 0})
+    x = np.load(f"samples/{exp}_{sample_n}_ddim_steps.npz")["x"]
+    log(f"entry points: samples/{exp}_{sample_n}_ddim_steps.npz {x.shape} "
+        f"{x.dtype}, mean {float(x.mean()):.4f} std {float(x.std()):.4f}")
+    if x.shape != (100, 3, 32, 32) or not np.isfinite(x).all():
+        fail("entry points: the samples are not 100 finite CIFAR-shaped images")
+
+    rows = run("compute_fid", compute_fid.main,
+               ["--fid.n_steps", "[10]", "--fid.samples", str(CLI_FID_SAMPLES)],
+               {"attention_fwd": 8 * 10, "attention_bwd": 0,
+                "group_norm_fwd": 69 * 10, "group_norm_bwd": 0, "sweep": 0})
+    with open(f"fid/{exp}.csv") as f:
+        table = list(csv.DictReader(f))
+    log(f"entry points: fid/{exp}.csv {table} ({CLI_FID_SAMPLES} DDIM-10 samples "
+        f"against the {CLI_TEST_N:,} test images)")
+    fid = float(table[0]["fid"]) if len(table) == 1 else float("nan")
+    if not (math.isfinite(fid) and fid >= 0 and fid == rows[0]["fid"]):
+        fail("entry points: the FID table holds no finite, non-negative FID")
+    out["train_fid"], out["cli_fid"] = train_fid[0], fid
+    return out
+
+
+def fid_and_entry_points(dev, smi: str, weights_path: str) -> dict:
+    """Phase 18, in a temporary working directory with PDM_DATA_CACHE
+    pointing into it and PDM_INCEPTION_WEIGHTS at the seeded weights."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp, \
+            env_var("PDM_DATA_CACHE", os.path.join(tmp, "data_cache")), \
+            env_var("PDM_INCEPTION_WEIGHTS", weights_path):
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            out = {"frechet": frechet_phase(dev, smi)}
+            out["inception"] = inception_phase(dev, smi, weights_path)
+            out["lenet"] = lenet_phase(dev, smi)
+            out["cli"] = entry_points(dev, smi)
+            log(f"phase 18 took {time.perf_counter() - t0:.1f} s")
+            return out
+        finally:
+            os.chdir(cwd)
 
 
 def analytic_main_path(time_ms, dev):
@@ -2949,12 +3340,24 @@ def main() -> int:
 
     # ---- phase 17: the config path ----
     log(f"phase 17 at {time.perf_counter() - t_start:.1f} s")
-    cfg_path = config_path(dev, weights, smi)
-    cfg_train = (("config training, device-resident data", "train_launches"),
-                 ("config training, host-resident data", "host_launches"))
+    incep_dir = tempfile.mkdtemp()
+    try:
+        incep_npz = write_inception_npz(os.path.join(incep_dir, "inception.npz"))
+        with env_var("PDM_INCEPTION_WEIGHTS", incep_npz):
+            cfg_path = config_path(dev, weights, smi)
+        cfg_train = (("config training, device-resident data", "train_launches"),
+                     ("config training, host-resident data", "host_launches"))
 
-    # ---- phase 18: the kernels line and the result ----
-    log(f"phase 18 at {time.perf_counter() - t_start:.1f} s")
+        # ---- phase 18: FID and the entry points ----
+        log(f"phase 18 at {time.perf_counter() - t_start:.1f} s")
+        fid_out = fid_and_entry_points(dev, smi, incep_npz)
+    finally:
+        shutil.rmtree(incep_dir, ignore_errors=True)
+    cli = fid_out["cli"]
+    cli_sweep = cli["compute_stats_forward"]["launches"]["sweep"]
+
+    # ---- phase 19: the kernels line and the result ----
+    log(f"phase 19 at {time.perf_counter() - t_start:.1f} s")
 
     def per_path(rows, launches, n_steps):
         main = [r for r in rows if r["calls_per_step"]]
@@ -3045,6 +3448,32 @@ def main() -> int:
               [("whole-block training", block_bwd_rows,
                 block_train_launches["block_bwd"], TRAIN_STEPS)], block_bwd_edges),
     ]
+    # the entry points' paths (phase 18): launch counts only, their
+    # shapes being the main paths' at other batches
+    # train_diffusion's forward kernels run in its train steps and in the
+    # eval's sampler steps (the grid, then the FID batches of 64); its
+    # backward kernels in the train steps alone
+    eval_steps = EVAL_STEPS * (1 + math.ceil(CLI_FID_SAMPLES / 64))
+    train_fwd = ("train_diffusion", CLI_TRAIN_STEPS + eval_steps,
+                 f": {CLI_TRAIN_STEPS} train steps and the eval's {eval_steps} "
+                 f"sampler steps")
+    train_bwd = ("train_diffusion", CLI_TRAIN_STEPS,
+                 f": {CLI_TRAIN_STEPS} train steps")
+    sampled = (("sample", 10, ""), ("compute_fid", 10, ""))
+    cli_paths = {
+        "attention_fwd": ("fused_spatial_attention", (train_fwd, *sampled)),
+        "attention_bwd": ("attention_bwd", (train_bwd,)),
+        "group_norm_fwd": ("fused_group_norm_act", (train_fwd, *sampled)),
+        "group_norm_bwd": ("group_norm_bwd", (train_bwd,)),
+    }
+    for key, (name, runs) in cli_paths.items():
+        k = next(k for k in kernels if k["name"] == name)
+        for cli_name, steps, note in runs:
+            n = cli[cli_name]["launches"][key]
+            k["launches"] += n
+            k["paths"][f"{cli_name} CLI"] = {
+                "launches": n, "launches_per_step": n / steps,
+                "note": "launch count only" + note}
     head = next(r for r in sweep_rows if r["label"] == SWEEP_MAIN[0]
                 and r["mode"] == "fp32" and not r["values"])
     stats = {k: head[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms",
@@ -3054,7 +3483,7 @@ def main() -> int:
         "design": "tall fp32 kernel on a TMA ring; 64-row mma.sync in bf16",
         "source": "pdm_tpu_torch/csrc/boltzmann_sweep.cu",
         "replaces": "pdm_tpu/ops/boltzmann_sweep.py:105",
-        "launches": stats_launches,
+        "launches": stats_launches + cli_sweep,
         "max_abs_err": max(r["max_abs_err"] for r in sweep_rows),
         "worst_of_tolerance": max(r["worst_of_tolerance"] for r in sweep_rows),
         "per": "one call (a partials and a merge launch) at the stats path's "
@@ -3063,7 +3492,9 @@ def main() -> int:
                "alone through cuBLAS)",
         **stats,
         "paths": {"stats": {"launches": stats_launches,
-                            "launches_per_step": 2, **stats}},
+                            "launches_per_step": 2, **stats},
+                  "compute_stats_forward CLI": {"launches": cli_sweep,
+                                                "launches_per_step": 2}},
         "shapes": sweep_rows,
     })
     head = next(r for r in moments_rows if r["label"] == MOMENTS_MAIN[0]

@@ -16,6 +16,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 import types
 import typing
 from functools import wraps
@@ -143,14 +144,24 @@ def with_config(
     config_path: Optional[str] = None, *, parse_args: bool = False
 ) -> Callable:
     """Decorator injecting a loaded (and CLI-overridden) Config as the
-    first argument of ``main``."""
+    first argument of ``main``. The wrapped function parses ``sys.argv``
+    when ``parse_args`` is true, or the list it is given as ``argv=``.
+    Whenever it parses arguments, a ``--device`` flag (the card when
+    absent, ``cpu`` for the plain versions) is taken out of them first and
+    passed to ``main`` as ``device=``."""
 
     def decorator(func: Callable) -> Callable:
         @wraps(func)
-        def wrapper(*args, **kwargs):
+        def wrapper(*args, argv: Optional[list] = None, **kwargs):
             config = load_config(config_path)
-            if parse_args:
-                update_config_from_args(config, parse_args_from_config(config))
+            if parse_args or argv is not None:
+                argv = sys.argv[1:] if argv is None else list(argv)
+                flag = argparse.ArgumentParser(add_help=False)
+                flag.add_argument("--device", default=None)
+                known, argv = flag.parse_known_args(argv)
+                kwargs.setdefault("device", known.device)
+                update_config_from_args(config,
+                                        parse_args_from_config(config, argv))
             return func(config, *args, **kwargs)
 
         return wrapper

@@ -13,11 +13,13 @@ Counterpart of ``pdm_tpu/models/from_config.py``:
   directory (``diffusers_ddpm_from_config``).
 
 The port has no device mesh yet (ROADMAP.md §1 item 6): a config that asks
-for one (``parallel.data_axis`` or ``model_axis`` above 1, or ``fsdp``)
-raises ``NotImplementedError`` instead of training on one card. ``data_axis:
-null`` means one device here. ``load_pretrained_unet`` reads the port
-trainer's own checkpoints (``latest.txt`` and ``step_{n}/state.pt``); JAX's
-orbax checkpoints are not read.
+for one of more than one device (``parallel.data_axis`` or ``model_axis``
+above 1) raises ``NotImplementedError`` instead of training on one card.
+``data_axis: null`` means one device here, and ``fsdp`` without a mesh
+shards nothing, as in JAX. ``load_pretrained_unet`` reads the port
+trainer's own checkpoints (``latest.txt`` and ``step_{n}/state.pt``); a JAX
+trainer's orbax checkpoint is turned into one by
+``scripts.convert_orbax_checkpoint``.
 """
 
 from __future__ import annotations
@@ -39,15 +41,17 @@ from .unet_ddpm import UNetDDPM, init_unet_ddpm
 
 
 def _check_no_mesh(config: Config) -> None:
-    """Raise when the config asks for more than one device."""
+    """Raise when the config asks for a mesh of more than one device. JAX
+    builds none for one device (``parallel/mesh.py::mesh_from_config``),
+    and without a mesh ``fsdp`` shards nothing, so it trains unsharded."""
     par = config.parallel
     if ((par.data_axis is not None and int(par.data_axis) > 1)
-            or int(par.model_axis) > 1 or par.fsdp):
+            or int(par.model_axis) > 1):
         raise NotImplementedError(
             f"parallel: data_axis={par.data_axis}, model_axis="
-            f"{par.model_axis}, fsdp={par.fsdp} asks for a device mesh, which "
-            f"the port does not have yet (ROADMAP.md §1 item 6); use "
-            f"data_axis null, model_axis 1, fsdp false for one device")
+            f"{par.model_axis} asks for a device mesh, which the port does "
+            f"not have yet (ROADMAP.md §1 item 6); use data_axis null and "
+            f"model_axis 1 for one device")
 
 
 def _dtype(config: Config) -> torch.dtype:

@@ -20,6 +20,8 @@ explicit argument, then ``PDM_SWEEP_PRECISION`` (the sweep only), then
 On an NVIDIA card a float32 matmul may run as TF32 (10-bit mantissa
 products), which is the bf16 hazard again. Every plain-PyTorch Gram of the
 port goes through :func:`matmul_fp32`, which turns TF32 off for the call.
+The FID feature extractor's convolutions run under :func:`full_fp32_conv`,
+which does the same for cuDNN.
 """
 
 from __future__ import annotations
@@ -62,6 +64,20 @@ def full_fp32_matmul() -> Iterator[None]:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
         torch.set_float32_matmul_precision(prev)
+
+
+@contextlib.contextmanager
+def full_fp32_conv() -> Iterator[None]:
+    """float32 convolutions and matmuls in full float32 inside the block:
+    TF32 off for cuDNN (PyTorch's default is on) and for cuBLAS; restored
+    on exit."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with full_fp32_matmul():
+            yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 def matmul_fp32(a: Tensor, b: Tensor) -> Tensor:

@@ -1,0 +1,11 @@
+"""The port's entry points, each run as ``python -m
+pdm_tpu_torch.scripts.<name>`` with the flags of the JAX package's
+``scripts/<name>.py`` and ``--device`` (the card by default; ``cpu`` runs
+the plain versions). They read and write the artifacts the JAX scripts
+do, under the working directory: ``stats/``, ``checkpoints/``, ``logs/``,
+``samples/`` and ``fid/``.
+
+Pipeline: compute_stats_forward -> train_diffusion -> sample ->
+compute_fid (train_lenet first for MNIST's FID; convert_inception_weights
+for Inception's; convert_orbax_checkpoint to sample a JAX-trained model).
+"""

@@ -1,15 +1,14 @@
 """Training observability: the CSV metrics logger (wandb optional), image
-grids as PNG, and the periodic evaluation hook (a DDIM-100 sample grid on
-the EMA weights).
+grids as PNG, and the periodic evaluation hook (a DDIM-100 sample grid and
+FID on the EMA weights).
 
 Counterpart of ``pdm_tpu/utils/logging.py``. ``CSVLogger`` writes the same
 columns and rows for the same calls. ``save_image_grid`` writes the PNG
 itself (``zlib`` and ``struct``: 8-bit gray or RGB, one IDAT, filter 0),
 since PIL is not a dependency of the port; :func:`read_png` reads such a
-file back. ``make_eval_fn`` samples the grid as JAX's hook does; FID is not
-ported yet (ROADMAP.md §1 item 3), so the hook behaves as JAX's does when
-the feature extractor is unavailable: it warns at every eval, and raises at
-construction when ``fid.required`` is true.
+file back. ``make_eval_fn`` samples the grid and computes FID as JAX's
+hook does; when the feature extractor's weights are unavailable it warns
+at every eval, or raises at construction when ``fid.required`` is true.
 """
 
 from __future__ import annotations
@@ -28,8 +27,6 @@ import torch
 from ..core.device import DeviceLike, resolve_device
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-FID_UNAVAILABLE = ("the FID feature extractor is not ported yet "
-                   "(ROADMAP.md §1 item 3)")
 
 
 class CSVLogger:
@@ -173,44 +170,66 @@ def make_eval_fn(
 ):
     """Periodic eval hook: a DDIM-100 sample of 25 images on the EMA
     weights, saved as ``sample_dir/step_{step}.png`` (and forwarded to the
-    logger's wandb panel when wandb is active). The sampler runs at JAX's
-    batch, ``min(500, fid_samples)``, from a generator seeded with the
-    step. ``reference_data`` is the FID reference set, unused until FID is
-    ported."""
+    logger's wandb panel when wandb is active), then FID over
+    ``fid.samples`` (else the dataset's ``fid_samples``) DDIM-100 samples
+    against ``reference_data``, logged as ``fid_100_steps``. The grid
+    samples at JAX's batch, ``min(500, fid_samples)``, from a generator
+    seeded with the step; the FID samples at ``min(64, n_fid)`` from one
+    seeded with the step + 1. The reference statistics are computed here,
+    once. When the feature extractor cannot be read (no
+    ``PDM_INCEPTION_WEIGHTS``, no LeNet checkpoint) the hook warns at every
+    eval, or raises here when ``fid.required`` is true."""
     from ..diffusion.sampling import DDPMSampler
     from ..schedulers.from_config import scheduler_from_config
+    from .fid import get_compute_fid, get_feature_fn
 
-    del reference_data
-    if config.fid.required:
-        raise RuntimeError(
-            f"fid.required=true but {FID_UNAVAILABLE}")
     dev = resolve_device(device)
+    compute_fid, fid_error = None, None
+    try:
+        feature_fn, fdim = get_feature_fn(config.dataset_name, device=dev)
+        compute_fid = get_compute_fid(reference_data, feature_fn, fdim,
+                                      device=dev)
+    except OSError as e:  # the extractor's weights are not on disk
+        if config.fid.required:
+            raise RuntimeError(
+                f"fid.required=true but the FID feature extractor is "
+                f"unavailable: {e}") from e
+        fid_error = e
     os.makedirs(sample_dir, exist_ok=True)
     scheduler = scheduler_from_config(config, device=dev)
 
-    def eval_fn(ema_ddpm, step: int) -> Dict[str, float]:
-        sampler = DDPMSampler(
+    def sampler(n_samples: int, batch_size: int, ema_ddpm) -> DDPMSampler:
+        return DDPMSampler(
             ddpm=ema_ddpm,
             scheduler=scheduler,
             n_steps=100,
             obj_size=config.dataset_config.obj_size,
-            batch_size=min(500, config.dataset_config.fid_samples),
-            n_samples=25,
+            batch_size=batch_size,
+            n_samples=n_samples,
             step_type="ddim",
             device=dev,
         )
+
+    def eval_fn(ema_ddpm, step: int) -> Dict[str, float]:
+        grid_sampler = sampler(25, min(500, config.dataset_config.fid_samples),
+                               ema_ddpm)
         gen = torch.Generator(device=dev).manual_seed(int(step))
-        grid = sampler.sample(gen)["x"]
+        grid = grid_sampler.sample(gen)["x"]
         save_image_grid(grid, os.path.join(sample_dir, f"step_{step}.png"))
         if logger is not None:
             logger.log_images(step, "eval_samples", grid)
-        # every eval, not once: a long run must not finish quietly with no
-        # quality metric
-        warnings.warn(
-            f"[eval step {step}] FID unavailable: no quality metric is being "
-            f"recorded ({FID_UNAVAILABLE})",
-            stacklevel=2,
-        )
-        return {}
+        if compute_fid is None:
+            # every eval, not once: a long run must not finish quietly with
+            # no quality metric
+            warnings.warn(
+                f"[eval step {step}] FID unavailable: no quality metric is "
+                f"being recorded ({fid_error})",
+                stacklevel=2,
+            )
+            return {}
+        n_fid = config.fid.samples or config.dataset_config.fid_samples
+        gen = torch.Generator(device=dev).manual_seed(int(step) + 1)
+        samples = sampler(n_fid, min(64, n_fid), ema_ddpm).sample(gen)["x"]
+        return {"fid_100_steps": compute_fid(samples)}
 
     return eval_fn

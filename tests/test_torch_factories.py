@@ -15,7 +15,8 @@ package's, on the same config and the same artifact files.
   expansion of |xt - y|^2 errs by about 2^-24 (|xt|^2 + |y|^2) ~ 2e-7,
   a logit error of ~1e-3 that moves x0 by that times the posterior's
   spread (the modes' std is 0.01, their gaps 0.2).
-* A mesh request raises; ``load_pretrained_unet`` loads the port
+* A mesh request raises (``fsdp`` alone builds the unsharded model, as
+  JAX's does on one device); ``load_pretrained_unet`` loads the port
   trainer's EMA weights exactly; without a card and without
   ``device="cpu"`` the factories raise.
 """
@@ -221,11 +222,22 @@ def test_true_model_from_config_matches_jax():
 @pytest.mark.parametrize("parallel", [{"data_axis": 2}, {"model_axis": 2},
                                       {"fsdp": True}])
 def test_mesh_request_raises(parallel):
-    _, cfg = tiny_configs()
-    for k, v in parallel.items():
-        setattr(cfg.parallel, k, v)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ddpm_from_config(cfg, device="cpu")
+    """A mesh of more than one device raises; ``fsdp`` alone builds no mesh
+    in JAX either (mesh_from_config returns None for one device), so it
+    builds the unsharded model, the same as JAX's on the same config."""
+    jcfg, cfg = tiny_configs(**{f"parallel.{k}": v for k, v in parallel.items()})
+    if "fsdp" not in parallel:
+        with pytest.raises(NotImplementedError, match="item 6"):
+            ddpm_from_config(cfg, device="cpu")
+        return
+    jcfg.parallel.data_axis = 1  # one device, as the port's card
+    jddpm = j_ddpm_from_config(jcfg, key=jax.random.PRNGKey(0))
+    ddpm = ddpm_from_config(cfg, device="cpu")
+    assert isinstance(ddpm, UNetDDPM)
+    want = from_flax_params(jddpm.params)
+    got = dict(ddpm.module.named_parameters())
+    assert {k: tuple(v.shape) for k, v in got.items()} == {
+        k: tuple(v.shape) for k, v in want.items()}
 
 
 def test_single_device_parallel_config_builds():

@@ -11,8 +11,9 @@
 * ``utils/logging.py``: the CSV rows equal JAX's ``CSVLogger``'s for the
   same calls (the time column aside); the PNG grid decodes (PIL, when
   installed, and the port's reader) to the grid array exactly; the eval
-  hook writes its grid, warns that FID is unavailable, and refuses
-  ``fid.required``.
+  hook writes its grid and, without Inception weights, warns that FID is
+  unavailable and refuses ``fid.required`` (tests/test_torch_fid.py
+  holds the hook with FID).
 """
 
 import csv
@@ -194,7 +195,10 @@ def test_png_writer_refuses_other_shapes(tmp_path):
 
 
 def test_eval_fn_writes_the_grid_and_warns(tmp_path, monkeypatch):
+    """Without PDM_INCEPTION_WEIGHTS the FID extractor is unavailable: the
+    hook warns at every eval and fid.required refuses it."""
     monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("PDM_INCEPTION_WEIGHTS", raising=False)
     cfg = load_config()
     cfg.dataset_name = "gmm1d"
     cfg.diffusion.min_temp, cfg.diffusion.max_temp = 1e-4, 1e1

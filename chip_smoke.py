@@ -179,9 +179,34 @@ any error or disagreement:
    rows 1-4's and row 8's launch counters zeroed just before and read
    just after (exact counts), its wall time, and its artifact read back
    (a finite, non-negative FID in the training log and the FID table).
-19. One JSON line {"kernels": [...]} with all eight kernels (each with its
-   worst error as a fraction of its tolerance), then the last line
-   {"ok": true, "device": {...}}.
+19. Schedule optimization through the sampler. (a) Row 7b, the
+   posterior mean's VJP (csrc/boltzmann_moments_vjp.cu), against its
+   plain version on the same card inputs at VJP_SHAPES (the CLI's B 1024
+   over the 1-D GMM's 100,000 points, D = 1; CIFAR-10 scale, B 256, N
+   50,000, D 3072, in all three modes; an edge shape with D % 4 != 0),
+   queries at one temperature per row, the first at T = 1e-4 (one-hot),
+   each within vjp_tolerance and two calls bitwise equal; times beside
+   the bound, the plain version and the library composition. (b) The knot
+   gradient of mean(x^2) through sample_with_grid, card against CPU, from
+   the same x_init and noise: TrueDDPM on the 1-D GMM for all four step
+   types, the fp32 flagship at batch 2 with remat. (c) The CLI
+   (pdm_tpu_torch/scripts/optimize_schedule.py) in this process through
+   main() at JAX's constants: rows 7 and 7b two launches each a step,
+   exactly; a finite
+   history; the npz read back, its knots sorted and in the clip range;
+   JAX's criterion (MMD after <= 1.2 x before over three seeds of 512
+   samples); its wall time. (d) The schedule optimizer through TrueDDPM
+   at CIFAR-10 scale (50,000 N(0, 1) points, 10 knots, batch 256, DDIM, 3
+   iterations): ms per iteration, exact launch counts, rows 7 and 7b's
+   share of the card's time and the idle share (profiler). (e) Through the
+   bf16 flagship (seeded weights, eval mode) as
+   scripts/optimize_schedule_flagship.py sets it (5 knots, batch 256,
+   DDPM, remat, rate 0.05, LeNet-feature MMD), 5 iterations (cut from
+   200): ms per iteration, peak memory, finite knots, rows 1-4's launch
+   counts exact.
+20. One JSON line {"kernels": [...]} with all nine kernels (the eight
+   rows and 7b, each with its worst error as a fraction of its
+   tolerance), then the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -377,6 +402,40 @@ CLI_TEST_N = 10_000
 CLI_TRAIN_STEPS = 5
 CLI_FID_SAMPLES = 512
 GATHER_REPS = 50       # host-resident gathers timed for the data path's rate
+# Schedule optimization (phase 19). Row 7b, the posterior mean's VJP, at
+# the CLI's shape (pdm_tpu_torch/scripts/optimize_schedule.py: B 1024 over
+# generate_gmm_1d(100_000), D = K = 1, fp32, its LogSNR range), at CIFAR-10
+# scale (the analytic path's B 256 over 50,000 N(0, 1) points, D = K =
+# 3072, the sampler's range; every mode) and at edges (K % 4 != 0, one
+# query at T = 1e-4, where p is one-hot): (label, B, N, D, log10 T range,
+# modes); queries noised from data points, one temperature per row.
+VJP_SHAPES = (("gmm1d", 1024, 100_000, 1, (-4.0, 1.0), ("fp32",)),
+              ("cifar10", 256, 50_000, 3072, MOMENTS_LOG10_T, SWEEP_MODES),
+              ("edges", 37, 1_003, 5, (-4.0, 1.0), SWEEP_MODES))
+VJP_SUBSET = 64  # rows held against the plain version, over the T range
+VJP_EPI_OPS = 16  # operations per (row, point) of the VJP's epilogue
+# Card vs CPU gradients (phase 19b): the knot gradient of mean(x^2)
+# through sample_with_grid on the 1-D GMM (N, knots, batch), at the CPU
+# tests' tolerances of scale (tests/test_torch_schedule_opt.py: sample,
+# gradient); the fp32 flagship at (batch, knots), remat on, 5e-3 of scale:
+# phase 3's 1e-3 per forward (FORWARD_TOL), chained through 5 steps'
+# forward and backward.
+GMM_GRAD = (2000, 6, 32)
+GMM_GRAD_TOL = (5e-4, 5e-3)
+UNET_GRAD = (2, 5)
+UNET_GRAD_TOL = 5e-3
+# JAX's criterion for the CLI's knots (tests/test_schedule_opt.py:51-73):
+# samples, seeds, reference points, MMD bandwidth, allowed ratio
+CLI_EVAL = (512, 3, 2000, 0.1, 1.2)
+# The analytic denoiser at CIFAR-10 scale (19d): N(0, 1) points of shape
+# 3 x 32 x 32, knots, batch, DDIM, iterations, on phase 11's scheduler
+CIFAR_OPT = (50_000, 10, 256, 3)
+# The UNet path (19e), as scripts/optimize_schedule_flagship.py:96-106
+# sets it: the bf16 flagship, 5 knots, batch 256, DDPM, remat, rate 0.05,
+# sigmas (1, 3, 10, 30), LeNet features; 5 iterations, cut from 200
+UNET_OPT = {"n_steps": 5, "batch_size": 256, "step_type": "ddpm",
+            "learning_rate": 0.05, "sigmas": (1.0, 3.0, 10.0, 30.0),
+            "n_iters": 5, "n_data": 50_000}
 
 
 def gram_rounding(two_m: float, d: int, kernel_steps: float) -> float:
@@ -2613,6 +2672,559 @@ def attention_head_dim_sweep(attn_op, dev, g) -> None:
             f"backward {bwd:.3g} of the tolerance")
 
 
+def vjp_case(dev, g, y, B, log10_t):
+    """Row 7b's inputs over a dataset y (N, D): queries xt = sqrt(ab) y_j +
+    sqrt(1 - ab) eps at one temperature per row, log-spaced over
+    ``log10_t`` (the first row at its lower end, one-hot at T = 1e-4), the
+    denoiser's inv_temp = 1 / (1 - ab) and y_scale = sqrt(ab), and an
+    N(0, 1) cotangent of the mean."""
+    import torch
+
+    N, D = y.shape
+    temps = torch.logspace(*log10_t, B, device=dev)
+    ab = 1.0 / (1.0 + temps)
+    idx = torch.randint(0, N, (B,), generator=g, device=dev)
+    x = (torch.sqrt(ab)[:, None] * y[idx]
+         + torch.sqrt(1.0 - ab)[:, None] * torch.randn(B, D, generator=g, device=dev))
+    c = torch.randn(B, D, generator=g, device=dev)
+    return x, 1.0 / (1.0 - ab), torch.sqrt(ab), c
+
+
+def vjp_bound(B, N, D, mode):
+    """(bound ms, bound_by) of one VJP call: the two Grams (x.y and c.y)
+    at the mode's peak, the fp32 product w.y and the epilogue at fp32's;
+    each input read once (queries, cotangent, the pack, norms, the row-major
+    dataset, per-row terms), each output written once (dx, two scalars)."""
+    passes = SWEEP_PASSES[mode]
+    esz = 4 if mode == "fp32" else 2
+    n_bytes = (2 * B * D * 4 + D * N * esz * (2 if passes == 3 else 1) + N * 4
+               + N * D * 4 + 5 * B * 4 + B * D * 4 + 2 * B * 4)
+    t_ops = (2 * 2 * B * N * D * passes
+             / PEAK_OPS_PER_S["float32" if mode == "fp32" else "bfloat16"]
+             + (2 * B * N * D + VJP_EPI_OPS * B * N) / PEAK_OPS_PER_S["float32"]) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def vjp_tolerance(x, y, it, s, c, mode, delta, gap, eps_u, eps_g):
+    """Per-output tolerances (dx (rows, D), d inv_temp and d y_scale
+    (rows,)) of row 7b against its plain version on the same rows, for
+    logits that differ by at most ``delta`` (rows,) between the two
+    (moments_logit_error), Grams c.y by ``eps_u`` and x.y by ``eps_g``.
+
+    Each output is F = sum_j w_j phi_j with w_j = p_j (u_j - ubar). With
+    p'_j / p_j within 1 + r, r = expm1(2 delta) (at most 2 (N - 1)
+    exp(4 delta - gap) where the top logit leads by ``gap``, as
+    moments_check), ubar moves by at most r E_p|u - ubar| + eps_u, so F
+    by r M1 + (1 + r) E_p|phi| (2 eps_u + r E_p|u - ubar|) + (1 + r) ((1 +
+    r) E_p|u - ubar| + 2 eps_u) dphi, with M1 = E_p[|u - ubar| |phi|] and
+    dphi the move of phi itself: 0 for dx (phi = -inv_temp (x - s y_j)
+    per component), 2 delta / inv_temp for d
+    inv_temp (phi = -(log_z - l_j) / inv_temp), inv_temp eps_g for d
+    y_scale (phi = -inv_temp (2 s ysq_j - x.y_j)). Plus 8 sqrt(N) 2^-24 of
+    (M1 + 2 eps_u E|phi|): fp32 sums over N in another order. The
+    expectations come from a float64 pass over the plain version's Grams
+    (the mode's split operands)."""
+    import torch
+
+    from pdm_tpu_torch.ops.precision import split
+
+    f = torch.float64
+
+    def parts(a):
+        hi, lo = split(a.float(), mode)
+        return hi.to(f), None if lo is None else lo.to(f)
+
+    def gram64(a, b):
+        out = a[0] @ b[0].T
+        if a[1] is not None:
+            out = out + a[0] @ b[1].T + a[1] @ b[0].T
+        return out
+
+    xp, cp = parts(x), parts(c)
+    x64 = x.to(f)
+    it, s = it.to(f), s.to(f)
+    xsq = 0.5 * (x64 * x64).sum(1)
+    N, D = y.shape
+    # (rows, chunk, D) float64 temporaries of at most 2^26 elements
+    chunk = max(1, min(8192, (1 << 26) // (x.shape[0] * D)))
+
+    def chunks():
+        for lo in range(0, N, chunk):
+            yc = y[lo:lo + chunk].float()
+            y64 = yc.to(f)
+            ysq = 0.5 * (y64 * y64).sum(1)
+            g = gram64(xp, parts(yc))
+            lg = -((xsq[:, None] - s[:, None] * g) + (s * s)[:, None] * ysq[None]) * it[:, None]
+            yield y64, parts(yc), ysq, g, lg
+
+    m = torch.full_like(xsq, float("-inf"))
+    s0 = torch.zeros_like(xsq)
+    sy = torch.zeros_like(x64)
+    for y64, _, _, _, lg in chunks():
+        m_new = torch.maximum(m, lg.max(1).values)
+        scale = torch.exp(m - m_new)
+        p = torch.exp(lg - m_new[:, None])
+        s0 = s0 * scale + p.sum(1)
+        sy = sy * scale[:, None] + p @ y64
+        m = m_new
+    log_z = m + torch.log(s0)
+    ubar = (c.to(f) * (sy / s0[:, None])).sum(1)
+    ea = torch.zeros_like(xsq)
+    m_x, e_x = torch.zeros_like(x64), torch.zeros_like(x64)
+    m_i, e_i, m_s, e_s = (torch.zeros_like(xsq) for _ in range(4))
+    for y64, yp, ysq, g, lg in chunks():
+        p = torch.exp(lg - log_z[:, None])
+        pa = p * (gram64(cp, yp) - ubar[:, None]).abs()
+        ea += pa.sum(1)
+        dist = (x64[:, None, :] - s[:, None, None] * y64[None]).abs()
+        m_x += torch.einsum("ij,ijk->ik", pa, dist)
+        e_x += torch.einsum("ij,ijk->ik", p, dist)
+        phi = (log_z[:, None] - lg).abs() / it[:, None]
+        m_i += (pa * phi).sum(1)
+        e_i += (p * phi).sum(1)
+        phi = (2.0 * s[:, None] * ysq[None] - g).abs()
+        m_s += (pa * phi).sum(1)
+        e_s += (p * phi).sum(1)
+    m_x, e_x, m_s, e_s = it[:, None] * m_x, it[:, None] * e_x, it * m_s, it * e_s
+    d = torch.as_tensor(np.asarray(delta, np.float64), device=x.device)
+    gp = torch.as_tensor(np.asarray(gap, np.float64), device=x.device)
+    r = torch.clamp(torch.minimum(torch.expm1(2.0 * d),
+                                  2.0 * (N - 1) * torch.exp(4.0 * d - gp)), max=1e30)
+    floor = 8.0 * math.sqrt(N) * 2.0 ** -24
+
+    def tol(m1, e1, dphi):
+        rr, ee = (r, ea) if m1.ndim == 1 else (r[:, None], ea[:, None])
+        return (rr * m1 + (1 + rr) * e1 * (2 * eps_u + rr * ee)
+                + (1 + rr) * ((1 + rr) * ee + 2 * eps_u) * dphi
+                + floor * (m1 + 2 * eps_u * e1))
+
+    return (tol(m_x, e_x, 0.0), tol(m_i, e_i, 2.0 * d / it), tol(m_s, e_s, it * eps_g),
+            int((r < 1.0).sum()))
+
+
+def vjp_kernel_rows(time_ms, dev):
+    """Phase 19a: row 7b (the posterior mean's VJP) against its plain
+    version on the same card inputs at VJP_SHAPES, in each mode, on
+    VJP_SUBSET rows over the temperature range (vjp_tolerance), two calls
+    bitwise equal; times of the kernel, the plain version and the library
+    composition (the three products through cuBLAS in fp32 without TF32,
+    with the elementwise work)."""
+    import torch
+
+    from pdm_tpu_torch.ops import boltzmann as bz
+    from pdm_tpu_torch.ops import boltzmann_kernel as bk
+    from pdm_tpu_torch.ops import boltzmann_sweep as sw
+    from pdm_tpu_torch.ops.precision import full_fp32_matmul
+    from pdm_tpu_torch.utils.synthetic import generate_gmm_1d
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    rows = []
+    for label, B, N, D, log10_t, modes in VJP_SHAPES:
+        if label == "gmm1d":
+            y = torch.from_numpy(generate_gmm_1d(N)).reshape(N, 1).to(dev)
+        else:
+            y = torch.randn(N, D, generator=g, device=dev)
+        x, it, s, c = vjp_case(dev, g, y, B, log10_t)
+        sub = torch.linspace(0, B - 1, min(B, VJP_SUBSET), device=dev).round().long().unique()
+        gap = top_two_gap(x[sub], y, it[sub], s[sub])
+        xsq_max, ysq_max, csq_max = (float((0.5 * (t * t).sum(1)).max()) for t in (x, y, c))
+        ysq = 0.5 * (y * y).sum(1)
+        for mode in modes:
+            prep = sw.prepare_y(y, mode)
+            mom = bz.boltzmann_moments(x, prep, it, s, values=y, mxu_precision=mode)
+
+            def kernel(prep=prep, mom=mom, mode=mode):
+                return bz.posterior_mean_vjp(x, prep, it, s, mom.log_z, mom.mean, c,
+                                             values=y, mxu_precision=mode)
+
+            def library(mom=mom):
+                with full_fp32_matmul():
+                    gm = torch.matmul(x, y.T)
+                    u = torch.matmul(c, y.T)
+                    cm = (c * mom.mean).sum(1)
+                    h = (0.5 * (x * x).sum(1)[:, None] - s[:, None] * gm
+                         + (s * s)[:, None] * ysq[None])
+                    gz = mom.log_z[:, None] + h * it[:, None]
+                    w = torch.exp(-gz) * (u - cm[:, None])
+                    sums = (w.sum(1), (w * gz).sum(1),
+                            (w * (2.0 * s[:, None] * ysq[None] - gm)).sum(1))
+                    return torch.matmul(w, y), sums
+
+            before = bz.posterior_mean_vjp.launches
+            got = kernel()
+            torch.cuda.synchronize()
+            launched = bz.posterior_mean_vjp.launches - before
+            same = all(torch.equal(a, b) for a, b in zip(got, kernel()))
+            plan = bk.vjp_device_plan(bk.vjp_operands(x, prep, it, s, mom.log_z, mom.mean, c,
+                                                      values=y, mode=mode))
+            ref = bz.boltzmann_moments_reference(x[sub], y, it[sub], s[sub], compute_mean=True,
+                                                 mxu_precision=mode)
+            want = bz.posterior_mean_vjp_reference(x[sub], y, it[sub], s[sub], ref.log_z,
+                                                   ref.mean, c[sub], mxu_precision=mode)
+            steps = kernel_gram_steps(mode, D)
+            delta = moments_logit_error(xsq_max, ysq_max, D, it[sub].cpu().numpy(),
+                                        s[sub].cpu().numpy(), steps)
+            eps_u = 2.0 * gram_rounding(2.0 * max(csq_max, ysq_max), D, steps)
+            eps_g = gram_rounding(2.0 * max(xsq_max, ysq_max), D, steps)
+            *tols, first_order = vjp_tolerance(x[sub], y, it[sub], s[sub], c[sub], mode,
+                                               delta, gap, eps_u, eps_g)
+            err, worst = 0.0, 0.0
+            for a, b, t in zip(got, want, tols):
+                diff = (a[sub].double() - b.double()).abs()
+                err = max(err, float(diff.max()))
+                worst = max(worst, float(torch.where(diff == 0, 0.0, diff / t).max()))
+            finite = all(bool(torch.isfinite(t).all()) for t in got)
+            ms, host_ms = time_ms(kernel, reps=3, inner=1)
+            plain_ms = event_ms(lambda mom=mom, mode=mode: bz.posterior_mean_vjp_reference(
+                x, y, it, s, mom.log_z, mom.mean, c, mxu_precision=mode), reps=1)[0]
+            library_ms = time_ms(library, reps=3, inner=1)[0]
+            b_ms, b_by = vjp_bound(B, N, D, mode)
+            row = {"label": label, "shape": [B, N, D], "mode": mode, "launches": launched,
+                   "max_abs_err": err, "worst_of_tolerance": worst, "bitwise_repeat": same,
+                   "plan": plan._asdict(), "rows_checked": int(sub.numel()),
+                   "rows_first_order": first_order,
+                   "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "tflops": 2 * B * N * D * (2 * SWEEP_PASSES[mode] + 1) / ms / 1e9}
+            rows.append(row)
+            ok = launched == 2 and finite and worst <= 1.0 and same
+            log(f"moments VJP {label} B={B} N={N} D={D} {mode}: {plan.tile_rows}-row blocks, "
+                f"{plan.n_chunks} chunks of {plan.per_chunk} sub-tiles; launches {launched}, "
+                f"bitwise repeat {same}, max_abs_err {err:.3g} (worst {worst:.3g} of the "
+                f"tolerance; {first_order} of {int(sub.numel())} rows within first order) "
+                f"kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms {plain_ms:.4f} library_ms "
+                f"(three products, fp32) {library_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) "
+                f"{row['tflops']:.2f} TFLOP/s {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"moments VJP kernel disagrees with its plain version (or launched "
+                     f"{launched} kernels, or two calls differ) at {label} {mode}")
+            del prep, mom, got
+            torch.cuda.empty_cache()
+        del x, y, c
+        torch.cuda.empty_cache()
+    return rows
+
+
+def card_kernel_share(run, names):
+    """(wall ms, card busy ms, {group: card ms}) of ``run`` under
+    torch.profiler: the kernels whose names contain each group's key."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, groups = 0.0, {k: 0.0 for k in names}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            ms = e.device_time_total / 1e3
+            busy += ms
+            for key, sub in names.items():
+                if sub in e.name:
+                    groups[key] += ms
+    return wall, busy, groups
+
+
+def schedule_grads_card_vs_cpu(dev, weights) -> dict:
+    """Phase 19b: the knot gradient of mean(x^2) through sample_with_grid
+    on the card (kernels) against the CPU (plain versions), from the same
+    x_init and noise: TrueDDPM on the 1-D GMM for every step type, then the
+    fp32 flagship with remat."""
+    import torch
+
+    from pdm_tpu_torch.diffusion.sampling import STEP_TYPES, discretize_schedule
+    from pdm_tpu_torch.diffusion.schedule_opt import sample_with_grid
+    from pdm_tpu_torch.models.base import TrueDDPM
+    from pdm_tpu_torch.models.unet import unet_from_config
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler, LogSNRScheduler
+    from pdm_tpu_torch.utils.synthetic import generate_gmm_1d
+
+    def knot_grad(ddpm, grid, where, shape, step_type, x_init, noise, remat=False):
+        lt = grid.to(where).clone().requires_grad_(True)
+        x = sample_with_grid(ddpm, lt, None, shape, step_type, remat=remat,
+                             x_init=torch.from_numpy(x_init),
+                             noise=torch.from_numpy(noise))
+        (gk,) = torch.autograd.grad(torch.mean(torch.square(x)), [lt])
+        return x.detach().cpu(), gk.cpu()
+
+    def check(label, outs, tol_x, tol_g):
+        (x_c, g_c), (x_d, g_d) = outs["cpu"], outs["card"]
+        ex = float((x_d - x_c).abs().max()) / float(x_c.abs().max())
+        eg = float((g_d - g_c).abs().max()) / float(g_c.abs().max())
+        ok = ex <= tol_x and eg <= tol_g and bool(torch.isfinite(g_d).all())
+        log(f"schedule gradient {label}, card (kernels) vs CPU (plain): sample "
+            f"{ex:.3g} of scale (tol {tol_x}), knot gradient {eg:.3g} of scale (tol "
+            f"{tol_g}); gradient {[round(float(v), 6) for v in g_d]} "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"schedule gradient {label}: the card disagrees with the CPU")
+        return {"sample_err_of_scale": ex, "grad_err_of_scale": eg}
+
+    out = {}
+    rng = np.random.RandomState(19)
+    N, n_steps, B = GMM_GRAD
+    data = generate_gmm_1d(N)
+    sched = LogSNRScheduler(1e-4, 1e1)
+    grid = discretize_schedule(sched, n_steps)
+    shape = (B, 1, 1, 1)
+    x_init = rng.standard_normal(shape).astype(np.float32)
+    noise = rng.standard_normal((n_steps, *shape)).astype(np.float32)
+    models = {"cpu": TrueDDPM(sched, data, device="cpu"), "card": TrueDDPM(sched, data, device=dev)}
+    for step_type in STEP_TYPES:
+        outs = {k: knot_grad(m, grid, m.device, shape, step_type, x_init, noise)
+                for k, m in models.items()}
+        out[f"gmm1d {step_type}"] = check(f"gmm1d {step_type} (N={N}, {n_steps} knots, "
+                                          f"B={B})", outs, *GMM_GRAD_TOL)
+    B, n_steps = UNET_GRAD
+    sched = LinearBetaScheduler(1e-4, 2.478e4)
+    grid = discretize_schedule(sched, n_steps)
+    shape = (B, 3, 32, 32)
+    x_init = rng.standard_normal(shape).astype(np.float32)
+    noise = rng.standard_normal((n_steps, *shape)).astype(np.float32)
+    outs = {}
+    for key, where in (("cpu", torch.device("cpu")), ("card", dev)):
+        net = unet_from_config(3, FLAGSHIP, dtype=torch.float32, device=where)
+        net.load_state_dict(weights)
+        ddpm = UNetDDPM(sched, net, parametrization="eps", device=where)
+        outs[key] = knot_grad(ddpm, grid, where, shape, "ddpm", x_init, noise, remat=True)
+        del ddpm, net
+    out["flagship fp32"] = check(f"flagship fp32 DDPM, remat (B={B}, {n_steps} knots)",
+                                 outs, FORWARD_TOL, UNET_GRAD_TOL)
+    torch.cuda.empty_cache()
+    return out
+
+
+def schedule_cli_path(dev) -> dict:
+    """Phase 19c: pdm_tpu_torch/scripts/optimize_schedule.py at JAX's
+    constants, in this process through main() in a temporary working
+    directory, the moments and VJP launch counters zeroed just before and
+    read just after; the npz read back; JAX's criterion (CLI_EVAL) on the
+    knots it wrote."""
+    import torch
+
+    from pdm_tpu_torch.diffusion.sampling import discretize_schedule
+    from pdm_tpu_torch.diffusion.schedule_opt import sample_with_grid
+    from pdm_tpu_torch.models.base import TrueDDPM
+    from pdm_tpu_torch.ops import boltzmann as bz
+    from pdm_tpu_torch.ops.mmd import mmd_rbf
+    from pdm_tpu_torch.schedulers.analytic import LogSNRScheduler
+    from pdm_tpu_torch.scripts import optimize_schedule as cli
+    from pdm_tpu_torch.utils.synthetic import generate_gmm_1d
+
+    cwd, work = os.getcwd(), tempfile.mkdtemp()
+    try:
+        os.chdir(work)
+        bz.boltzmann_moments.launches = 0
+        bz.posterior_mean_vjp.launches = 0
+        t0 = time.perf_counter()
+        out = cli.main(["--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"moments": bz.boltzmann_moments.launches,
+                    "vjp": bz.posterior_mean_vjp.launches}
+        saved = np.load(os.path.join(work, cli.OUT))
+        lt, history = saved["log_temp"], saved["history"]
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    want = 2 * cli.N_STEPS * cli.N_ITERS
+    lo, hi = math.log(cli.MIN_TEMP), math.log(cli.MAX_TEMP)
+    n_eval, seeds, n_ref, sigma, ratio = CLI_EVAL
+    data = generate_gmm_1d(cli.N_DATA)
+    sched = LogSNRScheduler(cli.MIN_TEMP, cli.MAX_TEMP)
+    ddpm = TrueDDPM(sched, data, device=dev)
+    ref = torch.from_numpy(data[:n_ref].reshape(-1, 1)).to(dev)
+
+    def eval_mmd(grid, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        with torch.no_grad():
+            x = sample_with_grid(ddpm, torch.as_tensor(grid, device=dev), gen,
+                                 (n_eval, 1, 1, 1))
+            return float(mmd_rbf(x.reshape(-1, 1), ref, sigmas=(sigma,)))
+
+    init = discretize_schedule(sched, cli.N_STEPS, device=dev)
+    before = float(np.mean([eval_mmd(init, k) for k in range(seeds)]))
+    after = float(np.mean([eval_mmd(lt, k) for k in range(seeds)]))
+    ok = (launches == {"moments": want, "vjp": want} and bool(np.isfinite(history).all())
+          and len(history) == cli.N_ITERS and bool(np.all(np.diff(lt) >= 0))
+          and lt.min() >= lo - 1e-6 and lt.max() <= hi + 1e-6
+          and np.array_equal(lt, out["log_temp"]) and after <= ratio * before)
+    log(f"schedule CLI: optimize_schedule main() ({cli.N_ITERS} iterations at batch "
+        f"{cli.BATCH_SIZE}, {cli.N_STEPS} knots, {cli.STEP_TYPE}, N={cli.N_DATA:,}) in "
+        f"{wall:.2f} s ({wall / cli.N_ITERS * 1e3:.3f} ms/iteration); launches row 7 "
+        f"{launches['moments']}, row 7b {launches['vjp']} (want {want} each: two a step); "
+        f"MMD {history[0]:.6g} -> {history[-1]:.6g}; knots {np.round(lt, 4).tolist()}; "
+        f"JAX's criterion over {seeds} seeds of {n_eval} samples: MMD {before:.6g} -> "
+        f"{after:.6g} (<= {ratio} x) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("schedule CLI: launch counts, history, knots or the MMD criterion")
+    del ddpm
+    return {"wall_s": wall, "ms_per_iteration": wall / cli.N_ITERS * 1e3,
+            "launches": launches, "mmd_before": before, "mmd_after": after,
+            "history_first_last": [float(history[0]), float(history[-1])]}
+
+
+def schedule_cifar_path(dev) -> dict:
+    """Phase 19d: optimize_schedule through TrueDDPM at CIFAR-10 scale
+    (CIFAR_OPT, DDIM, phase 11's scheduler): a warm iteration, then the
+    counted run with the launch counters zeroed just before and read just
+    after, then one iteration under the profiler (rows 7 and 7b's share of
+    the card's time, the idle share)."""
+    import torch
+
+    from pdm_tpu_torch.diffusion.sampling import discretize_schedule
+    from pdm_tpu_torch.diffusion.schedule_opt import optimize_schedule
+    from pdm_tpu_torch.models.base import TrueDDPM
+    from pdm_tpu_torch.ops import boltzmann as bz
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+
+    N, n_steps, B, iters = CIFAR_OPT
+    g = torch.Generator(device=dev).manual_seed(22)
+    data = torch.randn(N, 3, 32, 32, generator=g, device=dev)
+    sched = LinearBetaScheduler(1e-4, 2.478e4)
+    ddpm = TrueDDPM(sched, data, device=dev)
+    init = discretize_schedule(sched, n_steps, device=dev)
+    clip = (math.log(1e-4), math.log(2.478e4))
+
+    def run(n, seed):
+        return optimize_schedule(ddpm, data, init, n_iters=n, batch_size=B,
+                                 step_type="ddim", clip_range=clip, verbose=False,
+                                 generator=torch.Generator(device=dev).manual_seed(seed),
+                                 device=dev)
+
+    run(1, 1)
+    torch.cuda.synchronize()
+    bz.boltzmann_moments.launches = 0
+    bz.posterior_mean_vjp.launches = 0
+    t0 = time.perf_counter()
+    out = run(iters, 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"moments": bz.boltzmann_moments.launches,
+                "vjp": bz.posterior_mean_vjp.launches}
+    want = 2 * n_steps * iters
+    wall_p, busy, share = card_kernel_share(lambda: run(1, 2), {"row 7": "moments_",
+                                                                "row 7b": "vjp_"})
+    ms_iter = wall / iters * 1e3
+    busy_of = max(busy, 1e-9)
+    finite = bool(np.isfinite(out["log_temp"]).all() and np.isfinite(out["history"]).all())
+    ok = launches == {"moments": want, "vjp": want} and finite
+    log(f"schedule at CIFAR-10 scale: TrueDDPM over {N:,} N(0, 1) points of 3x32x32, "
+        f"{n_steps} knots, batch {B}, DDIM: {ms_iter:.2f} ms/iteration over {iters}; "
+        f"launches row 7 {launches['moments']}, row 7b {launches['vjp']} (want {want} "
+        f"each); one profiled iteration {wall_p:.2f} ms wall, card busy {busy:.2f} ms "
+        f"(idle {max(0.0, 1.0 - busy / wall_p):.1%}): row 7 {share['row 7']:.2f} ms "
+        f"({share['row 7'] / busy_of:.1%}), row 7b {share['row 7b']:.2f} ms "
+        f"({share['row 7b'] / busy_of:.1%}); MMD {out['history'].tolist()} "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("schedule at CIFAR-10 scale: launch counts or non-finite knots")
+    del ddpm, data
+    torch.cuda.empty_cache()
+    return {"ms_per_iteration": ms_iter, "launches": launches,
+            "card_busy_ms": busy, "wall_ms_profiled": wall_p,
+            "idle_share": max(0.0, 1.0 - busy / wall_p),
+            "row7_ms": share["row 7"], "row7b_ms": share["row 7b"]}
+
+
+def schedule_unet_path(dev, weights) -> dict:
+    """Phase 19e: optimize_schedule through the bf16 flagship (seeded
+    weights, eval mode) with remat and LeNet-feature MMD (UNET_OPT), the
+    launch counters of rows 1-4 zeroed just before and read just after."""
+    import torch
+
+    from pdm_tpu_torch.diffusion.sampling import discretize_schedule
+    from pdm_tpu_torch.diffusion.schedule_opt import optimize_schedule
+    from pdm_tpu_torch.models.lenet import LeNet, init_lenet
+    from pdm_tpu_torch.models.unet import unet_from_config
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+    from pdm_tpu_torch.ops import attention as attn_op
+    from pdm_tpu_torch.ops import groupnorm as gn_op
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+
+    o = UNET_OPT
+    sched = LinearBetaScheduler(1e-4, 2.478e4)
+    net = unet_from_config(3, FLAGSHIP, dtype=torch.bfloat16, device=dev)
+    net.load_state_dict(weights)
+    ddpm = UNetDDPM(sched, net, parametrization="eps", device=dev)
+    lenet = init_lenet(LeNet(in_dim=3 * 32 * 32).to(dev),
+                       torch.Generator(device=dev).manual_seed(LENET_SEED))
+    g = torch.Generator(device=dev).manual_seed(23)
+    data = torch.randn(o["n_data"], 3, 32, 32, generator=g, device=dev)
+    init = discretize_schedule(sched, o["n_steps"], device=dev)
+    counters = ((attn_op.fused_spatial_attention, "attention_fwd"),
+                (attn_op.attention_bwd, "attention_bwd"),
+                (gn_op.fused_group_norm_act, "group_norm_fwd"),
+                (gn_op.group_norm_bwd, "group_norm_bwd"))
+    # the counts at each iteration's first feature call (the generated
+    # batch's, after its sampler forward and before its backward): two
+    # consecutive ones are one iteration apart
+    marks = []
+
+    def features(x):
+        marks.append({key: fn.launches for fn, key in counters})
+        return lenet(x, features_only=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn, _ in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = optimize_schedule(
+        ddpm, data, init, n_iters=o["n_iters"], batch_size=o["batch_size"],
+        learning_rate=o["learning_rate"], step_type=o["step_type"], sigmas=o["sigmas"],
+        clip_range=(math.log(1e-4), math.log(2.478e4)), feature_fn=features, remat=True,
+        verbose=False, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {key: fn.launches for fn, key in counters}
+    # per iteration: every step's forward and its checkpoint recompute
+    # (rows 1 and 3); the backward of every attention (row 2, two launches
+    # each) and of every GroupNorm but the first step's first (its input,
+    # conv_in of the fixed x_T, does not depend on the knots)
+    n, it = o["n_steps"], o["n_iters"]
+    per_iter = {"attention_fwd": 2 * n * 8, "attention_bwd": n * 8 * 2,
+                "group_norm_fwd": 2 * n * 69, "group_norm_bwd": n * 69 - 1}
+    gen_marks = marks[0::2]
+    iters = [{k: b[k] - a[k] for k in per_iter} for a, b in zip(gen_marks, gen_marks[1:])]
+    # the first iteration's forward and the last's backward make one more
+    iters.append({k: gen_marks[0][k] + launches[k] - gen_marks[-1][k] for k in per_iter})
+    lt = out["log_temp"]
+    ok = (len(gen_marks) == it and all(c == per_iter for c in iters)
+          and bool(np.isfinite(lt).all()) and bool(np.isfinite(out["history"]).all())
+          and bool(np.all(np.diff(lt) >= 0)))
+    log(f"schedule through the bf16 flagship: {it} iterations (cut from 200), "
+        f"{n} knots, batch {o['batch_size']}, {o['step_type']}, remat, LeNet features: "
+        f"{wall / it * 1e3:.1f} ms/iteration, peak {peak:.2f} GB; launches {launches}, "
+        f"each iteration {iters} (want {per_iter}); knots {np.round(lt, 4).tolist()}; "
+        f"MMD {np.round(out['history'], 6).tolist()} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("schedule through the flagship: launch counts or non-finite knots")
+    del ddpm, net, lenet, data
+    torch.cuda.empty_cache()
+    return {"ms_per_iteration": wall / it * 1e3, "peak_gb": peak, "launches": launches,
+            "iterations": it}
+
+
+def schedule_opt_phase(time_ms, dev, weights) -> dict:
+    """Phase 19: schedule optimization through the sampler (19a-19e)."""
+    t0 = time.perf_counter()
+    out = {"vjp_rows": vjp_kernel_rows(time_ms, dev)}
+    out["grads"] = schedule_grads_card_vs_cpu(dev, weights)
+    out["cli"] = schedule_cli_path(dev)
+    out["cifar"] = schedule_cifar_path(dev)
+    out["unet"] = schedule_unet_path(dev, weights)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 19 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -3356,8 +3968,12 @@ def main() -> int:
     cli = fid_out["cli"]
     cli_sweep = cli["compute_stats_forward"]["launches"]["sweep"]
 
-    # ---- phase 19: the kernels line and the result ----
+    # ---- phase 19: schedule optimization through the sampler ----
     log(f"phase 19 at {time.perf_counter() - t_start:.1f} s")
+    sched_opt = schedule_opt_phase(time_ms, dev, weights)
+
+    # ---- phase 20: the kernels line and the result ----
+    log(f"phase 20 at {time.perf_counter() - t_start:.1f} s")
 
     def per_path(rows, launches, n_steps):
         main = [r for r in rows if r["calls_per_step"]]
@@ -3474,6 +4090,15 @@ def main() -> int:
             k["paths"][f"{cli_name} CLI"] = {
                 "launches": n, "launches_per_step": n / steps,
                 "note": "launch count only" + note}
+        # phase 19e: the schedule optimizer through the flagship
+        n = sched_opt["unet"]["launches"][key]
+        k["launches"] += n
+        k["paths"]["schedule optimization through the flagship"] = {
+            "launches": n,
+            "launches_per_step": n / (UNET_OPT["n_steps"] * UNET_OPT["n_iters"]),
+            "note": "launch count only: per sampler step of an iteration, the "
+                    "forward and its checkpoint recompute (rows 1 and 3), the "
+                    "backward (rows 2 and 4)"}
     head = next(r for r in sweep_rows if r["label"] == SWEEP_MAIN[0]
                 and r["mode"] == "fp32" and not r["values"])
     stats = {k: head[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms",
@@ -3501,12 +4126,15 @@ def main() -> int:
                 and r["mode"] == "fp32" and r["values"])
     analytic = {k: head[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}
+    opt_paths = {"schedule CLI": sched_opt["cli"], "schedule at CIFAR-10 scale":
+                 sched_opt["cifar"]}
     kernels.append({
         "name": "boltzmann_moments", "route": "cuda",
         "design": "tall fp32 kernel on TMA rings; cluster kernel for bf16 payloads",
         "source": "pdm_tpu_torch/csrc/boltzmann_moments.cu",
         "replaces": "pdm_tpu/ops/boltzmann_pallas.py:163",
-        "launches": true_launches + cfg_path["true_launches"],
+        "launches": (true_launches + cfg_path["true_launches"]
+                     + sum(v["launches"]["moments"] for v in opt_paths.values())),
         "max_abs_err": max(r["max_abs_err"] for r in moments_rows),
         "worst_of_tolerance": max(r["worst_of_tolerance"] for r in moments_rows),
         "per": "one call (a partials and a merge launch) at the analytic "
@@ -3518,8 +4146,35 @@ def main() -> int:
                   "config analytic sampling": {
                       "launches": cfg_path["true_launches"],
                       "launches_per_step": 2,
-                      "ms_per_step": cfg_path["true_ms_per_step"], **analytic}},
+                      "ms_per_step": cfg_path["true_ms_per_step"], **analytic},
+                  **{path: {"launches": v["launches"]["moments"], "launches_per_step": 2,
+                            "ms_per_iteration": v["ms_per_iteration"]}
+                     for path, v in opt_paths.items()}},
         "shapes": moments_rows,
+    })
+    vjp_rows = sched_opt["vjp_rows"]
+    head = next(r for r in vjp_rows if r["label"] == "gmm1d")
+    kernels.append({
+        "name": "boltzmann_moments_vjp", "route": "cuda",
+        "design": "the posterior mean's VJP: both Grams on row 7's engines (tall "
+                  "fp32, mma.sync in bf16), w.y through a cp.async ring, chunk "
+                  "partials merged in order",
+        "source": "pdm_tpu_torch/csrc/boltzmann_moments_vjp.cu",
+        "replaces": "pdm_tpu/ops/boltzmann.py:128 (no TPU kernel: JAX's autodiff "
+                    "of boltzmann_moments_xla)",
+        "launches": sum(v["launches"]["vjp"] for v in opt_paths.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in vjp_rows),
+        "worst_of_tolerance": max(r["worst_of_tolerance"] for r in vjp_rows),
+        "per": "one call (a partials and a merge launch) at the CLI's shape, fp32: "
+               "B=1024, N=100,000, D=K=1; 'shapes' gives every shape and mode "
+               "(library: the three products through cuBLAS in fp32 with the "
+               "elementwise work)",
+        **{k: head[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+        "paths": {path: {"launches": v["launches"]["vjp"], "launches_per_step": 2,
+                         "ms_per_iteration": v["ms_per_iteration"]}
+                  for path, v in opt_paths.items()},
+        "shapes": vjp_rows,
     })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -440,6 +440,12 @@ __device__ __forceinline__ void gram_bf16(float (&ax)[8][4], float (&ae)[8][4],
 // ---------------------------------------------------------------------------
 // the moment update
 
+// -h / T, the TPU kernel's expansion of the energy (the moments kernels and
+// their VJP: one expression, so the VJP's logits are the forward's)
+__device__ __forceinline__ float logit(float xsq, float s, float invt, float gram, float ysq) {
+  return -((xsq - s * gram) + (s * s) * ysq) * invt;
+}
+
 // Online-softmax accumulators of one query row at one temperature: running
 // max m of the logits, and s0 = sum p, s1 = sum p g, s2 = sum p g^2,
 // sy = sum p v with p = exp(l - m) and g = m - l (the shift-stabilized

@@ -125,11 +125,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred)
                "l"(src), "r"(pred ? 4 : 0));
 }
 
-// -h / T, the TPU kernel's expansion of the energy
-__device__ __forceinline__ float logit(float xsq, float s, float invt, float gram, float ysq) {
-  return -((xsq - s * gram) + (s * s) * ysq) * invt;
-}
-
 // The logits of the block's rows against dataset columns [col0, col0 + kTN)
 // into L[column * kLS + row] (the mma.sync engine: bf16 modes).
 template <int kMode>

@@ -22,6 +22,14 @@ Noise comes from an explicit ``torch.Generator`` on the sampler's device.
 ``(n_steps, B, ...)`` stack) so tests can feed in another sampler's draws.
 ``precision="half"`` runs the model on bf16 inputs and casts x0 back to
 fp32, where the JAX package does; all step arithmetic is fp32.
+
+The loop is differentiable in the grid (``diffusion/schedule_opt.py``
+calls it under grad, outside ``batch_sample``'s inference mode). With
+``remat`` each step, Heun's peeled final step included, runs under
+``torch.utils.checkpoint`` (non-reentrant), JAX's ``jax.checkpoint`` of
+the scan body: the backward recomputes one step's forward at a time. The
+recompute restores only the global RNG, so DDPM's per-step noise is drawn
+before the loop then (the same draws, in the same order, as the loop's).
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import Tensor
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike, resolve_device
 from ..core.temperature import alpha_bar_from_log_temp
@@ -256,6 +265,7 @@ def _sample_loop(
     track_states: bool,
     generator: Optional[torch.Generator],
     noise: Optional[Tensor],
+    remat: bool = False,
 ) -> Tuple[Tensor, Optional[Tensor]]:
     n = tables["log_temp"].shape[0]
 
@@ -265,6 +275,15 @@ def _sample_loop(
     def tab(i):
         return {k: v[i] for k, v in tables.items()}
 
+    def run(step, *args):
+        if remat:
+            return checkpoint(step, *args, use_reentrant=False)
+        return step(*args)
+
+    def draw():
+        return torch.randn(xt.shape, generator=generator, device=xt.device,
+                           dtype=torch.float32)
+
     states = []
 
     def keep(x):
@@ -272,41 +291,50 @@ def _sample_loop(
             states.append(x)
 
     if step_type == "dpmpp_2m":
-        x0_prev = torch.zeros_like(xt)
-        for i in range(n):
-            t = tab(i)
+        def dpm_step(t, xt, x0_prev):
             x0 = ddpm.get_predictions(model_in(xt), t["log_temp"]).x0.float()
             d = (1.0 + t["dpm_k"]) * x0 - t["dpm_k"] * x0_prev
-            xt, x0_prev = t["dpm_cx"] * xt + t["dpm_cd"] * d, x0
+            return t["dpm_cx"] * xt + t["dpm_cd"] * d, x0
+
+        x0_prev = torch.zeros_like(xt)
+        for i in range(n):
+            xt, x0_prev = run(dpm_step, tab(i), xt, x0_prev)
             keep(xt)
     elif step_type == "heun":
-        # every looped step has a real lower level to re-evaluate at; the
-        # final step to sigma = 0 is peeled below and returns x0_hat
-        for i in range(n - 1):
-            t = tab(i)
+        def heun_step(t, xt):
             eps1 = ddpm.get_predictions(model_in(xt), t["log_temp"]).eps.float()
             z = xt / t["sqrt_ab"]
             dsig = t["sig_prev"] - t["sig"]
             x_p = (z + dsig * eps1) * t["sqrt_ab_prev"]
             eps2 = ddpm.get_predictions(
                 model_in(x_p), t["heun_lt_prev"]).eps.float()
-            xt = (z + dsig * 0.5 * (eps1 + eps2)) * t["sqrt_ab_prev"]
+            return (z + dsig * 0.5 * (eps1 + eps2)) * t["sqrt_ab_prev"]
+
+        def final_step(lt, xt):
+            return ddpm.get_predictions(model_in(xt), lt).x0.float()
+
+        # every looped step has a real lower level to re-evaluate at; the
+        # final step to sigma = 0 is peeled below and returns x0_hat
+        for i in range(n - 1):
+            xt = run(heun_step, tab(i), xt)
             keep(xt)
-        xt = ddpm.get_predictions(
-            model_in(xt), tables["log_temp"][-1]).x0.float()
+        xt = run(final_step, tables["log_temp"][-1], xt)
         keep(xt)
     else:
-        for i in range(n):
-            t = tab(i)
+        def step(t, xt, xi):
             preds = ddpm.get_predictions(model_in(xt), t["log_temp"])
             x0 = preds.x0.float()
             if step_type == "ddpm":
-                xi = noise[i] if noise is not None else torch.randn(
-                    xt.shape, generator=generator, device=xt.device,
-                    dtype=torch.float32)
-                xt = t["ddpm_x0"] * x0 + t["ddpm_xt"] * xt + t["ddpm_noise"] * xi
-            else:
-                xt = t["ddim_x0"] * x0 + t["ddim_eps"] * preds.eps.float()
+                return t["ddpm_x0"] * x0 + t["ddpm_xt"] * xt + t["ddpm_noise"] * xi
+            return t["ddim_x0"] * x0 + t["ddim_eps"] * preds.eps.float()
+
+        if step_type == "ddpm" and noise is None and remat:
+            noise = torch.stack([draw() for _ in range(n)])
+        for i in range(n):
+            xi = None
+            if step_type == "ddpm":
+                xi = noise[i] if noise is not None else draw()
+            xt = run(step, tab(i), xt, xi)
             keep(xt)
     if not track_states:
         return xt, None

@@ -36,8 +36,12 @@ class DDPM:
 
     def get_predictions(self, xt: Tensor, log_temp: Tensor) -> Predictions:
         """log_temp -> tau (clipped to [0, 1]) -> alpha_bar of the CLIPPED
-        tau -> forward -> full parametrization triple."""
-        tau = torch.clamp(self.scheduler.tau_from_log_temp(log_temp), 0.0, 1.0)
+        tau -> forward -> full parametrization triple. The clip is
+        jnp.clip's max-then-min, whose gradient splits evenly where tau
+        sits on a bound (a schedule's top knot, at tau = 1), as JAX's."""
+        tau = self.scheduler.tau_from_log_temp(log_temp)
+        tau = torch.minimum(torch.maximum(tau, tau.new_zeros(())),
+                            tau.new_ones(()))
         alpha_bar = alpha_bar_from_log_temp(self.scheduler.log_temp_from_tau(tau))
         pred = self.forward(xt, tau)
         return convert_prediction(pred, xt, alpha_bar, self.parametrization)

@@ -26,6 +26,23 @@ product is fp32. One deliberate difference from the JAX package: there the
 Pallas kernel runs only under ``PDM_BOLTZMANN_IMPL=pallas`` on a TPU and the
 XLA path otherwise; the port has no such switch and no fallback. The
 multi-device shard body is not ported yet.
+
+The posterior mean of the dataset itself is differentiable in the queries,
+``inv_temp`` and ``y_scale`` (:class:`PosteriorMean`), as JAX's autodiff of
+the XLA scan makes it: for a cotangent c_i of mean_i the VJP is
+
+    w_ij = p_ij (c_i.y_j - c_i.mean_i)                   (dL/dl_ij)
+    dL/dx_i       = -inv_temp_i (W_i x_i - y_scale_i sum_j w_ij y_j)
+    dL/dinv_temp_i = -sum_j w_ij H_ij = -sum_j w_ij (log_z_i - l_ij) / inv_temp_i
+    dL/dy_scale_i = -inv_temp_i sum_j w_ij (y_scale_i |y_j|^2 - x_i.y_j)
+
+with W_i = sum_j w_ij (~0, computed). dL/dinv_temp is shift-stabilized as
+the forward's e1_hat: sum_j w_ij = 0, so the energy is taken from log_z
+(log_z - l = -log p >= 0), and W's rounding is not multiplied by log_z. :func:`posterior_mean_vjp`
+dispatches it as the moments: the kernel of
+``csrc/boltzmann_moments_vjp.cu`` on CUDA tensors, the chunked plain
+version :func:`posterior_mean_vjp_reference` on CPU tensors. Both recompute
+p from the forward's saved ``log_z``; neither forms the (B x N) matrix.
 """
 
 from __future__ import annotations
@@ -229,16 +246,151 @@ def boltzmann_moments(
 boltzmann_moments.launches = 0
 
 
+class MeanVJP(NamedTuple):
+    """The posterior mean's VJP: gradients of <c, mean> (fp32)."""
+
+    x: Tensor  # (B, D)
+    inv_temp: Tensor  # (B,)
+    y_scale: Tensor  # (B,)
+
+
+def posterior_mean_vjp_reference(
+    x: Tensor,
+    y: Tensor,
+    inv_temp,
+    y_scale,
+    log_z: Tensor,
+    mean: Tensor,
+    cot: Tensor,
+    *,
+    chunk_size: int = DEFAULT_CHUNK,
+    mxu_precision: Optional[str] = None,
+) -> MeanVJP:
+    """The plain version of the VJP kernel: the VJP of mean = E_p[y_j]
+    (the dataset as the payload) for the cotangent ``cot`` (B, D), from the
+    forward's ``log_z`` and ``mean``. One chunked pass over the dataset
+    recomputes p = exp(l - log_z); the Grams x.y and cot.y in
+    ``mxu_precision``'s arithmetic, the product w.y in fp32.
+    dL/dinv_temp is shift-stabilized (the module docstring): -A_i /
+    inv_temp_i with A_i = sum_j w_ij (log_z_i - l_ij)."""
+    mode = boltzmann_precision_mode(mxu_precision)
+    B = x.shape[0]
+    xf = x.reshape(B, -1).to(torch.float32)
+    yf = y.reshape(y.shape[0], -1).to(torch.float32)
+    cf = cot.reshape(B, -1).to(torch.float32)
+    N, D = yf.shape
+    it = _per_row(inv_temp, B, xf.device)
+    s = _per_row(y_scale, B, xf.device)
+    log_z = log_z.to(torch.float32)
+    cm = torch.sum(cf * mean.reshape(B, -1).to(torch.float32), dim=-1)
+    x_sq = 0.5 * torch.sum(xf * xf, dim=-1)
+    w_sum = torch.zeros_like(x_sq)
+    a_sum = torch.zeros_like(x_sq)
+    s_sum = torch.zeros_like(x_sq)
+    wy = torch.zeros_like(xf)
+    chunk = min(chunk_size or _auto_chunk(B, N, D), N)
+    for lo in range(0, N, chunk):
+        yc = yf[lo:lo + chunk]
+        g = gram(xf, yc.T, mode)
+        y_sq = 0.5 * torch.sum(yc * yc, dim=-1)
+        h = (x_sq[:, None] - s[:, None] * g
+             + torch.square(s)[:, None] * y_sq[None, :])
+        gz = log_z[:, None] + h * it[:, None]  # log_z - l = -log p
+        w = torch.exp(-gz) * (gram(cf, yc.T, mode) - cm[:, None])
+        w_sum = w_sum + torch.sum(w, dim=-1)
+        a_sum = a_sum + torch.sum(w * gz, dim=-1)
+        s_sum = s_sum + torch.sum(
+            w * ((2.0 * s)[:, None] * y_sq[None, :] - g), dim=-1)
+        wy = wy + matmul_fp32(w, yc)
+    return MeanVJP(
+        x=-it[:, None] * (w_sum[:, None] * xf - s[:, None] * wy),
+        inv_temp=-a_sum / it,
+        y_scale=-it * s_sum,
+    )
+
+
+def posterior_mean_vjp(x: Tensor, y, inv_temp, y_scale, log_z: Tensor,
+                       mean: Tensor, cot: Tensor, *,
+                       values: Optional[Tensor] = None,
+                       mxu_precision: Optional[str] = None) -> MeanVJP:
+    """The VJP of the posterior mean of the dataset (see the module
+    docstring). ``y`` is the dataset or, on CUDA, its kernel pack with the
+    dataset itself as ``values``; ``log_z`` and ``mean`` are the forward's.
+    On CUDA tensors the kernel (two launches,
+    ``posterior_mean_vjp.launches``), on CPU tensors the plain version; any
+    other device raises."""
+    mode = boltzmann_precision_mode(mxu_precision)
+    if x.device.type == "cpu":
+        return posterior_mean_vjp_reference(x, y, inv_temp, y_scale, log_z,
+                                            mean, cot, mxu_precision=mode)
+    if x.device.type != "cuda":
+        raise ValueError(f"posterior_mean_vjp runs on CUDA (the kernel) or "
+                         f"the CPU (the plain version), not on {x.device}")
+    from .boltzmann_kernel import posterior_mean_vjp_cuda
+
+    return posterior_mean_vjp_cuda(x, y, inv_temp, y_scale, log_z, mean, cot,
+                                   values=values, mode=mode)
+
+
+# kernel launches since the last reset (set to 0 to reset); the wrapper in
+# ops/boltzmann_kernel.py counts
+posterior_mean_vjp.launches = 0
+
+
+class PosteriorMean(torch.autograd.Function):
+    """mean_i = E_p[y_j] of the Boltzmann posterior over the dataset,
+    differentiable in ``x`` (B, D), ``inv_temp`` (B,) and ``y_scale`` (B,).
+    Forward: the moments (row 7's kernel on CUDA, the plain version on the
+    CPU); backward: :func:`posterior_mean_vjp` from the saved ``log_z``."""
+
+    @staticmethod
+    def forward(ctx, x, inv_temp, y_scale, data, values, mode):
+        xd, it, s = x.detach(), inv_temp.detach(), y_scale.detach()
+        mom = boltzmann_moments(xd, data, it, s, values=values,
+                                compute_mean=values is None, mxu_precision=mode)
+        ctx.data, ctx.values, ctx.mode = data, values, mode
+        ctx.save_for_backward(xd, it, s, mom.log_z, mom.mean)
+        return mom.mean
+
+    @staticmethod
+    def backward(ctx, g_mean):
+        x, it, s, log_z, mean = ctx.saved_tensors
+        vjp = posterior_mean_vjp(x, ctx.data, it, s, log_z, mean, g_mean,
+                                 values=ctx.values, mxu_precision=ctx.mode)
+        return vjp.x, vjp.inv_temp, vjp.y_scale, None, None, None
+
+
 def true_posterior_mean_x0(xt: Tensor, log_temp, data, *,
                            values: Optional[Tensor] = None) -> Tensor:
     """Bayes-optimal denoiser E[x0 | xt] over a finite dataset (VP
     process): energy 0.5 ||xt - sqrt(ab) x0_j||^2 at temperature 1 - ab.
     Cast back to ``xt``'s dtype. ``data`` is the dataset or, on CUDA, its
-    kernel pack, with the dataset itself as ``values``."""
+    kernel pack, with the dataset itself as ``values``. Differentiable in
+    ``xt`` and ``log_temp`` (:class:`PosteriorMean`) when grad mode is on
+    and either requires grad; otherwise the moments op's call alone.
+
+    Under grad the payload must be the dataset (``values`` None, or given
+    with a pack): the VJP reads the dataset as the payload (x.y and c.y on
+    its pack, w.y on its rows), and JAX differentiates only that mean."""
     B = xt.shape[0]
     log_temp = _per_row(log_temp, B, xt.device)
     ab = alpha_bar_from_log_temp(log_temp)
     omab = one_minus_alpha_bar_from_log_temp(log_temp)
+    if torch.is_grad_enabled() and (xt.requires_grad or log_temp.requires_grad):
+        if isinstance(data, Tensor):
+            dataset = values is None or values is data
+        else:  # a kernel pack: the dataset itself comes as values
+            dataset = (values is not None and values.shape[0] == data.n
+                       and values[0].numel() == data.d)
+        if not dataset:
+            raise ValueError(
+                "the posterior mean is differentiable only with the dataset "
+                "as its payload (values None, or the pack's own dataset); a "
+                "differentiable payload mean is not ported (ROADMAP.md)")
+        mean = PosteriorMean.apply(xt.reshape(B, -1), 1.0 / omab,
+                                   torch.sqrt(ab), data, values,
+                                   boltzmann_precision_mode())
+        return mean.reshape(xt.shape).to(xt.dtype)
     out = boltzmann_moments(xt, data, inv_temp=1.0 / omab,
                             y_scale=torch.sqrt(ab), values=values,
                             compute_mean=values is None)

@@ -22,6 +22,14 @@ blocks the card holds):
   the payload sums in registers for the whole chunk;
 * the bf16 modes' other calls (no payload, K % 4 != 0, or K above the
   threshold): the tiled kernel, a block per 64-row tile and chunk.
+
+It also launches the posterior mean's VJP (``csrc/boltzmann_moments_vjp.cu``,
+the backward of :class:`ops.boltzmann.PosteriorMean`): a partials kernel,
+a block per query tile (128 rows in fp32 on the tall engine, 64 in the
+bf16 modes on the mma.sync tiles) and dataset chunk (:func:`plan_vjp`),
+then a merge kernel that adds the chunks' sums in order and finishes the
+three gradients. Two launches per call, counted on
+``posterior_mean_vjp.launches``.
 """
 
 from __future__ import annotations
@@ -99,8 +107,9 @@ def _refuse_grad(**tensors) -> None:
         if isinstance(t, Tensor) and t.requires_grad:
             raise ValueError(
                 f"boltzmann_moments: {name} requires grad, but the moments "
-                f"kernel has no backward; detach it or run the plain "
-                f"version (boltzmann_moments_reference) on the CPU")
+                f"kernel has no backward; the dataset's posterior mean is "
+                f"differentiable through ops.boltzmann.PosteriorMean "
+                f"(true_posterior_mean_x0 under grad); detach it otherwise")
 
 
 def _payload(values: Optional[Tensor], prep: PreparedY,
@@ -253,7 +262,151 @@ def boltzmann_moments_cuda(x: Tensor, y, inv_temp, y_scale=1.0, *,
                            compute_mean=compute_mean, mode=mode))
 
 
+# ---------------------------------------------------------------------------
+# the posterior mean's VJP
+
+
+def vjp_tile_rows(mode: str) -> int:
+    """Query rows per block of the VJP's partials kernel: the tall fp32
+    engine's 128, the mma.sync tiles' 64 in the bf16 modes."""
+    return TALL_TILE_ROWS if mode == "fp32" else TILE_ROWS
+
+
+class VjpPlan(NamedTuple):
+    """How one VJP call runs: query rows per block and the split."""
+
+    tile_rows: int
+    n_chunks: int
+    per_chunk: int  # 128-column sub-tiles per chunk
+
+
+def plan_vjp(mode: str, n_rows: int, n_pad: int, slots: int) -> VjpPlan:
+    """The launch plan of a VJP over ``n_rows`` queries and a dataset
+    padded to ``n_pad`` columns, where the card holds ``slots`` blocks of
+    the mode's partials kernel."""
+    rows = vjp_tile_rows(mode)
+    n_chunks, per_chunk = split_chunks(slots, -(-n_rows // rows),
+                                       -(-n_pad // TILE_COLS))
+    return VjpPlan(rows, n_chunks, per_chunk)
+
+
+class VjpOperands(NamedTuple):
+    """What one VJP launch pair reads, in the kernels' layouts."""
+
+    x_hi: Tensor  # (D, Bp): the queries transposed, 0-padded, the forward's split
+    x_lo: Optional[Tensor]
+    c_hi: Tensor  # (D, Bp): the cotangent, likewise
+    c_lo: Optional[Tensor]
+    prep: PreparedY  # the dataset's pack
+    rows: Tensor  # (5, Bp) fp32: 0.5|x|^2, inv_temp, y_scale, log_z, c.mean
+    y: Tensor  # (N, D) fp32 row-major: the dataset
+    xf: Tensor  # (B, D) fp32: the queries
+    vec4: bool  # D % 4 == 0 and y 16-byte aligned (16-byte copies)
+
+
+def vjp_operands(x: Tensor, y, inv_temp, y_scale, log_z: Tensor,
+                 mean: Tensor, cot: Tensor, *, values: Optional[Tensor] = None,
+                 mode: str) -> VjpOperands:
+    """Check and lay out a VJP call's inputs (``y`` the dataset or its
+    :class:`PreparedY` for ``mode`` with the dataset as ``values``)."""
+    if isinstance(y, PreparedY):
+        if values is None:
+            raise ValueError("the VJP with a PreparedY needs the dataset "
+                             "itself as values")
+        rows_y = values
+    else:
+        rows_y = y if values is None else values
+    dev = x.device
+    prep = pack(y, mode)
+    check_pack(prep, dev)
+    B = x.shape[0]
+    xf = x.reshape(B, -1).to(torch.float32).contiguous()
+    cf = cot.reshape(B, -1).to(torch.float32)
+    D = xf.shape[1]
+    yv = _payload(rows_y, prep, dev)
+    if prep.d != D or yv.shape[1] != D or cf.shape[1] != D:
+        raise ValueError(f"x, the cotangent and the dataset must share D = "
+                         f"{prep.d}: {tuple(xf.shape)}, {tuple(cf.shape)}, "
+                         f"{tuple(yv.shape)}")
+    b_pad = round_up(B, vjp_tile_rows(prep.mode))
+
+    def transposed(t: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+        tt = torch.zeros((D, b_pad), dtype=torch.float32, device=dev)
+        tt[:, :B] = t.T
+        return split(tt, prep.mode)
+
+    x_hi, x_lo = transposed(xf)
+    c_hi, c_lo = transposed(cf)
+    # padded rows: inv_temp 0, scale 1, a zero cotangent; never read
+    rows = torch.zeros((5, b_pad), dtype=torch.float32, device=dev)
+    rows[2] = 1.0
+    rows[0, :B] = 0.5 * torch.sum(xf * xf, dim=1)
+    rows[1, :B] = torch.as_tensor(inv_temp, dtype=torch.float32, device=dev)
+    rows[2, :B] = torch.as_tensor(y_scale, dtype=torch.float32, device=dev)
+    rows[3, :B] = log_z.to(torch.float32)
+    rows[4, :B] = torch.sum(cf * mean.reshape(B, -1).to(torch.float32), dim=1)
+    vec4 = D % 4 == 0 and yv.data_ptr() % 16 == 0
+    return VjpOperands(x_hi, x_lo, c_hi, c_lo, prep, rows, yv, xf, vec4)
+
+
+def vjp_device_plan(ops: VjpOperands) -> VjpPlan:
+    """plan_vjp for laid-out operands on their card."""
+    dev = ops.x_hi.device
+    slots = _resident_blocks("moments_vjp", dev.index or 0,
+                             MODE_CODES[ops.prep.mode], int(ops.vec4))
+    return plan_vjp(ops.prep.mode, ops.xf.shape[0], ops.prep.yt_hi.shape[1],
+                    slots)
+
+
+def vjp_launch(ops: VjpOperands) -> _boltzmann.MeanVJP:
+    """The VJP's partials and merge launches on laid-out operands."""
+    prep = ops.prep
+    dev = ops.x_hi.device
+    D, b_pad = ops.x_hi.shape
+    B = ops.xf.shape[0]
+    plan = vjp_device_plan(ops)
+    partials = torch.empty((plan.n_chunks, 3, b_pad), dtype=torch.float32,
+                           device=dev)
+    sy = torch.empty((plan.n_chunks, b_pad, D), dtype=torch.float32, device=dev)
+    dx = torch.empty((B, D), dtype=torch.float32, device=dev)
+    dpar = torch.empty((2, B), dtype=torch.float32, device=dev)
+
+    def ptr(t: Optional[Tensor]) -> Optional[int]:
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        name = "pdm_boltzmann_moments_vjp"
+        err = _build.entry(name, _VJP_ARGS)(
+            ptr(ops.x_hi), ptr(ops.x_lo), ptr(ops.c_hi), ptr(ops.c_lo),
+            ptr(prep.yt_hi), ptr(prep.yt_lo), ptr(prep.ysq), ptr(ops.rows),
+            ptr(ops.y), ptr(partials), ptr(sy), b_pad, D,
+            prep.yt_hi.shape[1], prep.n, plan.n_chunks, plan.per_chunk,
+            MODE_CODES[prep.mode], int(ops.vec4), stream)
+        _build.check(err, name)
+        _boltzmann.posterior_mean_vjp.launches += 1
+        name = "pdm_boltzmann_moments_vjp_merge"
+        err = _build.entry(name, _VJP_MERGE_ARGS)(
+            ptr(partials), ptr(sy), ptr(ops.rows), ptr(ops.xf), ptr(dx),
+            ptr(dpar), B, b_pad, D, plan.n_chunks, stream)
+        _build.check(err, name)
+        _boltzmann.posterior_mean_vjp.launches += 1
+    return _boltzmann.MeanVJP(x=dx, inv_temp=dpar[0], y_scale=dpar[1])
+
+
+def posterior_mean_vjp_cuda(x: Tensor, y, inv_temp, y_scale, log_z: Tensor,
+                            mean: Tensor, cot: Tensor, *,
+                            values: Optional[Tensor] = None,
+                            mode: str) -> _boltzmann.MeanVJP:
+    """The VJP kernel on CUDA tensors (see
+    ``ops.boltzmann.posterior_mean_vjp``)."""
+    return vjp_launch(vjp_operands(x, y, inv_temp, y_scale, log_z, mean, cot,
+                                   values=values, mode=mode))
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PARTIALS_ARGS = [_P] * 11 + [_I] * 9 + [_P]
 _CLUSTER_ARGS = [_P] * 11 + [_I] * 10 + [_P]
 _MERGE_ARGS = [_P] * 4 + [_I] * 4 + [_P]
+_VJP_ARGS = [_P] * 11 + [_I] * 8 + [_P]
+_VJP_MERGE_ARGS = [_P] * 6 + [_I] * 4 + [_P]

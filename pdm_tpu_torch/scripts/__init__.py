@@ -8,4 +8,6 @@ do, under the working directory: ``stats/``, ``checkpoints/``, ``logs/``,
 Pipeline: compute_stats_forward -> train_diffusion -> sample ->
 compute_fid (train_lenet first for MNIST's FID; convert_inception_weights
 for Inception's; convert_orbax_checkpoint to sample a JAX-trained model).
+optimize_schedule optimizes a sampling schedule's knots through the
+sampler (the analytic denoiser on the 1-D GMM) -> optimized_log_temp.npz.
 """

@@ -85,6 +85,7 @@ any error or disagreement:
    precision modes, with the payload (and at the main shape without), at
    CIFAR-10 scale (B = 1000 queries, N = 50,000, D = K = 3072, the data as
    payload) and at high_dim_exp's D = 100, gmm1d's D = 1 with N = 1e6, the
+   schedule CLI's B = 1024 over N = 100,000 at D = K = 1, the
    MC metric's K = 2D payload, one query at no tile's multiple, and the
    MC metric's K = 2D = 6144 at CIFAR-10's D (above the cluster kernel's
    threshold); queries noised from data points with one temperature per
@@ -185,20 +186,26 @@ any error or disagreement:
    over the 1-D GMM's 100,000 points, D = 1; CIFAR-10 scale, B 256, N
    50,000, D 3072, in all three modes; an edge shape with D % 4 != 0),
    queries at one temperature per row, the first at T = 1e-4 (one-hot),
-   each within vjp_tolerance and two calls bitwise equal; times beside
-   the bound, the plain version and the library composition. (b) The knot
+   each within vjp_tolerance and two calls bitwise equal; the plan each
+   call took printed (the small-D path, one fused kernel and the merge, 2
+   launches, for fp32 at D <= 4; else the Grams kernel, the split-K
+   product and the merge, 3 launches at one segment), its launches exact;
+   times beside the bound, the plain version and the library composition.
+   (b) The knot
    gradient of mean(x^2) through sample_with_grid, card against CPU, from
    the same x_init and noise: TrueDDPM on the 1-D GMM for all four step
    types, the fp32 flagship at batch 2 with remat. (c) The CLI
    (pdm_tpu_torch/scripts/optimize_schedule.py) in this process through
-   main() at JAX's constants: rows 7 and 7b two launches each a step,
-   exactly; a finite
+   main() at JAX's constants: rows 7 and 7b two launches each a step
+   (row 7b on the small-D path), exactly; a finite
    history; the npz read back, its knots sorted and in the clip range;
    JAX's criterion (MMD after <= 1.2 x before over three seeds of 512
    samples); its wall time. (d) The schedule optimizer through TrueDDPM
    at CIFAR-10 scale (50,000 N(0, 1) points, 10 knots, batch 256, DDIM, 3
-   iterations): ms per iteration, exact launch counts, rows 7 and 7b's
-   share of the card's time and the idle share (profiler). (e) Through the
+   iterations): ms per iteration, exact launch counts (row 7 two a step,
+   row 7b three on the large-D path), rows 7 and 7b's share of the card's
+   time and the idle share (profiler); 19c and 19d print the figures of
+   row 7b's previous design beside their own. (e) Through the
    bf16 flagship (seeded weights, eval mode) as
    scripts/optimize_schedule_flagship.py sets it (5 knots, batch 256,
    DDPM, remat, rate 0.05, LeNet-feature MMD), 5 iterations (cut from
@@ -355,6 +362,9 @@ ROUNDTRIP_TOL = 1e-4  # tau -> log_temp -> tau on the knot schedules
 MOMENTS_MAIN = ("cifar10", 1000, 50_000, 3072, 3072)
 MOMENTS_EDGES = (("high_dim", 1000, 50_000, 100, 100),
                  ("gmm1d", 100, 1_000_000, 1, 1),
+                 # the schedule CLI's shape (scripts/optimize_schedule.py:
+                 # batch 1024 over 100,000 points, D = K = 1)
+                 ("cli", 1024, 100_000, 1, 1),
                  ("mc_metric", 256, 20_000, 100, 200),
                  ("edges", 1, 5003, 333, 131),
                  # the MC metric's K = 2D payload at CIFAR-10's D: above the
@@ -414,6 +424,17 @@ VJP_SHAPES = (("gmm1d", 1024, 100_000, 1, (-4.0, 1.0), ("fp32",)),
               ("edges", 37, 1_003, 5, (-4.0, 1.0), SWEEP_MODES))
 VJP_SUBSET = 64  # rows held against the plain version, over the T range
 VJP_EPI_OPS = 16  # operations per (row, point) of the VJP's epilogue
+# row 7b's launches a call on each path at one segment of the dataset
+# (ops/boltzmann_kernel.py::plan_vjp): the small-D kernel and the merge;
+# the Grams kernel, the product and the merge
+VJP_LAUNCHES = {"small": 2, "large": 3}
+# Phases 19c and 19d with row 7b's previous design (128-wide tiles at every
+# D, the product added into device memory per sub-tile; NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md section 5), printed beside this run's: ms an
+# iteration, and row 7b's ms a call at the CLI's shape and share of the
+# card at CIFAR scale
+BEFORE_REDESIGN = {"cli_ms_per_iteration": 37.3, "cli_row7b_ms": 1.3196,
+                   "cifar_ms_per_iteration": 110.27, "cifar_row7b_share": 0.564}
 # Card vs CPU gradients (phase 19b): the knot gradient of mean(x^2)
 # through sample_with_grid on the 1-D GMM (N, knots, batch), at the CPU
 # tests' tolerances of scale (tests/test_torch_schedule_opt.py: sample,
@@ -2888,9 +2909,17 @@ def vjp_kernel_rows(time_ms, dev):
                    "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "tflops": 2 * B * N * D * (2 * SWEEP_PASSES[mode] + 1) / ms / 1e9}
             rows.append(row)
-            ok = launched == 2 and finite and worst <= 1.0 and same
-            log(f"moments VJP {label} B={B} N={N} D={D} {mode}: {plan.tile_rows}-row blocks, "
-                f"{plan.n_chunks} chunks of {plan.per_chunk} sub-tiles; launches {launched}, "
+            want_launches = VJP_LAUNCHES[plan.path]
+            ok = (launched == want_launches and len(plan.segments) == 1 and finite
+                  and worst <= 1.0 and same)
+            products = ("" if plan.path == "small" else
+                        f", product {plan.product_chunks} chunks of "
+                        f"{plan.product_per_chunk} sub-tiles, w^T "
+                        f"{plan.workspace * 4 / 1e6:.1f} MB")
+            log(f"moments VJP {label} B={B} N={N} D={D} {mode}: {plan.path}-D path, "
+                f"{plan.tile_rows}-row blocks, {len(plan.segments)} segment(s), "
+                f"{plan.n_chunks} chunks of {plan.per_chunk} sub-tiles{products}; launches "
+                f"{launched} (want {want_launches}), "
                 f"bitwise repeat {same}, max_abs_err {err:.3g} (worst {worst:.3g} of the "
                 f"tolerance; {first_order} of {int(sub.numel())} rows within first order) "
                 f"kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms {plain_ms:.4f} library_ms "
@@ -2898,7 +2927,8 @@ def vjp_kernel_rows(time_ms, dev):
                 f"{row['tflops']:.2f} TFLOP/s {'ok' if ok else 'MISMATCH'}")
             if not ok:
                 fail(f"moments VJP kernel disagrees with its plain version (or launched "
-                     f"{launched} kernels, or two calls differ) at {label} {mode}")
+                     f"{launched} kernels for {want_launches}, or two calls differ) at "
+                     f"{label} {mode}")
             del prep, mom, got
             torch.cuda.empty_cache()
         del x, y, c
@@ -3032,7 +3062,9 @@ def schedule_cli_path(dev) -> dict:
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
-    want = 2 * cli.N_STEPS * cli.N_ITERS
+    # a step: row 7's partials and merge, row 7b on its small-D path
+    want = {"moments": 2 * cli.N_STEPS * cli.N_ITERS,
+            "vjp": VJP_LAUNCHES["small"] * cli.N_STEPS * cli.N_ITERS}
     lo, hi = math.log(cli.MIN_TEMP), math.log(cli.MAX_TEMP)
     n_eval, seeds, n_ref, sigma, ratio = CLI_EVAL
     data = generate_gmm_1d(cli.N_DATA)
@@ -3050,14 +3082,17 @@ def schedule_cli_path(dev) -> dict:
     init = discretize_schedule(sched, cli.N_STEPS, device=dev)
     before = float(np.mean([eval_mmd(init, k) for k in range(seeds)]))
     after = float(np.mean([eval_mmd(lt, k) for k in range(seeds)]))
-    ok = (launches == {"moments": want, "vjp": want} and bool(np.isfinite(history).all())
+    ok = (launches == want and bool(np.isfinite(history).all())
           and len(history) == cli.N_ITERS and bool(np.all(np.diff(lt) >= 0))
           and lt.min() >= lo - 1e-6 and lt.max() <= hi + 1e-6
           and np.array_equal(lt, out["log_temp"]) and after <= ratio * before)
     log(f"schedule CLI: optimize_schedule main() ({cli.N_ITERS} iterations at batch "
         f"{cli.BATCH_SIZE}, {cli.N_STEPS} knots, {cli.STEP_TYPE}, N={cli.N_DATA:,}) in "
-        f"{wall:.2f} s ({wall / cli.N_ITERS * 1e3:.3f} ms/iteration); launches row 7 "
-        f"{launches['moments']}, row 7b {launches['vjp']} (want {want} each: two a step); "
+        f"{wall:.2f} s ({wall / cli.N_ITERS * 1e3:.3f} ms/iteration; before row 7b's "
+        f"redesign {BEFORE_REDESIGN['cli_ms_per_iteration']} with row 7b "
+        f"{BEFORE_REDESIGN['cli_row7b_ms']} ms a call); launches row 7 "
+        f"{launches['moments']}, row 7b {launches['vjp']} (want {want['moments']} and "
+        f"{want['vjp']}: two a step each); "
         f"MMD {history[0]:.6g} -> {history[-1]:.6g}; knots {np.round(lt, 4).tolist()}; "
         f"JAX's criterion over {seeds} seeds of {n_eval} samples: MMD {before:.6g} -> "
         f"{after:.6g} (<= {ratio} x) {'ok' if ok else 'FAILED'}")
@@ -3107,20 +3142,24 @@ def schedule_cifar_path(dev) -> dict:
     wall = time.perf_counter() - t0
     launches = {"moments": bz.boltzmann_moments.launches,
                 "vjp": bz.posterior_mean_vjp.launches}
-    want = 2 * n_steps * iters
+    # a step: row 7's partials and merge; row 7b's Grams, product and merge
+    want = {"moments": 2 * n_steps * iters, "vjp": VJP_LAUNCHES["large"] * n_steps * iters}
     wall_p, busy, share = card_kernel_share(lambda: run(1, 2), {"row 7": "moments_",
                                                                 "row 7b": "vjp_"})
     ms_iter = wall / iters * 1e3
     busy_of = max(busy, 1e-9)
     finite = bool(np.isfinite(out["log_temp"]).all() and np.isfinite(out["history"]).all())
-    ok = launches == {"moments": want, "vjp": want} and finite
+    ok = launches == want and finite
     log(f"schedule at CIFAR-10 scale: TrueDDPM over {N:,} N(0, 1) points of 3x32x32, "
-        f"{n_steps} knots, batch {B}, DDIM: {ms_iter:.2f} ms/iteration over {iters}; "
-        f"launches row 7 {launches['moments']}, row 7b {launches['vjp']} (want {want} "
-        f"each); one profiled iteration {wall_p:.2f} ms wall, card busy {busy:.2f} ms "
+        f"{n_steps} knots, batch {B}, DDIM: {ms_iter:.2f} ms/iteration over {iters} "
+        f"(before row 7b's redesign {BEFORE_REDESIGN['cifar_ms_per_iteration']}); "
+        f"launches row 7 {launches['moments']}, row 7b {launches['vjp']} (want "
+        f"{want['moments']} and {want['vjp']}); one profiled iteration {wall_p:.2f} ms "
+        f"wall, card busy {busy:.2f} ms "
         f"(idle {max(0.0, 1.0 - busy / wall_p):.1%}): row 7 {share['row 7']:.2f} ms "
         f"({share['row 7'] / busy_of:.1%}), row 7b {share['row 7b']:.2f} ms "
-        f"({share['row 7b'] / busy_of:.1%}); MMD {out['history'].tolist()} "
+        f"({share['row 7b'] / busy_of:.1%}; before its redesign "
+        f"{BEFORE_REDESIGN['cifar_row7b_share']:.1%}); MMD {out['history'].tolist()} "
         f"{'ok' if ok else 'FAILED'}")
     if not ok:
         fail("schedule at CIFAR-10 scale: launch counts or non-finite knots")
@@ -4156,8 +4195,10 @@ def main() -> int:
     head = next(r for r in vjp_rows if r["label"] == "gmm1d")
     kernels.append({
         "name": "boltzmann_moments_vjp", "route": "cuda",
-        "design": "the posterior mean's VJP: both Grams on row 7's engines (tall "
-                  "fp32, mma.sync in bf16), w.y through a cp.async ring, chunk "
+        "design": "the posterior mean's VJP: fp32 at D <= 4 one fused kernel, a "
+                  "thread a query row over a chunk of the dataset; else both Grams "
+                  "on row 7's engines (tall fp32, mma.sync in bf16) writing w^T, "
+                  "then a split-K fp32 product w.Y on the tall engine; chunk "
                   "partials merged in order",
         "source": "pdm_tpu_torch/csrc/boltzmann_moments_vjp.cu",
         "replaces": "pdm_tpu/ops/boltzmann.py:128 (no TPU kernel: JAX's autodiff "
@@ -4165,15 +4206,16 @@ def main() -> int:
         "launches": sum(v["launches"]["vjp"] for v in opt_paths.values()),
         "max_abs_err": max(r["max_abs_err"] for r in vjp_rows),
         "worst_of_tolerance": max(r["worst_of_tolerance"] for r in vjp_rows),
-        "per": "one call (a partials and a merge launch) at the CLI's shape, fp32: "
+        "per": "one call (the small-D kernel and the merge) at the CLI's shape, fp32: "
                "B=1024, N=100,000, D=K=1; 'shapes' gives every shape and mode "
                "(library: the three products through cuBLAS in fp32 with the "
                "elementwise work)",
         **{k: head[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")},
-        "paths": {path: {"launches": v["launches"]["vjp"], "launches_per_step": 2,
+        "paths": {path: {"launches": v["launches"]["vjp"],
+                         "launches_per_step": VJP_LAUNCHES[kind],
                          "ms_per_iteration": v["ms_per_iteration"]}
-                  for path, v in opt_paths.items()},
+                  for (path, v), kind in zip(opt_paths.items(), ("small", "large"))},
         "shapes": vjp_rows,
     })
     log(f"total {time.perf_counter() - t_start:.1f} s")

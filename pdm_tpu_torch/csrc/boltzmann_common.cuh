@@ -267,6 +267,13 @@ struct TallGram {
   // ring's stages
   __device__ static void run(float (&acc)[NQ][PR][PC], const TallMaps& maps, int row0,
                              int col0, int D, float* smem, Ring& ring) {
+    run_from(acc, maps, row0, col0, 0, 0, D, smem, ring);
+  }
+
+  // The same over the n_k contraction rows that start at row kq of the
+  // query maps and at row ky of maps.y (a split-K product's chunk)
+  __device__ static void run_from(float (&acc)[NQ][PR][PC], const TallMaps& maps, int row0,
+                                  int col0, int kq, int ky, int n_k, float* smem, Ring& ring) {
 #pragma unroll
     for (int q = 0; q < NQ; ++q)
 #pragma unroll
@@ -275,9 +282,9 @@ struct TallGram {
         for (int j = 0; j < PC; ++j) acc[q][i][j] = 0.f;
     auto issue = [&](int slot, int kt, uint64_t* bar) {
       float* xs = smem + slot * kStageFloats;
-      tma_load_2d(xs, &maps.q0, bar, row0, kt * TK);
-      if constexpr (NQ == 2) tma_load_2d(xs + TK * kRows, &maps.q1, bar, row0, kt * TK);
-      tma_load_2d(xs + NQ * TK * kRows, &maps.y, bar, col0, kt * TK);
+      tma_load_2d(xs, &maps.q0, bar, row0, kq + kt * TK);
+      if constexpr (NQ == 2) tma_load_2d(xs + TK * kRows, &maps.q1, bar, row0, kq + kt * TK);
+      tma_load_2d(xs + NQ * TK * kRows, &maps.y, bar, col0, ky + kt * TK);
     };
     int rg, cg;
     patch(rg, cg);
@@ -314,7 +321,7 @@ struct TallGram {
             for (int j = 0; j < PC; ++j) acc[q][i][j] = fmaf(xr[q][i], yr[j], acc[q][i][j]);
       }
     };
-    ring.run((D + TK - 1) / TK, kStageFloats * 4, issue, compute);
+    ring.run((n_k + TK - 1) / TK, kStageFloats * 4, issue, compute);
   }
 };
 

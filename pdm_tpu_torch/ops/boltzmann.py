@@ -42,7 +42,9 @@ the forward's e1_hat: sum_j w_ij = 0, so the energy is taken from log_z
 dispatches it as the moments: the kernel of
 ``csrc/boltzmann_moments_vjp.cu`` on CUDA tensors, the chunked plain
 version :func:`posterior_mean_vjp_reference` on CPU tensors. Both recompute
-p from the forward's saved ``log_z``; neither forms the (B x N) matrix.
+p from the forward's saved ``log_z``; neither forms the whole (B x N)
+matrix (the kernels' large-D path holds w for a bounded segment of the
+dataset at a time).
 """
 
 from __future__ import annotations
@@ -316,7 +318,8 @@ def posterior_mean_vjp(x: Tensor, y, inv_temp, y_scale, log_z: Tensor,
     """The VJP of the posterior mean of the dataset (see the module
     docstring). ``y`` is the dataset or, on CUDA, its kernel pack with the
     dataset itself as ``values``; ``log_z`` and ``mean`` are the forward's.
-    On CUDA tensors the kernel (two launches,
+    On CUDA tensors the kernels (two launches at D <= 4 in fp32, three at
+    one segment otherwise: ``ops.boltzmann_kernel.plan_vjp``; counted on
     ``posterior_mean_vjp.launches``), on CPU tensors the plain version; any
     other device raises."""
     mode = boltzmann_precision_mode(mxu_precision)

@@ -24,11 +24,14 @@ blocks the card holds):
   threshold): the tiled kernel, a block per 64-row tile and chunk.
 
 It also launches the posterior mean's VJP (``csrc/boltzmann_moments_vjp.cu``,
-the backward of :class:`ops.boltzmann.PosteriorMean`): a partials kernel,
-a block per query tile (128 rows in fp32 on the tall engine, 64 in the
-bf16 modes on the mma.sync tiles) and dataset chunk (:func:`plan_vjp`),
-then a merge kernel that adds the chunks' sums in order and finishes the
-three gradients. Two launches per call, counted on
+the backward of :class:`ops.boltzmann.PosteriorMean`) on one of two paths
+(:func:`plan_vjp`, pure): fp32 calls with D <= ``VJP_SMALL_MAX_D`` run one
+fused kernel, a thread a query row over a chunk of the dataset, then the
+merge (2 launches); the others run, per segment of the dataset, a Grams
+kernel (128 rows a block in fp32 on the tall engine, 64 in the bf16 modes
+on the mma.sync tiles) that writes the weights w^T into a workspace of at
+most ``VJP_WORKSPACE`` floats and a split-K product kernel w.Y, then the
+merge (3 launches at one segment). Every launch counts on
 ``posterior_mean_vjp.launches``.
 """
 
@@ -265,33 +268,79 @@ def boltzmann_moments_cuda(x: Tensor, y, inv_temp, y_scale=1.0, *,
 # ---------------------------------------------------------------------------
 # the posterior mean's VJP
 
+# fp32 calls with D <= VJP_SMALL_MAX_D take the small-D kernel: per pair a
+# few FFMAs and the epilogue, with no 128-wide tiles of zeros (the schedule
+# CLI's D = 1); the bf16 modes keep their mma.sync Grams at every D
+VJP_SMALL_MAX_D = 4
+# floats of w^T one pass of the large-D path holds; a larger call runs the
+# Grams and the product once per segment of the dataset (a pass holds at
+# least one 128-column sub-tile)
+VJP_WORKSPACE = 1 << 26
+VJP_KERNEL_GRAMS, VJP_KERNEL_PRODUCT = 0, 1  # the large-D kernels' codes
 
-def vjp_tile_rows(mode: str) -> int:
-    """Query rows per block of the VJP's partials kernel: the tall fp32
-    engine's 128, the mma.sync tiles' 64 in the bf16 modes."""
-    return TALL_TILE_ROWS if mode == "fp32" else TILE_ROWS
+
+def vjp_path(mode: str, D: int) -> str:
+    """"small" (one fused kernel) or "large" (the Grams, then the product)."""
+    return "small" if mode == "fp32" and D <= VJP_SMALL_MAX_D else "large"
 
 
 class VjpPlan(NamedTuple):
-    """How one VJP call runs: query rows per block and the split."""
+    """How one VJP call runs."""
 
-    tile_rows: int
-    n_chunks: int
-    per_chunk: int  # 128-column sub-tiles per chunk
+    path: str  # "small" or "large"
+    tile_rows: int  # query rows per block of the first kernel
+    b_pad: int  # rows padded to a multiple of 128 (the product's tile)
+    segments: Tuple[Tuple[int, int], ...]  # (first sub-tile, sub-tiles) a pass
+    per_chunk: int  # 128-column sub-tiles per chunk of the first kernel
+    n_chunks: int  # its chunks over all passes
+    # the chunks of the sums of w y: the product's split over K (on the
+    # small path the small kernel's own chunks)
+    product_per_chunk: int
+    product_chunks: int  # over all passes
+    workspace: int  # floats of w^T a pass holds (0 on the small path)
+    launches: int
 
 
-def plan_vjp(mode: str, n_rows: int, n_pad: int, slots: int) -> VjpPlan:
-    """The launch plan of a VJP over ``n_rows`` queries and a dataset
-    padded to ``n_pad`` columns, where the card holds ``slots`` blocks of
-    the mode's partials kernel."""
-    rows = vjp_tile_rows(mode)
-    n_chunks, per_chunk = split_chunks(slots, -(-n_rows // rows),
-                                       -(-n_pad // TILE_COLS))
-    return VjpPlan(rows, n_chunks, per_chunk)
+def _pass_chunks(segments, per_chunk: int) -> int:
+    return sum(-(-n // per_chunk) for _, n in segments)
+
+
+def plan_vjp(mode: str, n_rows: int, D: int, n_pad: int, slots: int,
+             product_slots: int = 1) -> VjpPlan:
+    """The launch plan of a VJP over ``n_rows`` queries of ``D`` dimensions
+    and a dataset padded to ``n_pad`` columns, where the card holds
+    ``slots`` blocks of the path's first kernel and ``product_slots`` of
+    the product's. The small-D path: one kernel over the dataset in chunks,
+    then the merge (2 launches). The large-D path: per segment of at most
+    VJP_WORKSPACE / b_pad columns (whole sub-tiles, the segments as even as
+    whole sub-tiles allow), the Grams kernel and the product, then the
+    merge (2 per segment + 1); each kernel's chunks are split_chunks' for
+    the largest segment."""
+    path = vjp_path(mode, D)
+    # query rows per block of the first kernel: one a thread on the small-D
+    # path, the tall fp32 engine's 128, the mma.sync tiles' 64 (bf16 modes)
+    rows = TALL_TILE_ROWS if mode == "fp32" else TILE_ROWS
+    b_pad = round_up(n_rows, TALL_TILE_ROWS)
+    n_tiles = -(-n_pad // TILE_COLS)
+    if path == "small":
+        segments = ((0, n_tiles),)
+        _, per = split_chunks(slots, b_pad // rows, n_tiles)
+        n = _pass_chunks(segments, per)
+        return VjpPlan(path, rows, b_pad, segments, per, n, per, n, 0, 2)
+    most = max(1, VJP_WORKSPACE // (b_pad * TILE_COLS))
+    n_seg = -(-n_tiles // most)
+    seg = -(-n_tiles // n_seg)
+    segments = tuple((k * seg, min(seg, n_tiles - k * seg)) for k in range(n_seg))
+    _, per = split_chunks(slots, b_pad // rows, seg)
+    out_tiles = (b_pad // TALL_TILE_ROWS) * -(-D // TILE_COLS)
+    _, p_per = split_chunks(product_slots, out_tiles, seg)
+    return VjpPlan(path, rows, b_pad, segments, per, _pass_chunks(segments, per),
+                   p_per, _pass_chunks(segments, p_per), seg * TILE_COLS * b_pad,
+                   2 * n_seg + 1)
 
 
 class VjpOperands(NamedTuple):
-    """What one VJP launch pair reads, in the kernels' layouts."""
+    """What one VJP call reads, in the kernels' layouts."""
 
     x_hi: Tensor  # (D, Bp): the queries transposed, 0-padded, the forward's split
     x_lo: Optional[Tensor]
@@ -299,16 +348,18 @@ class VjpOperands(NamedTuple):
     c_lo: Optional[Tensor]
     prep: PreparedY  # the dataset's pack
     rows: Tensor  # (5, Bp) fp32: 0.5|x|^2, inv_temp, y_scale, log_z, c.mean
-    y: Tensor  # (N, D) fp32 row-major: the dataset
+    y: Optional[Tensor]  # (N, ldy) fp32 row-major (the product's; None on the small path)
     xf: Tensor  # (B, D) fp32: the queries
-    vec4: bool  # D % 4 == 0 and y 16-byte aligned (16-byte copies)
 
 
 def vjp_operands(x: Tensor, y, inv_temp, y_scale, log_z: Tensor,
                  mean: Tensor, cot: Tensor, *, values: Optional[Tensor] = None,
                  mode: str) -> VjpOperands:
     """Check and lay out a VJP call's inputs (``y`` the dataset or its
-    :class:`PreparedY` for ``mode`` with the dataset as ``values``)."""
+    :class:`PreparedY` for ``mode`` with the dataset as ``values``). The
+    product reads the dataset row-major through TMA, whose rows must be 16
+    bytes apart and aligned: a dataset of D % 4 != 0 (or misaligned) is
+    copied once per call into rows padded to a multiple of 4."""
     if isinstance(y, PreparedY):
         if values is None:
             raise ValueError("the VJP with a PreparedY needs the dataset "
@@ -328,69 +379,106 @@ def vjp_operands(x: Tensor, y, inv_temp, y_scale, log_z: Tensor,
         raise ValueError(f"x, the cotangent and the dataset must share D = "
                          f"{prep.d}: {tuple(xf.shape)}, {tuple(cf.shape)}, "
                          f"{tuple(yv.shape)}")
-    b_pad = round_up(B, vjp_tile_rows(prep.mode))
+    b_pad = round_up(B, TALL_TILE_ROWS)
 
     def transposed(t: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
-        tt = torch.zeros((D, b_pad), dtype=torch.float32, device=dev)
-        tt[:, :B] = t.T
+        if b_pad == B:
+            tt = t.T.contiguous()
+        else:
+            tt = torch.zeros((D, b_pad), dtype=torch.float32, device=dev)
+            tt[:, :B] = t.T
         return split(tt, prep.mode)
 
     x_hi, x_lo = transposed(xf)
     c_hi, c_lo = transposed(cf)
-    # padded rows: inv_temp 0, scale 1, a zero cotangent; never read
-    rows = torch.zeros((5, b_pad), dtype=torch.float32, device=dev)
-    rows[2] = 1.0
-    rows[0, :B] = 0.5 * torch.sum(xf * xf, dim=1)
-    rows[1, :B] = torch.as_tensor(inv_temp, dtype=torch.float32, device=dev)
-    rows[2, :B] = torch.as_tensor(y_scale, dtype=torch.float32, device=dev)
-    rows[3, :B] = log_z.to(torch.float32)
-    rows[4, :B] = torch.sum(cf * mean.reshape(B, -1).to(torch.float32), dim=1)
-    vec4 = D % 4 == 0 and yv.data_ptr() % 16 == 0
-    return VjpOperands(x_hi, x_lo, c_hi, c_lo, prep, rows, yv, xf, vec4)
+
+    def per_row(v) -> Tensor:
+        return torch.as_tensor(v, dtype=torch.float32, device=dev).expand(B)
+
+    # 0.5|x|^2 as the forward's operands() sums it (the logits are its own)
+    terms = torch.stack([
+        0.5 * torch.sum(xf * xf, dim=1), per_row(inv_temp), per_row(y_scale),
+        log_z.to(torch.float32),
+        torch.sum(cf * mean.reshape(B, -1).to(torch.float32), dim=1)])
+    if b_pad == B:
+        rows = terms
+    else:  # padded rows: inv_temp 0, scale 1, a zero cotangent; never read
+        rows = torch.zeros((5, b_pad), dtype=torch.float32, device=dev)
+        rows[2] = 1.0
+        rows[:, :B] = terms
+    y_rows = None
+    if vjp_path(prep.mode, D) == "large":
+        y_rows = yv
+        if D % 4 != 0 or yv.data_ptr() % 16 != 0:
+            y_rows = torch.zeros((prep.n, round_up(D, 4)), dtype=torch.float32,
+                                 device=dev)
+            y_rows[:, :D] = yv
+    return VjpOperands(x_hi, x_lo, c_hi, c_lo, prep, rows, y_rows, xf)
 
 
 def vjp_device_plan(ops: VjpOperands) -> VjpPlan:
     """plan_vjp for laid-out operands on their card."""
-    dev = ops.x_hi.device
-    slots = _resident_blocks("moments_vjp", dev.index or 0,
-                             MODE_CODES[ops.prep.mode], int(ops.vec4))
-    return plan_vjp(ops.prep.mode, ops.xf.shape[0], ops.prep.yt_hi.shape[1],
-                    slots)
+    dev, mode, D = ops.x_hi.device, ops.prep.mode, ops.xf.shape[1]
+    idx, code = dev.index or 0, MODE_CODES[mode]
+    if vjp_path(mode, D) == "small":
+        slots = _resident_blocks("moments_vjp", idx, code, 2 + D)
+        product_slots = 1
+    else:
+        slots = _resident_blocks("moments_vjp", idx, code, VJP_KERNEL_GRAMS)
+        product_slots = _resident_blocks("moments_vjp", idx, code,
+                                         VJP_KERNEL_PRODUCT)
+    return plan_vjp(mode, ops.xf.shape[0], D, ops.prep.yt_hi.shape[1], slots,
+                    product_slots)
 
 
 def vjp_launch(ops: VjpOperands) -> _boltzmann.MeanVJP:
-    """The VJP's partials and merge launches on laid-out operands."""
+    """The VJP's launches on laid-out operands (:func:`plan_vjp`)."""
     prep = ops.prep
     dev = ops.x_hi.device
     D, b_pad = ops.x_hi.shape
     B = ops.xf.shape[0]
+    n_pad = prep.yt_hi.shape[1]
     plan = vjp_device_plan(ops)
+    small = plan.path == "small"
     partials = torch.empty((plan.n_chunks, 3, b_pad), dtype=torch.float32,
                            device=dev)
-    sy = torch.empty((plan.n_chunks, b_pad, D), dtype=torch.float32, device=dev)
+    sy = torch.empty((plan.product_chunks, b_pad, D), dtype=torch.float32,
+                     device=dev)
     dx = torch.empty((B, D), dtype=torch.float32, device=dev)
     dpar = torch.empty((2, B), dtype=torch.float32, device=dev)
+    w = None if small else torch.empty((plan.workspace // b_pad, b_pad),
+                                       dtype=torch.float32, device=dev)
 
     def ptr(t: Optional[Tensor]) -> Optional[int]:
         return None if t is None else t.data_ptr()
 
+    def run(name: str, args, err_args) -> None:
+        _build.check(_build.entry(name, args)(*err_args), name)
+        _boltzmann.posterior_mean_vjp.launches += 1
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        name = "pdm_boltzmann_moments_vjp"
-        err = _build.entry(name, _VJP_ARGS)(
-            ptr(ops.x_hi), ptr(ops.x_lo), ptr(ops.c_hi), ptr(ops.c_lo),
-            ptr(prep.yt_hi), ptr(prep.yt_lo), ptr(prep.ysq), ptr(ops.rows),
-            ptr(ops.y), ptr(partials), ptr(sy), b_pad, D,
-            prep.yt_hi.shape[1], prep.n, plan.n_chunks, plan.per_chunk,
-            MODE_CODES[prep.mode], int(ops.vec4), stream)
-        _build.check(err, name)
-        _boltzmann.posterior_mean_vjp.launches += 1
-        name = "pdm_boltzmann_moments_vjp_merge"
-        err = _build.entry(name, _VJP_MERGE_ARGS)(
-            ptr(partials), ptr(sy), ptr(ops.rows), ptr(ops.xf), ptr(dx),
-            ptr(dpar), B, b_pad, D, plan.n_chunks, stream)
-        _build.check(err, name)
-        _boltzmann.posterior_mean_vjp.launches += 1
+        chunk0 = p_chunk0 = 0
+        for sub0, n_sub in plan.segments:
+            if small:
+                run("pdm_boltzmann_moments_vjp_small", _VJP_SMALL_ARGS, (
+                    ptr(ops.x_hi), ptr(ops.c_hi), ptr(prep.yt_hi), ptr(prep.ysq),
+                    ptr(ops.rows), ptr(partials), ptr(sy), b_pad, D, n_pad, prep.n,
+                    sub0, n_sub, plan.per_chunk, chunk0, stream))
+            else:
+                run("pdm_boltzmann_moments_vjp_grams", _VJP_GRAMS_ARGS, (
+                    ptr(ops.x_hi), ptr(ops.x_lo), ptr(ops.c_hi), ptr(ops.c_lo),
+                    ptr(prep.yt_hi), ptr(prep.yt_lo), ptr(prep.ysq), ptr(ops.rows),
+                    ptr(partials), ptr(w), b_pad, D, n_pad, prep.n, sub0, n_sub,
+                    plan.per_chunk, chunk0, MODE_CODES[prep.mode], stream))
+                run("pdm_boltzmann_moments_vjp_product", _VJP_PRODUCT_ARGS, (
+                    ptr(w), ptr(ops.y), ptr(sy), b_pad, D, ops.y.shape[1], prep.n,
+                    sub0, n_sub, plan.product_per_chunk, p_chunk0, stream))
+            chunk0 += -(-n_sub // plan.per_chunk)
+            p_chunk0 += -(-n_sub // plan.product_per_chunk)
+        run("pdm_boltzmann_moments_vjp_merge", _VJP_MERGE_ARGS, (
+            ptr(partials), ptr(sy), ptr(ops.rows), ptr(ops.xf), ptr(dx), ptr(dpar),
+            B, b_pad, D, plan.n_chunks, plan.product_chunks, stream))
     return _boltzmann.MeanVJP(x=dx, inv_temp=dpar[0], y_scale=dpar[1])
 
 
@@ -398,7 +486,7 @@ def posterior_mean_vjp_cuda(x: Tensor, y, inv_temp, y_scale, log_z: Tensor,
                             mean: Tensor, cot: Tensor, *,
                             values: Optional[Tensor] = None,
                             mode: str) -> _boltzmann.MeanVJP:
-    """The VJP kernel on CUDA tensors (see
+    """The VJP kernels on CUDA tensors (see
     ``ops.boltzmann.posterior_mean_vjp``)."""
     return vjp_launch(vjp_operands(x, y, inv_temp, y_scale, log_z, mean, cot,
                                    values=values, mode=mode))
@@ -408,5 +496,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _PARTIALS_ARGS = [_P] * 11 + [_I] * 9 + [_P]
 _CLUSTER_ARGS = [_P] * 11 + [_I] * 10 + [_P]
 _MERGE_ARGS = [_P] * 4 + [_I] * 4 + [_P]
-_VJP_ARGS = [_P] * 11 + [_I] * 8 + [_P]
-_VJP_MERGE_ARGS = [_P] * 6 + [_I] * 4 + [_P]
+_VJP_SMALL_ARGS = [_P] * 7 + [_I] * 8 + [_P]
+_VJP_GRAMS_ARGS = [_P] * 10 + [_I] * 9 + [_P]
+_VJP_PRODUCT_ARGS = [_P] * 3 + [_I] * 8 + [_P]
+_VJP_MERGE_ARGS = [_P] * 6 + [_I] * 5 + [_P]

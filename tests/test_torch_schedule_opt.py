@@ -387,12 +387,133 @@ def test_bf16_unet_passes_the_gradient_to_tau(tiny_unets):
     assert bool(torch.isfinite(g).all()) and bool((g != 0).all())
 
 
-@pytest.mark.parametrize("mode,rows", [("fp32", 128), ("bf16_3x", 64), ("bf16", 64)])
-def test_vjp_plan_covers_the_dataset(mode, rows):
+# (B, padded N, D, blocks of the first kernel, blocks of the product): the
+# schedule CLI's shape, CIFAR-10 scale, an edge, and a call whose w would
+# exceed the workspace (sixteen segments of at most 489 sub-tiles on the
+# large path)
+VJP_PLAN_CALLS = ((1024, 100_096, 1, 2112, 264), (256, 50_048, 3072, 132, 264),
+                  (37, 1_024, 5, 132, 264), (1024, 1_000_064, 3072, 132, 264))
+
+
+def _check_vjp_plan(plan, B, n_pad, D):
     from pdm_tpu_torch.ops import boltzmann_kernel as bk
 
-    for B, n_pad, slots in ((1024, 100_096, 132), (256, 50_048, 264), (37, 1_024, 132)):
-        plan = bk.plan_vjp(mode, B, n_pad, slots)
-        assert plan.tile_rows == rows
-        assert plan.n_chunks * plan.per_chunk >= n_pad // 128
-        assert (plan.n_chunks - 1) * plan.per_chunk < n_pad // 128
+    n_tiles = n_pad // 128
+    assert plan.b_pad % 128 == 0 and B <= plan.b_pad < B + 128
+    # the segments tile the dataset in order, whole sub-tiles, none empty
+    starts = [s0 for s0, _ in plan.segments]
+    assert starts[0] == 0 and all(n > 0 for _, n in plan.segments)
+    assert all(a + n == b for (a, n), b in zip(plan.segments, starts[1:]))
+    assert sum(n for _, n in plan.segments) == n_tiles
+    # each kernel's chunks cover every segment, none empty
+    for per, total in ((plan.per_chunk, plan.n_chunks),
+                       (plan.product_per_chunk, plan.product_chunks)):
+        if total == 0:
+            continue
+        assert per > 0
+        assert sum(-(-n // per) for _, n in plan.segments) == total
+        assert all((-(-n // per) - 1) * per < n for _, n in plan.segments)
+    if plan.path == "small":
+        assert plan.launches == 2 and len(plan.segments) == 1
+        assert plan.workspace == 0 and plan.product_chunks == plan.n_chunks
+    else:
+        assert plan.launches == 2 * len(plan.segments) + 1
+        largest = max(n for _, n in plan.segments)
+        assert plan.workspace == largest * 128 * plan.b_pad
+        assert plan.workspace <= max(bk.VJP_WORKSPACE, 128 * plan.b_pad)
+        assert plan.product_chunks >= 1
+
+
+@pytest.mark.parametrize("mode,rows", [("fp32", 128), ("bf16_3x", 64), ("bf16", 64)])
+@pytest.mark.parametrize("call", range(len(VJP_PLAN_CALLS)))
+def test_vjp_plan_covers_the_dataset(mode, rows, call):
+    from pdm_tpu_torch.ops import boltzmann_kernel as bk
+
+    B, n_pad, D, slots, product_slots = VJP_PLAN_CALLS[call]
+    plan = bk.plan_vjp(mode, B, D, n_pad, slots, product_slots)
+    assert plan.tile_rows == (128 if plan.path == "small" else rows)
+    _check_vjp_plan(plan, B, n_pad, D)
+
+
+@pytest.mark.parametrize("mode,D,path", [
+    ("fp32", 1, "small"), ("fp32", 2, "small"), ("fp32", 3, "small"),
+    ("fp32", 4, "small"), ("fp32", 5, "large"), ("fp32", 64, "large"),
+    ("fp32", 3072, "large"), ("bf16_3x", 1, "large"), ("bf16_3x", 4, "large"),
+    ("bf16_3x", 3072, "large"), ("bf16", 1, "large"), ("bf16", 4, "large"),
+    ("bf16", 3072, "large"),
+])
+def test_vjp_path_by_mode_and_dimension(mode, D, path):
+    """fp32 at D <= VJP_SMALL_MAX_D takes the fused small-D kernel; larger
+    D, and the bf16 modes at every D (their mma.sync Grams), the Grams and
+    the product."""
+    from pdm_tpu_torch.ops import boltzmann_kernel as bk
+
+    assert bk.VJP_SMALL_MAX_D == 4
+    assert bk.vjp_path(mode, D) == path
+    plan = bk.plan_vjp(mode, 256, D, 50_048, 132, 264)
+    assert plan.path == path
+    assert plan.launches == (2 if path == "small" else 3)
+    _check_vjp_plan(plan, 256, 50_048, D)
+
+
+@pytest.mark.parametrize("label,mode,B,n_pad,D,segments,launches", [
+    ("cli", "fp32", 1024, 100_096, 1, 1, 2),
+    ("cli_bf16", "bf16", 1024, 100_096, 1, 2, 5),
+    ("cifar10", "fp32", 256, 50_048, 3072, 1, 3),
+    ("cifar10_bf16_3x", "bf16_3x", 256, 50_048, 3072, 1, 3),
+    ("cifar10_batch_1024", "fp32", 1024, 50_048, 3072, 1, 3),
+    ("gmm1d_1e6_bf16", "bf16", 1024, 1_000_064, 1, 16, 33),
+])
+def test_vjp_workspace_stays_within_its_bound(label, mode, B, n_pad, D, segments,
+                                              launches):
+    """The large-D path's w^T holds at most VJP_WORKSPACE floats a pass: one
+    pass at the schedule CLI's and CIFAR-10's shapes, more (each within the
+    bound) where the whole w would not fit; the small-D path holds none."""
+    from pdm_tpu_torch.ops import boltzmann_kernel as bk
+
+    plan = bk.plan_vjp(mode, B, D, n_pad, 132, 264)
+    assert len(plan.segments) == segments and plan.launches == launches
+    assert plan.workspace <= bk.VJP_WORKSPACE
+    if plan.path == "small":
+        assert plan.workspace == 0
+    else:
+        assert plan.workspace >= 128 * plan.b_pad
+    _check_vjp_plan(plan, B, n_pad, D)
+
+
+@pytest.mark.parametrize("B,D,mode", [(256, 3072, "fp32"), (100, 1, "fp32"), (1024, 1, "fp32"),
+                                      (37, 5, "fp32"), (128, 4, "bf16"), (37, 5, "bf16_3x")])
+def test_vjp_operands_layout(B, D, mode):
+    """The VJP's operands as the kernels read them: queries and cotangent
+    transposed to (D, b_pad) in the mode's split, zero-padded; the row terms
+    (5, b_pad) with 0.5|x|^2 bitwise the forward's (its logits are the
+    forward's own); the row-major dataset for the product on the large-D
+    path only, in rows padded to a multiple of 4 floats where D is not one."""
+    from pdm_tpu_torch.ops import boltzmann_kernel as bk
+    from pdm_tpu_torch.ops.precision import split
+
+    rng = np.random.RandomState(B + D)
+    x, c = (torch.from_numpy(rng.randn(B, D).astype(np.float32)) for _ in range(2))
+    y = torch.from_numpy(rng.randn(300, D).astype(np.float32))
+    it = torch.from_numpy(rng.uniform(1.0, 100.0, B).astype(np.float32))
+    s = torch.from_numpy(rng.uniform(0.1, 1.0, B).astype(np.float32))
+    mom = tb.boltzmann_moments_reference(x, y, it, s, compute_mean=True, mxu_precision=mode)
+    ops = bk.vjp_operands(x, y, it, s, mom.log_z, mom.mean, c, mode=mode)
+    fwd = bk.operands(x, y, it, s, values=y, mode=mode)
+    b_pad = bk.plan_vjp(mode, B, D, 384, 132, 264).b_pad
+    assert ops.x_hi.shape == (D, b_pad) and ops.rows.shape == (5, b_pad)
+    for got_hi, got_lo, t in ((ops.x_hi, ops.x_lo, x), (ops.c_hi, ops.c_lo, c)):
+        hi, lo = split(t.T.contiguous(), mode)
+        assert torch.equal(got_hi[:, :B], hi) and bool((got_hi[:, B:] == 0).all())
+        assert (got_lo is None) == (lo is None)
+        if lo is not None:
+            assert torch.equal(got_lo[:, :B], lo) and bool((got_lo[:, B:] == 0).all())
+    assert torch.equal(ops.rows[0, :B], fwd.row[0, :B])
+    for k, want in ((1, it), (2, s), (3, mom.log_z), (4, torch.sum(c * mom.mean, dim=1))):
+        assert torch.equal(ops.rows[k, :B], want)
+    assert bool((ops.rows[1, B:] == 0).all()) and bool((ops.rows[2, B:] == 1).all())
+    if bk.vjp_path(mode, D) == "small":
+        assert ops.y is None
+    else:
+        assert ops.y.shape == (300, -(-D // 4) * 4) and ops.y.data_ptr() % 16 == 0
+        assert torch.equal(ops.y[:, :D], y) and bool((ops.y[:, D:] == 0).all())

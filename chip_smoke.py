@@ -211,14 +211,40 @@ any error or disagreement:
    DDPM, remat, rate 0.05, LeNet-feature MMD), 5 iterations (cut from
    200): ms per iteration, peak memory, finite knots, rows 1-4's launch
    counts exact.
-20. One JSON line {"kernels": [...]} with all nine kernels (the eight
+20. The data axis (pdm_tpu_torch/parallel/) on the one card. (a) One
+   rank in a world-size-1 group started by the CLIs' entry,
+   initialize_multihost (file rendezvous, LOCAL_RANK set), which must
+   pick NCCL and this card: thermo_sweep(mesh=)
+   at phase 9's shape against the sweep without a mesh within the
+   regrouped-sum bound (STREAM_EPS), TrueDDPM DDIM-10 at phase 11's shape
+   through sharded_sampler against the sampler without a mesh (row 7 two
+   launches a step), feature_statistics(mesh=) over 5,000 images, and the
+   bf16 flagship's data-parallel train step at batch 128 with rows 1-4 at
+   phase 7's exact counts a step; each beside its time without a mesh,
+   the step's collective bill (one all-reduce of the fp32 gradients and
+   the loss), that all-reduce alone by CUDA events, and project_step's
+   NVLink projection for 2, 4 and 8 cards. (b) Two ranks sharing the card
+   under gloo (asked for by name: NCCL refuses two ranks on one device),
+   started with torch.multiprocessing (spawn), each half of the dataset
+   or of the batch: the sweep's and the moments' shard merge (rows 8 and
+   7 on each half) at CIFAR-10 scale, the TrueDDPM data-parallel sampler,
+   the fp32 flagship's train step at batch 2 (1 a rank, dropout 0.2)
+   against one process (loss, gradients, parameters after Adam), FSDP's
+   share of the masters, EMA and Adam moments (at most half plus the
+   leaves no dimension of which 2 divides) and its step against the
+   data-parallel one, and the bf16 train step at batch 128 (64 a rank)
+   with exact launch counts on each rank. The ranks print their own
+   lines; a failing rank fails the run.
+21. One JSON line {"kernels": [...]} with all nine kernels (the eight
    rows and 7b, each with its worst error as a fraction of its
-   tolerance), then the last line {"ok": true, "device": {...}}.
+   tolerance; phase 20's launches among their paths), then the last
+   line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
 import json
 import math
 import os
@@ -457,6 +483,11 @@ CIFAR_OPT = (50_000, 10, 256, 3)
 UNET_OPT = {"n_steps": 5, "batch_size": 256, "step_type": "ddpm",
             "learning_rate": 0.05, "sigmas": (1.0, 3.0, 10.0, 30.0),
             "n_iters": 5, "n_data": 50_000}
+# The data axis (phase 20): timed train steps a path and the bound on the
+# two-rank part's run
+SCALE_OUT_STEPS = 5
+SCALE_OUT_PAIRS = 2  # plain, mesh, mesh, plain turns a comparison
+SCALE_OUT_TIMEOUT_S = 300
 
 
 def gram_rounding(two_m: float, d: int, kernel_steps: float) -> float:
@@ -3264,6 +3295,439 @@ def schedule_opt_phase(time_ms, dev, weights) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 20: the data axis (parallel/) on one card
+# ---------------------------------------------------------------------
+
+
+def _rel_to_bound(got, want, eps_n, n):
+    """The largest |got - want| as a fraction of the regrouped-sum bound
+    eps_n (|want| + 1 + log N) (STREAM_EPS: the sums over N grouped per
+    rank, then merged)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / (eps_n * (np.abs(want) + 1.0
+                                                       + math.log(n)))))
+
+
+def turns(run_plain, run_mesh, pairs: int = SCALE_OUT_PAIRS):
+    """Host ms of each path (ending in a synchronize): one warm call each,
+    then ``pairs`` times plain, mesh, mesh, plain; medians."""
+    import torch
+
+    ms = {run_plain: [], run_mesh: []}
+    for fn in (run_plain, run_mesh):
+        fn()
+    for _ in range(pairs):
+        for fn in (run_plain, run_mesh, run_mesh, run_plain):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms[fn].append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms[run_plain]), statistics.median(ms[run_mesh])
+
+
+def counted(fn, counters):
+    """``fn()`` with the launch counters zeroed just before and read just
+    after: (its result, the launches)."""
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    return out, [c.launches for c in counters]
+
+
+def sweep_mesh_check(data, mesh, dev, label) -> dict:
+    """thermo_sweep at phase 9's shape with and without ``mesh`` on the
+    same generator's draws, in turns; a counted mesh sweep against the
+    sweep without one, within the regrouped-sum bound."""
+    import torch
+
+    from pdm_tpu_torch.ops import boltzmann_sweep as sw
+    from pdm_tpu_torch.stats.sweep import thermo_sweep
+
+    _, B, N, _, nt, (t_lo, t_hi) = SWEEP_MAIN
+    temps = np.logspace(t_lo, t_hi, nt)
+
+    def run(m):
+        return lambda: thermo_sweep(
+            data, temps, B, B, regularize=True, mesh=m,
+            generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    plain_ms, mesh_ms = turns(run(None), run(mesh))
+    got, (launches,) = counted(run(mesh), [sw.boltzmann_sweep])
+    want = run(None)()
+    eps_n = STREAM_EPS * math.sqrt(N)
+    worst = {k: _rel_to_bound(got[k], want[k], eps_n, N)
+             for k in ("entropy", "free_energy", "heat_capacity", "metric")}
+    log(f"{label}: thermo_sweep(mesh=) fp32 B={B} N={N} {nt} temperatures: "
+        f"{mesh_ms:.3f} ms against {plain_ms:.3f} ms without a mesh (medians of "
+        f"{2 * SCALE_OUT_PAIRS} turns each); sweep launches {launches} on this "
+        f"rank; worst of the regrouped-sum bound "
+        f"{{{', '.join(f'{k}: {v:.3g}' for k, v in worst.items())}}}")
+    if max(worst.values()) > 1.0 or launches != 2:
+        fail(f"{label}: thermo_sweep(mesh=) disagrees with one process or "
+             f"launched {launches} sweeps")
+    return {"ms": mesh_ms, "plain_ms": plain_ms, "launches": launches,
+            "worst": max(worst.values())}
+
+
+def sampler_mesh_check(ddpm, sched, mesh, dev, label, B) -> dict:
+    """TrueDDPM DDIM-10 at batch B through sharded_sampler against the
+    sampler without a mesh from the same generator, in turns: row 7 on
+    this rank's rows over the whole dataset, two launches a step."""
+    import torch
+
+    from pdm_tpu_torch.diffusion.sampling import DDPMSampler
+    from pdm_tpu_torch.ops import boltzmann as bz
+    from pdm_tpu_torch.parallel import sharded_sampler
+
+    sampler = DDPMSampler(ddpm=ddpm, scheduler=sched, n_steps=TRUE_STEPS,
+                          obj_size=(3, 32, 32), batch_size=B, n_samples=B,
+                          step_type="ddim", device=dev)
+    sharded = sharded_sampler(sampler, mesh)
+
+    def run(s):
+        return lambda: s.batch_sample(torch.Generator(device=dev).manual_seed(0))["x"]
+
+    plain_ms, mesh_ms = turns(run(sampler), run(sharded))
+    got, (launches,) = counted(run(sharded), [bz.boltzmann_moments])
+    want = run(sampler)()
+    # each step's posterior mean regroups the kernel's sums over N at the
+    # rank's batch: STREAM_EPS sqrt(N) of the data's scale a step
+    scale = float(ddpm.train_data.abs().max())
+    tol = TRUE_STEPS * STREAM_EPS * math.sqrt(ddpm.train_data.shape[0]) * (scale + 1.0)
+    err = float((got - want).abs().max())
+    log(f"{label}: TrueDDPM DDIM-{TRUE_STEPS} at batch {B} through sharded_sampler "
+        f"({B // mesh.data_size} rows a rank): {mesh_ms / TRUE_STEPS:.3f} ms/step "
+        f"against {plain_ms / TRUE_STEPS:.3f} without a mesh (turns); moments "
+        f"launches {launches} on this rank; max |diff| {err:.3g} (tol {tol:.3g})")
+    if not (err <= tol) or launches != 2 * TRUE_STEPS:
+        fail(f"{label}: data-parallel sampler disagrees or launched {launches}")
+    return {"ms": mesh_ms / TRUE_STEPS, "plain_ms": plain_ms / TRUE_STEPS,
+            "launches": launches, "err": err}
+
+
+TRAIN_COUNTERS = (("attention_fwd", "attention", "fused_spatial_attention"),
+                  ("attention_bwd", "attention", "attention_bwd"),
+                  ("group_norm_fwd", "groupnorm", "fused_group_norm_act"),
+                  ("group_norm_bwd", "groupnorm", "group_norm_bwd"))
+
+
+def _counter(module, fn):
+    import importlib
+
+    return getattr(importlib.import_module(f"pdm_tpu_torch.ops.{module}"), fn)
+
+
+def bf16_train_mesh(weights, sched, mesh, dev, label, batch, steps) -> dict:
+    """The bf16 flagship's data-parallel train step at global ``batch``
+    beside the same step without a mesh (another trainer, in turns of
+    ``steps`` steps); then ``steps`` counted steps: launch counts exact on
+    this rank, the step's byte bill, and its all-reduce alone by CUDA
+    events beside the NVLink projection."""
+    import torch
+
+    from pdm_tpu_torch.diffusion.trainer import DDPMTrainer, step_generator
+    from pdm_tpu_torch.models.unet import unet_from_config
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+    from pdm_tpu_torch.parallel.collectives import H100_NVLINK_BW, project_step
+    from pdm_tpu_torch.parallel.mesh import batch_sharding
+
+    x = torch.from_numpy(np.random.RandomState(2).standard_normal(
+        (batch, 3, 32, 32)).astype(np.float32)).to(dev)
+    runs = []
+    for m in (None, mesh):
+        net = unet_from_config(3, FLAGSHIP, dtype=torch.bfloat16, device=dev)
+        trainer = DDPMTrainer(UNetDDPM(sched, net, parametrization="eps", device=dev),
+                              learning_rate=1e-4, warmup_steps=10, total_iters=1000,
+                              grad_clip=1.0, ema_decay=0.9999)
+        state = trainer.init_state(weights, m)
+        xs = x if m is None else x[batch_sharding(m).rows(batch)]
+        it = iter(range(1, 1_000_000))
+
+        def run(trainer=trainer, state=state, xs=xs, it=it):
+            for _ in range(steps):
+                _, metrics = trainer.train_step(state, xs,
+                                                step_generator(0, next(it), dev))
+            return metrics
+
+        runs.append(run)
+    plain_ms, mesh_ms = turns(*runs)
+    mesh.stats.reset()
+    m, launches = counted(runs[1], [_counter(mod, fn) for _, mod, fn in TRAIN_COUNTERS])
+    launches = {key: n for (key, _, _), n in zip(TRAIN_COUNTERS, launches)}
+    bill = {k: mesh.stats[k] // steps for k in mesh.stats.bytes_by_kind}
+    calls = {k: mesh.stats.counts(k) / steps for k in mesh.stats.count_by_kind}
+    # the step's all-reduce alone: one flat fp32 buffer of the bill's size
+    flat = torch.zeros(bill.get("all-reduce", 4) // 4, device=dev)
+    mesh.all_reduce(flat)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(5):
+        mesh.all_reduce(flat)
+    b.record()
+    torch.cuda.synchronize()
+    ar_ms = a.elapsed_time(b) / 5
+    one = type(mesh.stats)()
+    for k, v in bill.items():
+        one.add(k, v)
+    proj = {n: project_step(one, n, H100_NVLINK_BW)["total"] * 1e3 for n in (2, 4, 8)}
+    log(f"{label}: bf16 flagship train step, global batch {batch} "
+        f"({batch // mesh.data_size} a rank): {mesh_ms / steps:.3f} ms/step against "
+        f"{plain_ms / steps:.3f} without a mesh (turns of {steps} steps); launches "
+        f"a step {({k: v / steps for k, v in launches.items()})}; loss "
+        f"{float(m['loss']):.5g}; collective bill a step {bill} bytes in "
+        f"{calls} calls; the step's all-reduce alone {ar_ms:.3f} ms (CUDA events, "
+        f"{mesh.data_size} rank(s) on this card); projected over NVLink "
+        f"(H100 SXM data sheet, 450 GB/s a direction) on 2/4/8 cards "
+        f"{({n: round(v, 4) for n, v in proj.items()})} ms")
+    want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
+    if launches != want or not math.isfinite(float(m["loss"])):
+        fail(f"{label}: train-step launches {launches} != {want} or loss not finite")
+    n_params = sum(t.numel() for t in net.parameters())
+    if bill.get("all-reduce") != 4 * (n_params + 1) or calls.get("all-reduce") != 1:
+        fail(f"{label}: the step's all-reduce {bill} is not one of the "
+             f"{n_params} fp32 gradients and the loss")
+    return {"ms": mesh_ms / steps, "plain_ms": plain_ms / steps,
+            "launches": launches, "bill": bill, "all_reduce_ms": ar_ms,
+            "projected_ms": proj}
+
+
+def fp32_step_pair(weights, sched, dev, x, mesh, fsdp, lr=1e-4):
+    """One fp32 flagship train step (dropout 0.2, the step generator's
+    draws) on ``x`` (this rank's rows) with the applied gradients, the
+    whole params after it and the trainer's state."""
+    import torch
+
+    from pdm_tpu_torch.diffusion.trainer import DDPMTrainer, _gather, step_generator
+    from pdm_tpu_torch.models.unet import unet_from_config
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+
+    net = unet_from_config(3, FLAGSHIP, dtype=torch.float32, device=dev)
+    tr = DDPMTrainer(UNetDDPM(sched, net, device=dev), learning_rate=lr,
+                     warmup_steps=0, grad_clip=1e9, ema_decay=0.9999, fsdp=fsdp)
+    st = tr.init_state(weights, mesh)
+    st, m, grads = train_step_with_grads(tr, st, x,
+                                         generator=step_generator(0, 1, dev))
+    params = {k: v.cpu() for k, v in _gather(st, st.params).items()}
+    return float(m["loss"]), grads, params, st
+
+
+def scale_out_child(rank: int, tmp: str) -> None:
+    """Phase 20b on one rank of two sharing the card under gloo (NCCL
+    refuses two ranks on one device): rows 7 and 8 on half the dataset,
+    the data-parallel sampler and train steps, FSDP; rank 0 also runs each
+    case without a mesh and holds the mesh against it."""
+    import torch
+    import torch.distributed as dist
+
+    from pdm_tpu_torch.models.base import TrueDDPM
+    from pdm_tpu_torch.models.unet import unet_from_config
+    from pdm_tpu_torch.ops import boltzmann as bz
+    from pdm_tpu_torch.parallel import make_mesh
+    from pdm_tpu_torch.parallel.mesh import batch_sharding
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    label = f"scale-out rank {rank}/2 (gloo)"
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv2", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(data=2)
+        res = {"rank": rank}
+        _, B, N, D, _ = MOMENTS_MAIN
+        data = torch.randn(N, 3, 32, 32, generator=torch.Generator(
+            device=dev).manual_seed(5), device=dev)
+        res["sweep"] = sweep_mesh_check(data, mesh, dev, label)
+        # row 7 on each half of the dataset, merged across the ranks
+        g = torch.Generator(device=dev).manual_seed(6)
+        q = torch.randn(B, D, generator=g, device=dev)
+        it = torch.full((B,), 1.0 / 300.0, device=dev)
+        half = data.reshape(N, D)[batch_sharding(mesh).rows(N)]
+        merged = bz.boltzmann_moments_shard_body(q, half, it, mesh=mesh,
+                                                 compute_mean=True)
+        whole = bz.boltzmann_moments(q, data.reshape(N, D), it, compute_mean=True)
+        eps_n = STREAM_EPS * math.sqrt(N)
+        worst = max(_rel_to_bound(getattr(merged, f).cpu(), getattr(whole, f).cpu(),
+                                  eps_n, N) for f in ("log_z", "e1_hat", "e2_hat"))
+        scale = float(data.abs().max())
+        mean_err = float((merged.mean - whole.mean).abs().max())
+        log(f"{label}: boltzmann_moments_shard_body B={B} over half of N={N} "
+            f"D={D} each, merged: worst of the regrouped-sum bound {worst:.3g}; "
+            f"mean max |diff| {mean_err:.3g} (tol {eps_n * (scale + 1):.3g})")
+        if worst > 1.0 or mean_err > eps_n * (scale + 1):
+            fail(f"{label}: the moments' shard merge disagrees with one call")
+        res["moments_worst"] = worst
+        sched = LinearBetaScheduler(1e-4, 2.478e4)
+        ddpm = TrueDDPM(sched, data, device=dev)
+        res["sampler"] = sampler_mesh_check(ddpm, sched, mesh, dev, label, B)
+        del ddpm, data, half, merged, whole, q
+        torch.cuda.empty_cache()
+
+        cpu_net = unet_from_config(3, FLAGSHIP, dtype=torch.float32, device="cpu")
+        weights = seeded_state_dict(cpu_net)
+        del cpu_net
+        x2 = torch.from_numpy(np.random.RandomState(6).standard_normal(
+            (2, 3, 32, 32)).astype(np.float32)).to(dev)
+        mine = x2[batch_sharding(mesh).rows(2)]
+        dp = fp32_step_pair(weights, sched, dev, mine, mesh, False)
+        fs = fp32_step_pair(weights, sched, dev, mine, mesh, True)
+        st = fs[3]
+        held = sum(t.numel() for t in st.params.values())
+        ema = sum(t.numel() for t in st.ema_params.values())
+        moments = sum(s[k].numel() for s in st.optimizer.state.values()
+                      for k in ("exp_avg", "exp_avg_sq"))
+        whole_n = sum(t.numel() for t in dp[2].values())
+        left = sum(st.params[n].numel() for n, spec in st.shard_specs.items()
+                   if "data" not in spec)
+        # the card's default backward is not deterministic (phase 6), so
+        # the two steps' gradients differ by rounding; Adam's first step
+        # moves an element by up to what that allows
+        fs_err = max(float((fs[2][k] - dp[2][k]).abs().max()) for k in dp[2])
+        fs_excess = max(float(((fs[2][k] - dp[2][k]).abs()
+                               - adam_first_step_bound(fs[1][k], dp[1][k], 1e-4)
+                               - 1e-7).max()) for k in dp[2])
+        log(f"{label}: FSDP holds {held} of {whole_n} master values "
+            f"({held / whole_n:.4f}), EMA {ema}, Adam moments {moments} (whole "
+            f"{2 * whole_n}); {left} values in leaves no dimension of which 2 "
+            f"divides; {4 * (held + ema + moments) / 2**20:.1f} MiB of fp32 state "
+            f"against {16 * whole_n / 2**20:.1f} MiB; its step against the "
+            f"data-parallel step: loss {fs[0]:.7g} vs {dp[0]:.7g}, params max "
+            f"|diff| {fs_err:.3g}, within the bound the two steps' gradients "
+            f"allow (worst excess {fs_excess:.3g})")
+        if not (held <= whole_n / 2 + left and ema == held and moments == 2 * held):
+            fail(f"{label}: FSDP holds more than half the state")
+        if fs_excess > 0 or abs(fs[0] - dp[0]) > TRAIN_TOL["loss"] * abs(dp[0]):
+            fail(f"{label}: the FSDP step differs from the data-parallel step")
+        res["fsdp"] = {"held": held, "whole": whole_n, "left": left, "err": fs_err,
+                       "excess": fs_excess}
+        if rank == 0:
+            one = fp32_step_pair(weights, sched, dev, x2, None, False)
+            loss_err = abs(dp[0] - one[0]) / abs(one[0])
+            worst_excess = max(float(((dp[2][k] - one[2][k]).abs()
+                                      - adam_first_step_bound(dp[1][k], one[1][k], 1e-4)
+                                      - 1e-7).max()) for k in one[2])
+            top = max(float(v.abs().max()) for v in one[1].values())
+            worst_grad = max(float((dp[1][k] - g1).abs().max())
+                             / (TRAIN_TOL["grad"] * float(g1.abs().max())
+                                + TRAIN_TOL["grad_floor"] * top)
+                             for k, g1 in one[1].items())
+            log(f"{label}: fp32 flagship train step, batch 2 (1 a rank), dropout "
+                f"0.2, against one process: loss {dp[0]:.7g} vs {one[0]:.7g} (rel "
+                f"{loss_err:.3g}, tol {TRAIN_TOL['loss']}); worst gradient "
+                f"{worst_grad:.3g} of its tolerance; params after Adam within the "
+                f"bound the gradients allow, worst excess {worst_excess:.3g}")
+            if loss_err > TRAIN_TOL["loss"] or worst_grad > 1.0 or worst_excess > 0:
+                fail(f"{label}: the data-parallel fp32 step disagrees with one process")
+            res["fp32_step"] = {"loss_err": loss_err, "grad": worst_grad}
+        del dp, fs, st
+        torch.cuda.empty_cache()
+        res["train"] = bf16_train_mesh(weights, sched, mesh, dev, label,
+                                       TRAIN_BATCH, SCALE_OUT_STEPS)
+        with open(os.path.join(tmp, f"child{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def scale_out_phase(dev, weights, smi) -> dict:
+    """Phase 20: (a) one rank under NCCL through each mesh path, (b) two
+    ranks sharing the card under gloo (scale_out_child)."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from pdm_tpu_torch.models.base import TrueDDPM
+    from pdm_tpu_torch.parallel import initialize_multihost, make_mesh
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+    from pdm_tpu_torch.utils.fid import feature_statistics
+
+    out = {}
+    tmp = tempfile.mkdtemp()
+    try:
+        # (a) one rank under NCCL, started as every CLI starts it: through
+        # initialize_multihost with torchrun's LOCAL_RANK, which picks the
+        # backend and sets the rank's card before any device is resolved
+        label = "scale-out (a), 1 rank (nccl)"
+        local = os.environ.get("LOCAL_RANK")
+        os.environ["LOCAL_RANK"] = str(dev.index)
+        try:
+            initialize_multihost(f"file://{tmp}/rdv1", 1, 0, timeout_s=300)
+        finally:
+            if local is None:
+                os.environ.pop("LOCAL_RANK")
+            else:
+                os.environ["LOCAL_RANK"] = local
+        try:
+            backend, current = dist.get_backend(), torch.cuda.current_device()
+            if backend != "nccl" or current != dev.index:
+                fail(f"{label}: initialize_multihost started {backend} on card "
+                     f"{current}, not nccl on card {dev.index}")
+            mesh = make_mesh(data=1)
+            log(f"{label}: {mesh} over {backend} on card {current} "
+                f"(initialize_multihost); {smi}")
+            _, B, N, D, _ = MOMENTS_MAIN
+            data = torch.randn(N, 3, 32, 32, generator=torch.Generator(
+                device=dev).manual_seed(5), device=dev)
+            out["sweep"] = sweep_mesh_check(data, mesh, dev, label)
+            sched = LinearBetaScheduler(1e-4, 2.478e4)
+            ddpm = TrueDDPM(sched, data, device=dev)
+            out["sampler"] = sampler_mesh_check(ddpm, sched, mesh, dev, label, B)
+            # FID's feature statistics: a fixed projection of 5,000 images
+            proj = torch.randn(D, 2048, generator=torch.Generator(
+                device=dev).manual_seed(7), device=dev) / math.sqrt(D)
+
+            def feats(x):
+                return x.reshape(x.shape[0], -1).float() @ proj
+
+            def fid_stats(m):
+                return lambda: feature_statistics(data[:5000], feats, 2048,
+                                                  batch_size=500, device=dev, mesh=m)
+
+            plain_ms, mesh_ms = turns(fid_stats(None), fid_stats(mesh))
+            got, want = fid_stats(mesh)(), fid_stats(None)()
+            mu_err = float((got[0] - want[0]).abs().max())
+            sg_err, ok = compare_to_scale(got[1], want[1], 1e-4, 1e-5)
+            log(f"{label}: feature_statistics(mesh=) over 5,000 images, 2048 "
+                f"features, batch 500: {mesh_ms:.3f} ms against {plain_ms:.3f} "
+                f"(turns); mean max |diff| {mu_err:.3g}, covariance {sg_err:.3g} "
+                f"(tol 1e-4 rel + 1e-5 of scale)")
+            if not ok or mu_err > 1e-5:
+                fail(f"{label}: feature_statistics(mesh=) disagrees")
+            del ddpm, data, proj
+            torch.cuda.empty_cache()
+            out["train"] = bf16_train_mesh(weights, sched, mesh, dev, label,
+                                           TRAIN_BATCH, SCALE_OUT_STEPS)
+        finally:
+            dist.destroy_process_group()
+
+        # (b) two ranks on the one card under gloo
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(scale_out_child, args=(tmp,), nprocs=2,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + SCALE_OUT_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+                if time.monotonic() > deadline:
+                    fail(f"scale-out (b): the two ranks outlived {SCALE_OUT_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        kids = [json.load(open(os.path.join(tmp, f"child{r}.json"))) for r in range(2)]
+        log(f"scale-out (b): two ranks on one card under gloo passed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out["two_ranks"] = kids
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -4011,8 +4475,12 @@ def main() -> int:
     log(f"phase 19 at {time.perf_counter() - t_start:.1f} s")
     sched_opt = schedule_opt_phase(time_ms, dev, weights)
 
-    # ---- phase 20: the kernels line and the result ----
+    # ---- phase 20: the data axis on one card ----
     log(f"phase 20 at {time.perf_counter() - t_start:.1f} s")
+    scale_out = scale_out_phase(dev, weights, smi)
+
+    # ---- phase 21: the kernels line and the result ----
+    log(f"phase 21 at {time.perf_counter() - t_start:.1f} s")
 
     def per_path(rows, launches, n_steps):
         main = [r for r in rows if r["calls_per_step"]]
@@ -4138,6 +4606,20 @@ def main() -> int:
             "note": "launch count only: per sampler step of an iteration, the "
                     "forward and its checkpoint recompute (rows 1 and 3), the "
                     "backward (rows 2 and 4)"}
+    # phase 20: the data-parallel train step on one rank (NCCL) and on
+    # each of two ranks sharing the card (gloo)
+    ranks = [("1 rank, nccl", scale_out)] + [
+        (f"rank {kid['rank']} of 2, gloo", kid) for kid in scale_out["two_ranks"]]
+    for key, (name, _) in cli_paths.items():
+        k = next(k for k in kernels if k["name"] == name)
+        for where, run in ranks:
+            n = run["train"]["launches"][key]
+            k["launches"] += n
+            k["paths"][f"data-parallel training, {where}"] = {
+                "launches": n, "launches_per_step": n / SCALE_OUT_STEPS,
+                "ms_per_step": run["train"]["ms"],
+                "note": "launch count only: the bf16 train step at global batch "
+                        f"{TRAIN_BATCH} over the mesh"}
     head = next(r for r in sweep_rows if r["label"] == SWEEP_MAIN[0]
                 and r["mode"] == "fp32" and not r["values"])
     stats = {k: head[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms",
@@ -4147,7 +4629,8 @@ def main() -> int:
         "design": "tall fp32 kernel on a TMA ring; 64-row mma.sync in bf16",
         "source": "pdm_tpu_torch/csrc/boltzmann_sweep.cu",
         "replaces": "pdm_tpu/ops/boltzmann_sweep.py:105",
-        "launches": stats_launches + cli_sweep,
+        "launches": stats_launches + cli_sweep + sum(
+            run["sweep"]["launches"] for _, run in ranks),
         "max_abs_err": max(r["max_abs_err"] for r in sweep_rows),
         "worst_of_tolerance": max(r["worst_of_tolerance"] for r in sweep_rows),
         "per": "one call (a partials and a merge launch) at the stats path's "
@@ -4158,7 +4641,10 @@ def main() -> int:
         "paths": {"stats": {"launches": stats_launches,
                             "launches_per_step": 2, **stats},
                   "compute_stats_forward CLI": {"launches": cli_sweep,
-                                                "launches_per_step": 2}},
+                                                "launches_per_step": 2},
+                  **{f"thermo_sweep(mesh=), {where}": {
+                      "launches": run["sweep"]["launches"], "launches_per_step": 2,
+                      "ms_per_sweep": run["sweep"]["ms"]} for where, run in ranks}},
         "shapes": sweep_rows,
     })
     head = next(r for r in moments_rows if r["label"] == MOMENTS_MAIN[0]
@@ -4173,7 +4659,8 @@ def main() -> int:
         "source": "pdm_tpu_torch/csrc/boltzmann_moments.cu",
         "replaces": "pdm_tpu/ops/boltzmann_pallas.py:163",
         "launches": (true_launches + cfg_path["true_launches"]
-                     + sum(v["launches"]["moments"] for v in opt_paths.values())),
+                     + sum(v["launches"]["moments"] for v in opt_paths.values())
+                     + sum(run["sampler"]["launches"] for _, run in ranks)),
         "max_abs_err": max(r["max_abs_err"] for r in moments_rows),
         "worst_of_tolerance": max(r["worst_of_tolerance"] for r in moments_rows),
         "per": "one call (a partials and a merge launch) at the analytic "
@@ -4188,7 +4675,10 @@ def main() -> int:
                       "ms_per_step": cfg_path["true_ms_per_step"], **analytic},
                   **{path: {"launches": v["launches"]["moments"], "launches_per_step": 2,
                             "ms_per_iteration": v["ms_per_iteration"]}
-                     for path, v in opt_paths.items()}},
+                     for path, v in opt_paths.items()},
+                  **{f"data-parallel analytic sampling, {where}": {
+                      "launches": run["sampler"]["launches"], "launches_per_step": 2,
+                      "ms_per_step": run["sampler"]["ms"]} for where, run in ranks}},
         "shapes": moments_rows,
     })
     vjp_rows = sched_opt["vjp_rows"]

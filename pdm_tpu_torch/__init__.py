@@ -2,7 +2,7 @@
 
 The package mirrors ``pdm_tpu``'s layout (``config/``, ``core/``,
 ``schedulers/``, ``models/``, ``ops/``, ``diffusion/``, ``stats/``,
-``runtime/``, ``utils/``, and ``scripts/`` for the JAX ``scripts/``) so
+``parallel/``, ``runtime/``, ``utils/``, and ``scripts/`` for the JAX ``scripts/``) so
 each module's counterpart is found by path. It imports torch and numpy (and scipy in ``stats/hypersphere.py``); the
 JAX package is the reference the port is tested against, never a
 dependency, and neither pydantic, PyYAML, PIL nor safetensors is needed
@@ -13,6 +13,10 @@ host-resident dataset) -> ``DDPMTrainer``; the JAX scripts' entry points
 are ``pdm_tpu_torch.scripts`` (``compute_stats_forward`` ->
 ``train_diffusion`` -> ``sample`` -> ``compute_fid``, FID from
 ``utils/fid.py``).
+
+``parallel/`` spreads the training, sampling, statistics and FID paths
+over the ranks of ``torch.distributed`` (one process per card, started
+by ``torchrun``) along a data axis; the model axis is not ported.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without that argument they raise. The UNet's

@@ -20,6 +20,10 @@ Step rules (x-space; see the JAX module for the derivations):
 Noise comes from an explicit ``torch.Generator`` on the sampler's device.
 ``batch_sample`` also takes explicit noise (the initial ``x_T`` and a
 ``(n_steps, B, ...)`` stack) so tests can feed in another sampler's draws.
+With ``batch_sharding`` (``parallel.sharded_sampler``) each rank of a data
+mesh steps its rows of the batch: it draws the global batch's x_T and
+noise and keeps its rows, so the samples do not depend on the number of
+ranks, and the batch is gathered at the end.
 ``precision="half"`` runs the model on bf16 inputs and casts x0 back to
 fp32, where the JAX package does; all step arithmetic is fp32.
 
@@ -45,8 +49,10 @@ from torch import Tensor
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike, resolve_device
+from ..core.draws import batch_randn
 from ..core.temperature import alpha_bar_from_log_temp
 from ..models.base import DDPM
+from ..parallel.mesh import BatchSharding
 from ..schedulers.base import Scheduler
 
 STEP_TYPES = ("ddpm", "ddim", "heun", "dpmpp_2m")
@@ -164,6 +170,8 @@ class DDPMSampler:
     # to the validated envelope (False: run the raw schedule, warn)
     heun_clamp: bool = True
     device: DeviceLike = None
+    # the batch axis over a mesh's 'data' axis (parallel.sharded_sampler)
+    batch_sharding: Optional[BatchSharding] = None
 
     def __post_init__(self):
         if self.step_type not in STEP_TYPES:
@@ -214,24 +222,39 @@ class DDPMSampler:
         noise: Optional[Tensor] = None,
     ) -> Dict[str, Tensor]:
         """One batch. ``x_init`` (B, *obj_size) and, for step_type 'ddpm',
-        ``noise`` (n_steps, B, *obj_size) replace the generator's draws."""
+        ``noise`` (n_steps, B, *obj_size) replace the generator's draws.
+        Under ``batch_sharding`` each rank steps its rows of the batch (of
+        the global batch's draws, or of the given ``x_init`` and
+        ``noise``) and the result is gathered: every rank returns the
+        whole batch."""
         bs = batch_size or self.batch_size
-        shape = (bs, *self.obj_size)
+        shard = self.batch_sharding
+        rows = slice(None) if shard is None else shard.rows(bs)
+        if shard is not None:
+            generator = shard.generator(generator, bs)
         if x_init is None:
-            x_init = torch.randn(shape, generator=generator,
+            local = bs if shard is None else bs // shard.size
+            x_init = batch_randn((local, *self.obj_size), generator,
                                  device=self.device, dtype=torch.float32)
+        elif shard is not None:
+            x_init = x_init[rows]
         x_init = x_init.to(self.device, torch.float32)
         if noise is not None:
             noise = noise.to(self.device, torch.float32)
-            if noise.shape != (self.n_steps, *x_init.shape):
+            if noise.shape != (self.n_steps, bs, *x_init.shape[1:]):
                 raise ValueError(f"noise must be (n_steps, B, ...) = "
-                                 f"{(self.n_steps, *x_init.shape)}: "
+                                 f"{(self.n_steps, bs, *x_init.shape[1:])}: "
                                  f"{tuple(noise.shape)}")
+            noise = noise[:, rows]
         with torch.inference_mode():
             x, states = _sample_loop(
                 self.ddpm, _step_tables(self._grid()), x_init, self.step_type,
                 self.precision == "half", self.track_states, generator, noise,
             )
+            if shard is not None:
+                x = shard.gather(x)
+                if states is not None:
+                    states = shard.gather(states.transpose(0, 1)).transpose(0, 1)
         out = {"x": x}
         if states is not None:
             out["states"] = states
@@ -281,7 +304,7 @@ def _sample_loop(
         return step(*args)
 
     def draw():
-        return torch.randn(xt.shape, generator=generator, device=xt.device,
+        return batch_randn(xt.shape, generator, device=xt.device,
                            dtype=torch.float32)
 
     states = []

@@ -34,8 +34,35 @@ completion of the step.
 State is updated in place: ``train_step`` returns the state it was given,
 advanced one step.
 
-Not ported (see ROADMAP.md): ``mesh``, ``fsdp`` and ``model_partition``
-(torch.distributed). JAX's ``noise_rng_impl``, ``dropout_rng_impl`` and
+Over a data mesh (``train(mesh=)``, ``parallel/``) every rank runs this
+loop with the same seeds. Step ``it`` draws the global batch's indices,
+flips, tau, eps and dropout masks from the step's generator, as one
+process does, and each rank keeps its rows of every micro-batch
+(``core/draws.py``), so the run does not depend on the number of ranks;
+a host-resident dataset gathers only the rank's rows. The fp32
+gradients and the loss are all-reduced in one flat buffer (one call a
+step) and averaged, then clipped and stepped identically on every rank.
+``fsdp=True`` keeps the fp32 masters, the EMA and both Adam moments
+sharded: each parameter is cut along the dimension JAX's ``_with_fsdp``
+picks for the port's layout (``parallel.mesh.params_sharding``), so a
+rank holds 1/R of every parameter with such a dimension and the whole of
+the rest (as JAX leaves them); after each step one all-gather of the
+updated shards refreshes the module's compute-dtype weights. Unlike
+JAX's ZeRO-3 the module's weights and the step's gradient are whole on
+every rank (the gradient is all-reduced, not reduce-scattered, and the
+weights are not gathered layer by layer). Under a mesh only rank 0
+writes checkpoints, whole and in the files one process writes (a save
+from a mesh resumes in one process and the other way round), and every
+rank waits until it has. The caller gives ``log_fn`` to rank 0 alone and
+``eval_fn`` to every rank: each rank enters the hook at the same steps,
+so none waits in the next step's gradient all-reduce (bounded by the
+process group's timeout) while another evaluates; the port's hook
+(``utils.logging.make_eval_fn(mesh=)``) shares the sampling and FID's
+features over the ranks, rank 0 writing (``scripts/train_diffusion.py``).
+``model_partition`` and a model axis above 1 are not ported (ROADMAP.md
+§1 item 6b).
+
+JAX's ``noise_rng_impl``, ``dropout_rng_impl`` and
 ``compiler_options`` choose a JAX PRNG or XLA flags and have no
 counterpart; ``data_layout`` has none either, since the port's UNet takes
 NCHW (in channels_last memory) and no layout transpose is ever applied.
@@ -57,6 +84,17 @@ from torch import Tensor
 from ..core.temperature import alpha_bar_from_log_temp
 from ..models.predictions import training_target
 from ..models.unet_ddpm import UNetDDPM
+from ..parallel.collectives import barrier
+from ..parallel.mesh import (
+    Mesh,
+    Spec,
+    batch_sharding,
+    check_batch_divisible,
+    params_sharding,
+    rank,
+    shard_leaf,
+    unet_with_model_parallel,
+)
 from ..utils.data import HostResidentData
 from ..utils.profiling import PhaseTimer
 from ..utils.timing import sync
@@ -68,12 +106,17 @@ ADAM_EPS = 1e-8  # optax.scale_by_adam's default
 class TrainState:
     """``params`` and ``ema_params`` are fp32 tensors keyed as the module's
     ``named_parameters``; ``optimizer`` is the Adam over ``params`` and
-    holds the moments (the JAX ``opt_state``)."""
+    holds the moments (the JAX ``opt_state``). ``mesh`` is the data mesh
+    the state lives on; under FSDP ``shard_specs`` holds each parameter's
+    spec (``parallel.mesh.params_sharding``; () is whole) and ``params``,
+    ``ema_params`` and the moments hold this rank's part of it."""
 
     step: int
     params: Dict[str, Tensor]
     ema_params: Dict[str, Tensor]
     optimizer: torch.optim.Adam
+    mesh: Optional[Mesh] = None
+    shard_specs: Optional[Dict[str, Spec]] = None
 
 
 def warmup_linear_decay(
@@ -149,6 +192,57 @@ def host_batch_indices(it: int, n: int, batch_size: int, seed: int = 0
     return np.random.default_rng((seed, it)).integers(0, n, batch_size)
 
 
+_MOMENTS = ("exp_avg", "exp_avg_sq")  # Adam's state of each parameter
+
+
+def _gather(state: TrainState, tensors: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """Whole tensors from this rank's FSDP shards (one all-gather of them
+    all); ``tensors`` itself on a state without shards."""
+    specs = state.shard_specs
+    if specs is None:
+        return tensors
+    mesh = state.mesh
+    dims = {n: specs[n].index("data") for n in tensors if "data" in specs[n]}
+    sharded = list(dims)
+    rows = mesh.all_gather(torch.cat(
+        [tensors[n].reshape(-1) for n in sharded])).view(mesh.data_size, -1)
+    out, at = dict(tensors), 0
+    for n in sharded:
+        t = tensors[n]
+        whole = list(t.shape)
+        whole[dims[n]] *= mesh.data_size
+        pieces = rows[:, at:at + t.numel()].reshape(mesh.data_size, *t.shape)
+        out[n] = pieces.movedim(0, dims[n]).reshape(whole)
+        at += t.numel()
+    return out
+
+
+def _gather_optimizer(state: TrainState) -> dict:
+    """The optimizer's state dict with whole moments, as one process's."""
+    sd = state.optimizer.state_dict()
+    if state.shard_specs is None or not sd["state"]:
+        return sd
+    names = list(state.params)
+    st = sd["state"]
+    whole = {k: _gather(state, {names[i]: s[k] for i, s in st.items()})
+             for k in _MOMENTS}
+    return {**sd, "state": {
+        i: {**s, **{k: whole[k][names[i]] for k in _MOMENTS}}
+        for i, s in st.items()}}
+
+
+def _local_rows(batch_size: int, grad_accum: int, mesh: Optional[Mesh]
+                ) -> Optional[np.ndarray]:
+    """The positions in a global batch of this rank's rows: its part of
+    each micro-batch, in order (None: all of them)."""
+    if mesh is None:
+        return None
+    shard = batch_sharding(mesh)
+    m = batch_size // grad_accum
+    part = np.arange(m)[shard.rows(m)]
+    return np.concatenate([i * m + part for i in range(grad_accum)])
+
+
 @dataclasses.dataclass
 class DDPMTrainer:
     ddpm: UNetDDPM
@@ -173,6 +267,9 @@ class DDPMTrainer:
     grad_accum: int = 1
     # times the "data" and "train_step" phases of every step
     timer: Optional[PhaseTimer] = None
+    # the model axis's partition (channel | spatial; item 6b) and FSDP
+    model_partition: str = "channel"
+    fsdp: bool = False
 
     def __post_init__(self):
         self.learning_rate_at = learning_rate_schedule(
@@ -182,14 +279,15 @@ class DDPMTrainer:
     # state
     # ------------------------------------------------------------------
 
-    def init_state(self, params: Optional[Mapping[str, Tensor]] = None
-                   ) -> TrainState:
+    def init_state(self, params: Optional[Mapping[str, Tensor]] = None,
+                   mesh: Optional[Mesh] = None) -> TrainState:
         """fp32 masters from ``params`` (a state dict such as
         ``from_flax_params``' or an fp32 checkpoint; it is copied without
         rounding) or, when None, from the model's fp32 ``params`` (the
         weights it was made from), else the module's own weights; the
         module is then loaded from them. A bf16 module's own weights are
-        rounded, so the first two come first."""
+        rounded, so the first two come first. With ``mesh`` and ``fsdp``
+        the masters, EMA and moments keep this rank's shards."""
         module = self.ddpm.module
         names = [name for name, _ in module.named_parameters()]
         src = params
@@ -201,22 +299,30 @@ class DDPMTrainer:
                            f"{sorted(set(names) - set(src))}, unexpected "
                            f"{sorted(set(src) - set(names))}")
         device = self.ddpm.device
-        masters = {name: src[name].detach().to(device=device,
-                                               dtype=torch.float32, copy=True)
-                   for name in names}
+        specs = None
+        if mesh is not None and self.fsdp and mesh.data_size > 1:
+            specs = params_sharding({n: src[n].shape for n in names}, mesh,
+                                    self.model_partition, fsdp=True)
+        masters = {}
+        for name in names:
+            t = src[name].detach().to(device=device, dtype=torch.float32)
+            if specs is not None:
+                t = shard_leaf(t, specs[name], mesh)
+            masters[name] = t.clone()
         ema = {name: t.clone() for name, t in masters.items()}
         opt = make_optimizer(list(masters.values()), self.learning_rate,
                              self.weight_decay, self.betas)
         state = TrainState(step=0, params=masters, ema_params=ema,
-                           optimizer=opt)
+                           optimizer=opt, mesh=mesh, shard_specs=specs)
         self._load_module(state)
         return state
 
     def _load_module(self, state: TrainState) -> None:
-        """The module's weights (compute dtype) from the fp32 masters."""
+        """The module's weights (compute dtype) from the fp32 masters,
+        gathered first under FSDP."""
         with torch.no_grad():
             torch._foreach_copy_(list(self.ddpm.module.parameters()),
-                                 list(state.params.values()))
+                                 list(_gather(state, state.params).values()))
 
     # ------------------------------------------------------------------
     # the step
@@ -235,8 +341,11 @@ class DDPMTrainer:
         target = training_target(x0, eps, ab, self.ddpm.parametrization)
         return torch.mean(torch.square(pred - target.to(pred.dtype)))
 
-    def _grads(self, x0, generator, tau, eps) -> Tuple[Tensor, List[Tensor]]:
-        """Mean loss and fp32 gradients over ``grad_accum`` micro-batches."""
+    def _grads(self, x0, generator, tau, eps, mesh: Optional[Mesh] = None
+               ) -> Tuple[Tensor, List[Tensor]]:
+        """Mean loss and fp32 gradients over ``grad_accum`` micro-batches;
+        under a mesh ``x0`` holds this rank's rows of each, the draws are
+        the global micro-batch's, and the mean is over all ranks."""
         module = self.ddpm.module
         params = list(module.parameters())
         a = self.grad_accum
@@ -244,11 +353,14 @@ class DDPMTrainer:
             raise ValueError(f"batch {x0.shape[0]} is not divisible by "
                              f"grad_accum={a}")
         m = x0.shape[0] // a
+        shard = None if mesh is None else batch_sharding(mesh)
         loss_sum, grads = None, None
         for i in range(a):
             sl = slice(i * m, (i + 1) * m)
+            gen = generator if shard is None else shard.generator(
+                generator, m * shard.size)
             loss = self.loss_fn(
-                x0[sl], generator, None if tau is None else tau[sl],
+                x0[sl], gen, None if tau is None else tau[sl],
                 None if eps is None else eps[sl])
             loss.backward()
             g = [p.grad.float() for p in params]
@@ -258,6 +370,14 @@ class DDPMTrainer:
             else:
                 loss_sum = loss_sum + loss.detach()
                 torch._foreach_add_(grads, g)
+        if mesh is not None:
+            # one all-reduce a step: the gradients and the loss in one buffer
+            flat = mesh.all_reduce(torch.cat(
+                [g.reshape(-1) for g in grads] + [loss_sum.reshape(1)]))
+            parts = flat.split([g.numel() for g in grads] + [1])
+            grads = [p.view(g.shape) for p, g in zip(parts, grads)]
+            loss_sum = parts[-1].reshape(())
+            a *= mesh.data_size
         if a > 1:
             torch._foreach_mul_(grads, 1.0 / a)
             loss_sum = loss_sum * (1.0 / a)
@@ -271,14 +391,20 @@ class DDPMTrainer:
         """One optimizer step on the NCHW batch ``x0``. Puts the module in
         train mode (it stays there; ``ddpm.eval()`` ends it). Returns the
         state and {"loss", "grad_norm"} as 0-d device tensors (grad_norm of
-        the unclipped gradients) and the applied "learning_rate"."""
+        the unclipped gradients) and the applied "learning_rate". On a
+        state with a mesh, ``x0`` (and ``tau``, ``eps``) are this rank's
+        rows of each micro-batch and ``generator`` the step's own; the
+        metrics are the global batch's."""
         module = self.ddpm.module
         if not module.training:
             module.train()
         module.zero_grad(set_to_none=True)
-        loss, grads = self._grads(x0, generator, tau, eps)
+        loss, grads = self._grads(x0, generator, tau, eps, state.mesh)
         grad_norm = clip_by_global_norm(grads, self.grad_clip)
         masters = list(state.params.values())
+        if state.shard_specs is not None:
+            grads = [shard_leaf(g, state.shard_specs[n], state.mesh)
+                     for n, g in zip(state.params, grads)]
         for p, g in zip(masters, grads):
             p.grad = g
         lr = self.learning_rate_at(state.step)
@@ -288,9 +414,9 @@ class DDPMTrainer:
         for p in masters:
             p.grad = None
         with torch.no_grad():
-            torch._foreach_copy_(list(module.parameters()), masters)
             torch._foreach_lerp_(list(state.ema_params.values()), masters,
                                  1.0 - self.ema_decay)
+        self._load_module(state)
         state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm,
                        "learning_rate": lr}
@@ -301,17 +427,28 @@ class DDPMTrainer:
 
     def save_checkpoint(self, state: TrainState, step: int) -> None:
         """Write ``step_{step}/state.pt`` (blocking), then publish it in
-        ``latest.txt`` and prune to ``keep_checkpoints``."""
+        ``latest.txt`` and prune to ``keep_checkpoints``. Under a mesh the
+        state is gathered whole, rank 0 writes it, and every rank returns
+        once it is published."""
         if self.checkpoint_dir is None:
             return
+        params = _gather(state, state.params)
+        ema = _gather(state, state.ema_params)
+        optimizer = _gather_optimizer(state)
+        if state.mesh is None or rank() == 0:
+            self._write_checkpoint(state.step, params, ema, optimizer, step)
+        if state.mesh is not None:
+            barrier()
+
+    def _write_checkpoint(self, state_step, params, ema, optimizer,
+                          step: int) -> None:
         path = os.path.join(self.checkpoint_dir, f"step_{step}")
         os.makedirs(path, exist_ok=True)
         payload = {
-            "step": state.step,
-            "params": {k: v.detach().cpu() for k, v in state.params.items()},
-            "ema_params": {k: v.detach().cpu()
-                           for k, v in state.ema_params.items()},
-            "optimizer": state.optimizer.state_dict(),
+            "step": state_step,
+            "params": {k: v.detach().cpu() for k, v in params.items()},
+            "ema_params": {k: v.detach().cpu() for k, v in ema.items()},
+            "optimizer": optimizer,
         }
         tmp = os.path.join(path, "state.pt.tmp")
         torch.save(payload, tmp)
@@ -349,9 +486,15 @@ class DDPMTrainer:
 
     def load_checkpoint(self, state: TrainState, step: int) -> TrainState:
         """Restore ``step_{step}`` into ``state`` (its tensors keep their
-        device) and reload the module's weights from the masters."""
+        device; under FSDP each rank takes its shards) and reload the
+        module's weights from the masters."""
         path = os.path.join(self.checkpoint_dir, f"step_{step}", "state.pt")
         payload = torch.load(path, map_location="cpu", weights_only=True)
+        specs = state.shard_specs or {}
+
+        def mine(name, t):  # this rank's part of a whole tensor
+            return shard_leaf(t, specs[name], state.mesh) if specs else t
+
         with torch.no_grad():
             for key in ("params", "ema_params"):
                 dst, src = getattr(state, key), payload[key]
@@ -359,8 +502,15 @@ class DDPMTrainer:
                     raise KeyError(f"checkpoint {path} {key} do not match "
                                    f"the model")
                 for name, t in dst.items():
-                    t.copy_(src[name])
-        state.optimizer.load_state_dict(payload["optimizer"])
+                    t.copy_(mine(name, src[name]))
+        opt = payload["optimizer"]
+        if specs:
+            names = list(state.params)
+            opt = {**opt, "state": {
+                i: {k: (mine(names[i], v) if k in _MOMENTS else v)
+                    for k, v in st.items()}
+                for i, st in opt["state"].items()}}
+        state.optimizer.load_state_dict(opt)
         state.step = int(payload["step"])
         self._load_module(state)
         return state
@@ -377,6 +527,7 @@ class DDPMTrainer:
         seed: int = 0,
         log_every: int = 100,
         params: Optional[Mapping[str, Tensor]] = None,
+        mesh: Optional[Mesh] = None,
     ) -> TrainState:
         """Training loop with auto-resume from ``latest.txt``. ``data`` is
         (N, C, H, W) on the model's device, or a ``HostResidentData`` whose
@@ -384,18 +535,29 @@ class DDPMTrainer:
         device path), flips, noise and dropout masks from
         ``step_generator(seed, it)``; a host-resident dataset's indices come
         from :func:`host_batch_indices`. ``params`` as in
-        :meth:`init_state`. The module is back in eval mode when it
-        returns."""
+        :meth:`init_state`. ``mesh``: the batch (and each micro-batch)
+        shards over its 'data' axis, every rank holding the whole dataset.
+        The module is back in eval mode when it returns."""
         total = total_iters or self.total_iters
         if batch_size % self.grad_accum:
             raise ValueError(f"batch_size={batch_size} is not divisible by "
                              f"grad_accum={self.grad_accum}")
+        if mesh is not None:
+            check_batch_divisible(batch_size, mesh)
+            if self.grad_accum > 1:
+                check_batch_divisible(batch_size // self.grad_accum, mesh,
+                                      what="batch_size // grad_accum")
+            unet_with_model_parallel(self.ddpm.module, mesh,
+                                     self.model_partition)
+        rows = _local_rows(batch_size, self.grad_accum, mesh)
         device = self.ddpm.device
+        mine = (slice(None) if rows is None
+                else torch.from_numpy(rows).to(device))  # per-row draws
         host_resident = isinstance(data, HostResidentData)
         if data.device != device:
             raise ValueError(f"data must be on the model's device {device}: "
                              f"{data.device}")
-        state = self.init_state(params)
+        state = self.init_state(params, mesh)
         start = 0
         resume = self.latest_checkpoint_step()
         if resume is not None:
@@ -415,16 +577,16 @@ class DDPMTrainer:
                 gen = step_generator(seed, it, device)
                 with phase("data"):
                     if host_resident:
-                        x0 = data.device_batch(
-                            host_batch_indices(it, n, batch_size, seed))
+                        idx = host_batch_indices(it, n, batch_size, seed)
+                        x0 = data.device_batch(idx if rows is None else idx[rows])
                     else:
                         idx = torch.randint(0, n, (batch_size,), generator=gen,
                                             device=device)
-                        x0 = data.index_select(0, idx)
+                        x0 = data.index_select(0, idx[mine])
                     if self.horizontal_flip:
                         flip = torch.rand((batch_size,), generator=gen,
                                           device=device) < 0.5
-                        x0 = torch.where(flip[:, None, None, None],
+                        x0 = torch.where(flip[mine][:, None, None, None],
                                          x0.flip(-1), x0)
                 with phase("train_step"):
                     state, metrics = self.train_step(state, x0, gen)
@@ -435,7 +597,8 @@ class DDPMTrainer:
                 if it % ckpt_every == 0:
                     self.save_checkpoint(state, it)
                 if self.eval_fn is not None and it % self.eval_steps == 0:
-                    ema_ddpm = self.ddpm.with_params(state.ema_params)
+                    ema_ddpm = self.ddpm.with_params(
+                        _gather(state, state.ema_params))
                     eval_metrics = self.eval_fn(ema_ddpm, it)
                     if self.log_fn is not None and eval_metrics:
                         self.log_fn(it, eval_metrics)

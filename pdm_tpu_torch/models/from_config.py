@@ -12,11 +12,11 @@ Counterpart of ``pdm_tpu/models/from_config.py``:
 * ``diffusers``: a pretrained diffusers UNet2DModel read from a local
   directory (``diffusers_ddpm_from_config``).
 
-The port has no device mesh yet (ROADMAP.md §1 item 6): a config that asks
-for one of more than one device (``parallel.data_axis`` or ``model_axis``
-above 1) raises ``NotImplementedError`` instead of training on one card.
-``data_axis: null`` means one device here, and ``fsdp`` without a mesh
-shards nothing, as in JAX. ``load_pretrained_unet`` reads the port
+A data mesh (``parallel.data_axis``, ``parallel/``) changes nothing here:
+each rank builds the same model from the same seed. A model axis above 1
+(``parallel.model_axis``) raises ``NotImplementedError``: tensor and
+spatial parallelism are not ported (ROADMAP.md §1 item 6b). ``fsdp``
+without a mesh shards nothing, as in JAX. ``load_pretrained_unet`` reads the port
 trainer's own checkpoints (``latest.txt`` and ``step_{n}/state.pt``); a JAX
 trainer's orbax checkpoint is turned into one by
 ``scripts.convert_orbax_checkpoint``.
@@ -32,6 +32,7 @@ import torch
 
 from ..config.config import Config
 from ..core.device import DeviceLike, resolve_device
+from ..parallel.mesh import ITEM_6B, world_size
 from ..schedulers.base import Scheduler
 from ..schedulers.from_config import scheduler_from_config
 from .base import DDPM, TrueDDPM
@@ -41,17 +42,28 @@ from .unet_ddpm import UNetDDPM, init_unet_ddpm
 
 
 def _check_no_mesh(config: Config) -> None:
-    """Raise when the config asks for a mesh of more than one device. JAX
-    builds none for one device (``parallel/mesh.py::mesh_from_config``),
-    and without a mesh ``fsdp`` shards nothing, so it trains unsharded."""
+    """Raise when the config asks for a model axis above 1 (tensor or
+    spatial parallelism, ROADMAP.md §1 item 6b). A data axis of any size
+    is the trainer's, the sampler's and the statistics' business
+    (``parallel.mesh_from_config``)."""
     par = config.parallel
-    if ((par.data_axis is not None and int(par.data_axis) > 1)
-            or int(par.model_axis) > 1):
+    if int(par.model_axis) > 1:
         raise NotImplementedError(
-            f"parallel: data_axis={par.data_axis}, model_axis="
-            f"{par.model_axis} asks for a device mesh, which the port does "
-            f"not have yet (ROADMAP.md §1 item 6); use data_axis null and "
-            f"model_axis 1 for one device")
+            f"parallel.model_axis={par.model_axis}: {ITEM_6B}; use "
+            f"model_axis 1 (a data axis of any size runs)")
+
+
+def _mesh_requested(config: Config) -> bool:
+    """True when the run executes under a mesh of more than one rank: the
+    decision ``mesh_from_config`` makes, without building a mesh, with
+    the ranks of torch.distributed as JAX's visible devices."""
+    par = getattr(config, "parallel", None)
+    if par is None:
+        return False
+    model = max(1, int(par.model_axis))
+    if par.data_axis is None:
+        return world_size() > 1 or model > 1
+    return int(par.data_axis) > 1 or model > 1
 
 
 def _dtype(config: Config) -> torch.dtype:
@@ -71,6 +83,10 @@ def ddpm_from_config(
     parametrization = config.ddpm.parametrization
 
     if model_name == "unet":
+        # JAX turns its Pallas kernels off under a mesh (_mesh_requested):
+        # GSPMD cannot partition a Mosaic call. Here each rank calls the
+        # kernels on its own rows of the batch, so they stay on whether or
+        # not _mesh_requested(config) holds.
         module = unet_from_config(
             config.dataset_config.channels, config.ddpm.unet_config,
             dtype=_dtype(config), device=dev,

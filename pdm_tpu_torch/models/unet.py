@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 
 from ..core.device import DeviceLike, resolve_device
+from ..core.draws import batch_rand
 from ..ops.attention import (
     attention_reference, fused_spatial_attention, use_fused_attention,
 )
@@ -82,7 +83,9 @@ def dropout(h: Tensor, rate: float,
             generator: Optional[torch.Generator]) -> Tensor:
     """flax ``nn.Dropout`` on an NCHW activation: keep each element with
     probability 1 - rate and divide the kept ones by it. The mask is drawn
-    from ``generator`` in NHWC order (the layout the JAX module masks)."""
+    from ``generator`` in NHWC order (the layout the JAX module masks); a
+    ``core.draws.SlicedGenerator`` draws the global batch's masks and keeps
+    this rank's."""
     if generator is None:
         raise ValueError("dropout in train mode draws its masks from an "
                          "explicit torch.Generator: pass generator=")
@@ -90,8 +93,7 @@ def dropout(h: Tensor, rate: float,
     if keep_prob <= 0.0:
         return torch.zeros_like(h)
     B, C, H, W = h.shape
-    keep = torch.rand((B, H, W, C), generator=generator,
-                      device=h.device) < keep_prob
+    keep = batch_rand((B, H, W, C), generator, device=h.device) < keep_prob
     return torch.where(keep.permute(0, 3, 1, 2), h / keep_prob,
                        torch.zeros((), dtype=h.dtype, device=h.device))
 

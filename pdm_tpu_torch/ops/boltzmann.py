@@ -24,8 +24,10 @@ version, whose Gram goes to ``torch.matmul`` in the mode of
 ``ops/precision.py`` (fp32 by default, never TF32) and whose payload
 product is fp32. One deliberate difference from the JAX package: there the
 Pallas kernel runs only under ``PDM_BOLTZMANN_IMPL=pallas`` on a TPU and the
-XLA path otherwise; the port has no such switch and no fallback. The
-multi-device shard body is not ported yet.
+XLA path otherwise; the port has no such switch and no fallback. Over a
+data mesh (``parallel/``) each rank runs the op on its shard of the
+dataset and :func:`merge_moments_over` joins the shards exactly
+(:func:`boltzmann_moments_shard_body`).
 
 The posterior mean of the dataset itself is differentiable in the queries,
 ``inv_temp`` and ``y_scale`` (:class:`PosteriorMean`), as JAX's autodiff of
@@ -50,7 +52,7 @@ dataset at a time).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 from torch import Tensor
@@ -412,6 +414,31 @@ def true_score(xt: Tensor, log_temp, data, *,
     return (torch.sqrt(ab) * mean - xt) / omab
 
 
+def _rescaled_sums(mom: BoltzmannMoments, m_g: Tensor) -> List[Tensor]:
+    """One part's partition sums (s0, s1, s2, and the payload's s0 * mean
+    when there is a mean) rescaled from its shift to ``m_g``. A part with
+    no finite logit (an empty shard) adds zeros: JAX's isfinite guards."""
+    finite = torch.isfinite(mom.shift)
+    c = torch.where(finite, torch.exp(mom.shift - m_g), 0.0)
+    delta = torch.where(finite, m_g - mom.shift, 0.0)
+    s0 = torch.where(finite, torch.exp(mom.log_z - mom.shift), 0.0)
+    s1 = torch.where(finite, mom.e1_hat * s0, 0.0)
+    s2 = torch.where(finite, mom.e2_hat * s0, 0.0)
+    sums = [s0 * c, (s1 + delta * s0) * c,
+            (s2 + 2.0 * delta * s1 + torch.square(delta) * s0) * c]
+    if mom.mean is not None:
+        sums.append(torch.where(finite[..., None],
+                                mom.mean * (s0 * c)[..., None], 0.0))
+    return sums
+
+
+def _from_sums(m_g: Tensor, s0: Tensor, s1: Tensor, s2: Tensor,
+               sy: Optional[Tensor] = None) -> BoltzmannMoments:
+    return BoltzmannMoments(
+        log_z=m_g + torch.log(s0), shift=m_g, e1_hat=s1 / s0, e2_hat=s2 / s0,
+        mean=None if sy is None else sy / s0[..., None])
+
+
 def merge_moments(a: BoltzmannMoments, b: BoltzmannMoments) -> BoltzmannMoments:
     """Exact two-way merge of shift-stabilized moments of two disjoint
     parts of a dataset: global shift by max, each side's partition sums
@@ -419,28 +446,54 @@ def merge_moments(a: BoltzmannMoments, b: BoltzmannMoments) -> BoltzmannMoments:
     single-temperature (B,) layout and the sweep's (n_temps, B) alike;
     ``mean`` merges partition-weighted when both sides have it."""
     m_g = torch.maximum(a.shift, b.shift)
+    keep = 4 if a.mean is not None and b.mean is not None else 3
+    sums = zip(_rescaled_sums(a, m_g)[:keep], _rescaled_sums(b, m_g)[:keep])
+    return _from_sums(m_g, *[sa + sb for sa, sb in sums])
 
-    def side(mom):
-        finite = torch.isfinite(mom.shift)
-        c = torch.where(finite, torch.exp(mom.shift - m_g), 0.0)
-        delta = torch.where(finite, m_g - mom.shift, 0.0)
-        s0 = torch.exp(mom.log_z - mom.shift)
-        s1 = mom.e1_hat * s0
-        s2 = mom.e2_hat * s0
-        return (s0 * c, (s1 + delta * s0) * c,
-                (s2 + 2.0 * delta * s1 + torch.square(delta) * s0) * c)
 
-    s0a, s1a, s2a = side(a)
-    s0b, s1b, s2b = side(b)
-    s0_g = s0a + s0b
-    mean_g = None
-    if a.mean is not None and b.mean is not None:
-        mean_g = (a.mean * (s0a / s0_g)[..., None]
-                  + b.mean * (s0b / s0_g)[..., None])
-    return BoltzmannMoments(
-        log_z=m_g + torch.log(s0_g),
-        shift=m_g,
-        e1_hat=(s1a + s1b) / s0_g,
-        e2_hat=(s2a + s2b) / s0_g,
-        mean=mean_g,
-    )
+def merge_moments_over(mom: BoltzmannMoments, mesh) -> BoltzmannMoments:
+    """The exact merge of every data rank's moments of its own shard of
+    the dataset (``merge_moments``' algebra over the mesh): the global
+    shift by an all-reduce MAX, each rank's sums rescaled to it, then one
+    all-reduce SUM of all the sums in one buffer. Every rank returns the
+    merged moments."""
+    m_g = mesh.all_reduce(mom.shift.clone(), "max")
+    sums = _rescaled_sums(mom, m_g)
+    flat = mesh.all_reduce(torch.cat([t.reshape(-1) for t in sums]))
+    parts = flat.split([t.numel() for t in sums])
+    return _from_sums(m_g, *[p.view(t.shape) for p, t in zip(parts, sums)])
+
+
+def boltzmann_moments_shard_body(
+    x: Tensor,
+    y_shard,
+    inv_temp,
+    y_scale=1.0,
+    *,
+    mesh,
+    values: Optional[Tensor] = None,
+    compute_mean: bool = False,
+    chunk_size: int = DEFAULT_CHUNK,
+    mxu_precision: Optional[str] = None,
+) -> BoltzmannMoments:
+    """The moments over a dataset split across the mesh's data axis: this
+    rank's ``y_shard`` (its ``values`` with it) through
+    :func:`boltzmann_moments` (the kernel on the card), the queries
+    replicated, then :func:`merge_moments_over`. Shards may differ in
+    size; an empty one adds nothing."""
+    n = y_shard.shape[0] if isinstance(y_shard, Tensor) else y_shard.n
+    if n:
+        mom = boltzmann_moments(x, y_shard, inv_temp, y_scale, values=values,
+                                compute_mean=compute_mean,
+                                chunk_size=chunk_size,
+                                mxu_precision=mxu_precision)
+    else:
+        B = x.shape[0]
+        ninf = torch.full((B,), float("-inf"), device=x.device)
+        zero = torch.zeros((B,), device=x.device)
+        k = (math.prod(values.shape[1:]) if values is not None
+             else math.prod(x.shape[1:]) if compute_mean else None)
+        mom = BoltzmannMoments(
+            ninf, ninf, zero, zero,
+            None if k is None else torch.zeros((B, k), device=x.device))
+    return merge_moments_over(mom, mesh)

@@ -47,7 +47,11 @@ import torch
 from torch import Tensor
 
 from . import _build
-from .boltzmann import BoltzmannMoments, boltzmann_moments_reference
+from .boltzmann import (
+    BoltzmannMoments,
+    boltzmann_moments_reference,
+    merge_moments_over,
+)
 from .precision import split, split_matmul, sweep_precision_mode
 
 TILE_ROWS = 64  # queries per block (kTB in the source)
@@ -371,6 +375,26 @@ def boltzmann_sweep(
 
 # kernel launches since the last reset (set to 0 to reset)
 boltzmann_sweep.launches = 0
+
+
+def boltzmann_sweep_shard_body(
+    x0: Tensor,
+    eps: Tensor,
+    y_shard,
+    temps: Tensor,
+    *,
+    mesh,
+    values: Optional[Tensor] = None,
+    mxu_precision: Optional[str] = None,
+) -> BoltzmannMoments:
+    """The sweep over a dataset split across the mesh's data axis: this
+    rank's ``y_shard`` (raw or packed; ``values`` shard with it) through
+    :func:`boltzmann_sweep` (the kernel on the card), the starts, noise
+    and temperatures replicated; the (n_temps, B) moments then merge
+    exactly over the ranks (``ops/boltzmann.py::merge_moments_over``)."""
+    local = boltzmann_sweep(x0, eps, y_shard, temps, values=values,
+                            mxu_precision=mxu_precision)
+    return merge_moments_over(local, mesh)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PARTIALS_ARGS = [_P] * 14 + [_I] * 8 + [_P]

@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
+from ..core.draws import batch_rand, batch_randn
 from ..core.temperature import (
     alpha_bar_from_log_temp,
     bcast_right,
@@ -47,18 +48,16 @@ class Scheduler:
         """VP forward process with uniform-tau sampling.
 
         Returns (tau, eps, xt) with xt = sqrt(ab) x0 + sqrt(1-ab) eps.
-        ``tau`` and ``eps`` are drawn from ``generator`` unless given.
+        ``tau`` and ``eps`` are drawn from ``generator`` unless given (a
+        ``core.draws.SlicedGenerator`` draws the global batch's values and
+        keeps this rank's rows).
         """
         if tau is None:
-            tau = torch.rand(
-                (x0.shape[0],), generator=generator, device=x0.device,
-                dtype=x0.dtype,
-            )
+            tau = batch_rand((x0.shape[0],), generator, device=x0.device,
+                             dtype=x0.dtype)
         if eps is None:
-            eps = torch.randn(
-                x0.shape, generator=generator, device=x0.device,
-                dtype=x0.dtype,
-            )
+            eps = batch_randn(x0.shape, generator, device=x0.device,
+                              dtype=x0.dtype)
         log_temp = self.log_temp_from_tau(tau)
         ab = bcast_right(alpha_bar_from_log_temp(log_temp), x0.ndim)
         omab = bcast_right(one_minus_alpha_bar_from_log_temp(log_temp), x0.ndim)

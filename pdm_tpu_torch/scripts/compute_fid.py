@@ -4,7 +4,9 @@ Counterpart of ``scripts/compute_fid.py``. The CSV has the columns
 ``n_steps,schedule,min_temp,fid`` (pandas' ``to_csv(index=False)``, as the
 JAX script writes it and ``scripts/analyze_fids.py`` reads it), written
 with the ``csv`` module and rewritten after every row. ``fid.sample=false``
-reuses ``samples_path + ".npz"`` truncated to the FID sample count.
+reuses ``samples_path + ".npz"`` truncated to the FID sample count. Over
+several ranks (``torchrun``) the feature extraction splits over the mesh
+of ``parallel`` and the sampling over all ranks; rank 0 writes the table.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from ..config.config import Config
 from ..config.loader import with_config
 from ..core.device import resolve_device
 from ..models.from_config import ddpm_from_config
+from ..parallel.distributed import initialize_multihost
+from ..parallel.mesh import mesh_from_config, rank
 from ..utils.data import get_data_tensor
 from ..utils.fid import get_compute_fid, get_feature_fn
 from ._common import ensure_dirs
@@ -35,11 +39,17 @@ def write_rows(path: str, rows) -> None:
 
 @with_config(parse_args=(__name__ == "__main__"))
 def main(config: Config, device=None):
+    initialize_multihost(device=device)
     dev = resolve_device(device)
     ensure_dirs("fid", "samples")
+    # feature extraction splits over the 'data' axis; moments all-reduce
+    mesh = mesh_from_config(config.parallel)
+    if mesh is not None:
+        print(f"mesh: {dict(mesh.shape)}")
     reference = get_data_tensor(config, train=config.fid.train, device=dev)
     feature_fn, fdim = get_feature_fn(config.dataset_name, device=dev)
-    compute_fid = get_compute_fid(reference, feature_fn, fdim, device=dev)
+    compute_fid = get_compute_fid(reference, feature_fn, fdim, device=dev,
+                                  mesh=mesh)
     ddpm = ddpm_from_config(config, pretrained=True, device=dev)
 
     paths = config.fid.noise_schedule_path or [None] * len(
@@ -74,8 +84,10 @@ def main(config: Config, device=None):
         rows.append(dict(n_steps=n_steps, schedule=schedule,
                          min_temp=min_temp, fid=fid))
         print(rows[-1])
-        write_rows(results_path, rows)
-    print(f"saved {results_path}")
+        if rank() == 0:
+            write_rows(results_path, rows)
+    if rank() == 0:
+        print(f"saved {results_path}")
     return rows
 
 

@@ -4,6 +4,8 @@ Counterpart of ``scripts/compute_stats_forward.py``: a log-spaced
 temperature grid over the dataset's temperature range, MC-averaged
 entropy estimator. ``--forward_stats.stream_chunk N`` keeps the dataset
 in host memory and sweeps it through chunks of N points on the device.
+Otherwise, over several ranks (``torchrun``), the dataset axis shards
+over the mesh of ``parallel`` and rank 0 writes the statistics.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import torch
 from ..config.config import Config
 from ..config.loader import with_config
 from ..core.device import resolve_device
+from ..parallel.distributed import initialize_multihost
+from ..parallel.mesh import mesh_from_config, rank
 from ..stats.sweep import forward_stats
 from ..utils.data import get_data_array, get_data_tensor
 from ._common import ensure_dirs, temp_grid
@@ -21,9 +25,13 @@ from ._common import ensure_dirs, temp_grid
 
 @with_config(parse_args=(__name__ == "__main__"))
 def main(config: Config, device=None) -> None:
+    initialize_multihost(device=device)
     dev = resolve_device(device)
     ensure_dirs("stats")
     fs = config.forward_stats
+    mesh = None
+    if fs.stream_chunk is None:
+        mesh = mesh_from_config(config.parallel, batch_size=fs.batch_size)
     for dataset_name in config.available_datasets:
         print(dataset_name)
         config.dataset_name = dataset_name
@@ -33,9 +41,10 @@ def main(config: Config, device=None) -> None:
         stats = forward_stats(
             data, temp, n_samples=fs.n_samples, batch_size=fs.batch_size,
             generator=torch.Generator(device=dev).manual_seed(0),
-            stream_chunk=fs.stream_chunk, device=dev)
-        np.savez(config.forward_stats_path, **stats)
-        print(f"saved {config.forward_stats_path}")
+            stream_chunk=fs.stream_chunk, mesh=mesh, device=dev)
+        if rank() == 0:
+            np.savez(config.forward_stats_path, **stats)
+            print(f"saved {config.forward_stats_path}")
 
 
 if __name__ == "__main__":

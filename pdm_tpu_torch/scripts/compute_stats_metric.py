@@ -4,7 +4,9 @@ stats/{dataset}_metric.npz.
 Counterpart of ``scripts/compute_stats_metric.py``, with its flags:
 manifold regularization (a global floor, or adaptive k-NN), the sample
 and temperature counts, and ``--stream_chunk`` for the host-streaming
-tier; plus ``--device``.
+tier; plus ``--device``. Without ``--stream_chunk``, over several ranks
+(``torchrun``), the dataset axis shards over the mesh of ``parallel`` and
+rank 0 writes the statistics.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import torch
 
 from ..config.loader import load_config
 from ..core.device import resolve_device
+from ..parallel.distributed import initialize_multihost
+from ..parallel.mesh import mesh_from_config, rank
 from ..stats.sweep import metric_stats
 from ..utils.data import get_data_array, get_data_tensor
 from ._common import ensure_dirs, temp_grid
@@ -40,13 +44,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         help="the card by default; cpu runs the plain versions")
     args = parser.parse_args(argv)
 
+    initialize_multihost(device=args.device)
     dev = resolve_device(args.device)
     config = load_config()
     if args.dataset:
         config.dataset_name = args.dataset
     ensure_dirs("stats")
-    data = (get_data_array(config) if args.stream_chunk is not None
-            else get_data_tensor(config, device=dev))
+    if args.stream_chunk is not None:
+        data, mesh = get_data_array(config), None
+    else:
+        data = get_data_tensor(config, device=dev)
+        mesh = mesh_from_config(config.parallel)
     temp = temp_grid(*config.dataset_config.temp_range, args.n_temps)
     stats = metric_stats(
         data, temp,
@@ -58,10 +66,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         knn_k=args.knn_k,
         sigma_reg_scale=args.sigma_reg_scale,
         stream_chunk=args.stream_chunk,
+        mesh=mesh,
         device=dev,
     )
-    np.savez(config.metric_stats_path, **stats)
-    print(f"saved {config.metric_stats_path}")
+    if rank() == 0:
+        np.savez(config.metric_stats_path, **stats)
+        print(f"saved {config.metric_stats_path}")
 
 
 if __name__ == "__main__":

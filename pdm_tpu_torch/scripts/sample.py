@@ -3,8 +3,9 @@
 Counterpart of ``scripts/sample.py``. :func:`build_sampler` keeps the
 sampling schedule (``sample.noise_schedule_type`` / ``_path``) apart from
 the training one and passes a custom schedule's knot grid to the sampler.
-One device (the JAX script's data-parallel sampling over several devices
-waits for ROADMAP.md §1 item 6).
+Over several ranks (``torchrun --nproc_per_node N -m
+pdm_tpu_torch.scripts.sample``) it samples data-parallel over all of them,
+as JAX's does over its devices; rank 0 writes the samples.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from ..config.loader import with_config
 from ..core.device import DeviceLike, resolve_device
 from ..diffusion.sampling import DDPMSampler
 from ..models.from_config import ddpm_from_config
+from ..parallel.distributed import initialize_multihost, sharded_sampler
+from ..parallel.mesh import make_mesh, rank, world_size
 from ..schedulers.from_config import scheduler_from_config
 from ..schedulers.interpolated import InterpolatedScheduler
 from ._common import ensure_dirs
@@ -40,7 +43,7 @@ def build_sampler(config: Config, ddpm=None, min_temp=None,
     if (config.sample.noise_schedule_type == "custom"
             and isinstance(scheduler, InterpolatedScheduler)):
         log_temp = scheduler.log_temp
-    return DDPMSampler(
+    sampler = DDPMSampler(
         ddpm=ddpm,
         scheduler=scheduler,
         n_steps=config.sample.n_steps,
@@ -53,14 +56,26 @@ def build_sampler(config: Config, ddpm=None, min_temp=None,
         log_temp=log_temp,
         device=dev,
     )
+    # data-parallel sampling over all the ranks when there are several
+    n = world_size()
+    model_ax = max(1, config.parallel.model_axis)
+    if n > 1 and n % model_ax == 0:
+        partition = ("spatial" if model_ax > 1
+                     and config.parallel.model_partition == "spatial"
+                     else "data")
+        sampler = sharded_sampler(sampler, make_mesh(model=model_ax),
+                                  partition=partition)
+    return sampler
 
 
 @with_config(parse_args=(__name__ == "__main__"))
 def main(config: Config, device=None) -> None:
+    initialize_multihost(device=device)
     ensure_dirs("samples")
     samples = build_sampler(config, device=device).sample()
-    np.savez(config.samples_path, **samples)
-    print(f"saved {config.samples_path} x.shape={samples['x'].shape}")
+    if rank() == 0:
+        np.savez(config.samples_path, **samples)
+        print(f"saved {config.samples_path} x.shape={samples['x'].shape}")
 
 
 if __name__ == "__main__":

@@ -23,8 +23,15 @@ Randomness comes from a ``torch.Generator`` on the sweep's device (each
 batch draws its indices, then its noise), or from explicit per-batch
 ``draws`` [(idx (bs,), eps (bs, D)), ...], so a test can replay another
 implementation's draws. ``device=None`` means the CUDA card. The dataset
-is packed for the sweep kernel once per sweep. Sharding the dataset over
-several devices (the JAX package's ``mesh=``) is not ported yet.
+is packed for the sweep kernel once per sweep.
+
+``mesh=``: the dataset axis shards over the mesh's 'data' axis. Every
+rank holds the whole dataset and draws the same starts and noise (the
+same seeds); each packs and sweeps its shard of the dataset through the
+kernel (``ops/boltzmann_sweep.py::boltzmann_sweep_shard_body``), and the
+moments merge exactly over the ranks, so every rank returns the result.
+As in JAX, the remainder of N under the axis size is dropped (and the
+k-NN floor with it), and the entropy counts the points kept.
 """
 
 from __future__ import annotations
@@ -37,9 +44,14 @@ from torch import Tensor
 
 from ..core.device import DeviceLike, resolve_device
 from ..ops.boltzmann import merge_moments
-from ..ops.boltzmann_sweep import boltzmann_sweep, prepare_y
+from ..ops.boltzmann_sweep import (
+    boltzmann_sweep,
+    boltzmann_sweep_shard_body,
+    prepare_y,
+)
 from ..ops.knn import knn_sqdist
 from ..ops.precision import boltzmann_precision_mode, sweep_precision_mode
+from ..parallel.mesh import batch_sharding
 
 Draws = Sequence[Tuple[Tensor, Tensor]]
 
@@ -109,6 +121,7 @@ def thermo_sweep(
     sigma_reg_scale: float = 1.0,
     global_sigma_reg_sq: float = 1e-3,
     stream_chunk: Optional[int] = None,
+    mesh=None,
     device: DeviceLike = None,
 ) -> Dict[str, np.ndarray]:
     """Full MC sweep: entropy, free energy, heat capacity, metric.
@@ -121,14 +134,18 @@ def thermo_sweep(
     ``stream_chunk``: the tier for datasets larger than device memory.
     ``data`` stays on the host; each MC batch visits it in chunks of this
     many points through the sweep, and the per-chunk moments join with the
-    exact shift-stabilized merge. It cannot combine with ``adaptive_knn``
-    (the k-NN graph needs the dataset on the device).
+    exact shift-stabilized merge. It cannot combine with ``mesh`` or
+    ``adaptive_knn`` (the k-NN graph needs the dataset on the device).
+
+    ``mesh``: the dataset's shards over the mesh's 'data' axis (module
+    docstring).
     """
     dev = resolve_device(device)
     if stream_chunk is not None:
-        if adaptive_knn:
-            raise ValueError("stream_chunk is a host-streaming path; it cannot "
-                             "combine with adaptive_knn")
+        if mesh is not None or adaptive_knn:
+            raise ValueError(
+                "stream_chunk is a single-device host-streaming path; "
+                "it cannot combine with mesh= or adaptive_knn")
         return _thermo_sweep_streamed(
             data, temp, n_samples, batch_size, stream_chunk,
             regularize=regularize, global_sigma_reg_sq=global_sigma_reg_sq,
@@ -145,14 +162,28 @@ def thermo_sweep(
         d_k = knn_sqdist(data2d, k=knn_k, mxu_precision=boltzmann_precision_mode())
         values = (d_k * (sigma_reg_scale / float(d)))[:, None]
 
-    prep = prepare_y(data2d, mode)  # the dataset packed once for the sweep
+    shard, n_objects = data2d, n
+    if mesh is not None:
+        # this rank's shard of the first n_keep points (the remainder
+        # under the axis size dropped, as JAX's shard_map needs)
+        n_objects = (n // mesh.shape["data"]) * mesh.shape["data"]
+        rows = batch_sharding(mesh).rows(n_objects)
+        shard = data2d[rows]
+        if values is not None:
+            values = values[rows]
+    prep = prepare_y(shard, mode)  # the dataset packed once for the sweep
     sizes = _batches(n_samples, batch_size)
     entropy_acc, free_energy_acc, var_chunks, sigma_chunks = [], [], [], []
     for idx, eps in _draw(n, d, sizes, generator, draws, dev):
         bs = idx.shape[0]
-        mom = boltzmann_sweep(data2d[idx], eps, prep, temp_t, values=values,
-                              mxu_precision=mode)
-        entropy_acc.append(mom.entropy(n).mean(dim=1).cpu().numpy() * bs)
+        if mesh is None:
+            mom = boltzmann_sweep(data2d[idx], eps, prep, temp_t,
+                                  values=values, mxu_precision=mode)
+        else:
+            mom = boltzmann_sweep_shard_body(data2d[idx], eps, prep, temp_t,
+                                             mesh=mesh, values=values,
+                                             mxu_precision=mode)
+        entropy_acc.append(mom.entropy(n_objects).mean(dim=1).cpu().numpy() * bs)
         free_energy_acc.append(
             (-temp_t[:, None] * mom.log_z).mean(dim=1).cpu().numpy() * bs)
         var_chunks.append(mom.var.cpu().numpy())
@@ -227,13 +258,14 @@ def _thermo_sweep_streamed(
 
 def forward_stats(data, temp: np.ndarray, n_samples: int = 1024,
                   batch_size: int = 1024, *, generator=None, draws=None,
-                  stream_chunk: Optional[int] = None,
+                  stream_chunk: Optional[int] = None, mesh=None,
                   device: DeviceLike = None) -> Dict[str, np.ndarray]:
     """The forward-stats artifact: {temp, entropy} (reference
     utils/stats.py compute_stats), plus the free energy and heat capacity
-    that come with the same sweep."""
+    that come with the same sweep. ``mesh`` shards the dataset axis."""
     out = thermo_sweep(data, temp, n_samples, batch_size, generator=generator,
-                       draws=draws, stream_chunk=stream_chunk, device=device)
+                       draws=draws, stream_chunk=stream_chunk, mesh=mesh,
+                       device=device)
     return {k: out[k] for k in ("temp", "entropy", "free_energy",
                                 "heat_capacity")}
 
@@ -242,14 +274,15 @@ def metric_stats(data, temp: np.ndarray, n_samples: int = 1024,
                  batch_size: int = 1024, *, generator=None, draws=None,
                  regularize: bool = False, adaptive_knn: bool = False,
                  knn_k: int = 5, sigma_reg_scale: float = 1.0,
-                 stream_chunk: Optional[int] = None,
+                 stream_chunk: Optional[int] = None, mesh=None,
                  device: DeviceLike = None) -> Dict[str, np.ndarray]:
     """The metric-stats artifact: {temp, metric, log_temp,
-    dataset_tr_sigma0} (reference utils/stats.py compute_metric_stats)."""
+    dataset_tr_sigma0} (reference utils/stats.py compute_metric_stats).
+    ``mesh`` shards the dataset axis."""
     out = thermo_sweep(data, temp, n_samples, batch_size, generator=generator,
                        draws=draws, regularize=regularize,
                        adaptive_knn=adaptive_knn, knn_k=knn_k,
                        sigma_reg_scale=sigma_reg_scale,
-                       stream_chunk=stream_chunk, device=device)
+                       stream_chunk=stream_chunk, mesh=mesh, device=device)
     return {k: out[k] for k in ("temp", "metric", "log_temp",
                                 "dataset_tr_sigma0")}

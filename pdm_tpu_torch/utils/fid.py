@@ -25,6 +25,7 @@ from torch import Tensor
 from ..core.device import DeviceLike, resolve_device
 from ..ops.precision import matmul_fp32
 from ..ops.sqrtm import trace_sqrtm_product
+from ..parallel.mesh import batch_sharding
 
 FeatureFn = Callable[[Tensor], Tensor]
 
@@ -54,26 +55,54 @@ def feature_statistics(
     feature_dim: int,
     batch_size: int = 500,
     device: DeviceLike = None,
+    mesh=None,
 ) -> Tuple[Tensor, Tensor]:
     """(mu, Sigma) of features over ``data`` (a tensor or array, N first),
     streamed in batches moved to ``device``. Unbiased covariance (as
     torch.cov); the first batch's feature mean is the numerical shift of
-    the one-pass accumulator. The JAX version's ``mesh=`` (batches laid
-    out over a data axis) waits for the port's device mesh (ROADMAP.md §1
-    item 6)."""
+    the one-pass accumulator.
+
+    ``mesh``: each batch (rounded down to a multiple of the 'data' axis)
+    splits over the axis's ranks, each extracting the features of its
+    rows; a ragged last batch is padded to the multiple with zeros and
+    masked out of the moments exactly. The shift is the global first
+    batch's mean (its padding included, as JAX's), and the moment sums
+    are all-reduced at the end (one call), so every rank returns the
+    statistics."""
     dev = resolve_device(device)
     n_total = data.shape[0]
     carry = (torch.zeros((), device=dev),
              torch.zeros((feature_dim,), device=dev),
              torch.zeros((feature_dim, feature_dim), device=dev))
+    shard = None
+    if mesh is not None:
+        n_data = mesh.shape["data"]
+        batch_size = max(batch_size // n_data, 1) * n_data
+        shard = batch_sharding(mesh)
     shift = None
     for i in range(0, n_total, batch_size):
-        batch = torch.as_tensor(data[i:i + batch_size]).to(dev)
-        feats = feature_fn(batch)
-        if shift is None:
-            shift = feats.float().mean(dim=0)
-        mask = torch.ones((feats.shape[0],), device=dev)
+        batch = torch.as_tensor(data[i:i + batch_size])
+        if shard is None:
+            feats = feature_fn(batch.to(dev))
+            if shift is None:
+                shift = feats.float().mean(dim=0)
+            mask = torch.ones((feats.shape[0],), device=dev)
+        else:
+            b = batch.shape[0]
+            pad = (-b) % n_data
+            if pad:
+                batch = torch.cat(
+                    [batch, batch.new_zeros((pad, *batch.shape[1:]))])
+            feats = feature_fn(shard.shard(batch).to(dev))
+            mask = shard.shard(torch.arange(b + pad, device=dev) < b).float()
+            if shift is None:
+                shift = mesh.all_reduce(feats.float().sum(dim=0)) / (b + pad)
         carry = _shifted_moment_update(carry, feats, shift, mask)
+    if mesh is not None:
+        sums = torch.cat([t.reshape(-1) for t in carry])
+        n, s, ss = mesh.all_reduce(sums).split(
+            [1, feature_dim, feature_dim * feature_dim])
+        carry = (n.reshape(()), s, ss.view(feature_dim, feature_dim))
     n, s, ss = carry
     mu_c = s / n  # mean of the shifted features
     sigma = (ss - n * torch.outer(mu_c, mu_c)) / (n - 1.0)
@@ -163,16 +192,19 @@ def get_compute_fid(
     feature_dim: int,
     batch_size: int = 500,
     device: DeviceLike = None,
+    mesh=None,
 ) -> Callable[[object], float]:
     """A closure over the reference statistics (reference
-    utils/fid.py:77-86): data -> FID against the reference, a float."""
+    utils/fid.py:77-86): data -> FID against the reference, a float.
+    ``mesh`` splits the feature extraction over its 'data' axis."""
     dev = resolve_device(device)
     mu_ref, sigma_ref = feature_statistics(
-        reference_data, feature_fn, feature_dim, batch_size, device=dev)
+        reference_data, feature_fn, feature_dim, batch_size, device=dev,
+        mesh=mesh)
 
     def compute(data) -> float:
         mu, sigma = feature_statistics(data, feature_fn, feature_dim,
-                                       batch_size, device=dev)
+                                       batch_size, device=dev, mesh=mesh)
         return float(frechet_distance(mu_ref, sigma_ref, mu, sigma))
 
     return compute

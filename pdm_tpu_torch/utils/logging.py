@@ -166,7 +166,7 @@ def save_image_grid(images: np.ndarray, path: str, nrow: int = 5) -> None:
 
 def make_eval_fn(
     config, reference_data, sample_dir: str = "eval_samples", logger=None,
-    device: DeviceLike = None,
+    device: DeviceLike = None, mesh=None,
 ):
     """Periodic eval hook: a DDIM-100 sample of 25 images on the EMA
     weights, saved as ``sample_dir/step_{step}.png`` (and forwarded to the
@@ -178,28 +178,40 @@ def make_eval_fn(
     seeded with the step + 1. The reference statistics are computed here,
     once. When the feature extractor cannot be read (no
     ``PDM_INCEPTION_WEIGHTS``, no LeNet checkpoint) the hook warns at every
-    eval, or raises here when ``fid.required`` is true."""
+    eval, or raises here when ``fid.required`` is true.
+
+    ``mesh``: every rank builds the hook and calls it at the same steps
+    (the trainer's ranks, so that none waits in the next step's gradient
+    all-reduce through another's eval). Each rank steps its rows of every
+    sampling batch that the 'data' axis divides (``sharded_sampler``; the
+    draws are the global batch's, so the samples are one process's) and
+    extracts the features of its rows (``get_compute_fid(mesh=)``); rank 0
+    alone writes the grid and warns."""
     from ..diffusion.sampling import DDPMSampler
+    from ..parallel.distributed import sharded_sampler
+    from ..parallel.mesh import rank
     from ..schedulers.from_config import scheduler_from_config
     from .fid import get_compute_fid, get_feature_fn
 
     dev = resolve_device(device)
+    lead = mesh is None or rank() == 0
     compute_fid, fid_error = None, None
     try:
         feature_fn, fdim = get_feature_fn(config.dataset_name, device=dev)
         compute_fid = get_compute_fid(reference_data, feature_fn, fdim,
-                                      device=dev)
+                                      device=dev, mesh=mesh)
     except OSError as e:  # the extractor's weights are not on disk
         if config.fid.required:
             raise RuntimeError(
                 f"fid.required=true but the FID feature extractor is "
                 f"unavailable: {e}") from e
         fid_error = e
-    os.makedirs(sample_dir, exist_ok=True)
+    if lead:
+        os.makedirs(sample_dir, exist_ok=True)
     scheduler = scheduler_from_config(config, device=dev)
 
     def sampler(n_samples: int, batch_size: int, ema_ddpm) -> DDPMSampler:
-        return DDPMSampler(
+        s = DDPMSampler(
             ddpm=ema_ddpm,
             scheduler=scheduler,
             n_steps=100,
@@ -209,23 +221,28 @@ def make_eval_fn(
             step_type="ddim",
             device=dev,
         )
+        if mesh is not None and batch_size % mesh.shape["data"] == 0:
+            s = sharded_sampler(s, mesh)
+        return s
 
     def eval_fn(ema_ddpm, step: int) -> Dict[str, float]:
         grid_sampler = sampler(25, min(500, config.dataset_config.fid_samples),
                                ema_ddpm)
         gen = torch.Generator(device=dev).manual_seed(int(step))
         grid = grid_sampler.sample(gen)["x"]
-        save_image_grid(grid, os.path.join(sample_dir, f"step_{step}.png"))
+        if lead:
+            save_image_grid(grid, os.path.join(sample_dir, f"step_{step}.png"))
         if logger is not None:
             logger.log_images(step, "eval_samples", grid)
         if compute_fid is None:
             # every eval, not once: a long run must not finish quietly with
             # no quality metric
-            warnings.warn(
-                f"[eval step {step}] FID unavailable: no quality metric is "
-                f"being recorded ({fid_error})",
-                stacklevel=2,
-            )
+            if lead:
+                warnings.warn(
+                    f"[eval step {step}] FID unavailable: no quality metric "
+                    f"is being recorded ({fid_error})",
+                    stacklevel=2,
+                )
             return {}
         n_fid = config.fid.samples or config.dataset_config.fid_samples
         gen = torch.Generator(device=dev).manual_seed(int(step) + 1)

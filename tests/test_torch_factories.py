@@ -15,8 +15,8 @@ package's, on the same config and the same artifact files.
   expansion of |xt - y|^2 errs by about 2^-24 (|xt|^2 + |y|^2) ~ 2e-7,
   a logit error of ~1e-3 that moves x0 by that times the posterior's
   spread (the modes' std is 0.01, their gaps 0.2).
-* A mesh request raises (``fsdp`` alone builds the unsharded model, as
-  JAX's does on one device); ``load_pretrained_unet`` loads the port
+* A model-axis request raises; a data axis and ``fsdp`` alone build the
+  model JAX's builds on the same config; ``load_pretrained_unet`` loads the port
   trainer's EMA weights exactly; without a card and without
   ``device="cpu"`` the factories raise.
 """
@@ -222,15 +222,17 @@ def test_true_model_from_config_matches_jax():
 @pytest.mark.parametrize("parallel", [{"data_axis": 2}, {"model_axis": 2},
                                       {"fsdp": True}])
 def test_mesh_request_raises(parallel):
-    """A mesh of more than one device raises; ``fsdp`` alone builds no mesh
-    in JAX either (mesh_from_config returns None for one device), so it
-    builds the unsharded model, the same as JAX's on the same config."""
+    """A model axis above 1 raises (ROADMAP §1 item 6b). A data axis
+    builds the model every rank holds, as JAX's does on the same config;
+    ``fsdp`` alone builds no mesh in JAX either (mesh_from_config returns
+    None for one device), so it builds the unsharded model too."""
     jcfg, cfg = tiny_configs(**{f"parallel.{k}": v for k, v in parallel.items()})
-    if "fsdp" not in parallel:
-        with pytest.raises(NotImplementedError, match="item 6"):
+    if "model_axis" in parallel:
+        with pytest.raises(NotImplementedError, match="item 6b"):
             ddpm_from_config(cfg, device="cpu")
         return
-    jcfg.parallel.data_axis = 1  # one device, as the port's card
+    if "fsdp" in parallel:
+        jcfg.parallel.data_axis = 1  # one device, as the port's card
     jddpm = j_ddpm_from_config(jcfg, key=jax.random.PRNGKey(0))
     ddpm = ddpm_from_config(cfg, device="cpu")
     assert isinstance(ddpm, UNetDDPM)

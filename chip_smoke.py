@@ -235,16 +235,35 @@ any error or disagreement:
    data-parallel one, and the bf16 train step at batch 128 (64 a rank)
    with exact launch counts on each rank. The ranks print their own
    lines; a failing rank fails the run.
-21. One JSON line {"kernels": [...]} with all nine kernels (the eight
-   rows and 7b, each with its worst error as a fraction of its
-   tolerance; phase 20's launches among their paths), then the last
-   line {"ok": true, "device": {...}}.
+21. The model axis (parallel/model_parallel.py). (a) Rows 3s and 4s, the
+   split-statistics GroupNorm kernels, each against its plain version
+   at B 64, S 1024 cut into 2 and 4 row pieces, C 128 and 256, G 32, bf16
+   and fp32 (timed beside its bound, plain version and a library call on
+   one piece), and the pieces' pair (their sums added in piece order, as
+   the model group's all-reduce adds them) against rows 3 and 4 on the
+   whole image; then the pair at one rank against row 3 (4) on the same
+   shape, timed. (b) Two ranks sharing the card under gloo on a 1 x 2
+   mesh: the bf16 flagship's channel (TP) and spatial (SP) forward at
+   batch 64 and the fp32 one at batch 8 against one process on the card
+   (rows 1 and 3, and 3s, at exact counts), one fp32 train step of each
+   partition at batch 2 against one process (loss, whole gradients,
+   parameters after Adam), the bf16 train steps at batch 8 of each
+   partition and of one process with exact launches (rows 1-4; under SP
+   rows 3s/4s for the 61 GroupNorms outside the attention blocks), their
+   model-axis byte bill by kind and project_step's NVLink projection on
+   2, 4 and 8 cards, and sharded_sampler(partition="spatial") fp32
+   DDIM-5 at batch 64 against the unsharded sampler.
+22. One JSON line {"kernels": [...]} with all thirteen kernels (the eight
+   rows, 7b, and rows 3s/4s' four entries, each with its worst error as
+   a fraction of its tolerance; phases 20's and 21's launches among
+   their paths), then the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
 import datetime
+import gc
 import json
 import math
 import os
@@ -714,6 +733,17 @@ def compare_to_scale(got, want, rtol: float, atol_of_scale: float):
     diff = (got - want).abs()
     bound_t = rtol * want.abs() + atol_of_scale * float(want.abs().max())
     return float(diff.max()), bool((diff <= bound_t).all())
+
+
+def compare_to_typical(got, want, rtol: float, atol_of_median: float):
+    """(max abs error, ok, atol) for |got - want| <= rtol |want| + atol
+    with atol = atol_of_median * median |want|: each element is held to
+    its own size, and the floor is a typical element's, not the largest
+    one's."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    atol = atol_of_median * float(want.abs().median())
+    return float(diff.max()), bool((diff <= rtol * want.abs() + atol).all()), atol
 
 
 def tol_fraction(got, want, rtol: float, atol_of_scale: float) -> float:
@@ -3728,6 +3758,580 @@ def scale_out_phase(dev, weights, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 21: the model axis (tensor and spatial parallelism) and rows 3s/4s
+# ---------------------------------------------------------------------
+
+# rows 3s and 4s: the split pair against rows 3 and 4 on the whole image,
+# at B 64, S 1024 cut into R row pieces, G 32: (C, R) of each case
+SPLIT_GN_CASES = ((128, 2), (128, 4), (256, 2), (256, 4))
+SPLIT_GN = (64, 1024, 32)  # B, S, G
+# operations per element (fp32): 3s statistics 3 (an add, an fma); the
+# normalise 3, the SiLU 4 more; 4s statistics 4 (n_hat 2, the partials 2),
+# the SiLU's VJP 10 more; dx 7 (n_hat 2, dn 1, dx 4), the SiLU's VJP 10 more
+SPLIT_GN_OPS = {"stats": {"silu": 3, "none": 3}, "apply": {"silu": 7, "none": 3},
+                "bwd_stats": {"silu": 14, "none": 4},
+                "bwd_apply": {"silu": 17, "none": 7}}
+# the model-parallel bf16 flagship against one process on the card, of the
+# output's scale: two bf16 computations of the same network that round at
+# other places (narrower convs choose other cuDNN algorithms; row 3s sums in
+# another grouping); fp32: FORWARD_TOL
+MP_BF16_TOL = 2e-2
+MP_STEP_BATCH = 2      # the fp32 train steps held against one process
+MP_BF16_BATCH = 8      # the bf16 train steps counted and timed
+MP_DDIM_STEPS = 5      # the spatial sampler against the unsharded one
+MP_TIMEOUT_S = 400
+SPLIT_COUNTERS = (("group_norm_stats", "groupnorm", "group_norm_stats"),
+                  ("group_norm_apply", "groupnorm", "group_norm_apply"),
+                  ("group_norm_bwd_stats", "groupnorm", "group_norm_bwd_stats"),
+                  ("group_norm_bwd_apply", "groupnorm", "group_norm_bwd_apply"))
+
+
+def split_gn_pieces(x, dy, scale, bias, G, R, eps, act):
+    """Rows 3s and 4s over R row pieces of (B, S, C) x, each piece's sums
+    added in piece order as the all-reduce adds them: (y, dx, dscale,
+    dbias) of the whole image, and the sums (forward, backward)."""
+    import torch
+
+    from pdm_tpu_torch.ops import groupnorm as gn_op
+
+    xs, ds = x.chunk(R, dim=1), dy.chunk(R, dim=1)
+    xs, ds = [t.contiguous() for t in xs], [t.contiguous() for t in ds]
+    n = float(x.shape[1]) * float(x.shape[2] // G)
+    sums = gn_op.group_norm_stats(xs[0], G)
+    for piece in xs[1:]:
+        sums = sums + gn_op.group_norm_stats(piece, G)
+    y = torch.cat([gn_op.group_norm_apply(p, scale, bias, sums, G, n, eps, act)
+                   for p in xs], dim=1)
+    parts = [gn_op.group_norm_bwd_stats(p, d, scale, bias, sums, G, n, eps, act)
+             for p, d in zip(xs, ds)]
+    gsums = parts[0][0]
+    dscale, dbias = parts[0][1], parts[0][2]
+    for g, a, b in parts[1:]:
+        gsums, dscale, dbias = gsums + g, dscale + a, dbias + b
+    dx = torch.cat([gn_op.group_norm_bwd_apply(p, d, scale, bias, sums, gsums,
+                                               G, n, eps, act)
+                    for p, d in zip(xs, ds)], dim=1)
+    return y, dx, dscale, dbias, sums, gsums
+
+
+def split_gn_phase(time_ms, dev) -> dict:
+    """Phase 21(a): rows 3s and 4s against their plain versions, and the
+    split pair against rows 3 and 4 on the whole image, at SPLIT_GN_CASES
+    in bf16 and fp32 with the SiLU; each kernel timed on one piece beside
+    its plain version, its bound and a library call; the pair at R = 1
+    against row 3 (4) on the same shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from pdm_tpu_torch.ops import groupnorm as gn_op
+
+    B, S, G = SPLIT_GN
+    eps, act = 1e-6, "silu"
+    rows, pair_rows = [], []
+    g = torch.Generator(device=dev).manual_seed(21)
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        for C, R in SPLIT_GN_CASES:
+            x = torch.randn(B, S, C, generator=g, device=dev).to(dtype)
+            dy = torch.randn(B, S, C, generator=g, device=dev).to(dtype)
+            scale = 1.0 + 0.1 * torch.randn(C, generator=g, device=dev)
+            bias = 0.1 * torch.randn(C, generator=g, device=dev)
+            y, dx, dsc, dbi, sums, gsums = split_gn_pieces(x, dy, scale, bias, G, R,
+                                                           eps, act)
+            y3 = gn_op.fused_group_norm_act(x, scale, bias, G, eps, act)
+            dx4, dsc4, dbi4 = gn_op.group_norm_bwd(x, scale, bias, dy, G, eps, act)
+            torch.cuda.synchronize()
+            err_y, ok_y, _, _ = compare(y, y3, dname)
+            rt, at = BWD_TOL[dname]
+            err_dx, ok_dx = compare_to_scale(dx, dx4, rt, at)
+            err_p = max(compare_to_scale(a, b, *PARAM_GRAD_TOL)[0]
+                        for a, b in ((dsc, dsc4), (dbi, dbi4)))
+            ok_p = all(compare_to_scale(a, b, *PARAM_GRAD_TOL)[1]
+                       for a, b in ((dsc, dsc4), (dbi, dbi4)))
+            # each kernel against its plain version on the first piece
+            piece = x.chunk(R, dim=1)[0].contiguous()
+            dpiece = dy.chunk(R, dim=1)[0].contiguous()
+            n = float(S) * float(C // G)
+            ks = {
+                "stats": (lambda: gn_op.group_norm_stats(piece, G),
+                          lambda: gn_op.group_norm_stats_reference(piece, G)),
+                "apply": (lambda: gn_op.group_norm_apply(piece, scale, bias, sums, G,
+                                                         n, eps, act),
+                          lambda: gn_op.group_norm_apply_reference(
+                              piece, scale, bias, sums, G, n, eps, act)),
+                "bwd_stats": (lambda: gn_op.group_norm_bwd_stats(
+                                  piece, dpiece, scale, bias, sums, G, n, eps, act)[0],
+                              lambda: gn_op.group_norm_bwd_stats_reference(
+                                  piece, dpiece, scale, bias, sums, G, n, eps, act)[0]),
+                "bwd_apply": (lambda: gn_op.group_norm_bwd_apply(
+                                  piece, dpiece, scale, bias, sums, gsums, G, n, eps,
+                                  act),
+                              lambda: gn_op.group_norm_bwd_apply_reference(
+                                  piece, dpiece, scale, bias, sums, gsums, G, n,
+                                  eps, act)),
+            }
+            timed = dname == "bfloat16" or R == 2
+            side = int(round(math.sqrt(S)))
+            x4 = piece.view(B, S // R // side, side, C).permute(0, 3, 1, 2)
+            xg = piece.view(B, S // R, G, C // G)
+            xf = x4.detach().clone().requires_grad_(True)
+            yf = F.silu(F.group_norm(xf, G, scale.to(dtype), bias.to(dtype), eps))
+            d4 = dpiece.view(B, S // R // side, side, C).permute(0, 3, 1, 2)
+            library = {"stats": lambda: torch.var_mean(xg, dim=(1, 3)),
+                       "apply": None, "bwd_stats": None,
+                       "bwd_apply": lambda: torch.autograd.grad(yf, xf, d4,
+                                                                retain_graph=True)}
+            esz = piece.element_size()
+            io = {"stats": piece.numel() * esz + B * G * 8,
+                  "apply": 2 * piece.numel() * esz + B * G * 8 + 8 * C,
+                  "bwd_stats": 2 * piece.numel() * esz + B * G * 16 + 8 * B * C + 8 * C,
+                  "bwd_apply": 3 * piece.numel() * esz + B * G * 16 + 8 * C}
+            for name, (kern, plain) in ks.items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                if name in ("stats", "bwd_stats"):
+                    err, ok = compare_to_scale(got, want, *PARAM_GRAD_TOL)
+                    worst = tol_fraction(got, want, *PARAM_GRAD_TOL)
+                elif name == "apply":
+                    err, ok, _, _ = compare(got, want, dname)
+                    worst = compare_fraction(got, want, dname)
+                else:
+                    err, ok = compare_to_scale(got, want, rt, at)
+                    worst = tol_fraction(got, want, rt, at)
+                row = {"kernel": name, "shape": [B, S // R, C], "pieces": R,
+                       "groups": G, "dtype": dname, "act": act, "max_abs_err": err,
+                       "worst_of_tolerance": worst}
+                if timed:
+                    b_ms, b_by = bound(io[name], SPLIT_GN_OPS[name][act] * piece.numel(),
+                                       "float32")
+                    ms, host_ms = time_ms(kern)
+                    lib = library[name]
+                    row.update(ms=ms, host_ms=host_ms, bound_ms=b_ms, bound_by=b_by,
+                               plain_ms=time_ms(plain, inner=5)[0],
+                               library_ms=None if lib is None else time_ms(lib)[0])
+                rows.append(row)
+                log(f"row {'3s' if name in ('stats', 'apply') else '4s'} {name} {dname} "
+                    f"B={B} S={S // R} (1/{R} of {S}) C={C} G={G}: max_abs_err {err:.3g} "
+                    f"({worst:.3g} of its tolerance)"
+                    + (f" kernel_ms {row['ms']:.4f} (host {row['host_ms']:.4f}) plain_ms "
+                       f"{row['plain_ms']:.4f} library_ms {row['library_ms']} bound_ms "
+                       f"{row['bound_ms']:.4f} ({row['bound_by']})" if timed else ""))
+                if not ok:
+                    fail(f"row {name} disagrees with its plain version at {row['shape']} "
+                         f"{dname}")
+            log(f"split pair {dname} B={B} S={S} in {R} pieces C={C} G={G} against rows "
+                f"3/4 on the whole image: y {err_y:.3g}, dx {err_dx:.3g}, dscale/dbias "
+                f"{err_p:.3g}")
+            if not (ok_y and ok_dx and ok_p):
+                fail(f"rows 3s/4s over {R} pieces disagree with rows 3/4 at C={C} {dname}")
+            pair_rows.append({"C": C, "pieces": R, "dtype": dname, "y_err": err_y,
+                              "dx_err": err_dx, "param_err": err_p})
+    # what the split costs against row 3 (4) at one rank, on the same shape
+    cost = []
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        C = 128
+        x = torch.randn(B, S, C, generator=g, device=dev).to(dtype)
+        dy = torch.randn(B, S, C, generator=g, device=dev).to(dtype)
+        scale = torch.ones(C, device=dev)
+        bias = torch.zeros(C, device=dev)
+        n = float(S) * float(C // G)
+
+        def split_fwd():
+            sums = gn_op.group_norm_stats(x, G)
+            return gn_op.group_norm_apply(x, scale, bias, sums, G, n, eps, act)
+
+        sums = gn_op.group_norm_stats(x, G)
+
+        def split_bwd():
+            gs = gn_op.group_norm_bwd_stats(x, dy, scale, bias, sums, G, n, eps, act)[0]
+            return gn_op.group_norm_bwd_apply(x, dy, scale, bias, sums, gs, G, n, eps,
+                                              act)
+
+        same = split_fwd()
+        y3 = gn_op.fused_group_norm_act(x, scale, bias, G, eps, act)
+        esz = x.element_size()
+        fb, _ = bound(2 * x.numel() * esz + 8 * C, 12 * x.numel(), "float32")
+        bb, _ = bound(3 * x.numel() * esz + 8 * C, GN_BWD_OPS[act] * x.numel(), "float32")
+        c = {"dtype": dname, "shape": [B, S, C], "groups": G,
+             "row3_ms": time_ms(lambda: gn_op.fused_group_norm_act(x, scale, bias, G,
+                                                                   eps, act))[0],
+             "split_fwd_ms": time_ms(split_fwd)[0],
+             "row4_ms": time_ms(lambda: gn_op.group_norm_bwd(x, scale, bias, dy, G, eps,
+                                                             act))[0],
+             "split_bwd_ms": time_ms(split_bwd)[0],
+             "fwd_bound_ms": fb, "bwd_bound_ms": bb,
+             "fwd_launches": [1, 2], "bwd_launches": [1, 2],
+             "y_err_vs_row3": float((same.float() - y3.float()).abs().max())}
+        cost.append(c)
+        log(f"split at one rank {dname} B={B} S={S} C={C} G={G}: forward row 3 "
+            f"{c['row3_ms']:.4f} ms (1 launch) vs 3s stats+apply {c['split_fwd_ms']:.4f} "
+            f"ms (2 launches), bound {fb:.4f}; backward row 4 {c['row4_ms']:.4f} ms vs "
+            f"4s {c['split_bwd_ms']:.4f} ms, bound {bb:.4f}; y vs row 3 max |diff| "
+            f"{c['y_err_vs_row3']:.3g}")
+    return {"rows": rows, "pairs": pair_rows, "one_rank": cost}
+
+
+def _whole_grads(grads, module, mesh):
+    """Whole gradients from a model-parallel module's (its sharded leaves
+    gathered over the model group)."""
+    from pdm_tpu_torch.parallel.collectives import all_gather_dim
+
+    out = {}
+    for name, gr in grads.items():
+        spec = module.specs[name]
+        if "model" in spec:
+            gr = all_gather_dim(gr.contiguous(), mesh.model_group, mesh.model_size,
+                                spec.index("model"))
+        out[name] = gr
+    return out
+
+
+def mp_fp32_step(weights, sched, dev, x, mesh, partition, lr=1e-4):
+    """One fp32 flagship train step (dropout 0.2 from the step generator)
+    on ``x``, over ``mesh``'s model axis with ``partition`` (or one
+    process): the loss, the whole gradients it applied, the whole params
+    after it."""
+    import torch
+
+    from pdm_tpu_torch.diffusion.trainer import DDPMTrainer, step_generator, whole_tensors
+    from pdm_tpu_torch.models.unet import unet_from_config
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+
+    net = unet_from_config(3, FLAGSHIP, dtype=torch.float32, device=dev)
+    tr = DDPMTrainer(UNetDDPM(sched, net, device=dev), learning_rate=lr,
+                     warmup_steps=0, grad_clip=1e9, ema_decay=0.9999,
+                     model_partition=partition)
+    st = tr.init_state(weights, mesh)
+    st, m, grads = train_step_with_grads(tr, st, x, generator=step_generator(0, 1, dev))
+    if mesh is not None:
+        grads = _whole_grads({k: v.to(dev) for k, v in grads.items()},
+                             tr.ddpm.module, mesh)
+    params = {k: v.cpu() for k, v in whole_tensors(st, st.params).items()}
+    return float(m["loss"]), {k: v.cpu() for k, v in grads.items()}, params
+
+
+def model_axis_child(rank: int, tmp: str) -> None:
+    """Phase 21(b) on one rank of two sharing the card under gloo, mesh
+    1 x 2: the bf16 flagship's TP and SP forward at the sampler's batch
+    against one process (and fp32), one fp32 TP and SP train step against
+    one process, the bf16 steps counted and timed with their byte bills,
+    and sharded_sampler(partition="spatial") against the unsharded one."""
+    import torch
+    import torch.distributed as dist
+
+    from pdm_tpu_torch.diffusion.sampling import DDPMSampler
+    from pdm_tpu_torch.diffusion.trainer import DDPMTrainer, step_generator
+    from pdm_tpu_torch.models.unet import AttentionBlock, GroupNormAct, unet_from_config
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+    from pdm_tpu_torch.parallel import (
+        make_mesh, sharded_sampler, unet_with_sp, unet_with_tp,
+    )
+    from pdm_tpu_torch.parallel.collectives import H100_NVLINK_BW, project_step
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    label = f"model axis rank {rank}/2 (gloo)"
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv21", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(data=1, model=2)
+        res = {"rank": rank}
+        counters = [_counter(mod, fn) for _, mod, fn in TRAIN_COUNTERS + SPLIT_COUNTERS]
+        keys = [k for k, _, _ in TRAIN_COUNTERS + SPLIT_COUNTERS]
+        sched = LinearBetaScheduler(1e-4, 2.478e4)
+        cpu_net = unet_from_config(3, FLAGSHIP, dtype=torch.float32, device="cpu")
+        weights = seeded_state_dict(cpu_net)
+        n_gn = sum(isinstance(m, GroupNormAct) for m in cpu_net.modules())
+        n_attn = sum(isinstance(m, AttentionBlock) for m in cpu_net.modules())
+        del cpu_net
+        h = 32 // mesh.model_size
+        rows = slice(mesh.model_index * h, (mesh.model_index + 1) * h)
+        x = torch.from_numpy(np.random.RandomState(21).standard_normal(
+            (BATCH, 3, 32, 32)).astype(np.float32)).to(dev)
+        tau = torch.linspace(0.05, 0.95, BATCH, device=dev)
+        # (1) the forward, bf16 at the sampler's batch and fp32 at batch 8
+        fwd = {}
+        for dname, batch, tol in (("bfloat16", BATCH, MP_BF16_TOL),
+                                  ("float32", 8, FORWARD_TOL)):
+            net = unet_from_config(3, FLAGSHIP, dtype=getattr(torch, dname), device=dev)
+            net.load_state_dict(weights)
+            xb, tb = x[:batch], tau[:batch]
+            with torch.inference_mode():
+                ref = net(xb, tb)
+            for part, make, inp, want in (
+                    ("channel", unet_with_tp, xb, ref),
+                    ("spatial", unet_with_sp, xb[:, :, rows].contiguous(),
+                     ref[:, :, rows])):
+                mp_net = make(net, mesh)
+                mesh.model_stats.reset()
+                with torch.inference_mode():
+                    out, launches = counted(lambda: mp_net(inp, tb), counters)
+                    torch.cuda.synchronize()
+                    bill = dict(mesh.model_stats.bytes_by_kind)
+                    ms = statistics.median(
+                        [_host_ms(lambda: mp_net(inp, tb)) for _ in range(3)])
+                    plain_ms = statistics.median(
+                        [_host_ms(lambda: net(xb, tb)) for _ in range(3)])
+                err, ok = compare_to_scale(out, want, 0.0, tol)
+                launches = dict(zip(keys, launches))
+                fwd[f"{part} {dname}"] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                                          "launches": launches, "bill": bill}
+                log(f"{label}: {part} forward, {dname} flagship, batch {batch}: max "
+                    f"|diff| {err:.3g} against one process (tol {tol} of scale "
+                    f"{float(want.abs().max()):.3g}); {ms:.2f} ms against {plain_ms:.2f} "
+                    f"one process (host clock, synchronized); launches {launches}; "
+                    f"model-axis bill {bill} bytes")
+                if not ok:
+                    fail(f"{label}: the {part} {dname} forward disagrees with one process")
+                want_l = ({"attention_fwd": n_attn, "group_norm_fwd": n_gn}
+                          if part == "channel" else
+                          {"attention_fwd": n_attn, "group_norm_fwd": n_attn,
+                           "group_norm_stats": n_gn - n_attn,
+                           "group_norm_apply": n_gn - n_attn})
+                got_l = {k: v for k, v in launches.items() if v}
+                if got_l != want_l:
+                    fail(f"{label}: {part} forward launches {got_l} != {want_l}")
+            del net, mp_net, ref, out
+        res["forward"] = fwd
+        torch.cuda.empty_cache()
+        # (2) one fp32 train step of each partition against one process
+        x2 = x[:MP_STEP_BATCH]
+        one = mp_fp32_step(weights, sched, dev, x2, None, "channel")
+        steps = {}
+        for part in ("channel", "spatial"):
+            got = mp_fp32_step(weights, sched, dev, x2, mesh, part)
+            loss_err = abs(got[0] - one[0]) / abs(one[0])
+            top = max(float(v.abs().max()) for v in one[1].values())
+            worst_grad = max(float((got[1][k] - g1).abs().max())
+                             / (TRAIN_TOL["grad"] * float(g1.abs().max())
+                                + TRAIN_TOL["grad_floor"] * top)
+                             for k, g1 in one[1].items())
+            excess = max(float(((got[2][k] - one[2][k]).abs()
+                                - adam_first_step_bound(got[1][k], one[1][k], 1e-4)
+                                - 1e-7).max()) for k in one[2])
+            steps[part] = {"loss_err": loss_err, "grad": worst_grad, "excess": excess}
+            log(f"{label}: fp32 flagship {part} train step, batch {MP_STEP_BATCH}, "
+                f"dropout 0.2, against one process: loss {got[0]:.7g} vs {one[0]:.7g} "
+                f"(rel {loss_err:.3g}, tol {TRAIN_TOL['loss']}); worst gradient "
+                f"{worst_grad:.3g} of its tolerance; params after Adam within the bound "
+                f"the gradients allow, worst excess {excess:.3g}")
+            if loss_err > TRAIN_TOL["loss"] or worst_grad > 1.0 or excess > 0:
+                fail(f"{label}: the {part} fp32 train step disagrees with one process")
+        res["fp32_step"] = steps
+        del one, got
+        torch.cuda.empty_cache()
+        # (3) the bf16 train steps: launches, time, the byte bill
+        xb = x[:MP_BF16_BATCH]
+        train = {}
+        for part in ("channel", "spatial", None):
+            # the card memory the trainer holds on this rank: the module, the
+            # fp32 masters and EMA after init_state, the Adam moments too
+            # after the steps (the trainer holds the only reference to the
+            # whole model, as train_diffusion's does; the previous part's
+            # trainer is gone: its step closure held it)
+            gc.collect()
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            tr = DDPMTrainer(UNetDDPM(sched, unet_from_config(
+                3, FLAGSHIP, dtype=torch.bfloat16, device=dev), device=dev),
+                learning_rate=1e-4, warmup_steps=10, total_iters=1000,
+                grad_clip=1.0, ema_decay=0.9999, model_partition=part or "channel")
+            st = tr.init_state(weights, None if part is None else mesh)
+            torch.cuda.synchronize()
+            mem_init = torch.cuda.memory_allocated() - mem0
+            it = iter(range(1, 1000))
+
+            def step(tr=tr, st=st, it=it):
+                return tr.train_step(st, xb, step_generator(0, next(it), dev))[1]
+
+            step()
+            torch.cuda.synchronize()
+            mesh.model_stats.reset()
+            mesh.stats.reset()
+            m, launches = counted(step, counters)
+            torch.cuda.synchronize()
+            bill = dict(mesh.model_stats.bytes_by_kind)
+            calls = dict(mesh.model_stats.count_by_kind)
+            data_bill = dict(mesh.stats.bytes_by_kind)
+            ms = statistics.median([_host_ms(step) for _ in range(3)])
+            torch.cuda.synchronize()
+            mem_steps = torch.cuda.memory_allocated() - mem0
+            name = part or "one process"
+            train[name] = {"ms": ms, "launches": dict(zip(keys, launches)),
+                           "loss": float(m["loss"]), "bill": bill, "calls": calls,
+                           "data_bill": data_bill,
+                           "held_bytes": {"init_state": mem_init, "after_steps": mem_steps}}
+            if part is not None:
+                one_bill = type(mesh.model_stats)()
+                for k, v in bill.items():
+                    one_bill.add(k, v)
+                train[name]["projected_ms"] = {
+                    n: project_step(one_bill, n, H100_NVLINK_BW)["total"] * 1e3
+                    for n in (2, 4, 8)}
+            log(f"{label}: bf16 flagship train step, {name}, batch {MP_BF16_BATCH}: "
+                f"{ms:.2f} ms (host clock, synchronized); loss {float(m['loss']):.5g}; "
+                f"launches {train[name]['launches']}; model-axis bill {bill} bytes in "
+                f"{calls} calls; data-axis bill {data_bill}; projected over NVLink (H100 "
+                f"SXM data sheet, 450 GB/s a direction) on 2/4/8 cards, this 2-rank "
+                f"bill at JAX's ring volumes, halos as JAX's collective-permute (the "
+                f"port's halo all-gather moves every rank's boundary rows) "
+                f"{train[name].get('projected_ms')} ms; card memory the trainer "
+                f"holds (torch.cuda.memory_allocated) {mem_init} bytes after "
+                f"init_state, {mem_steps} after the steps")
+            if not math.isfinite(float(m["loss"])):
+                fail(f"{label}: the bf16 {name} train step's loss is not finite")
+            got_l = {k: v for k, v in train[name]["launches"].items() if v}
+            if part == "channel":
+                want_l = {"attention_fwd": n_attn, "attention_bwd": 2 * n_attn,
+                          "group_norm_fwd": n_gn, "group_norm_bwd": n_gn}
+            elif part == "spatial":
+                k = n_gn - n_attn
+                want_l = {"attention_fwd": n_attn, "attention_bwd": 2 * n_attn,
+                          "group_norm_fwd": n_attn, "group_norm_bwd": n_attn,
+                          "group_norm_stats": k, "group_norm_apply": k,
+                          "group_norm_bwd_stats": k, "group_norm_bwd_apply": k}
+            else:
+                want_l = TRAIN_LAUNCHES
+            if got_l != want_l:
+                fail(f"{label}: {name} train-step launches {got_l} != {want_l}")
+            del tr, st, step, m
+            torch.cuda.empty_cache()
+        one_held = train["one process"]["held_bytes"]
+        for part in ("channel", "spatial"):
+            held = train[part]["held_bytes"]
+            held["of_one_process"] = {k: held[k] / one_held[k] for k in one_held}
+            log(f"{label}: the {part} trainer holds {held['of_one_process']} of one "
+                f"process's card memory (after init_state, after the steps)")
+        if train["spatial"]["held_bytes"]["init_state"] > 1.01 * one_held["init_state"]:
+            fail(f"{label}: the spatial trainer holds more than one process's weights")
+        if train["channel"]["held_bytes"]["after_steps"] > 0.6 * one_held["after_steps"]:
+            fail(f"{label}: the channel trainer does not cut its card memory by m")
+        res["train"] = train
+        # (4) the spatial sampler against the unsharded one, fp32
+        net = unet_from_config(3, FLAGSHIP, dtype=torch.float32, device=dev)
+        net.load_state_dict(weights)
+        ddpm = UNetDDPM(sched, net, device=dev)
+        sampler = DDPMSampler(ddpm=ddpm, scheduler=sched, n_steps=MP_DDIM_STEPS,
+                              obj_size=(3, 32, 32), batch_size=BATCH, n_samples=BATCH,
+                              step_type="ddim", device=dev)
+        sp = sharded_sampler(sampler, mesh, partition="spatial")
+
+        def draw(s):
+            return lambda: s.batch_sample(torch.Generator(device=dev).manual_seed(3))["x"]
+
+        mesh.model_stats.reset()
+        got, launches = counted(draw(sp), counters)
+        want = draw(sampler)()
+        torch.cuda.synchronize()
+        # each element to its own size plus a typical element's: the final
+        # x of random weights reaches |x| ~ 10^3 at its largest, so a floor
+        # from max |x| would pass a wrong halo row
+        err, ok, atol = compare_to_typical(got, want, FORWARD_TOL, FORWARD_TOL)
+        # the control: rank 1's upper halo row at conv_out zeroed (both
+        # ranks still exchange), which the check must refuse
+        bad = zeroed_halo_row(draw(sp))
+        bad_err, bad_ok, _ = compare_to_typical(bad, want, FORWARD_TOL, FORWARD_TOL)
+        bad_ok_by_max = compare_to_scale(bad, want, 0.0, FORWARD_TOL)[1]
+        ms = _host_ms(draw(sp))
+        plain_ms = _host_ms(draw(sampler))
+        res["sampler"] = {"err": err, "ms": ms / MP_DDIM_STEPS,
+                          "plain_ms": plain_ms / MP_DDIM_STEPS,
+                          "launches": dict(zip(keys, launches)),
+                          "atol": atol, "max_abs": float(want.abs().max()),
+                          "median_abs": float(want.abs().median()),
+                          "control_err": bad_err,
+                          "control_passes_max_scale_check": bad_ok_by_max}
+        log(f"{label}: sharded_sampler(partition='spatial') fp32 DDIM-{MP_DDIM_STEPS} "
+            f"at batch {BATCH}: max |diff| {err:.4g} against the unsharded sampler "
+            f"(tol {FORWARD_TOL} |x| + {atol:.4g}, {FORWARD_TOL} of median |x| "
+            f"{res['sampler']['median_abs']:.4g}; max |x| "
+            f"{res['sampler']['max_abs']:.4g}); one halo row zeroed: max |diff| "
+            f"{bad_err:.4g}, refused {not bad_ok} (the former bound, {FORWARD_TOL} "
+            f"of max |x|, would have passed it: {bad_ok_by_max}); "
+            f"{ms / MP_DDIM_STEPS:.2f} ms a step against {plain_ms / MP_DDIM_STEPS:.2f}; "
+            f"launches {res['sampler']['launches']}")
+        if not ok or tuple(got.shape) != (BATCH, 3, 32, 32):
+            fail(f"{label}: the spatial sampler disagrees with the unsharded one")
+        if bad_ok:
+            fail(f"{label}: the spatial sampler's check passes a zeroed halo row")
+        with open(os.path.join(tmp, f"mp{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def zeroed_halo_row(fn):
+    """``fn()`` with rank 1's upper halo row zeroed at the spatial UNet's
+    conv_out (a control for the check: every rank still enters the halo
+    exchange)."""
+    import torch.nn.functional as F
+
+    from pdm_tpu_torch.parallel import model_parallel as mpm
+
+    conv_of = mpm._Spatial.conv
+
+    def conv(self, conv, a):
+        if conv is not self.mp.conv_out or not a.split:
+            return conv_of(self, conv, a)
+        x = self.halo(a.t, 1, 1)
+        if self.r == 1:
+            x = x.clone()
+            x[:, :, 0] = 0
+        return mpm._Act(F.conv2d(x, conv.weight, conv.bias, 1, (0, 1)), True)
+
+    mpm._Spatial.conv = conv
+    try:
+        return fn()
+    finally:
+        mpm._Spatial.conv = conv_of
+
+
+def _host_ms(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def model_axis_phase(time_ms, dev) -> dict:
+    """Phase 21: (a) rows 3s and 4s in one process (split_gn_phase), (b)
+    two gloo ranks sharing the card on a 1 x 2 mesh (model_axis_child),
+    (c) the byte bill and its NVLink projection (in (b)'s report)."""
+    import torch.multiprocessing as mp
+
+    out = {"split": split_gn_phase(time_ms, dev)}
+    tmp = tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(model_axis_child, args=(tmp,), nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + MP_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+                if time.monotonic() > deadline:
+                    fail(f"model axis (b): the two ranks outlived {MP_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        kids = [json.load(open(os.path.join(tmp, f"mp{r}.json"))) for r in range(2)]
+        log(f"model axis (b): two ranks on one card under gloo passed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out["ranks"] = kids
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -4479,8 +5083,12 @@ def main() -> int:
     log(f"phase 20 at {time.perf_counter() - t_start:.1f} s")
     scale_out = scale_out_phase(dev, weights, smi)
 
-    # ---- phase 21: the kernels line and the result ----
+    # ---- phase 21: the model axis (tensor and spatial parallelism) ----
     log(f"phase 21 at {time.perf_counter() - t_start:.1f} s")
+    model_axis = model_axis_phase(time_ms, dev)
+
+    # ---- phase 22: the kernels line and the result ----
+    log(f"phase 22 at {time.perf_counter() - t_start:.1f} s")
 
     def per_path(rows, launches, n_steps):
         main = [r for r in rows if r["calls_per_step"]]
@@ -4620,6 +5228,78 @@ def main() -> int:
                 "ms_per_step": run["train"]["ms"],
                 "note": "launch count only: the bf16 train step at global batch "
                         f"{TRAIN_BATCH} over the mesh"}
+    # phase 21: the model-parallel bf16 train step and forward on each of
+    # two ranks sharing the card (gloo)
+    mp_ranks = [(f"rank {kid['rank']} of 2, gloo", kid) for kid in model_axis["ranks"]]
+    for key, (name, _) in cli_paths.items():
+        k = next(k for k in kernels if k["name"] == name)
+        for where, run in mp_ranks:
+            for part in ("channel", "spatial"):
+                n = run["train"][part]["launches"][key]
+                k["launches"] += n
+                k["paths"][f"{part}-parallel training, {where}"] = {
+                    "launches": n, "launches_per_step": n,
+                    "ms_per_step": run["train"][part]["ms"],
+                    "note": f"launch count only: one bf16 train step at batch "
+                            f"{MP_BF16_BATCH} over a 1 x 2 mesh"}
+    split_rows = model_axis["split"]["rows"]
+    sp_names = {"stats": ("group_norm_stats", "3s", "groupnorm.cu",
+                          "per-rank sums of x and x^2 in row 3's plan and order, "
+                          "streaming (x read once)"),
+                "apply": ("group_norm_apply", "3s", "groupnorm.cu",
+                          "elementwise normalise from the all-reduced sums, each "
+                          "block's channel constants in shared memory"),
+                "bwd_stats": ("group_norm_bwd_stats", "4s", "groupnorm_bwd.cu",
+                              "per-rank dgamma/dbeta partials and group sums of dn, "
+                              "dn n_hat in row 4's plan and order, streaming"),
+                "bwd_apply": ("group_norm_bwd_apply", "4s", "groupnorm_bwd.cu",
+                              "elementwise dx from the all-reduced group sums")}
+    for kern, (name, row, src, design) in sp_names.items():
+        mine = [r for r in split_rows if r["kernel"] == kern]
+        head = next(r for r in mine if r["dtype"] == "bfloat16" and r["pieces"] == 2
+                    and r["shape"][2] == 128)
+        key = name
+        paths = {}
+        total = 0
+        for where, run in mp_ranks:
+            n = run["train"]["spatial"]["launches"][key]
+            paths[f"spatial-parallel training, {where}"] = {
+                "launches": n, "launches_per_step": n,
+                "ms_per_step": run["train"]["spatial"]["ms"]}
+            total += n
+            if kern in ("stats", "apply"):
+                n = run["forward"]["spatial bfloat16"]["launches"][key]
+                paths[f"spatial-parallel forward, {where}"] = {
+                    "launches": n, "launches_per_step": n,
+                    "ms_per_step": run["forward"]["spatial bfloat16"]["ms"]}
+                total += n
+                n = run["sampler"]["launches"][key]
+                paths[f"spatial sampler (fp32 DDIM-{MP_DDIM_STEPS}), {where}"] = {
+                    "launches": n, "launches_per_step": n / MP_DDIM_STEPS,
+                    "ms_per_step": run["sampler"]["ms"]}
+                total += n
+        kernels.append({
+            "name": name, "route": "cuda", "design": design,
+            "source": f"pdm_tpu_torch/csrc/{src}",
+            "replaces": ("pdm_tpu/ops/groupnorm.py:175 (row " + row + ": no TPU kernel "
+                         "of its own; GSPMD's partition of the statistics of "
+                         + ("_fgn_call" if row == "3s" else "_fgn_bwd") + ")"),
+            "launches": total,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "worst_of_tolerance": max(r["worst_of_tolerance"] for r in mine),
+            "per": "one call on one rank's piece at the headline shape: bf16, B=64, "
+                   "S=512 (1024 rows split in 2), C=128, G=32, SiLU; 'shapes' gives "
+                   "every case (library: " + {
+                       "stats": "torch.var_mean over the groups",
+                       "apply": "none: no single call normalises with given statistics",
+                       "bwd_stats": "none: no single call gives the partial sums",
+                       "bwd_apply": "autograd of F.group_norm and F.silu (the whole "
+                                    "backward)"}[kern] + ")",
+            **{k: head[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "paths": paths,
+            "shapes": mine,
+        })
     head = next(r for r in sweep_rows if r["label"] == SWEEP_MAIN[0]
                 and r["mode"] == "fp32" and not r["values"])
     stats = {k: head[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms",

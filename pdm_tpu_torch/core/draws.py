@@ -12,7 +12,7 @@ are ``torch.rand`` and ``torch.randn``.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import Tensor
@@ -20,10 +20,14 @@ from torch import Tensor
 
 class SlicedGenerator:
     """``generator`` over a global batch of ``batch`` rows, of which this
-    rank keeps ``[lo, hi)``."""
+    rank keeps ``[lo, hi)``. ``cut`` = (dim, parts, index): the draws are
+    also cut along ``dim`` into ``parts`` equal slices, of which this rank
+    keeps slice ``index`` (an image's rows under spatial parallelism)."""
 
-    def __init__(self, generator: torch.Generator, batch: int, lo: int, hi: int):
+    def __init__(self, generator: torch.Generator, batch: int, lo: int, hi: int,
+                 cut: Optional[Tuple[int, int, int]] = None):
         self.generator, self.batch, self.lo, self.hi = generator, batch, lo, hi
+        self.cut = cut
 
     @property
     def device(self) -> torch.device:
@@ -39,8 +43,16 @@ def _draw(fn, shape: Sequence[int], generator: AnyGenerator, **kw) -> Tensor:
     if shape[0] != generator.hi - generator.lo:
         raise ValueError(f"a draw of {shape[0]} rows from a generator that "
                          f"keeps {generator.hi - generator.lo}")
-    full = fn((generator.batch, *shape[1:]), generator=generator.generator, **kw)
-    return full[generator.lo:generator.hi]
+    shape = [generator.batch, *shape[1:]]
+    if generator.cut is not None:
+        dim, parts, index = generator.cut
+        n = shape[dim]
+        shape[dim] = n * parts
+    full = fn(tuple(shape), generator=generator.generator, **kw)
+    full = full[generator.lo:generator.hi]
+    if generator.cut is not None:
+        full = full.narrow(dim, index * n, n)
+    return full
 
 
 def batch_rand(shape: Sequence[int], generator: AnyGenerator,

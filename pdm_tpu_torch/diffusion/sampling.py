@@ -23,7 +23,9 @@ Noise comes from an explicit ``torch.Generator`` on the sampler's device.
 With ``batch_sharding`` (``parallel.sharded_sampler``) each rank of a data
 mesh steps its rows of the batch: it draws the global batch's x_T and
 noise and keeps its rows, so the samples do not depend on the number of
-ranks, and the batch is gathered at the end.
+ranks, and the batch is gathered at the end. Under spatial parallelism
+(``sharded_sampler(partition="spatial")``) it keeps its rows of its
+images' rows as well.
 ``precision="half"`` runs the model on bf16 inputs and casts x0 back to
 fp32, where the JAX package does; all step arithmetic is fp32.
 
@@ -229,23 +231,25 @@ class DDPMSampler:
         whole batch."""
         bs = batch_size or self.batch_size
         shard = self.batch_sharding
-        rows = slice(None) if shard is None else shard.rows(bs)
+        obj = tuple(self.obj_size if x_init is None else x_init.shape[1:])
         if shard is not None:
+            shard.rows(bs)  # the batch must split over the data axis
             generator = shard.generator(generator, bs)
         if x_init is None:
-            local = bs if shard is None else bs // shard.size
-            x_init = batch_randn((local, *self.obj_size), generator,
-                                 device=self.device, dtype=torch.float32)
+            shape = (bs, *obj) if shard is None else shard.local_shape(bs, obj)
+            x_init = batch_randn(shape, generator, device=self.device,
+                                 dtype=torch.float32)
         elif shard is not None:
-            x_init = x_init[rows]
+            x_init = shard.shard(x_init)
         x_init = x_init.to(self.device, torch.float32)
         if noise is not None:
             noise = noise.to(self.device, torch.float32)
-            if noise.shape != (self.n_steps, bs, *x_init.shape[1:]):
+            if noise.shape != (self.n_steps, bs, *obj):
                 raise ValueError(f"noise must be (n_steps, B, ...) = "
-                                 f"{(self.n_steps, bs, *x_init.shape[1:])}: "
+                                 f"{(self.n_steps, bs, *obj)}: "
                                  f"{tuple(noise.shape)}")
-            noise = noise[:, rows]
+            if shard is not None:
+                noise = shard.shard_steps(noise)
         with torch.inference_mode():
             x, states = _sample_loop(
                 self.ddpm, _step_tables(self._grid()), x_init, self.step_type,
@@ -254,7 +258,7 @@ class DDPMSampler:
             if shard is not None:
                 x = shard.gather(x)
                 if states is not None:
-                    states = shard.gather(states.transpose(0, 1)).transpose(0, 1)
+                    states = shard.gather_steps(states)
         out = {"x": x}
         if states is not None:
             out["states"] = states

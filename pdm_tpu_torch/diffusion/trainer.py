@@ -44,7 +44,7 @@ gradients and the loss are all-reduced in one flat buffer (one call a
 step) and averaged, then clipped and stepped identically on every rank.
 ``fsdp=True`` keeps the fp32 masters, the EMA and both Adam moments
 sharded: each parameter is cut along the dimension JAX's ``_with_fsdp``
-picks for the port's layout (``parallel.mesh.params_sharding``), so a
+picks for it in JAX's layout (``parallel.mesh.port_params_sharding``), so a
 rank holds 1/R of every parameter with such a dimension and the whole of
 the rest (as JAX leaves them); after each step one all-gather of the
 updated shards refreshes the module's compute-dtype weights. Unlike
@@ -59,8 +59,27 @@ so none waits in the next step's gradient all-reduce (bounded by the
 process group's timeout) while another evaluates; the port's hook
 (``utils.logging.make_eval_fn(mesh=)``) shares the sampling and FID's
 features over the ranks, rank 0 writing (``scripts/train_diffusion.py``).
-``model_partition`` and a model axis above 1 are not ported (ROADMAP.md
-§1 item 6b).
+
+A mesh with a model axis above 1 trains the model-parallel UNet
+(``parallel/model_parallel.py``, JAX's ``model_partition``: "channel" or
+"spatial"): ``init_state(mesh=)`` swaps ``ddpm`` for one whose module is
+``unet_with_model_parallel`` of it, and the masters, EMA and moments follow
+``parallel.mesh.port_params_sharding`` (under "channel" a weight whose
+output channels divide holds this rank's; with ``fsdp`` the data axis
+cuts each leaf's largest remaining dimension as well). The ranks of a
+model group take the same images; under "spatial" each keeps its rows of
+the noised batch and of the target. Each rank back-propagates 1/m of its
+loss, so a sharded weight's gradient is complete on its rank and a whole
+leaf's (a bias, a GroupNorm scale, ``conv_out`` under "channel"; every
+leaf under "spatial") is summed over the model group, after the data
+axis's all-reduce. The clip norm is the global norm: the sharded leaves'
+squares are summed over the model group, the whole leaves counted once.
+The trainer then keeps no whole copy of the weights on the card: the
+whole model it keeps for the eval hook (``base_ddpm``) is its layers on
+the meta device, which the hook fills with the gathered EMA weights, and
+its ``params`` (the fp32 weights the model was made from) move to the
+host. A caller that keeps its own reference to the model keeps that
+model's weights.
 
 JAX's ``noise_rng_impl``, ``dropout_rng_impl`` and
 ``compiler_options`` choose a JAX PRNG or XLA flags and have no
@@ -71,6 +90,7 @@ NCHW (in channels_last memory) and no layout transpose is ever applied.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import os
 import re
@@ -83,18 +103,21 @@ from torch import Tensor
 
 from ..core.temperature import alpha_bar_from_log_temp
 from ..models.predictions import training_target
+from ..models.unet import copy_layers
 from ..models.unet_ddpm import UNetDDPM
 from ..parallel.collectives import barrier
+from ..parallel.collectives import all_gather
 from ..parallel.mesh import (
     Mesh,
     Spec,
     batch_sharding,
     check_batch_divisible,
-    params_sharding,
+    port_params_sharding,
     rank,
     shard_leaf,
     unet_with_model_parallel,
 )
+from ..parallel.model_parallel import ModelParallelUNet
 from ..utils.data import HostResidentData
 from ..utils.profiling import PhaseTimer
 from ..utils.timing import sync
@@ -106,10 +129,11 @@ ADAM_EPS = 1e-8  # optax.scale_by_adam's default
 class TrainState:
     """``params`` and ``ema_params`` are fp32 tensors keyed as the module's
     ``named_parameters``; ``optimizer`` is the Adam over ``params`` and
-    holds the moments (the JAX ``opt_state``). ``mesh`` is the data mesh
-    the state lives on; under FSDP ``shard_specs`` holds each parameter's
-    spec (``parallel.mesh.params_sharding``; () is whole) and ``params``,
-    ``ema_params`` and the moments hold this rank's part of it."""
+    holds the moments (the JAX ``opt_state``). ``mesh`` is the mesh the
+    state lives on; under FSDP or a model axis ``shard_specs`` holds each
+    parameter's spec (``parallel.mesh.port_params_sharding``; () is whole)
+    and ``params``, ``ema_params`` and the moments hold this rank's part
+    of it."""
 
     step: int
     params: Dict[str, Tensor]
@@ -162,13 +186,16 @@ def make_optimizer(
                             eps=ADAM_EPS, weight_decay=weight_decay)
 
 
-def clip_by_global_norm(grads: List[Tensor], max_norm: float) -> Tensor:
+def clip_by_global_norm(grads: List[Tensor], max_norm: float,
+                        norm: Optional[Tensor] = None) -> Tensor:
     """``optax.clip_by_global_norm`` in place: each g becomes
     ``g / norm * max_norm`` when ``norm >= max_norm`` (no epsilon, unlike
     ``torch.nn.utils.clip_grad_norm_``). Returns the unclipped norm
-    (``optax.global_norm``). The choice is made on the device: no host
-    sync."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    (``optax.global_norm``), ``grads``' own unless ``norm`` is given (the
+    global norm of a model whose leaves are sharded). The choice is made
+    on the device: no host sync."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     if max_norm > 0:
         keep = norm < max_norm
         one = torch.ones((), dtype=norm.dtype, device=norm.device)
@@ -195,26 +222,46 @@ def host_batch_indices(it: int, n: int, batch_size: int, seed: int = 0
 _MOMENTS = ("exp_avg", "exp_avg_sq")  # Adam's state of each parameter
 
 
-def _gather(state: TrainState, tensors: Dict[str, Tensor]) -> Dict[str, Tensor]:
-    """Whole tensors from this rank's FSDP shards (one all-gather of them
-    all); ``tensors`` itself on a state without shards."""
-    specs = state.shard_specs
+def _gather_axis(state: TrainState, tensors: Dict[str, Tensor], axis: str
+                 ) -> Dict[str, Tensor]:
+    """``tensors`` with each dim its spec cuts over ``axis`` gathered (one
+    all-gather of them all over that axis's group)."""
+    specs, mesh = state.shard_specs, state.mesh
     if specs is None:
         return tensors
-    mesh = state.mesh
-    dims = {n: specs[n].index("data") for n in tensors if "data" in specs[n]}
-    sharded = list(dims)
-    rows = mesh.all_gather(torch.cat(
-        [tensors[n].reshape(-1) for n in sharded])).view(mesh.data_size, -1)
+    dims = {n: specs[n].index(axis) for n in tensors if axis in specs[n]}
+    if not dims:
+        return tensors
+    if axis == "data":
+        group, size, stats = mesh.data_group, mesh.data_size, mesh.stats
+    else:
+        group, size, stats = mesh.model_group, mesh.model_size, mesh.model_stats
+    rows = all_gather(torch.cat([tensors[n].reshape(-1) for n in dims]),
+                      group, size, stats).view(size, -1)
     out, at = dict(tensors), 0
-    for n in sharded:
+    for n, dim in dims.items():
         t = tensors[n]
         whole = list(t.shape)
-        whole[dims[n]] *= mesh.data_size
-        pieces = rows[:, at:at + t.numel()].reshape(mesh.data_size, *t.shape)
-        out[n] = pieces.movedim(0, dims[n]).reshape(whole)
+        whole[dim] *= size
+        pieces = rows[:, at:at + t.numel()].reshape(size, *t.shape)
+        out[n] = pieces.movedim(0, dim).reshape(whole)
         at += t.numel()
     return out
+
+
+def _gather(state: TrainState, tensors: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """The module's tensors from this rank's FSDP shards (one all-gather
+    over the data axis); ``tensors`` itself on a state without them. Under
+    a model axis they stay this rank's model shards: see
+    :func:`whole_tensors`."""
+    return _gather_axis(state, tensors, "data")
+
+
+def whole_tensors(state: TrainState, tensors: Dict[str, Tensor]
+                  ) -> Dict[str, Tensor]:
+    """The whole model's tensors from this rank's shards: gathered over
+    the data axis (FSDP), then over the model axis."""
+    return _gather_axis(state, _gather(state, tensors), "model")
 
 
 def _gather_optimizer(state: TrainState) -> dict:
@@ -224,7 +271,7 @@ def _gather_optimizer(state: TrainState) -> dict:
         return sd
     names = list(state.params)
     st = sd["state"]
-    whole = {k: _gather(state, {names[i]: s[k] for i, s in st.items()})
+    whole = {k: whole_tensors(state, {names[i]: s[k] for i, s in st.items()})
              for k in _MOMENTS}
     return {**sd, "state": {
         i: {**s, **{k: whole[k][names[i]] for k in _MOMENTS}}
@@ -267,7 +314,7 @@ class DDPMTrainer:
     grad_accum: int = 1
     # times the "data" and "train_step" phases of every step
     timer: Optional[PhaseTimer] = None
-    # the model axis's partition (channel | spatial; item 6b) and FSDP
+    # what a model axis above 1 shards (channel | spatial), and FSDP
     model_partition: str = "channel"
     fsdp: bool = False
 
@@ -279,6 +326,37 @@ class DDPMTrainer:
     # state
     # ------------------------------------------------------------------
 
+    def base_ddpm(self) -> UNetDDPM:
+        """The whole model: ``ddpm`` itself, or, once ``init_state``
+        partitioned it over a model axis, its layers on the meta device
+        (no weights; ``with_params`` gives them storage) and its
+        ``params`` on the host."""
+        return getattr(self, "_base_ddpm", self.ddpm)
+
+    def _model_parallel(self, mesh: Optional[Mesh]) -> None:
+        """``ddpm`` over the mesh's model axis: the model-parallel UNet of
+        the whole model's module (once: a trainer is partitioned over one
+        mesh), or the whole model itself."""
+        module = self.ddpm.module
+        if isinstance(module, ModelParallelUNet):
+            if mesh is module.mesh and self.model_partition == module.partition:
+                return
+            raise ValueError(
+                "this trainer's model is partitioned over another mesh's "
+                "model axis or partition; make a new trainer")
+        if mesh is None or mesh.model_size <= 1:
+            return
+        base = self.ddpm
+        skeleton = copy.copy(base)
+        skeleton.module = copy_layers(module, lambda t: t.to("meta"))
+        if base.params is not None:
+            skeleton.params = {k: v.detach().cpu() for k, v in base.params.items()}
+        self._base_ddpm = skeleton
+        self.ddpm = UNetDDPM(
+            base.scheduler,
+            unet_with_model_parallel(module, mesh, self.model_partition),
+            base.parametrization, base.tau_scale, device=base.device)
+
     def init_state(self, params: Optional[Mapping[str, Tensor]] = None,
                    mesh: Optional[Mesh] = None) -> TrainState:
         """fp32 masters from ``params`` (a state dict such as
@@ -287,12 +365,17 @@ class DDPMTrainer:
         weights it was made from), else the module's own weights; the
         module is then loaded from them. A bf16 module's own weights are
         rounded, so the first two come first. With ``mesh`` and ``fsdp``
-        the masters, EMA and moments keep this rank's shards."""
-        module = self.ddpm.module
-        names = [name for name, _ in module.named_parameters()]
-        src = params
+        the masters, EMA and moments keep this rank's shards; with a model
+        axis above 1 the module becomes the model-parallel UNet and they
+        keep this rank's part of it too."""
+        self._model_parallel(mesh)
+        base = self.base_ddpm()
+        names = [name for name, _ in base.module.named_parameters()]
+        src = params if params is not None else base.params
         if src is None:
-            src = (self.ddpm.params if self.ddpm.params is not None
+            module = self.ddpm.module
+            src = (module.whole_state_dict()
+                   if isinstance(module, ModelParallelUNet)
                    else dict(module.named_parameters()))
         if set(src) != set(names):
             raise KeyError(f"params do not match the module: missing "
@@ -300,9 +383,11 @@ class DDPMTrainer:
                            f"{sorted(set(src) - set(names))}")
         device = self.ddpm.device
         specs = None
-        if mesh is not None and self.fsdp and mesh.data_size > 1:
-            specs = params_sharding({n: src[n].shape for n in names}, mesh,
-                                    self.model_partition, fsdp=True)
+        fsdp = mesh is not None and self.fsdp and mesh.data_size > 1
+        if fsdp or (mesh is not None and mesh.model_size > 1):
+            specs = port_params_sharding(
+                {n: tuple(src[n].shape) for n in names}, mesh,
+                self.model_partition, fsdp=fsdp)
         masters = {}
         for name in names:
             t = src[name].detach().to(device=device, dtype=torch.float32)
@@ -337,9 +422,20 @@ class DDPMTrainer:
         sched = self.ddpm.scheduler
         tau, eps, xt = sched.add_noise(x0, tau, generator=generator, eps=eps)
         ab = alpha_bar_from_log_temp(sched.log_temp_from_tau(tau))
-        pred = self.ddpm.module(xt, tau, generator)
         target = training_target(x0, eps, ab, self.ddpm.parametrization)
+        if getattr(self.ddpm.module, "partition", None) == "spatial":
+            # this rank's rows of the noised images and of the target
+            xt, target = self._own_rows(xt), self._own_rows(target)
+        pred = self.ddpm.module(xt, tau, generator)
         return torch.mean(torch.square(pred - target.to(pred.dtype)))
+
+    def _own_rows(self, t: Tensor) -> Tensor:
+        m, r = self.ddpm.module.model_size, self.ddpm.module.model_index
+        if t.shape[2] % m:
+            raise ValueError(f"spatial parallelism: the image's {t.shape[2]} "
+                             f"rows do not split over the model axis ({m})")
+        h = t.shape[2] // m
+        return t[:, :, r * h:(r + 1) * h]
 
     def _grads(self, x0, generator, tau, eps, mesh: Optional[Mesh] = None
                ) -> Tuple[Tensor, List[Tensor]]:
@@ -354,6 +450,8 @@ class DDPMTrainer:
                              f"grad_accum={a}")
         m = x0.shape[0] // a
         shard = None if mesh is None else batch_sharding(mesh)
+        # each rank of a model group back-propagates 1/mp of its loss
+        mp = 1 if mesh is None else mesh.model_size
         loss_sum, grads = None, None
         for i in range(a):
             sl = slice(i * m, (i + 1) * m)
@@ -362,7 +460,7 @@ class DDPMTrainer:
             loss = self.loss_fn(
                 x0[sl], gen, None if tau is None else tau[sl],
                 None if eps is None else eps[sl])
-            loss.backward()
+            (loss if mp == 1 else loss / mp).backward()
             g = [p.grad.float() for p in params]
             module.zero_grad(set_to_none=True)
             if grads is None:
@@ -378,6 +476,16 @@ class DDPMTrainer:
             grads = [p.view(g.shape) for p, g in zip(parts, grads)]
             loss_sum = parts[-1].reshape(())
             a *= mesh.data_size
+        if mp > 1:
+            # the whole leaves' parts and the losses, over the model group
+            whole = [i for i, s in enumerate(self._leaf_specs())
+                     if "model" not in s]
+            flat = mesh.model_all_reduce(torch.cat(
+                [grads[i].reshape(-1) for i in whole] + [loss_sum.reshape(1)]))
+            parts = flat.split([grads[i].numel() for i in whole] + [1])
+            for i, p in zip(whole, parts):
+                grads[i] = p.view(grads[i].shape)
+            loss_sum = parts[-1].reshape(()) * (1.0 / mp)
         if a > 1:
             torch._foreach_mul_(grads, 1.0 / a)
             loss_sum = loss_sum * (1.0 / a)
@@ -400,10 +508,11 @@ class DDPMTrainer:
             module.train()
         module.zero_grad(set_to_none=True)
         loss, grads = self._grads(x0, generator, tau, eps, state.mesh)
-        grad_norm = clip_by_global_norm(grads, self.grad_clip)
+        grad_norm = clip_by_global_norm(grads, self.grad_clip,
+                                        self._global_norm(grads, state.mesh))
         masters = list(state.params.values())
         if state.shard_specs is not None:
-            grads = [shard_leaf(g, state.shard_specs[n], state.mesh)
+            grads = [shard_leaf(g, state.shard_specs[n], state.mesh, ("data",))
                      for n, g in zip(state.params, grads)]
         for p, g in zip(masters, grads):
             p.grad = g
@@ -421,6 +530,29 @@ class DDPMTrainer:
         return state, {"loss": loss, "grad_norm": grad_norm,
                        "learning_rate": lr}
 
+    def _leaf_specs(self) -> List[Spec]:
+        """Each module parameter's spec over the model axis."""
+        specs = getattr(self.ddpm.module, "specs", None)
+        return [specs[n] if specs else ()
+                for n, _ in self.ddpm.module.named_parameters()]
+
+    def _global_norm(self, grads: List[Tensor], mesh: Optional[Mesh]
+                     ) -> Optional[Tensor]:
+        """The global norm of the whole model's gradients (None: the
+        gradients are whole, :func:`clip_by_global_norm` takes their own):
+        each leaf sharded over the model axis counted once through its
+        shards' squares summed over the model group, each whole leaf
+        once."""
+        if mesh is None or mesh.model_size <= 1:
+            return None
+        sq = torch.stack(torch._foreach_norm(grads)).square()
+        sharded = torch.tensor(["model" in s for s in self._leaf_specs()],
+                               device=sq.device)
+        parts = torch.stack([torch.where(sharded, sq, 0.0).sum(),
+                             torch.where(sharded, 0.0, sq).sum()])
+        parts[:1] = mesh.model_all_reduce(parts[:1].clone())
+        return torch.sqrt(parts.sum())
+
     # ------------------------------------------------------------------
     # checkpoints (torch files; resume contract = the JAX trainer's)
     # ------------------------------------------------------------------
@@ -432,8 +564,8 @@ class DDPMTrainer:
         once it is published."""
         if self.checkpoint_dir is None:
             return
-        params = _gather(state, state.params)
-        ema = _gather(state, state.ema_params)
+        params = whole_tensors(state, state.params)
+        ema = whole_tensors(state, state.ema_params)
         optimizer = _gather_optimizer(state)
         if state.mesh is None or rank() == 0:
             self._write_checkpoint(state.step, params, ema, optimizer, step)
@@ -547,8 +679,6 @@ class DDPMTrainer:
             if self.grad_accum > 1:
                 check_batch_divisible(batch_size // self.grad_accum, mesh,
                                       what="batch_size // grad_accum")
-            unet_with_model_parallel(self.ddpm.module, mesh,
-                                     self.model_partition)
         rows = _local_rows(batch_size, self.grad_accum, mesh)
         device = self.ddpm.device
         mine = (slice(None) if rows is None
@@ -597,8 +727,8 @@ class DDPMTrainer:
                 if it % ckpt_every == 0:
                     self.save_checkpoint(state, it)
                 if self.eval_fn is not None and it % self.eval_steps == 0:
-                    ema_ddpm = self.ddpm.with_params(
-                        _gather(state, state.ema_params))
+                    ema_ddpm = self.base_ddpm().with_params(
+                        whole_tensors(state, state.ema_params))
                     eval_metrics = self.eval_fn(ema_ddpm, it)
                     if self.log_fn is not None and eval_metrics:
                         self.log_fn(it, eval_metrics)

@@ -12,11 +12,11 @@ Counterpart of ``pdm_tpu/models/from_config.py``:
 * ``diffusers``: a pretrained diffusers UNet2DModel read from a local
   directory (``diffusers_ddpm_from_config``).
 
-A data mesh (``parallel.data_axis``, ``parallel/``) changes nothing here:
-each rank builds the same model from the same seed. A model axis above 1
-(``parallel.model_axis``) raises ``NotImplementedError``: tensor and
-spatial parallelism are not ported (ROADMAP.md §1 item 6b). ``fsdp``
-without a mesh shards nothing, as in JAX. ``load_pretrained_unet`` reads the port
+A mesh (``parallel.data_axis``, ``parallel.model_axis``, ``parallel/``)
+changes nothing here: each rank builds the same whole model from the same
+seed, and the trainer or the sampler partitions it over the model axis
+(``parallel.mesh.unet_with_model_parallel``). ``fsdp`` without a mesh
+shards nothing, as in JAX. ``load_pretrained_unet`` reads the port
 trainer's own checkpoints (``latest.txt`` and ``step_{n}/state.pt``); a JAX
 trainer's orbax checkpoint is turned into one by
 ``scripts.convert_orbax_checkpoint``.
@@ -32,25 +32,13 @@ import torch
 
 from ..config.config import Config
 from ..core.device import DeviceLike, resolve_device
-from ..parallel.mesh import ITEM_6B, world_size
+from ..parallel.mesh import world_size
 from ..schedulers.base import Scheduler
 from ..schedulers.from_config import scheduler_from_config
 from .base import DDPM, TrueDDPM
 from .diffusers_import import load_diffusers_unet
 from .unet import unet_from_config
 from .unet_ddpm import UNetDDPM, init_unet_ddpm
-
-
-def _check_no_mesh(config: Config) -> None:
-    """Raise when the config asks for a model axis above 1 (tensor or
-    spatial parallelism, ROADMAP.md §1 item 6b). A data axis of any size
-    is the trainer's, the sampler's and the statistics' business
-    (``parallel.mesh_from_config``)."""
-    par = config.parallel
-    if int(par.model_axis) > 1:
-        raise NotImplementedError(
-            f"parallel.model_axis={par.model_axis}: {ITEM_6B}; use "
-            f"model_axis 1 (a data axis of any size runs)")
 
 
 def _mesh_requested(config: Config) -> bool:
@@ -76,7 +64,6 @@ def ddpm_from_config(
     generator: Optional[torch.Generator] = None,
     device: DeviceLike = None,
 ) -> DDPM:
-    _check_no_mesh(config)
     dev = resolve_device(device)
     scheduler = scheduler_from_config(config, device=dev)
     model_name = config.ddpm.model_name
@@ -85,8 +72,9 @@ def ddpm_from_config(
     if model_name == "unet":
         # JAX turns its Pallas kernels off under a mesh (_mesh_requested):
         # GSPMD cannot partition a Mosaic call. Here each rank calls the
-        # kernels on its own rows of the batch, so they stay on whether or
-        # not _mesh_requested(config) holds.
+        # kernels on its own shard (its rows of the batch, and under a
+        # model axis its channels or image rows), so they stay on whether
+        # or not _mesh_requested(config) holds.
         module = unet_from_config(
             config.dataset_config.channels, config.ddpm.unet_config,
             dtype=_dtype(config), device=dev,

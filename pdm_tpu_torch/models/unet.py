@@ -38,8 +38,10 @@ is flax's fp32 parameters cast at use, written out.
 
 from __future__ import annotations
 
+import copy
+import itertools
 import math
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -79,22 +81,32 @@ def sinusoidal_time_embedding(
     return emb
 
 
-def dropout(h: Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> Tensor:
+def dropout(h: Tensor, rate: float, generator: Optional[torch.Generator],
+            cut: Optional[Tuple[int, int, int]] = None) -> Tensor:
     """flax ``nn.Dropout`` on an NCHW activation: keep each element with
     probability 1 - rate and divide the kept ones by it. The mask is drawn
     from ``generator`` in NHWC order (the layout the JAX module masks); a
     ``core.draws.SlicedGenerator`` draws the global batch's masks and keeps
-    this rank's."""
+    this rank's. ``cut = (dim, m, r)``: ``h`` is the r-th of m equal
+    slices of the whole activation along NCHW ``dim``; the mask is drawn
+    at the whole activation's shape and cut the same way."""
     if generator is None:
         raise ValueError("dropout in train mode draws its masks from an "
                          "explicit torch.Generator: pass generator=")
     keep_prob = 1.0 - rate
     if keep_prob <= 0.0:
         return torch.zeros_like(h)
-    B, C, H, W = h.shape
-    keep = batch_rand((B, H, W, C), generator, device=h.device) < keep_prob
-    return torch.where(keep.permute(0, 3, 1, 2), h / keep_prob,
+    shape = list(h.shape)
+    if cut is not None:
+        shape[cut[0]] *= cut[1]
+    B, C, H, W = shape
+    keep = (batch_rand((B, H, W, C), generator, device=h.device)
+            < keep_prob).permute(0, 3, 1, 2)
+    if cut is not None:
+        dim, _, r = cut
+        n = h.shape[dim]
+        keep = keep.narrow(dim, r * n, n)
+    return torch.where(keep, h / keep_prob,
                        torch.zeros((), dtype=h.dtype, device=h.device))
 
 
@@ -108,6 +120,84 @@ def _from_bsc(y: Tensor, H: int, W: int) -> Tensor:
     """(B, H*W, C) contiguous -> NCHW view in channels_last memory."""
     B, _, C = y.shape
     return y.reshape(B, H, W, C).permute(0, 3, 1, 2)
+
+
+def _cl(t: Tensor) -> Tensor:
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def attend(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float) -> Tensor:
+    """Multi-head attention of (B, T, C) q, k, v: row 1 inside JAX's
+    geometry gate (``ops.attention.use_fused_attention``), else JAX's XLA
+    branch (pdm_tpu/models/unet.py:238-254): fp32 logits and softmax, P
+    cast to the module dtype, P v in it."""
+    if use_fused_attention(q.shape[1], q.shape[2], heads):
+        return fused_spatial_attention(q, k, v, heads, scale)
+    return attention_reference(q, k, v, heads, scale)
+
+
+class Layout:
+    """How the UNet's traversal (:func:`run_unet`) runs each op. This one
+    is one process's: whole tensors, each layer its module's call.
+    ``parallel/model_parallel.py``'s layouts run the same traversal on a
+    rank's shard of each activation, with the collectives put in."""
+
+    def enter(self, x: Tensor):
+        return x
+
+    def exit(self, h) -> Tensor:
+        return h
+
+    def time_embedding(self, te: nn.Module, t_sin: Tensor) -> Tensor:
+        return te(t_sin)
+
+    def conv(self, conv: nn.Conv2d, h):
+        return conv(h)
+
+    def norm(self, gn: nn.Module, h):
+        return gn(h)
+
+    def add_temb(self, h, proj: nn.Linear, temb: Tensor):
+        """``h`` plus the resnet's projection of the time embedding."""
+        return h + proj(F.silu(temb).to(proj.weight.dtype))[:, :, None, None]
+
+    def dropout(self, h, rate: float, generator):
+        return dropout(h, rate, generator)
+
+    def add(self, a, b):
+        return a + b
+
+    def cat(self, a, b):
+        return _cl(torch.cat([a, b], dim=1))
+
+    def attention(self, blk: nn.Module, h):
+        return blk(h)
+
+    def down(self, ds: nn.Module, h):
+        return ds(h)
+
+    def up(self, us: nn.Module, h):
+        return us(h)
+
+
+WHOLE = Layout()
+
+
+def copy_layers(module: nn.Module,
+                convert: Optional[Callable[[Tensor], Tensor]] = None
+                ) -> nn.Module:
+    """A copy of ``module``'s layers whose parameters and buffers are
+    ``module``'s own tensors (shared, not copied), or ``convert`` of each
+    (``lambda t: t.to("meta")``: the layers without storage)."""
+    memo = {}
+    for t in itertools.chain(module.parameters(), module.buffers()):
+        new = t
+        if convert is not None:
+            new = convert(t.detach())
+            if isinstance(t, nn.Parameter):
+                new = nn.Parameter(new, requires_grad=t.requires_grad)
+        memo[id(t)] = new
+    return copy.deepcopy(module, memo)
 
 
 class TimeEmbedding(nn.Module):
@@ -162,17 +252,17 @@ class ResnetBlock(nn.Module):
         )
 
     def forward(self, x: Tensor, temb: Tensor,
-                generator: Optional[torch.Generator] = None) -> Tensor:
-        h = self.conv1(self.norm1(x))
-        t = self.time_emb_proj(F.silu(temb).to(self.time_emb_proj.weight.dtype))
-        h = h + t[:, :, None, None]
-        h = self.norm2(h)
+                generator: Optional[torch.Generator] = None,
+                layout: Layout = WHOLE) -> Tensor:
+        L = layout
+        h = L.conv(self.conv1, L.norm(self.norm1, x))
+        h = L.norm(self.norm2, L.add_temb(h, self.time_emb_proj, temb))
         if self.training and self.dropout_rate > 0.0:
-            h = dropout(h, self.dropout_rate, generator)
-        h = self.conv2(h)
+            h = L.dropout(h, self.dropout_rate, generator)
+        h = L.conv(self.conv2, h)
         if self.conv_shortcut is not None:
-            x = self.conv_shortcut(x)
-        return x + h
+            x = L.conv(self.conv_shortcut, x)
+        return L.add(x, h)
 
 
 class AttentionBlock(nn.Module):
@@ -193,6 +283,17 @@ class AttentionBlock(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(channels, channels, **kw),
                                      nn.Dropout(0.0)])
 
+    def qkv(self, h: Tensor,
+            bias: Callable[[Tensor], Tensor] = lambda b: b) -> List[Tensor]:
+        """q, k, v of (B, T, C) ``h`` from one (B*T, C) x (C, 3C')
+        projection: its column thirds, which the kernel reads in place
+        (token rows 3C' apart). ``bias`` gives the part of each bias the
+        weights' rows go with."""
+        layers = (self.to_q, self.to_k, self.to_v)
+        w = torch.cat([lin.weight for lin in layers])
+        b = torch.cat([bias(lin.bias) for lin in layers])
+        return F.linear(h, w, b).chunk(3, dim=-1)
+
     def forward(self, x: Tensor) -> Tensor:
         _, C, H, W = x.shape
         T = H * W
@@ -210,18 +311,9 @@ class AttentionBlock(nn.Module):
                 (self.to_q.bias, self.to_k.bias, self.to_v.bias),
                 proj.weight, proj.bias, self.heads, self.scale)
             return _from_bsc(out, H, W)
-        # one (B*T, C) x (C, 3C) projection; q, k, v are its column thirds,
-        # which the kernel reads in place (token rows 3C apart)
-        w_qkv = torch.cat([self.to_q.weight, self.to_k.weight, self.to_v.weight])
-        b_qkv = torch.cat([self.to_q.bias, self.to_k.bias, self.to_v.bias])
-        q, k, v = F.linear(h, w_qkv, b_qkv).split(C, dim=-1)
-        if use_fused_attention(T, C, self.heads):
-            out = fused_spatial_attention(q, k, v, self.heads, self.scale)
-        else:
-            # JAX's XLA branch (pdm_tpu/models/unet.py:238-254): fp32
-            # logits and softmax, P cast to the module dtype, P v in it
-            out = attention_reference(q, k, v, self.heads, self.scale)
-        out = self.to_out[0](out)  # to_out.1 is diffusers' Dropout(0.0)
+        q, k, v = self.qkv(h)
+        # to_out.1 is diffusers' Dropout(0.0)
+        out = self.to_out[0](attend(q, k, v, self.heads, self.scale))
         return x + _from_bsc(out, H, W)
 
 
@@ -378,45 +470,48 @@ class UNet2D(nn.Module):
 
     def forward(self, x: Tensor, tau: Tensor,
                 generator: Optional[torch.Generator] = None) -> Tensor:
-        temb = sinusoidal_time_embedding(
-            tau, self.conv_in.out_channels,
-            flip_sin_to_cos=self.flip_sin_to_cos, freq_shift=self.freq_shift,
-        )
-        temb = self.time_embedding(temb)
+        return run_unet(self, WHOLE, x, tau, generator)
 
-        h = self.conv_in(
-            x.to(self.dtype).contiguous(memory_format=torch.channels_last))
-        skips = [h]
-        for block in self.down_blocks:
-            for j, res in enumerate(block.resnets):
-                h = res(h, temb, generator)
-                a = block.attention(j)
-                if a is not None:
-                    h = a(h)
-                skips.append(h)
-            if hasattr(block, "downsamplers"):
-                h = block.downsamplers[0](h)
-                skips.append(h)
 
-        mid = self.mid_block
-        h = mid.resnets[0](h, temb, generator)
-        if mid.attention(0) is not None:
-            h = mid.attention(0)(h)
-        h = mid.resnets[1](h, temb, generator)
+def run_unet(net: nn.Module, layout: Layout, x: Tensor, tau: Tensor,
+             generator: Optional[torch.Generator] = None) -> Tensor:
+    """The UNet's traversal: ``net``'s layers (a ``UNet2D``'s, or a
+    model-parallel UNet's, which hold the same names) in order, each op
+    run by ``layout``. The output is fp32."""
+    L = layout
+    temb = L.time_embedding(net.time_embedding, sinusoidal_time_embedding(
+        tau, net.conv_in.out_channels, flip_sin_to_cos=net.flip_sin_to_cos,
+        freq_shift=net.freq_shift))
+    h = L.conv(net.conv_in, L.enter(_cl(x.to(net.dtype))))
+    skips = [h]
+    for block in net.down_blocks:
+        for j, res in enumerate(block.resnets):
+            h = res(h, temb, generator, L)
+            a = block.attention(j)
+            if a is not None:
+                h = L.attention(a, h)
+            skips.append(h)
+        if hasattr(block, "downsamplers"):
+            h = L.down(block.downsamplers[0], h)
+            skips.append(h)
 
-        for block in self.up_blocks:
-            for j, res in enumerate(block.resnets):
-                h = torch.cat([h, skips.pop()], dim=1).contiguous(
-                    memory_format=torch.channels_last)
-                h = res(h, temb, generator)
-                a = block.attention(j)
-                if a is not None:
-                    h = a(h)
-            if hasattr(block, "upsamplers"):
-                h = block.upsamplers[0](h)
+    mid = net.mid_block
+    h = mid.resnets[0](h, temb, generator, L)
+    if mid.attention(0) is not None:
+        h = L.attention(mid.attention(0), h)
+    h = mid.resnets[1](h, temb, generator, L)
 
-        h = self.conv_out(self.conv_norm_out(h))
-        return h.float()
+    for block in net.up_blocks:
+        for j, res in enumerate(block.resnets):
+            h = res(L.cat(h, skips.pop()), temb, generator, L)
+            a = block.attention(j)
+            if a is not None:
+                h = L.attention(a, h)
+        if hasattr(block, "upsamplers"):
+            h = L.up(block.upsamplers[0], h)
+
+    h = L.conv(net.conv_out, L.norm(net.conv_norm_out, h))
+    return L.exit(h).float()
 
 
 # diffusers config.json carries metadata/keys with no counterpart in this

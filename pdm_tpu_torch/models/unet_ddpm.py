@@ -81,8 +81,12 @@ class UNetDDPM(DDPM):
         with ``params`` (a state dict, e.g. the trainer's fp32 EMA) loaded
         and cast to the module's dtype, and kept as its ``params``.
         Counterpart of the JAX ``UNetDDPM.with_params``; this model is left
-        as it is."""
+        as it is. A module on the meta device (the trainer's whole model
+        under a model axis, which holds no weights) is first given storage
+        on this model's device."""
         module = copy.deepcopy(self.module)
+        if any(p.is_meta for p in module.parameters()):
+            module.to_empty(device=self.device)
         module.load_state_dict(params)
         return UNetDDPM(self.scheduler, module, self.parametrization,
                         self.tau_scale, device=self.device, params=params)

@@ -26,6 +26,21 @@ thread-block cluster split an image's rows, kc clusters its channels in
 whole groups, and each block holds its rows x C / kc share in shared
 memory (``hold``) or, where it does not fit, re-reads whole rows from
 device memory in each pass.
+
+Rows 3s and 4s: GroupNorm of an image whose rows are split across the
+ranks of a model group (spatial parallelism, ``parallel/model_parallel.py``),
+where JAX's GSPMD psums the TPU kernel's statistics over the model axis.
+:func:`split_group_norm_act` runs a statistics launch
+(:func:`group_norm_stats`: the fp32 sum and sum of squares of each image's
+groups over the rank's rows, in row 3's order), an fp32 all-reduce of the
+(B, G, 2) sums over the group, and a normalise launch
+(:func:`group_norm_apply`); its backward runs :func:`group_norm_bwd_stats`
+(each group's partial sum of dn and of dn * n_hat, each channel's partial
+dgamma and dbeta), an all-reduce of the group sums, and
+:func:`group_norm_bwd_apply` (dx). dgamma and dbeta stay partial: the
+trainer sums every gradient over the mesh. Kernels in
+``csrc/groupnorm.cu`` and ``csrc/groupnorm_bwd.cu``; each has its plain
+version here, for CPU tensors, and its launch counter.
 """
 
 from __future__ import annotations
@@ -175,7 +190,7 @@ def group_norm_reference(
     return y
 
 
-def _check(x: Tensor, scale: Tensor, bias: Tensor, groups: int) -> None:
+def _check_x(x: Tensor, groups: int) -> None:
     if x.ndim != 3:
         raise ValueError(f"x must be (B, S, C): {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
@@ -183,14 +198,19 @@ def _check(x: Tensor, scale: Tensor, bias: Tensor, groups: int) -> None:
     C = x.shape[2]
     if groups <= 0 or C % groups:
         raise ValueError(f"C={C} not divisible into {groups} groups")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (B, S, C)")
+
+
+def _check(x: Tensor, scale: Tensor, bias: Tensor, groups: int) -> None:
+    _check_x(x, groups)
+    C = x.shape[2]
     for name, p in (("scale", scale), ("bias", bias)):
         if p.shape != (C,) or p.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 ({C},): "
                              f"{p.dtype} {tuple(p.shape)}")
         if p.device != x.device or not p.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous (B, S, C)")
 
 
 def _forward(x: Tensor, scale: Tensor, bias: Tensor, groups: int, eps: float,
@@ -332,6 +352,302 @@ group_norm_bwd.launches = 0
 
 
 
+# ---------------------------------------------------------------------
+# rows 3s and 4s: split statistics for a row-sharded image
+# ---------------------------------------------------------------------
+
+# elements of (B, S, C) a block of an apply kernel covers, in whole rows
+SPLIT_APPLY_ELEMS = 8192
+
+
+def plan_split_stats(B: int, S: int, C: int, groups: int, itemsize: int,
+                     backward: bool, align: int = 16) -> GroupNormPlan:
+    """Row 3's (or 4's) launch plan for the shape, streaming: the same
+    blocks, lanes and cluster, so the sums run in row 3's (4's) order, and
+    no tile in shared memory, since the statistics read x (and dy) once."""
+    plan = plan_group_norm(B, S, C, groups, itemsize, backward, align)
+    nq = 2 if backward else 1
+    return plan._replace(hold=0, smem=_smem_bytes(
+        plan.lanes_v, plan.lanes_p, plan.vec, plan.cb,
+        plan.cb // (C // groups), plan.rows, itemsize, nq, False))
+
+
+def plan_split_apply(S: int, C: int, itemsize: int, align: int = 16
+                     ) -> Tuple[int, int]:
+    """(rows a block, vector width) of an apply kernel: about
+    SPLIT_APPLY_ELEMS elements a block in whole rows; vectors of 4, 2 or 1
+    elements that divide C and the pointers' alignment."""
+    rows = max(1, min(S, SPLIT_APPLY_ELEMS // C))
+    vec = next(v for v in (4, 2, 1) if C % v == 0 and align % (v * itemsize) == 0)
+    return rows, vec
+
+
+def _stats_of(sums: Tensor, n: float, eps: float):
+    """(mean, rstd), each (B, G), of the (B, G, 2) sums over n elements a
+    group: the kernels' arithmetic."""
+    mean = sums[..., 0] / n
+    var = torch.clamp(sums[..., 1] / n - mean * mean, min=0.0)
+    return mean, 1.0 / torch.sqrt(var + eps)
+
+
+def group_norm_stats_reference(x: Tensor, groups: int) -> Tensor:
+    """Plain version of :func:`group_norm_stats`: (B, G, 2) fp32 sums of
+    x and x^2 over each group's channels and x's rows."""
+    B, S, C = x.shape
+    xg = x.float().reshape(B, S, groups, C // groups)
+    return torch.stack([xg.sum(dim=(1, 3)), (xg * xg).sum(dim=(1, 3))], -1)
+
+
+def group_norm_apply_reference(x: Tensor, scale: Tensor, bias: Tensor,
+                               sums: Tensor, groups: int, n: float, eps: float,
+                               act: str = "none") -> Tensor:
+    """Plain version of :func:`group_norm_apply`, in x.dtype."""
+    B, S, C = x.shape
+    cpg = C // groups
+    mean, inv = _stats_of(sums.float(), n, eps)
+    mul = (inv[:, :, None] * scale.float().reshape(groups, cpg)).reshape(B, 1, C)
+    y = (x.float() - mean.repeat_interleave(cpg, dim=1)[:, None, :]) * mul \
+        + bias.float()
+    if act == "silu":
+        y = F.silu(y)
+    return y.to(x.dtype)
+
+
+def _bwd_terms(x, dy, scale, bias, sums, groups, n, eps, act):
+    """n_hat, dz, inv per channel, of the plain backward versions."""
+    B, S, C = x.shape
+    cpg = C // groups
+    mean, inv = _stats_of(sums.float(), n, eps)
+    inv_c = inv.repeat_interleave(cpg, dim=1)[:, None, :]
+    n_hat = (x.float() - mean.repeat_interleave(cpg, dim=1)[:, None, :]) * inv_c
+    dz = dy.float()
+    if act == "silu":
+        z = n_hat * scale.float() + bias.float()
+        sg = torch.sigmoid(z)
+        dz = dz * (sg * (1.0 + z * (1.0 - sg)))
+    return n_hat, dz, inv_c
+
+
+def group_norm_bwd_stats_reference(
+    x: Tensor, dy: Tensor, scale: Tensor, bias: Tensor, sums: Tensor,
+    groups: int, n: float, eps: float, act: str = "none",
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain version of :func:`group_norm_bwd_stats`: the (B, G, 2) sums
+    of dn and dn * n_hat over the rows, and the partial dscale, dbias
+    (summed over B)."""
+    B, S, C = x.shape
+    n_hat, dz, _ = _bwd_terms(x, dy, scale, bias, sums, groups, n, eps, act)
+    dg = (dz * n_hat).sum(dim=1)  # (B, C)
+    db = dz.sum(dim=1)
+    gam = scale.float()
+    gsums = torch.stack([(db * gam).reshape(B, groups, -1).sum(-1),
+                         (dg * gam).reshape(B, groups, -1).sum(-1)], -1)
+    return gsums, dg.sum(dim=0), db.sum(dim=0)
+
+
+def group_norm_bwd_apply_reference(
+    x: Tensor, dy: Tensor, scale: Tensor, bias: Tensor, sums: Tensor,
+    gsums: Tensor, groups: int, n: float, eps: float, act: str = "none",
+) -> Tensor:
+    """Plain version of :func:`group_norm_bwd_apply`: dx in x.dtype."""
+    cpg = x.shape[2] // groups
+    n_hat, dz, inv_c = _bwd_terms(x, dy, scale, bias, sums, groups, n, eps, act)
+    dn = dz * scale.float()
+    m1 = (gsums[..., 0] / n).repeat_interleave(cpg, dim=1)[:, None, :]
+    m2 = (gsums[..., 1] / n).repeat_interleave(cpg, dim=1)[:, None, :]
+    return (inv_c * (dn - m1 - n_hat * m2)).to(x.dtype)
+
+
+def _check_sums(sums: Tensor, x: Tensor, groups: int, name: str) -> None:
+    want = (x.shape[0], groups, 2)
+    if (tuple(sums.shape) != want or sums.dtype != torch.float32
+            or sums.device != x.device or not sums.is_contiguous()):
+        raise ValueError(f"{name} must be contiguous float32 {want} on "
+                         f"{x.device}: {sums.dtype} {tuple(sums.shape)}")
+
+
+def _cuda(x: Tensor) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return True
+
+
+def group_norm_stats(x: Tensor, groups: int) -> Tensor:
+    """Row 3s's statistics: (B, G, 2) fp32 sums of x and x^2 of each
+    image's groups over x's rows (in row 3's order on the card)."""
+    if not _cuda(x):
+        return group_norm_stats_reference(x, groups)
+    _check_x(x, groups)
+    B, S, C = x.shape
+    sums = torch.empty((B, groups, 2), dtype=torch.float32, device=x.device)
+    plan = _GnPlan(*plan_split_stats(B, S, C, groups, x.element_size(), False,
+                                     _alignment(x)))
+    fn = _build.entry("pdm_group_norm_stats", _STATS_ARGS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), sums.data_ptr(), ctypes.byref(plan), B, S, C,
+                 groups, _DTYPE_CODES[x.dtype], stream)
+    _build.check(err, "pdm_group_norm_stats")
+    group_norm_stats.launches += 1
+    return sums
+
+
+def group_norm_apply(x: Tensor, scale: Tensor, bias: Tensor, sums: Tensor,
+                     groups: int, n: float, eps: float, act: str = "none"
+                     ) -> Tensor:
+    """Row 3s's normalise: GroupNorm(+SiLU) of x with the statistics of the
+    (all-reduced) ``sums`` over ``n`` elements a group; x.dtype."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}: {act!r}")
+    if not _cuda(x):
+        return group_norm_apply_reference(x, scale, bias, sums, groups, n,
+                                          eps, act)
+    _check(x, scale, bias, groups)
+    _check_sums(sums, x, groups, "sums")
+    B, S, C = x.shape
+    out = torch.empty_like(x)
+    rows, vec = plan_split_apply(S, C, x.element_size(), _alignment(x, out))
+    fn = _build.entry("pdm_group_norm_apply", _APPLY_ARGS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                 sums.data_ptr(), out.data_ptr(), B, S, C, groups, rows, vec,
+                 float(n), float(eps), int(act == "silu"),
+                 _DTYPE_CODES[x.dtype], stream)
+    _build.check(err, "pdm_group_norm_apply")
+    group_norm_apply.launches += 1
+    return out
+
+
+def group_norm_bwd_stats(
+    x: Tensor, dy: Tensor, scale: Tensor, bias: Tensor, sums: Tensor,
+    groups: int, n: float, eps: float, act: str = "none",
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Row 4s's statistics: the (B, G, 2) sums of dn and dn * n_hat over
+    x's rows, and the partial dscale and dbias (fp32, summed over B here),
+    from the forward's (all-reduced) ``sums``."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}: {act!r}")
+    if not _cuda(x):
+        return group_norm_bwd_stats_reference(x, dy, scale, bias, sums, groups,
+                                              n, eps, act)
+    _check(x, scale, bias, groups)
+    _check_sums(sums, x, groups, "sums")
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must match x ({x.dtype} {tuple(x.shape)}): "
+                         f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    dy = dy.contiguous()
+    B, S, C = x.shape
+    gsums = torch.empty((B, groups, 2), dtype=torch.float32, device=x.device)
+    parts = torch.empty((2, B, C), dtype=torch.float32, device=x.device)
+    plan = _GnPlan(*plan_split_stats(B, S, C, groups, x.element_size(), True,
+                                     _alignment(x, dy)))
+    fn = _build.entry("pdm_group_norm_bwd_stats", _BWD_STATS_ARGS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                 sums.data_ptr(), gsums.data_ptr(), parts[0].data_ptr(),
+                 parts[1].data_ptr(), ctypes.byref(plan), B, S, C, groups,
+                 float(n), float(eps), int(act == "silu"),
+                 _DTYPE_CODES[x.dtype], stream)
+    _build.check(err, "pdm_group_norm_bwd_stats")
+    group_norm_bwd_stats.launches += 1
+    dscale, dbias = parts.sum(dim=1)
+    return gsums, dscale, dbias
+
+
+def group_norm_bwd_apply(
+    x: Tensor, dy: Tensor, scale: Tensor, bias: Tensor, sums: Tensor,
+    gsums: Tensor, groups: int, n: float, eps: float, act: str = "none",
+) -> Tensor:
+    """Row 4s's dx from the forward's and the backward's (all-reduced)
+    group sums."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}: {act!r}")
+    if not _cuda(x):
+        return group_norm_bwd_apply_reference(x, dy, scale, bias, sums, gsums,
+                                              groups, n, eps, act)
+    _check(x, scale, bias, groups)
+    _check_sums(sums, x, groups, "sums")
+    _check_sums(gsums, x, groups, "gsums")
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must match x ({x.dtype} {tuple(x.shape)}): "
+                         f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    dy = dy.contiguous()
+    B, S, C = x.shape
+    dx = torch.empty_like(x)
+    rows, vec = plan_split_apply(S, C, x.element_size(), _alignment(x, dy, dx))
+    fn = _build.entry("pdm_group_norm_bwd_apply", _BWD_APPLY_ARGS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                 sums.data_ptr(), gsums.data_ptr(), dx.data_ptr(), B, S, C,
+                 groups, rows, vec, float(n), float(eps), int(act == "silu"),
+                 _DTYPE_CODES[x.dtype], stream)
+    _build.check(err, "pdm_group_norm_bwd_apply")
+    group_norm_bwd_apply.launches += 1
+    return dx
+
+
+group_norm_stats.launches = 0
+group_norm_apply.launches = 0
+group_norm_bwd_stats.launches = 0
+group_norm_bwd_apply.launches = 0
+
+
+def _reduce(t: Tensor, group, stats) -> Tensor:
+    from ..parallel.collectives import all_reduce
+
+    return all_reduce(t, group, stats)
+
+
+class _SplitGroupNormFn(torch.autograd.Function):
+    """Rows 3s and 4s with the model group's all-reduce between the two
+    launches of each direction."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps, act, n, group, stats):
+        sums = _reduce(group_norm_stats(x, groups), group, stats)
+        ctx.save_for_backward(x, scale, bias, sums)
+        ctx.args = (groups, n, eps, act, group, stats)
+        return group_norm_apply(x, scale, bias, sums, groups, n, eps, act)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, scale, bias, sums = ctx.saved_tensors
+        groups, n, eps, act, group, stats = ctx.args
+        gsums, dscale, dbias = group_norm_bwd_stats(x, dy, scale, bias, sums,
+                                                    groups, n, eps, act)
+        gsums = _reduce(gsums, group, stats)
+        dx = group_norm_bwd_apply(x, dy, scale, bias, sums, gsums, groups, n,
+                                  eps, act)
+        return dx, dscale, dbias, None, None, None, None, None, None
+
+
+def split_group_norm_act(
+    x: Tensor, scale: Tensor, bias: Tensor, groups: int, eps: float,
+    act: str = "none", group=None, size: int = 1, stats=None,
+) -> Tensor:
+    """GroupNorm(+SiLU) over (B, S, C) where x holds this rank's S rows of
+    images whose rows are split evenly over the ``size`` ranks of the
+    process ``group``: statistics, their all-reduce over the group
+    (counted in ``stats``), normalise; differentiable through rows 4s
+    (dscale and dbias are this rank's part). With no group it is the
+    whole image's GroupNorm through the two launches."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}: {act!r}")
+    n = float(x.shape[1] * size) * float(x.shape[2] // groups)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, scale, bias)):
+        return _SplitGroupNormFn.apply(x, scale, bias, groups, eps, act, n,
+                                       group, stats)
+    sums = _reduce(group_norm_stats(x, groups), group, stats)
+    return group_norm_apply(x, scale, bias, sums, groups, n, eps, act)
+
+
 class _GnPlan(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in GroupNormPlan._fields]
 
@@ -340,3 +656,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _PLAN = ctypes.POINTER(_GnPlan)
 _FWD_ARGS = [_P, _P, _P, _P, _PLAN, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
 _BWD_ARGS = [_P] * 7 + [_PLAN] + [_I] * 4 + [ctypes.c_float, _I, _I, _P]
+_STATS_ARGS = [_P, _P, _PLAN, _I, _I, _I, _I, _I, _P]
+_APPLY_ARGS = [_P] * 5 + [_I] * 6 + [ctypes.c_float, ctypes.c_float, _I, _I, _P]
+_BWD_STATS_ARGS = [_P] * 8 + [_PLAN] + [_I] * 4 + [ctypes.c_float,
+                                                    ctypes.c_float, _I, _I, _P]
+_BWD_APPLY_ARGS = [_P] * 7 + [_I] * 6 + [ctypes.c_float, ctypes.c_float, _I,
+                                         _I, _P]

@@ -35,6 +35,20 @@ outside ``torch.distributed``, or a rank the mesh leaves out) does
 nothing and counts nothing. A failed collective raises (c10d's error, or
 its timeout); nothing retries it.
 
+The model axis (``parallel/model_parallel.py``) adds two differentiable
+calls over a mesh's model group: :func:`gather_along` (an all-gather of
+any dimension: channels under tensor parallelism, image rows under
+spatial parallelism) and :func:`halo_rows` (the neighbours' boundary
+rows of a row-sharded image, which GSPMD sends with collective-permutes).
+Both run the list-form all-gather, the one gather both backends run on
+CUDA tensors, and their backwards run the all-gather or the all-reduce
+again. A halo is counted under JAX's kind "collective-permute", with the
+bytes of the rows a rank receives from its neighbours (what a permute
+moves); the all-gather that carries them moves the boundary rows of every
+rank of the group. The mesh keeps the model axis's bill apart from the
+data axis's (``Mesh.model_stats``), so that :func:`project_step` prices
+each over its own ring.
+
 The projection (:func:`link_seconds`, :func:`project_step`) keeps JAX's
 bandwidth-optimal ring volumes (``ici_seconds``); its link figure is an
 argument whose default is NVIDIA's H100 SXM data sheet figure for NVLink
@@ -113,6 +127,111 @@ def all_gather(t: Tensor, group, size: int,
     return out
 
 
+def all_gather_dim(t: Tensor, group, size: int, dim: int,
+                   stats: Optional[CollectiveStats] = None) -> Tensor:
+    """The ``size`` ranks' ``t`` concatenated along ``dim`` in rank order;
+    ``t`` when ``group`` is None."""
+    if group is None:
+        return t
+    dim = dim % t.ndim
+    out = all_gather(t.movedim(dim, 0), group, size, stats)
+    return out.movedim(0, dim)
+
+
+class _GatherAlong(torch.autograd.Function):
+    """All-gather along ``dim``; the backward all-reduces the gradient and
+    takes this rank's slice (each rank's gradient of the gathered tensor
+    is its own part of the sum)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, size, index, stats):
+        ctx.dim, ctx.group, ctx.size, ctx.index = dim, group, size, index
+        ctx.stats, ctx.n = stats, t.shape[dim]
+        return all_gather_dim(t, group, size, dim, stats)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.contiguous(), ctx.group, ctx.stats)
+        g = g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n)
+        return g, None, None, None, None, None
+
+
+def gather_along(t: Tensor, dim: int, group, size: int, index: int,
+                 stats: Optional[CollectiveStats] = None) -> Tensor:
+    """Differentiable all-gather of ``t`` along ``dim`` over ``group``
+    (this rank's place ``index`` of ``size``). Every rank uses the
+    gathered tensor for its own part of the result, so the gradient is
+    the sum over the ranks: the backward all-reduces it, then keeps this
+    rank's slice (a reduce-scatter)."""
+    if group is None:
+        return t
+    return _GatherAlong.apply(t, dim, group, size, index, stats)
+
+
+def _permute_bytes(t: Tensor, n_rows: int, dim: int) -> int:
+    return t.numel() // t.shape[dim] * n_rows * t.element_size()
+
+
+class _HaloRows(torch.autograd.Function):
+    """``t`` with ``top`` rows of the previous rank above it and ``bottom``
+    rows of the next rank below it along ``dim`` (zeros at the image's
+    edges). The backward sends each halo row's gradient back to the rank
+    it came from and adds it there."""
+
+    @staticmethod
+    def forward(ctx, t, dim, top, bottom, group, size, index, stats):
+        ctx.args = (dim, top, bottom, group, size, index, stats)
+        n = t.shape[dim]
+        # each rank's boundary rows: its first ``bottom`` (the previous
+        # rank's lower halo) and its last ``top`` (the next rank's upper)
+        edge = torch.cat([t.narrow(dim, 0, bottom), t.narrow(dim, n - top, top)],
+                         dim)
+        rows = all_gather_dim(edge, group, size, dim).chunk(size, dim)
+        if stats is not None:
+            stats.add("collective-permute", _permute_bytes(t, top + bottom, dim))
+        parts = []
+        if top:
+            parts.append(rows[index - 1].narrow(dim, bottom, top) if index > 0
+                         else torch.zeros_like(t.narrow(dim, 0, top)))
+        parts.append(t)
+        if bottom:
+            parts.append(rows[index + 1].narrow(dim, 0, bottom)
+                         if index < size - 1
+                         else torch.zeros_like(t.narrow(dim, 0, bottom)))
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, top, bottom, group, size, index, stats = ctx.args
+        n = g.shape[dim] - top - bottom
+        g_top, g_mid = g.narrow(dim, 0, top), g.narrow(dim, top, n)
+        g_bot = g.narrow(dim, top + n, bottom)
+        # the gradient of the rows this rank took from its neighbours
+        sent = all_gather_dim(torch.cat([g_top, g_bot], dim).contiguous(),
+                              group, size, dim).chunk(size, dim)
+        if stats is not None:
+            stats.add("collective-permute", _permute_bytes(g, top + bottom, dim))
+        dx = g_mid.clone()
+        if bottom and index > 0:  # our first rows were the previous one's lower halo
+            dx.narrow(dim, 0, bottom).add_(sent[index - 1].narrow(dim, top, bottom))
+        if top and index < size - 1:  # our last rows were the next one's upper
+            dx.narrow(dim, n - top, top).add_(sent[index + 1].narrow(dim, 0, top))
+        return dx, None, None, None, None, None, None, None
+
+
+def halo_rows(t: Tensor, dim: int, top: int, bottom: int, group, size: int,
+              index: int, stats: Optional[CollectiveStats] = None) -> Tensor:
+    """Differentiable halo exchange of a tensor whose ``dim`` is cut into
+    contiguous slices over ``group`` in rank order: ``top`` rows of the
+    previous rank above it, ``bottom`` rows of the next one below it,
+    zeros beyond the first and last ranks. Every rank enters the
+    all-gather, the first and the last included."""
+    if t.shape[dim] < max(top, bottom):
+        raise ValueError(f"a halo of {max(top, bottom)} rows needs at least "
+                         f"as many rows a rank: {t.shape[dim]}")
+    return _HaloRows.apply(t, dim, top, bottom, group, size, index, stats)
+
+
 def barrier(group=None) -> None:
     """Every rank of ``group`` (the world by default) waits for the rest;
     a no-op outside ``torch.distributed``."""
@@ -154,7 +273,11 @@ def link_seconds(
 
 def project_step(stats: CollectiveStats, axis_size: int,
                  link_bw: float = H100_NVLINK_BW) -> Dict[str, float]:
-    """Per-kind and total projected link seconds for one step's bill."""
+    """Per-kind and total projected link seconds for one step's bill
+    over a ring of ``axis_size``. A halo is priced as JAX's
+    collective-permute of the rows a rank receives, not as the all-gather
+    of every rank's boundary rows that :func:`halo_rows` runs, whose bytes
+    grow with the ring."""
     out: Dict[str, float] = {}
     for kind, b in stats.bytes_by_kind.items():
         out[kind] = link_seconds(kind, b, axis_size, link_bw)

@@ -1,4 +1,4 @@
-"""Multi-process start and data-parallel sampling.
+"""Multi-process start and sharded sampling.
 
 Counterpart of ``pdm_tpu/parallel/distributed.py``. One process runs per
 card (``torchrun --nproc_per_node N``); :func:`initialize_multihost`
@@ -15,9 +15,14 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+from torch import Tensor
 
 from ..core.device import DeviceLike
-from .mesh import ITEM_6B, batch_sharding, check_batch_divisible
+from ..core.draws import SlicedGenerator
+from .collectives import all_gather_dim
+from .mesh import (
+    BatchSharding, batch_sharding, check_batch_divisible, unet_with_sp,
+)
 
 
 def initialize_multihost(
@@ -65,6 +70,51 @@ def initialize_multihost(
         rank=int(process_id), timeout=datetime.timedelta(seconds=timeout_s))
 
 
+class SpatialSharding(BatchSharding):
+    """The batch over 'data' and the image rows (NCHW dim 2) over 'model':
+    this rank's rows of its images. ``shard`` cuts a (B, C, H, W) tensor
+    to them, ``gather`` puts the global batch back together on every rank
+    (rows over the model group, then images over the data group), and the
+    generator draws the global batch's values and keeps both cuts."""
+
+    def __init__(self, mesh):
+        super().__init__(mesh)
+        self.model_size, self.model_index = mesh.model_size, mesh.model_index
+
+    def row_slice(self, h: int) -> slice:
+        if h % self.model_size:
+            raise ValueError(f"spatial sampling: the image's {h} rows do not "
+                             f"split over the model axis ({self.model_size})")
+        n = h // self.model_size
+        return slice(self.model_index * n, (self.model_index + 1) * n)
+
+    def local_shape(self, n: int, obj_size):
+        c, h, *rest = obj_size
+        return (n // self.size, c, h // self.model_size, *rest)
+
+    def shard(self, x):
+        return super().shard(x)[:, :, self.row_slice(x.shape[2])]
+
+    def gather(self, x: Tensor, dim: int = 2) -> Tensor:
+        mesh = self.mesh
+        x = all_gather_dim(x.contiguous(), mesh.model_group, mesh.model_size,
+                           dim, mesh.model_stats)
+        return mesh.all_gather(x)
+
+    def shard_steps(self, x: Tensor) -> Tensor:
+        return super().shard_steps(x)[:, :, :, self.row_slice(x.shape[3])]
+
+    def gather_steps(self, x: Tensor) -> Tensor:
+        return self.gather(x.transpose(0, 1), dim=3).transpose(0, 1)
+
+    def generator(self, generator, n: int):
+        if generator is None:
+            return generator
+        r = self.rows(n)
+        return SlicedGenerator(generator, n, r.start, r.stop,
+                               cut=(2, self.model_size, self.model_index))
+
+
 def sharded_sampler(sampler, mesh, partition: str = "data"):
     """A copy of the sampler sharded over the mesh.
 
@@ -72,13 +122,33 @@ def sharded_sampler(sampler, mesh, partition: str = "data"):
     'data'. Each rank steps its rows of every global batch (its own x_T
     and noise, cut from the global batch's draws), the analytic denoiser
     over the whole (replicated) dataset; ``batch_sample`` gathers the
-    batch, so every rank returns all of it. ``batch_size`` is the only
-    divisibility precondition, checked first. ``"spatial"`` (the image H
-    axis over 'model') is not ported (ROADMAP.md §1 item 6b)."""
+    batch, so every rank returns all of it. ``"spatial"``: also the image
+    rows over 'model', through the spatial-parallel UNet
+    (``mesh.unet_with_sp``): each rank steps its rows of its images (x_T
+    and every step's noise cut from the global draws) and the result is
+    gathered, so every rank returns the whole batch. It needs a UNet
+    (``UNetDDPM``): the analytic TrueDDPM has no spatial activations, and
+    raises JAX's error. ``batch_size`` is the first precondition, checked
+    first."""
     check_batch_divisible(sampler.batch_size, mesh, what="sample.batch_size")
     if partition == "data":
         return dataclasses.replace(sampler, batch_sharding=batch_sharding(mesh))
     if partition != "spatial":
         raise ValueError(
             f"unknown sampler partition {partition!r} (data|spatial)")
-    raise NotImplementedError(f"sharded_sampler(partition='spatial'): {ITEM_6B}")
+    module = getattr(sampler.ddpm, "module", None)
+    if module is None or not hasattr(module, "down_blocks"):
+        raise ValueError(
+            "spatial-parallel sampling needs a module-backed DDPM "
+            "(UNetDDPM); this model has no spatial activations to shard")
+    if mesh.shape["model"] <= 1:
+        return dataclasses.replace(sampler, batch_sharding=batch_sharding(mesh))
+    from ..models.unet_ddpm import UNetDDPM
+
+    ddpm = sampler.ddpm
+    sp = UNetDDPM(ddpm.scheduler, unet_with_sp(module, mesh),
+                  ddpm.parametrization, ddpm.tau_scale, device=ddpm.device,
+                  params=ddpm.params)
+    shard = SpatialSharding(mesh)
+    shard.row_slice(sampler.obj_size[1])  # the image's rows must split
+    return dataclasses.replace(sampler, ddpm=sp, batch_sharding=shard)

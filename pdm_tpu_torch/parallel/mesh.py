@@ -12,11 +12,13 @@ the replicated result JAX returns.
   holds rows ``[i B/D, (i+1) B/D)`` of a global batch of B over a data
   axis of D (:class:`BatchSharding`); results are gathered or all-reduced
   over the data axis's process group.
-* axis ``model``: tensor or spatial parallelism. Its sharding rules
-  (:func:`params_sharding`) are JAX's, but no path of the port runs a
-  model axis above 1 yet (ROADMAP.md §1 item 6b): the port's UNet calls
-  its kernels through ctypes, which nothing partitions for it, so that
-  axis needs hand-partitioned layers.
+* axis ``model``: tensor (channel) or spatial (image rows) parallelism
+  of the UNet. Its sharding rules (:func:`params_sharding`) are JAX's.
+  The port's UNet calls its kernels through ctypes, which nothing
+  partitions, so the axis runs hand-partitioned layers
+  (``parallel/model_parallel.py``, built by :func:`unet_with_tp` and
+  :func:`unet_with_sp`) whose collectives run over the mesh's
+  ``model_group``; the ranks of one model group hold the same images.
 
 A :class:`Mesh` is built over the default process group, whatever backend
 started it (``initialize_multihost``). The ranks ``[0, data * model)``
@@ -43,10 +45,6 @@ from .collectives import CollectiveStats, all_gather, all_reduce
 
 Spec = Tuple[Optional[str], ...]  # a PartitionSpec: an axis name or None a dim
 
-ITEM_6B = ("the model axis (tensor and spatial parallelism) is not ported "
-           "(ROADMAP.md §1 item 6b)")
-
-
 def _initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
@@ -69,22 +67,26 @@ def _device_type() -> str:
 class Mesh:
     """A ('data', 'model') mesh of ranks. ``shape`` maps each axis to its
     size, as JAX's ``Mesh.shape``; ``stats`` counts the collectives issued
-    through it. On a member rank, ``data_index`` is its place on the data
-    axis and ``data_group`` that axis's process group (None for a mesh of
-    one rank outside torch.distributed and for a rank the mesh leaves out,
-    which then holds everything: ``data_size`` 1)."""
+    over the data axis, ``model_stats`` those over the model axis. On a
+    member rank, ``data_index`` and ``model_index`` are its coordinate,
+    ``data_group`` and ``model_group`` the process groups of the ranks
+    that share its place on the other axis (None for a mesh of one rank
+    outside torch.distributed and for a rank the mesh leaves out, which
+    then holds everything: ``data_size`` and ``model_size`` 1)."""
 
     def __init__(self, data: int, model: int = 1,
                  ranks: Optional[Sequence[int]] = None):
         self.shape: Dict[str, int] = {"data": int(data), "model": int(model)}
         self.stats = CollectiveStats()
+        self.model_stats = CollectiveStats()
         n = data * model
         ranks = list(range(n)) if ranks is None else list(ranks)[:n]
         if len(ranks) != n:
             raise ValueError(f"mesh {data}x{model} needs {n} ranks: {ranks}")
         self.device_mesh = None
-        self.data_group = None
-        self.data_index, self.model_index, self.data_size = 0, 0, 1
+        self.data_group = self.model_group = None
+        self.data_index, self.model_index = 0, 0
+        self.data_size = self.model_size = 1
         if not _initialized():
             if n != 1:
                 raise ValueError(
@@ -103,8 +105,9 @@ class Mesh:
             return
         self.device_mesh = mesh
         self.data_index, self.model_index = int(coord[0]), int(coord[1])
+        self.data_size, self.model_size = int(data), int(model)
         self.data_group = self.device_mesh.get_group("data")
-        self.data_size = int(data)
+        self.model_group = self.device_mesh.get_group("model")
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
@@ -116,6 +119,11 @@ class Mesh:
 
     def all_gather(self, t: Tensor) -> Tensor:
         return all_gather(t, self.data_group, self.data_size, self.stats)
+
+    # -- over the model axis (counted in ``model_stats``) --
+
+    def model_all_reduce(self, t: Tensor, op: str = "sum") -> Tensor:
+        return all_reduce(t, self.model_group, self.model_stats, op)
 
 
 def make_mesh(
@@ -186,16 +194,13 @@ def mesh_from_config(
     parallelism asked for: the one entry point the CLIs use. An automatic
     data axis (``data_axis`` null) spans the ranks and shrinks, with a
     warning, to the largest width that divides the micro-batch; an
-    explicit one that does not fit raises. A model axis above 1 raises
-    NotImplementedError (ROADMAP.md §1 item 6b)."""
+    explicit one that does not fit raises. ``model_axis`` ranks of
+    consecutive numbers form a model group, as JAX's devices do."""
     devices = list(devices if devices is not None else range(world_size()))
     shape = mesh_shape_from_config(parallel, len(devices), batch_size,
                                    grad_accum)
     if shape is None:
         return None
-    if shape[1] > 1:
-        raise NotImplementedError(
-            f"parallel.model_axis={shape[1]}: {ITEM_6B}; use model_axis 1")
     return make_mesh(*shape, devices=devices[: shape[0] * shape[1]])
 
 
@@ -234,6 +239,18 @@ class BatchSharding:
 
     def gather(self, x: Tensor) -> Tensor:
         return self.mesh.all_gather(x)
+
+    def local_shape(self, n: int, obj_size) -> Tuple[int, ...]:
+        """This rank's part of a global batch of ``n`` objects."""
+        return (n // self.size, *obj_size)
+
+    def shard_steps(self, x: Tensor) -> Tensor:
+        """This rank's part of a (steps, batch, ...) stack."""
+        return x[:, self.rows(x.shape[1])]
+
+    def gather_steps(self, x: Tensor) -> Tensor:
+        """The global (steps, batch, ...) stack from this rank's part."""
+        return self.gather(x.transpose(0, 1)).transpose(0, 1)
 
     def generator(self, generator: Optional[torch.Generator], n: int):
         """``generator`` drawing a global batch of ``n`` rows and keeping
@@ -336,13 +353,14 @@ def params_sharding(params, mesh, partition: str = "channel",
     return with_fsdp(params, base)
 
 
-def shard_leaf(leaf: Tensor, spec: Spec, mesh: Mesh) -> Tensor:
+def shard_leaf(leaf: Tensor, spec: Spec, mesh: Mesh,
+               axes: Sequence[str] = ("data", "model")) -> Tensor:
     """This rank's part of one tensor under ``spec``: each dim sharded
-    over an axis is cut (a view) to this rank's place on it."""
+    over one of ``axes`` is cut (a view) to this rank's place on it."""
     index = {"data": (mesh.data_index, mesh.data_size),
-             "model": (mesh.model_index, mesh.shape["model"])}
+             "model": (mesh.model_index, mesh.model_size)}
     for dim, axis in enumerate(spec):
-        if axis is None:
+        if axis is None or axis not in axes:
             continue
         i, size = index[axis]
         step = leaf.shape[dim] // size
@@ -364,20 +382,57 @@ def shard_params(params, mesh: Mesh, partition: str = "channel",
     return walk(params, specs)
 
 
+def _to_jax_layout(shape: Sequence[int]):
+    """The JAX layout of a port parameter's shape, and the port dim of
+    each JAX dim: a conv weight (Cout, Cin, kh, kw) is JAX's (kh, kw, Cin,
+    Cout), a dense one (Cout, Cin) is JAX's (Cin, Cout); 1-D leaves are
+    the same."""
+    order = {4: (2, 3, 1, 0), 2: (1, 0)}.get(len(shape), tuple(range(len(shape))))
+    return tuple(shape[i] for i in order), order
+
+
+def port_params_sharding(shapes: Mapping[str, Sequence[int]], mesh,
+                         partition: str = "channel", fsdp: bool = False
+                         ) -> Dict[str, Spec]:
+    """:func:`params_sharding` of the port's flat state dict (names to
+    shapes in the port's layout): each shape is taken to JAX's layout, so
+    that 'model' lands on a weight's output channels and FSDP's 'data' on
+    JAX's choice of the rest, and each spec is brought back to the port's
+    dims."""
+    jax_shapes = {n: _to_jax_layout(s)[0] for n, s in shapes.items()}
+    specs = params_sharding(jax_shapes, mesh, partition, fsdp=fsdp)
+    out = {}
+    for n, shape in shapes.items():
+        _, order = _to_jax_layout(shape)
+        spec = list(specs[n]) + [None] * (len(shape) - len(specs[n]))
+        port = [None] * len(shape)
+        for j, i in enumerate(order):
+            port[i] = spec[j]
+        out[n] = tuple(port) if any(port) else ()
+    return out
+
+
 def unet_with_tp(net, mesh):
-    """Tensor parallelism of the UNet: itself on a model axis of 1 (JAX's
-    no-op); above 1 not ported."""
-    if mesh.shape["model"] <= 1:
+    """Tensor parallelism of the UNet: ``net`` itself on a model axis of 1
+    (JAX's no-op); above 1 a ``model_parallel.ModelParallelUNet`` holding
+    this rank's output channels of every weight JAX's rule shards
+    (activations channel-sharded between layers)."""
+    if mesh.shape["model"] <= 1 or mesh.model_size <= 1:  # or left out
         return net
-    raise NotImplementedError(f"unet_with_tp: {ITEM_6B}")
+    from .model_parallel import ModelParallelUNet
+
+    return ModelParallelUNet(net, mesh, "channel")
 
 
 def unet_with_sp(net, mesh):
-    """Spatial parallelism of the UNet: itself on a model axis of 1 (JAX's
-    no-op); above 1 not ported."""
-    if mesh.shape["model"] <= 1:
+    """Spatial parallelism of the UNet: ``net`` itself on a model axis of 1
+    (JAX's no-op); above 1 a ``model_parallel.ModelParallelUNet`` whose
+    activations hold this rank's image rows (parameters whole)."""
+    if mesh.shape["model"] <= 1 or mesh.model_size <= 1:
         return net
-    raise NotImplementedError(f"unet_with_sp: {ITEM_6B}")
+    from .model_parallel import ModelParallelUNet
+
+    return ModelParallelUNet(net, mesh, "spatial")
 
 
 def unet_with_model_parallel(net, mesh, partition: str = "channel"):

@@ -4,8 +4,11 @@ Counterpart of ``scripts/sample.py``. :func:`build_sampler` keeps the
 sampling schedule (``sample.noise_schedule_type`` / ``_path``) apart from
 the training one and passes a custom schedule's knot grid to the sampler.
 Over several ranks (``torchrun --nproc_per_node N -m
-pdm_tpu_torch.scripts.sample``) it samples data-parallel over all of them,
-as JAX's does over its devices; rank 0 writes the samples.
+pdm_tpu_torch.scripts.sample``) it samples over all of them, as JAX's does
+over its devices: data-parallel, and with ``parallel.model_axis`` above 1
+and ``parallel.model_partition spatial`` the image rows over the model
+axis as well (a channel partition samples data-parallel, as JAX's
+script does); rank 0 writes the samples.
 """
 
 from __future__ import annotations

@@ -7,10 +7,11 @@ it, before any flip. The dataset stays NCHW: the port's UNet takes NCHW
 in channels_last memory, so ``ddpm_training.data_layout`` has no
 counterpart and no layout transpose is applied. Launched by ``torchrun
 --nproc_per_node N -m pdm_tpu_torch.scripts.train_diffusion``, it trains
-data-parallel over the ranks (``parallel.data_axis``, ``parallel.fsdp``;
-the mesh from ``mesh_from_config``); every rank runs the eval hook on its
-share of the samples, and rank 0 alone logs and writes the grid and the
-checkpoints.
+over the ranks' ('data', 'model') mesh (``parallel.data_axis``,
+``parallel.model_axis`` with ``parallel.model_partition`` channel or
+spatial, ``parallel.fsdp``; the mesh from ``mesh_from_config``); every
+rank runs the eval hook on its share of the samples, and rank 0 alone
+logs and writes the grid and the checkpoints.
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ def main(config: Config, device=None):
     if mesh is not None:
         print(f"mesh: {dict(mesh.shape)}")
     data = get_data_tensor(config, device=dev)
-    ddpm = ddpm_from_config(config, device=dev)
     lead = rank() == 0
     logger = CSVLogger(
         f"logs/{config.experiment_name}.csv",
@@ -46,8 +46,10 @@ def main(config: Config, device=None):
         run_name=config.experiment_name,
     ) if lead else None
     aug = config.data_augmentation
+    # the trainer holds the only reference to the model, so under a model
+    # axis the whole model's weights go once it has cut them
     trainer = DDPMTrainer(
-        ddpm=ddpm,
+        ddpm=ddpm_from_config(config, device=dev),
         learning_rate=tc.learning_rate,
         weight_decay=tc.weight_decay,
         betas=tuple(tc.betas),

@@ -186,7 +186,10 @@ def make_eval_fn(
     sampling batch that the 'data' axis divides (``sharded_sampler``; the
     draws are the global batch's, so the samples are one process's) and
     extracts the features of its rows (``get_compute_fid(mesh=)``); rank 0
-    alone writes the grid and warns."""
+    alone writes the grid and warns. On a mesh with a model axis it
+    samples through ``partition="data"`` with the whole EMA model (the
+    ranks of a model group step the same rows), whichever partition the
+    trainer uses."""
     from ..diffusion.sampling import DDPMSampler
     from ..parallel.distributed import sharded_sampler
     from ..parallel.mesh import rank

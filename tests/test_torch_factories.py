@@ -222,15 +222,12 @@ def test_true_model_from_config_matches_jax():
 @pytest.mark.parametrize("parallel", [{"data_axis": 2}, {"model_axis": 2},
                                       {"fsdp": True}])
 def test_mesh_request_raises(parallel):
-    """A model axis above 1 raises (ROADMAP §1 item 6b). A data axis
-    builds the model every rank holds, as JAX's does on the same config;
-    ``fsdp`` alone builds no mesh in JAX either (mesh_from_config returns
-    None for one device), so it builds the unsharded model too."""
+    """No mesh request raises: a data axis and a model axis build the
+    whole model every rank holds, as JAX's does on the same config (the
+    trainer and the sampler partition it over the model axis); ``fsdp``
+    alone builds no mesh in JAX either (mesh_from_config returns None for
+    one device), so it builds the unsharded model too."""
     jcfg, cfg = tiny_configs(**{f"parallel.{k}": v for k, v in parallel.items()})
-    if "model_axis" in parallel:
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            ddpm_from_config(cfg, device="cpu")
-        return
     if "fsdp" in parallel:
         jcfg.parallel.data_axis = 1  # one device, as the port's card
     jddpm = j_ddpm_from_config(jcfg, key=jax.random.PRNGKey(0))

@@ -10,8 +10,8 @@ virtual devices.
   messages; the trainer's batch checks: JAX's messages.
 * The collective cost model: JAX's algorithm volumes exactly (the same
   link figure given to both), and ``CollectiveStats``' fields.
-* The model axis (item 6b) raises; a sampler's partition is checked as
-  JAX's checks it.
+* The model axis's errors and a sampler's partition are checked as JAX
+  checks them (the model axis itself: ``test_torch_parallel_model.py``).
 * Draws: a ``SlicedGenerator`` gives a rank its rows of the global draw.
 * A mesh of one rank (no process group): training equals training with no
   mesh, bitwise.
@@ -145,13 +145,15 @@ def test_mesh_from_config_matches_jax(case):
 
 def test_mesh_from_config_in_one_process():
     """One rank, no process group: None unless asked, a mesh of one rank
-    for data_axis 1, JAX's error for more, item 6b for a model axis."""
+    for data_axis 1, JAX's error for more; a model axis over 8 ranks needs
+    the process group."""
     assert mesh_from_config(ParallelConfig()) is None
     mesh = mesh_from_config(ParallelConfig(data_axis=1))
     assert mesh.shape == {"data": 1, "model": 1} and mesh.data_group is None
+    assert mesh.model_group is None and mesh.model_size == 1
     with pytest.raises(ValueError, match="only 1 are visible"):
         mesh_from_config(ParallelConfig(data_axis=2))
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(ValueError, match="torch.distributed"):
         mesh_from_config(ParallelConfig(model_axis=2), devices=range(8))
     with pytest.raises(ValueError, match="torch.distributed"):
         make_mesh(data=2, devices=range(2))
@@ -208,24 +210,31 @@ def test_collective_cost_model_matches_jax(axis):
     assert stats.total_bytes == 0 and stats.counts("all-gather") == 0
 
 
-def test_model_axis_raises_and_partitions_are_checked():
+def test_model_axis_raises_and_partitions_are_checked(monkeypatch):
+    """A model axis of 1 is JAX's no-op; an unknown partition, a batch the
+    data axis does not divide, a spatial sampler without a UNet and the
+    whole-block opt-in under a model axis raise JAX's errors (the last the
+    port's own)."""
+    from pdm_tpu_torch.parallel.model_parallel import refuse_fused_block
+
     net = object()
     assert unet_with_tp(net, _stub(4)) is net
     assert unet_with_sp(net, _stub(4)) is net
     assert unet_with_model_parallel(net, _stub(4), "spatial") is net
-    for fn in (unet_with_tp, unet_with_sp):
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            fn(net, _stub(4, 2))
     with pytest.raises(ValueError, match="unknown model partition"):
         unet_with_model_parallel(net, _stub(4), "pipeline")
     sampler = types.SimpleNamespace(batch_size=6)
     with pytest.raises(ValueError, match="sample.batch_size=6"):
         sharded_sampler(sampler, _stub(4), "data")
     sampler.batch_size = 8
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        sharded_sampler(sampler, _stub(4), "spatial")
+    sampler.ddpm = types.SimpleNamespace()
+    with pytest.raises(ValueError, match="spatial-parallel sampling needs"):
+        sharded_sampler(sampler, _stub(4, 2), "spatial")
     with pytest.raises(ValueError, match=r"unknown sampler partition 'x' \(data\|spatial\)"):
         sharded_sampler(sampler, _stub(4), "x")
+    monkeypatch.setenv("PDM_FUSED_BLOCK", "1")
+    with pytest.raises(ValueError, match="PDM_FUSED_BLOCK"):
+        refuse_fused_block()
 
 
 def test_mesh_requested_matches_jax(monkeypatch):

@@ -10,6 +10,13 @@ gives ``MASTER_ADDR``, ``MASTER_PORT`` (a free local port), ``RANK``,
   directory: only rank 0 writes the statistics, which equal one
   process's (entropy rtol 1e-4 atol 1e-5, as
   ``tests/test_parallel.py:51``; the dataset is split across the ranks).
+* ``train_diffusion`` with ``--parallel.model_axis 2`` (channel) and then
+  ``sample`` with a spatial model axis, on two ranks sharing a working
+  directory with MNIST-shaped caches: rank 0's checkpoint equals one
+  process's (1e-5: fp32 sums regrouped over the two ranks' channels, two
+  Adam steps; to_k's bias, which has no gradient in exact arithmetic,
+  within Adam's 2 lr a step) and the samples equal one process's from it
+  (1e-4 of the scale).
 """
 
 import os
@@ -18,8 +25,12 @@ import socket
 import numpy as np
 import pytest
 
+import torch
+
+from pdm_tpu_torch import runtime
 from pdm_tpu_torch.scripts import compute_stats_forward
-from torch_dist_workers import launch
+from pdm_tpu_torch.utils.data import pdmc_cache_path
+from torch_dist_workers import launch, run_model_cli
 from torch_port_fixtures import two_torch_threads  # noqa: F401
 
 
@@ -67,3 +78,38 @@ def test_compute_stats_forward_on_two_ranks_writes_on_rank_0(in_tmp):
                                atol=1e-5)
     np.testing.assert_allclose(got["free_energy"], want["free_energy"],
                                rtol=1e-4, atol=1e-4)
+
+
+def test_model_axis_train_and_sample_clis_on_two_ranks(in_tmp, monkeypatch):
+    cache = in_tmp / "data_cache"
+    monkeypatch.setenv("PDM_DATA_CACHE", str(cache))
+    monkeypatch.delenv("PDM_INCEPTION_WEIGHTS", raising=False)
+    cache.mkdir()
+    rng = np.random.RandomState(0)
+    for train, n in ((True, 64), (False, 32)):
+        runtime.write_cache(pdmc_cache_path("mnist", train),
+                            rng.randint(0, 256, (n, 32, 32, 1), dtype=np.uint8))
+    ranks, one = in_tmp / "ranks", in_tmp / "one"
+    ranks.mkdir()
+    one.mkdir()
+    launch("env_model_cli", 2, str(in_tmp),
+           env={**_torchrun_env(), "PDM_DATA_CACHE": str(cache)},
+           cwd=lambda r: str(ranks))
+    monkeypatch.chdir(one)
+    run_model_cli()
+    exp = "mnist_unet_eps_linear_beta_schedule"
+    ckpt = os.path.join("checkpoints", exp, "step_2", "state.pt")
+    got = torch.load(ranks / ckpt, weights_only=True)
+    want = torch.load(one / ckpt, weights_only=True)
+    # to_k's bias has no gradient in exact arithmetic (the softmax does not
+    # see a bias added to every key), so Adam turns its rounding noise into
+    # steps of up to the rate, either way: 2 lr a step apart (lr 2e-4)
+    for key in ("params", "ema_params"):
+        for name, t in want[key].items():
+            tol = 2 * 2 * 2e-4 if name.endswith("to_k.bias") else 1e-5
+            np.testing.assert_allclose(got[key][name].numpy(), t.numpy(), rtol=0,
+                                       atol=tol, err_msg=name)
+    path = os.path.join("samples", f"{exp}_3_ddim_steps.npz")
+    xs, xw = np.load(ranks / path)["x"], np.load(one / path)["x"]
+    assert xs.shape == xw.shape == (4, 1, 32, 32)
+    np.testing.assert_allclose(xs, xw, rtol=0, atol=1e-4 * float(np.abs(xw).max()))

@@ -266,7 +266,7 @@ def run_loop(name: str, mesh=None, total: int = 3, checkpoint_dir=None,
              checkpoint_every=None, batch_size: int = 8, **kw):
     """Losses logged per step and the final whole state of a LOOPS run,
     from N(0, 0.1^2) weights (with weight decay on, no gradient is zero)."""
-    from pdm_tpu_torch.diffusion.trainer import _gather
+    from pdm_tpu_torch.diffusion.trainer import whole_tensors
 
     fsdp, accum, drop, flip = LOOPS[name]
     logged = {}
@@ -281,7 +281,7 @@ def run_loop(name: str, mesh=None, total: int = 3, checkpoint_dir=None,
               for n, p in tr.ddpm.module.named_parameters()}
     state = tr.train(loop_data(), batch_size=batch_size, total_iters=total,
                      seed=3, log_every=1, params=params, mesh=mesh)
-    return tr, state, logged, _gather(state, state.params), _gather(
+    return tr, state, logged, whole_tensors(state, state.params), whole_tensors(
         state, state.ema_params)
 
 
@@ -454,7 +454,230 @@ def env_stats_cli_suite(rank, world, inp, tmp):
     return {}
 
 
+# ---------------------------------------------------------------------
+# the model axis: tensor and spatial parallelism
+# ---------------------------------------------------------------------
+
+
+def mp_net(cfg: Dict, names, inp, prefix: str):
+    """The tiny UNet of ``cfg`` on the CPU with the test's parameters."""
+    from pdm_tpu_torch.models.unet import unet_from_config
+
+    net = unet_from_config(3, cfg, device="cpu")
+    net.load_state_dict({n: _t(inp[f"{prefix}.p.{n}"]) for n in names})
+    return net
+
+
+def mp_forward_suite(rank, world, inp, tmp):
+    """Each case's TP and SP forward on its mesh: this rank's output (TP:
+    its rows of the batch, whole images; SP: its rows of them) and the
+    model axis's byte bill."""
+    import json
+
+    from pdm_tpu_torch.parallel import make_mesh, unet_with_sp, unet_with_tp
+
+    out = {}
+    for case in json.loads(str(inp["cases"])):
+        cid, cfg = case["id"], case["cfg"]
+        data, model = case["mesh"]
+        mesh = make_mesh(data=data, model=model)
+        net = mp_net(cfg, [str(n) for n in inp[f"{cid}.names"]], inp, cid)
+        x, tau = inp[f"{cid}.x"], inp[f"{cid}.tau"]
+        rows = slice(mesh.data_index * len(x) // data,
+                     (mesh.data_index + 1) * len(x) // data)
+        h = x.shape[2] // model
+        mine = slice(mesh.model_index * h, (mesh.model_index + 1) * h)
+        for part, make in (("channel", unet_with_tp), ("spatial", unet_with_sp)):
+            mesh.model_stats.reset()
+            xs = _t(x[rows])
+            if part == "spatial":
+                xs = xs[:, :, mine].contiguous()
+            with torch.no_grad():
+                y = make(net, mesh)(xs, _t(tau[rows]))
+            out[f"{cid}.{part}"] = y.numpy()
+            for kind in ("all-gather", "all-reduce", "collective-permute"):
+                out[f"{cid}.{part}.bill.{kind}"] = np.asarray(mesh.model_stats[kind])
+    return out
+
+
+def mp_trainer(partition, fsdp=False, dropout=0.0, **kw):
+    return tiny_trainer(dropout, fsdp=fsdp, model_partition=partition, **kw)
+
+
+def record_grads(tr):
+    """Wrap ``tr._grads``: each step's fp32 gradients as the step applied
+    them (this rank's part), appended to the returned list."""
+    seen = []
+    grads_of = tr._grads
+
+    def record(*args):
+        loss, grads = grads_of(*args)
+        seen.append([g.clone() for g in grads])
+        return loss, grads
+
+    tr._grads = record
+    return seen
+
+
+def whole_grads(tr, grads):
+    """The whole model's gradients from this rank's (model shards
+    gathered), by name."""
+    from chip_smoke import _whole_grads
+
+    module = tr.ddpm.module
+    named = dict(zip([n for n, _ in module.named_parameters()], grads))
+    return _whole_grads(named, module, module.mesh)
+
+
+def mp_train_suite(rank, world, inp, tmp):
+    """On a 2 x 2 mesh: three train steps on JAX's parameters and noise
+    for each partition with and without FSDP (losses, norms, whole params
+    and EMA, each step's whole gradients, the whole leaves this rank
+    holds); one step's byte bill of each partition; the train loops with
+    dropout and flips and their checkpoints across layouts."""
+    from pdm_tpu_torch.diffusion.trainer import whole_tensors
+    from pdm_tpu_torch.parallel import make_mesh
+    from pdm_tpu_torch.parallel.mesh import batch_sharding
+
+    mesh = make_mesh(data=2, model=2)
+    out = {}
+    names = [str(n) for n in inp["j.names"]]
+    params = {n: _t(inp[f"j.p.{n}"]) for n in names}
+    rows = batch_sharding(mesh).rows(inp["j.x0"].shape[0])
+    for part in ("channel", "spatial"):
+        for fsdp in (False, True):
+            tr = mp_trainer(part, fsdp)
+            state = tr.init_state(params, mesh)
+            seen = record_grads(tr)
+            key = f"{part}.{fsdp}"
+            for i in range(3):
+                state, m = tr.train_step(
+                    state, _t(inp["j.x0"][rows]), tau=_t(inp[f"j.tau{i}"][rows]),
+                    eps=_t(inp[f"j.eps{i}"][rows]))
+                out[f"{key}.loss{i}"] = m["loss"].numpy()
+                out[f"{key}.grad_norm{i}"] = m["grad_norm"].numpy()
+                for n, g in whole_grads(tr, seen[i]).items():
+                    out[f"{key}.g{i}.{n}"] = g.numpy()
+            for n, t in whole_tensors(state, state.params).items():
+                out[f"{key}.p.{n}"] = t.numpy()
+            for n, t in whole_tensors(state, state.ema_params).items():
+                out[f"{key}.e.{n}"] = t.numpy()
+            # the whole leaves as this rank holds them (FSDP cuts none of
+            # them over 'model')
+            local = dict(state.params) if not fsdp else {}
+            for n, t in local.items():
+                if "model" not in state.shard_specs[n]:
+                    out[f"{key}.whole.{n}"] = t.numpy()
+            held = sum(t.numel() for t in state.params.values())
+            out[f"{key}.held"] = np.asarray(held)
+    # one step's byte bill over the model axis
+    for part in ("channel", "spatial"):
+        tr = mp_trainer(part)
+        state = tr.init_state(params, mesh)
+        mesh.model_stats.reset()
+        tr.train_step(state, _t(inp["j.x0"][rows]), tau=_t(inp["j.tau0"][rows]),
+                      eps=_t(inp["j.eps0"][rows]))
+        for kind in ("all-gather", "all-reduce", "collective-permute"):
+            out[f"bill.{part}.{kind}"] = np.asarray(mesh.model_stats[kind])
+    # the loops with dropout and flips, and checkpoints across layouts
+    for part in ("channel", "spatial"):
+        _, _, logged, p, e = run_loop("dp", mesh, model_partition=part)
+        out[f"l.{part}.loss"] = np.asarray([logged[k] for k in sorted(logged)])
+        out[f"l.{part}.p"] = np.concatenate([t.reshape(-1).numpy() for t in p.values()])
+        out[f"l.{part}.e"] = np.concatenate([t.reshape(-1).numpy() for t in e.values()])
+        # saved under the mesh at step 2: the test resumes it alone
+        run_loop("dp", mesh, total=2, checkpoint_every=2, model_partition=part,
+                 checkpoint_dir=os.path.join(tmp, f"mesh_{part}"))
+        # saved by one process at step 2: resumed here to step 4
+        _, _, logged, p, _ = run_loop(
+            "dp", mesh, total=4, checkpoint_every=100, model_partition=part,
+            checkpoint_dir=os.path.join(tmp, f"one_{part}"))
+        out[f"c.{part}.loss"] = np.asarray([logged[k] for k in sorted(logged)])
+        out[f"c.{part}.p"] = np.concatenate([t.reshape(-1).numpy() for t in p.values()])
+    return out
+
+
+def mp_sampler_suite(rank, world, inp, tmp):
+    """sharded_sampler(partition="spatial") on a 2 x 2 mesh, from JAX's
+    draws (x_T and each step's noise), DDPM and DDIM with the states."""
+    from pdm_tpu_torch.diffusion.sampling import DDPMSampler
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+    from pdm_tpu_torch.parallel import make_mesh, sharded_sampler
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+
+    import json
+
+    mesh = make_mesh(data=2, model=2)
+    cfg = json.loads(str(inp["cfg"]))
+    net = mp_net(cfg, [str(n) for n in inp["s.names"]], inp, "s")
+    ddpm = UNetDDPM(LinearBetaScheduler(1e-4, 1e2), net, device="cpu")
+    out = {}
+    x_init, noise = _t(inp["x_init"]), _t(inp["noise"])
+    for step_type in ("ddpm", "ddim"):
+        sampler = DDPMSampler(ddpm=ddpm, scheduler=ddpm.scheduler,
+                              n_steps=noise.shape[0], obj_size=tuple(x_init.shape[1:]),
+                              batch_size=x_init.shape[0], n_samples=x_init.shape[0],
+                              step_type=step_type, track_states=True, device="cpu")
+        sh = sharded_sampler(sampler, mesh, partition="spatial")
+        res = sh.batch_sample(x_init=x_init, noise=noise)
+        out[f"{step_type}.x"], out[f"{step_type}.states"] = (
+            res["x"].numpy(), res["states"].numpy())
+    # drawn from a generator: the same samples as one process's
+    sampler = DDPMSampler(ddpm=ddpm, scheduler=ddpm.scheduler, n_steps=3,
+                          obj_size=tuple(x_init.shape[1:]), batch_size=4,
+                          n_samples=4, step_type="ddpm", device="cpu")
+    out["gen"] = sharded_sampler(sampler, mesh, partition="spatial").batch_sample(
+        torch.Generator().manual_seed(5))["x"].numpy()
+    return out
+
+
+TINY_CLI_UNET = ("{block_out_channels: [16, 32], down_block_types: [DownBlock2D, "
+                 "AttnDownBlock2D], up_block_types: [AttnUpBlock2D, UpBlock2D], "
+                 "layers_per_block: 1, attention_head_dim: 8, norm_groups: 4, "
+                 "dropout: 0.0}")
+
+
+def model_cli_argv(partition=None):
+    """train_diffusion's and sample's flags of the model-axis CLI test: the
+    tiny UNet on MNIST-shaped caches, 2 steps at batch 4, the eval hook
+    (grid only: no LeNet) at step 2; with ``partition`` a model axis of 2."""
+    argv = ["--dataset_name", "mnist", "--ddpm.unet_config", TINY_CLI_UNET,
+            "--ddpm.precision", "f32", "--device", "cpu"]
+    if partition:
+        argv += ["--parallel.model_axis", "2", "--parallel.model_partition",
+                 partition]
+    return argv
+
+
+def run_model_cli(partition=None):
+    """train_diffusion (2 steps) then sample (DDIM-3, 4 samples) in the
+    working directory; the dataset's fid_samples cut to 25 so the eval
+    hook's grid is one DDIM-100 batch."""
+    import dataclasses
+
+    from pdm_tpu_torch.config import datasets as tdatasets
+    from pdm_tpu_torch.scripts import sample, train_diffusion
+
+    tdatasets._REGISTRY["mnist"] = dataclasses.replace(
+        tdatasets._REGISTRY["mnist"], fid_samples=25)
+    train_diffusion.main(argv=model_cli_argv(partition) + [
+        "--ddpm_training.total_iters", "2", "--ddpm_training.batch_size", "4",
+        "--ddpm_training.eval_steps", "2", "--ddpm_training.warmup_steps", "0"])
+    sample.main(argv=model_cli_argv(partition and "spatial") + [
+        "--sample.n_steps", "3", "--sample.n_samples", "4",
+        "--sample.batch_size", "4"])
+
+
+def env_model_cli_suite(rank, world, inp, tmp):
+    """train_diffusion under a channel partition, then sample under a
+    spatial one, on a 1 x 2 mesh from torchrun's environment."""
+    run_model_cli("channel")
+    return {}
+
+
 SUITES = {"stats": stats_suite, "steps": steps_suite, "loops": loops_suite,
-          "submesh": submesh_suite,
+          "submesh": submesh_suite, "mp_forward": mp_forward_suite,
+          "mp_train": mp_train_suite, "mp_sampler": mp_sampler_suite,
           "env_multihost": env_multihost_suite,
+          "env_model_cli": env_model_cli_suite,
           "env_stats_cli": env_stats_cli_suite}

@@ -236,14 +236,22 @@ any error or disagreement:
    with exact launch counts on each rank. The ranks print their own
    lines; a failing rank fails the run.
 21. The model axis (parallel/model_parallel.py). (a) Rows 3s and 4s, the
-   split-statistics GroupNorm kernels, each against its plain version
-   at B 64, S 1024 cut into 2 and 4 row pieces, C 128 and 256, G 32, bf16
-   and fp32 (timed beside its bound, plain version and a library call on
-   one piece), and the pieces' pair (their sums added in piece order, as
-   the model group's all-reduce adds them) against rows 3 and 4 on the
-   whole image; then the pair at one rank against row 3 (4) on the same
-   shape, timed. (b) Two ranks sharing the card under gloo on a 1 x 2
-   mesh: the bf16 flagship's channel (TP) and spatial (SP) forward at
+   split-statistics GroupNorm kernels (csrc/groupnorm_split.cu), each
+   against its plain version at B 64, S 1024 cut into 2 and 4 row pieces,
+   C 128 and 256, G 32, bf16 and fp32, and at B 8, S 65536 cut in 2, C
+   128, bf16 (the first level of a 256 x 256 image), each launch called
+   twice (bitwise equal), its card launches counted (one a call each:
+   the kernel's counter and the PyTorch operators beside it), timed on
+   one piece beside the previous design's time ("was"), its bound, plain
+   version and a library call, and timed again cold, each call on a copy
+   of its inputs that L2 no longer holds (its share of the HBM bound is
+   taken from that time); the
+   pieces' pair (their sums
+   added in piece order, as the model group's all-reduce adds them)
+   against rows 3 and 4 on the whole image; then the pair at one rank
+   against row 3 (4) on the same shape, timed. (b) Two ranks sharing the
+   card under gloo on a 1 x 2 mesh: the bf16 flagship's channel (TP) and
+   spatial (SP) forward at
    batch 64 and the fp32 one at batch 8 against one process on the card
    (rows 1 and 3, and 3s, at exact counts), one fp32 train step of each
    partition at batch 2 against one process (loss, whole gradients,
@@ -252,7 +260,12 @@ any error or disagreement:
    rows 3s/4s for the 61 GroupNorms outside the attention blocks), their
    model-axis byte bill by kind and project_step's NVLink projection on
    2, 4 and 8 cards, and sharded_sampler(partition="spatial") fp32
-   DDIM-5 at batch 64 against the unsharded sampler.
+   DDIM-5 at batch 64 against the unsharded sampler. (c) Four ranks
+   sharing the card under gloo on a 1 x 4 mesh: the spatial sampler of
+   the tiny UNet at 18 x 18 (4 does not divide 18, so every level runs
+   whole on every rank), fp32 DDIM-3 at batch 4, against the unsharded
+   sampler, and one fp32 spatial train step at 18 x 18, batch 4, against
+   one process, each with no halo exchanged and no row 3s/4s launch.
 22. One JSON line {"kernels": [...]} with all thirteen kernels (the eight
    rows, 7b, and rows 3s/4s' four entries, each with its worst error as
    a fraction of its tolerance; phases 20's and 21's launches among
@@ -263,7 +276,9 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import functools
 import gc
+import itertools
 import json
 import math
 import os
@@ -3763,9 +3778,27 @@ def scale_out_phase(dev, weights, smi) -> dict:
 # ---------------------------------------------------------------------
 
 # rows 3s and 4s: the split pair against rows 3 and 4 on the whole image,
-# at B 64, S 1024 cut into R row pieces, G 32: (C, R) of each case
-SPLIT_GN_CASES = ((128, 2), (128, 4), (256, 2), (256, 4))
-SPLIT_GN = (64, 1024, 32)  # B, S, G
+# (B, S, C, R): the flagship's first level (B 64, S 1024) cut into R row
+# pieces, and the first level of a 256 x 256 image split in two (B 8,
+# S 65536: the high-resolution case, bf16 only); G 32
+SPLIT_GN_CASES = ((64, 1024, 128, 2), (64, 1024, 128, 4), (64, 1024, 256, 2),
+                  (64, 1024, 256, 4), (8, 65536, 128, 2))
+SPLIT_GN_HIGHRES = (8, 65536, 128, 2)
+SPLIT_GN_G = 32
+SPLIT_GN_HEAD = (64, 1024)  # the one-rank comparison's B, S (C 128)
+# The previous design's kernels (row 3's cluster plan, streaming) on one
+# piece, bf16, B 64, S 512 of 1024, as this phase measured them on an
+# NVIDIA H100 80GB HBM3 at 700 W; printed beside this run's as "was":
+# (C, kernel) -> ms. The high-resolution case was not measured then.
+SPLIT_GN_WAS = {(128, "stats"): 0.0076, (128, "apply"): 0.0090,
+                (128, "bwd_stats"): 0.0204, (128, "bwd_apply"): 0.0155,
+                (256, "stats"): 0.0094, (256, "apply"): 0.0154,
+                (256, "bwd_stats"): 0.0316, (256, "bwd_apply"): 0.0299}
+# launches a call puts on the card (card_launches), and the previous
+# design's: its 4s statistics added the images' dgamma/dbeta in a second
+# launch
+SPLIT_GN_LAUNCHES = {"stats": 1, "apply": 1, "bwd_stats": 1, "bwd_apply": 1}
+SPLIT_GN_WAS_LAUNCHES = {"stats": 1, "apply": 1, "bwd_stats": 2, "bwd_apply": 1}
 # operations per element (fp32): 3s statistics 3 (an add, an fma); the
 # normalise 3, the SiLU 4 more; 4s statistics 4 (n_hat 2, the partials 2),
 # the SiLU's VJP 10 more; dx 7 (n_hat 2, dn 1, dx 4), the SiLU's VJP 10 more
@@ -3781,6 +3814,16 @@ MP_STEP_BATCH = 2      # the fp32 train steps held against one process
 MP_BF16_BATCH = 8      # the bf16 train steps counted and timed
 MP_DDIM_STEPS = 5      # the spatial sampler against the unsharded one
 MP_TIMEOUT_S = 400
+# phase 21(c): the spatial sampler on an image whose rows the model axis
+# does not divide: the tiny UNet (the CPU tests' TINY) at 18 x 18 over a
+# 1 x 4 mesh (its downsample needs an even height, so 2 ranks cannot show
+# the case), fp32 DDIM-3 at batch 4
+UNEVEN_RANKS, UNEVEN_SIZE, UNEVEN_STEPS, UNEVEN_BATCH = 4, 18, 3, 4
+TINY_UNET = {"block_out_channels": [16, 32],
+             "down_block_types": ["DownBlock2D", "AttnDownBlock2D"],
+             "up_block_types": ["AttnUpBlock2D", "UpBlock2D"],
+             "layers_per_block": 1, "attention_head_dim": 16, "norm_groups": 4,
+             "dropout": 0.0}
 SPLIT_COUNTERS = (("group_norm_stats", "groupnorm", "group_norm_stats"),
                   ("group_norm_apply", "groupnorm", "group_norm_apply"),
                   ("group_norm_bwd_stats", "groupnorm", "group_norm_bwd_stats"),
@@ -3815,24 +3858,58 @@ def split_gn_pieces(x, dy, scale, bias, G, R, eps, act):
     return y, dx, dscale, dbias, sums, gsums
 
 
+def card_launches(fn) -> int:
+    """The launches one call of ``fn`` makes on the card (after a warm
+    call): the port's GroupNorm kernels (their wrappers' counters) and the
+    PyTorch operators run beside them (a dispatch mode's count;
+    allocations and views, which launch nothing, left out)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from pdm_tpu_torch.ops import groupnorm as gn_op
+
+    kernels = (gn_op.fused_group_norm_act, gn_op.group_norm_bwd, gn_op.group_norm_stats,
+               gn_op.group_norm_apply, gn_op.group_norm_bwd_stats,
+               gn_op.group_norm_bwd_apply)
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not (getattr(func, "is_view", False)
+                    or func._overloadpacket.__name__.startswith("empty")):
+                Ops.n += 1
+            return func(*args, **(kwargs or {}))
+
+    fn()
+    before = [k.launches for k in kernels]
+    with Ops():
+        fn()
+    return Ops.n + sum(k.launches - b for k, b in zip(kernels, before))
+
+
 def split_gn_phase(time_ms, dev) -> dict:
     """Phase 21(a): rows 3s and 4s against their plain versions, and the
     split pair against rows 3 and 4 on the whole image, at SPLIT_GN_CASES
-    in bf16 and fp32 with the SiLU; each kernel timed on one piece beside
-    its plain version, its bound and a library call; the pair at R = 1
+    in bf16 and (but the high-resolution case) fp32 with the SiLU; each
+    launch called twice on one piece (bitwise equal), its card launches
+    counted (card_launches), and timed (L2 warm, and cold: copies of its
+    inputs in turn) beside the previous design's time, its bound, its plain version
+    and a library call; the pair at one rank
     against row 3 (4) on the same shape."""
     import torch
     import torch.nn.functional as F
 
     from pdm_tpu_torch.ops import groupnorm as gn_op
 
-    B, S, G = SPLIT_GN
+    G = SPLIT_GN_G
     eps, act = 1e-6, "silu"
     rows, pair_rows = [], []
     g = torch.Generator(device=dev).manual_seed(21)
     for dname in ("bfloat16", "float32"):
         dtype = getattr(torch, dname)
-        for C, R in SPLIT_GN_CASES:
+        for B, S, C, R in SPLIT_GN_CASES:
+            if dname == "float32" and (B, S, C, R) == SPLIT_GN_HIGHRES:
+                continue
             x = torch.randn(B, S, C, generator=g, device=dev).to(dtype)
             dy = torch.randn(B, S, C, generator=g, device=dev).to(dtype)
             scale = 1.0 + 0.1 * torch.randn(C, generator=g, device=dev)
@@ -3849,27 +3926,29 @@ def split_gn_phase(time_ms, dev) -> dict:
                         for a, b in ((dsc, dsc4), (dbi, dbi4)))
             ok_p = all(compare_to_scale(a, b, *PARAM_GRAD_TOL)[1]
                        for a, b in ((dsc, dsc4), (dbi, dbi4)))
+            del y, dx, y3, dx4
             # each kernel against its plain version on the first piece
             piece = x.chunk(R, dim=1)[0].contiguous()
             dpiece = dy.chunk(R, dim=1)[0].contiguous()
+            del x, dy
             n = float(S) * float(C // G)
             ks = {
-                "stats": (lambda: gn_op.group_norm_stats(piece, G),
-                          lambda: gn_op.group_norm_stats_reference(piece, G)),
-                "apply": (lambda: gn_op.group_norm_apply(piece, scale, bias, sums, G,
-                                                         n, eps, act),
-                          lambda: gn_op.group_norm_apply_reference(
-                              piece, scale, bias, sums, G, n, eps, act)),
-                "bwd_stats": (lambda: gn_op.group_norm_bwd_stats(
-                                  piece, dpiece, scale, bias, sums, G, n, eps, act)[0],
-                              lambda: gn_op.group_norm_bwd_stats_reference(
-                                  piece, dpiece, scale, bias, sums, G, n, eps, act)[0]),
-                "bwd_apply": (lambda: gn_op.group_norm_bwd_apply(
-                                  piece, dpiece, scale, bias, sums, gsums, G, n, eps,
-                                  act),
-                              lambda: gn_op.group_norm_bwd_apply_reference(
-                                  piece, dpiece, scale, bias, sums, gsums, G, n,
-                                  eps, act)),
+                "stats": (lambda p, d: (gn_op.group_norm_stats(p, G),),
+                          lambda p, d: (gn_op.group_norm_stats_reference(p, G),)),
+                "apply": (lambda p, d: (gn_op.group_norm_apply(p, scale, bias, sums, G,
+                                                               n, eps, act),),
+                          lambda p, d: (gn_op.group_norm_apply_reference(
+                              p, scale, bias, sums, G, n, eps, act),)),
+                "bwd_stats": (lambda p, d: gn_op.group_norm_bwd_stats(
+                                  p, d, scale, bias, sums, G, n, eps, act),
+                              lambda p, d: gn_op.group_norm_bwd_stats_reference(
+                                  p, d, scale, bias, sums, G, n, eps, act)),
+                "bwd_apply": (lambda p, d: (gn_op.group_norm_bwd_apply(
+                                  p, d, scale, bias, sums, gsums, G, n, eps,
+                                  act),),
+                              lambda p, d: (gn_op.group_norm_bwd_apply_reference(
+                                  p, d, scale, bias, sums, gsums, G, n,
+                                  eps, act),)),
             }
             timed = dname == "bfloat16" or R == 2
             side = int(round(math.sqrt(S)))
@@ -3885,50 +3964,87 @@ def split_gn_phase(time_ms, dev) -> dict:
             esz = piece.element_size()
             io = {"stats": piece.numel() * esz + B * G * 8,
                   "apply": 2 * piece.numel() * esz + B * G * 8 + 8 * C,
-                  "bwd_stats": 2 * piece.numel() * esz + B * G * 16 + 8 * B * C + 8 * C,
+                  "bwd_stats": 2 * piece.numel() * esz + B * G * 16 + 16 * C,
                   "bwd_apply": 3 * piece.numel() * esz + B * G * 16 + 8 * C}
-            for name, (kern, plain) in ks.items():
-                got, want = kern(), plain()
+            plan = list(gn_op.plan_split(B, S // R, C, esz))
+            # copies of the piece that the cold timings cycle through: at
+            # least three times L2's bytes, so each call reads its inputs
+            # from HBM
+            l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 50 << 20)
+            copies = [(piece.clone(), dpiece.clone()) for _ in range(
+                -(-3 * l2 // (2 * piece.numel() * piece.element_size())))] if timed else []
+            turn = itertools.cycle(copies)
+            for name, (kern_of, plain_of) in ks.items():
+                kern = functools.partial(kern_of, piece, dpiece)
+                plain = functools.partial(plain_of, piece, dpiece)
+                got, again, want = kern(), kern(), plain()
                 torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
                 if name in ("stats", "bwd_stats"):
-                    err, ok = compare_to_scale(got, want, *PARAM_GRAD_TOL)
-                    worst = tol_fraction(got, want, *PARAM_GRAD_TOL)
+                    checks = [compare_to_scale(a, b, *PARAM_GRAD_TOL) for a, b in
+                              zip(got, want)]
+                    worst = max(tol_fraction(a, b, *PARAM_GRAD_TOL)
+                                for a, b in zip(got, want))
                 elif name == "apply":
-                    err, ok, _, _ = compare(got, want, dname)
-                    worst = compare_fraction(got, want, dname)
+                    checks = [compare(got[0], want[0], dname)[:2]]
+                    worst = compare_fraction(got[0], want[0], dname)
                 else:
-                    err, ok = compare_to_scale(got, want, rt, at)
-                    worst = tol_fraction(got, want, rt, at)
+                    checks = [compare_to_scale(got[0], want[0], rt, at)]
+                    worst = tol_fraction(got[0], want[0], rt, at)
+                err, ok = max(c[0] for c in checks), all(c[1] for c in checks)
+                launches = card_launches(kern)
                 row = {"kernel": name, "shape": [B, S // R, C], "pieces": R,
-                       "groups": G, "dtype": dname, "act": act, "max_abs_err": err,
-                       "worst_of_tolerance": worst}
+                       "groups": G, "dtype": dname, "act": act, "plan": plan,
+                       "max_abs_err": err, "worst_of_tolerance": worst,
+                       "bitwise_repeat": same, "card_launches": launches}
                 if timed:
                     b_ms, b_by = bound(io[name], SPLIT_GN_OPS[name][act] * piece.numel(),
                                        "float32")
                     ms, host_ms = time_ms(kern)
+                    cold_ms = time_ms(lambda: kern_of(*next(turn)))[0]
                     lib = library[name]
-                    row.update(ms=ms, host_ms=host_ms, bound_ms=b_ms, bound_by=b_by,
+                    row.update(ms=ms, host_ms=host_ms, cold_ms=cold_ms,
+                               bound_ms=b_ms, bound_by=b_by,
+                               share_of_bound=b_ms / cold_ms, warm_share_of_bound=b_ms / ms,
                                plain_ms=time_ms(plain, inner=5)[0],
                                library_ms=None if lib is None else time_ms(lib)[0])
+                was = (SPLIT_GN_WAS.get((C, name)) if timed and (dname, B, S, R) ==
+                       ("bfloat16", 64, 1024, 2) else None)
                 rows.append(row)
                 log(f"row {'3s' if name in ('stats', 'apply') else '4s'} {name} {dname} "
-                    f"B={B} S={S // R} (1/{R} of {S}) C={C} G={G}: max_abs_err {err:.3g} "
-                    f"({worst:.3g} of its tolerance)"
-                    + (f" kernel_ms {row['ms']:.4f} (host {row['host_ms']:.4f}) plain_ms "
-                       f"{row['plain_ms']:.4f} library_ms {row['library_ms']} bound_ms "
-                       f"{row['bound_ms']:.4f} ({row['bound_by']})" if timed else ""))
+                    f"B={B} S={S // R} (1/{R} of {S}) C={C} G={G} plan {tuple(plan)}: "
+                    f"max_abs_err {err:.3g} ({worst:.3g} of its tolerance); two calls "
+                    f"bitwise equal: {same}; {launches} card launch(es) a call (was "
+                    f"{SPLIT_GN_WAS_LAUNCHES[name]})"
+                    + (f"; kernel_ms {row['ms']:.4f} warm L2 (the previous design's: "
+                       f"{was}; host {row['host_ms']:.4f}), {row['cold_ms']:.4f} cold "
+                       f"(each call on a copy of its inputs L2 no longer holds: "
+                       f"{len(copies)} copies) bound_ms {row['bound_ms']:.4f} "
+                       f"({row['bound_by']}; {row['share_of_bound']:.1%} of it cold, "
+                       f"{row['warm_share_of_bound']:.1%} warm) plain_ms "
+                       f"{row['plain_ms']:.4f} library_ms {row['library_ms']}"
+                       if timed else ""))
                 if not ok:
                     fail(f"row {name} disagrees with its plain version at {row['shape']} "
                          f"{dname}")
+                if not same:
+                    fail(f"row {name} is not bitwise repeatable at {row['shape']} {dname}")
+                if launches != SPLIT_GN_LAUNCHES[name]:
+                    fail(f"row {name} put {launches} launches on the card at "
+                         f"{row['shape']} {dname}, not {SPLIT_GN_LAUNCHES[name]}")
             log(f"split pair {dname} B={B} S={S} in {R} pieces C={C} G={G} against rows "
                 f"3/4 on the whole image: y {err_y:.3g}, dx {err_dx:.3g}, dscale/dbias "
                 f"{err_p:.3g}")
             if not (ok_y and ok_dx and ok_p):
-                fail(f"rows 3s/4s over {R} pieces disagree with rows 3/4 at C={C} {dname}")
-            pair_rows.append({"C": C, "pieces": R, "dtype": dname, "y_err": err_y,
-                              "dx_err": err_dx, "param_err": err_p})
+                fail(f"rows 3s/4s over {R} pieces disagree with rows 3/4 at B={B} S={S} "
+                     f"C={C} {dname}")
+            pair_rows.append({"B": B, "S": S, "C": C, "pieces": R, "dtype": dname,
+                              "y_err": err_y, "dx_err": err_dx, "param_err": err_p})
+            del piece, dpiece, xf, yf, x4, xg, d4, ks, library, copies, turn
+            torch.cuda.empty_cache()
     # what the split costs against row 3 (4) at one rank, on the same shape
     cost = []
+    B, S = SPLIT_GN_HEAD
     for dname in ("bfloat16", "float32"):
         dtype = getattr(torch, dname)
         C = 128
@@ -3962,14 +4078,21 @@ def split_gn_phase(time_ms, dev) -> dict:
                                                              act))[0],
              "split_bwd_ms": time_ms(split_bwd)[0],
              "fwd_bound_ms": fb, "bwd_bound_ms": bb,
-             "fwd_launches": [1, 2], "bwd_launches": [1, 2],
+             "fwd_launches": [card_launches(lambda: gn_op.fused_group_norm_act(
+                 x, scale, bias, G, eps, act)), card_launches(split_fwd)],
+             "bwd_launches": [card_launches(lambda: gn_op.group_norm_bwd(
+                 x, scale, bias, dy, G, eps, act)), card_launches(split_bwd)],
              "y_err_vs_row3": float((same.float() - y3.float()).abs().max())}
+        c["fwd_ratio"] = c["split_fwd_ms"] / c["row3_ms"]
+        c["bwd_ratio"] = c["split_bwd_ms"] / c["row4_ms"]
         cost.append(c)
         log(f"split at one rank {dname} B={B} S={S} C={C} G={G}: forward row 3 "
-            f"{c['row3_ms']:.4f} ms (1 launch) vs 3s stats+apply {c['split_fwd_ms']:.4f} "
-            f"ms (2 launches), bound {fb:.4f}; backward row 4 {c['row4_ms']:.4f} ms vs "
-            f"4s {c['split_bwd_ms']:.4f} ms, bound {bb:.4f}; y vs row 3 max |diff| "
-            f"{c['y_err_vs_row3']:.3g}")
+            f"{c['row3_ms']:.4f} ms ({c['fwd_launches'][0]} card launches) vs 3s "
+            f"stats+apply {c['split_fwd_ms']:.4f} ms ({c['fwd_launches'][1]}), "
+            f"{c['fwd_ratio']:.3f}x, bound {fb:.4f}; backward row 4 {c['row4_ms']:.4f} "
+            f"ms ({c['bwd_launches'][0]}) vs 4s {c['split_bwd_ms']:.4f} ms "
+            f"({c['bwd_launches'][1]}), {c['bwd_ratio']:.3f}x, bound {bb:.4f}; y vs "
+            f"row 3 max |diff| {c['y_err_vs_row3']:.3g}")
     return {"rows": rows, "pairs": pair_rows, "one_rank": cost}
 
 
@@ -3988,18 +4111,18 @@ def _whole_grads(grads, module, mesh):
     return out
 
 
-def mp_fp32_step(weights, sched, dev, x, mesh, partition, lr=1e-4):
-    """One fp32 flagship train step (dropout 0.2 from the step generator)
-    on ``x``, over ``mesh``'s model axis with ``partition`` (or one
-    process): the loss, the whole gradients it applied, the whole params
-    after it."""
+def mp_fp32_step(weights, sched, dev, x, mesh, partition, lr=1e-4, config=None):
+    """One fp32 train step of the UNet ``config`` (the flagship by default;
+    its dropout from the step generator) on ``x``, over ``mesh``'s model
+    axis with ``partition`` (or one process): the loss, the whole
+    gradients it applied, the whole params after it."""
     import torch
 
     from pdm_tpu_torch.diffusion.trainer import DDPMTrainer, step_generator, whole_tensors
     from pdm_tpu_torch.models.unet import unet_from_config
     from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
 
-    net = unet_from_config(3, FLAGSHIP, dtype=torch.float32, device=dev)
+    net = unet_from_config(3, config or FLAGSHIP, dtype=torch.float32, device=dev)
     tr = DDPMTrainer(UNetDDPM(sched, net, device=dev), learning_rate=lr,
                      warmup_steps=0, grad_clip=1e9, ema_decay=0.9999,
                      model_partition=partition)
@@ -4010,6 +4133,24 @@ def mp_fp32_step(weights, sched, dev, x, mesh, partition, lr=1e-4):
                              tr.ddpm.module, mesh)
     params = {k: v.cpu() for k, v in whole_tensors(st, st.params).items()}
     return float(m["loss"]), {k: v.cpu() for k, v in grads.items()}, params
+
+
+def mp_step_agreement(got, one) -> tuple:
+    """An mp_fp32_step over the model axis against one process's: the
+    loss's relative error, the worst gradient as a fraction of its
+    tolerance (TRAIN_TOL), and the params' worst excess over the bound
+    Adam's first step allows the two gradients (agreement: loss error
+    within TRAIN_TOL, gradient at most 1, excess at most 0)."""
+    loss_err = abs(got[0] - one[0]) / abs(one[0])
+    top = max(float(v.abs().max()) for v in one[1].values())
+    worst_grad = max(float((got[1][k] - g1).abs().max())
+                     / (TRAIN_TOL["grad"] * float(g1.abs().max())
+                        + TRAIN_TOL["grad_floor"] * top)
+                     for k, g1 in one[1].items())
+    excess = max(float(((got[2][k] - one[2][k]).abs()
+                        - adam_first_step_bound(got[1][k], one[1][k], 1e-4)
+                        - 1e-7).max()) for k in one[2])
+    return loss_err, worst_grad, excess
 
 
 def model_axis_child(rank: int, tmp: str) -> None:
@@ -4105,15 +4246,7 @@ def model_axis_child(rank: int, tmp: str) -> None:
         steps = {}
         for part in ("channel", "spatial"):
             got = mp_fp32_step(weights, sched, dev, x2, mesh, part)
-            loss_err = abs(got[0] - one[0]) / abs(one[0])
-            top = max(float(v.abs().max()) for v in one[1].values())
-            worst_grad = max(float((got[1][k] - g1).abs().max())
-                             / (TRAIN_TOL["grad"] * float(g1.abs().max())
-                                + TRAIN_TOL["grad_floor"] * top)
-                             for k, g1 in one[1].items())
-            excess = max(float(((got[2][k] - one[2][k]).abs()
-                                - adam_first_step_bound(got[1][k], one[1][k], 1e-4)
-                                - 1e-7).max()) for k in one[2])
+            loss_err, worst_grad, excess = mp_step_agreement(got, one)
             steps[part] = {"loss_err": loss_err, "grad": worst_grad, "excess": excess}
             log(f"{label}: fp32 flagship {part} train step, batch {MP_STEP_BATCH}, "
                 f"dropout 0.2, against one process: loss {got[0]:.7g} vs {one[0]:.7g} "
@@ -4301,32 +4434,135 @@ def _host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def uneven_sampler_child(rank: int, tmp: str) -> None:
+    """Phase 21(c) on one rank of UNEVEN_RANKS sharing the card under gloo,
+    mesh 1 x 4: sharded_sampler(partition="spatial") of the tiny UNet at
+    18 x 18 (4 does not divide 18: every level runs whole on every rank)
+    against the unsharded sampler on the card, and one fp32 spatial train
+    step at 18 x 18 against one process, each with its launches and the
+    model axis's halo bytes (none)."""
+    import torch
+    import torch.distributed as dist
+
+    from pdm_tpu_torch.diffusion.sampling import DDPMSampler
+    from pdm_tpu_torch.models.unet import unet_from_config
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+    from pdm_tpu_torch.parallel import make_mesh, sharded_sampler
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    label = f"uneven rows rank {rank}/{UNEVEN_RANKS} (gloo)"
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv21c", rank=rank,
+                            world_size=UNEVEN_RANKS,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(data=1, model=UNEVEN_RANKS)
+        counters = [_counter(mod, fn) for _, mod, fn in TRAIN_COUNTERS + SPLIT_COUNTERS]
+        keys = [k for k, _, _ in TRAIN_COUNTERS + SPLIT_COUNTERS]
+        net = unet_from_config(3, TINY_UNET, dtype=torch.float32, device="cpu")
+        net.load_state_dict(seeded_state_dict(net, std=0.1))
+        net = net.to(dev)
+        sched = LinearBetaScheduler(1e-4, 1e2)
+        sampler = DDPMSampler(ddpm=UNetDDPM(sched, net, device=dev), scheduler=sched,
+                              n_steps=UNEVEN_STEPS,
+                              obj_size=(3, UNEVEN_SIZE, UNEVEN_SIZE),
+                              batch_size=UNEVEN_BATCH, n_samples=UNEVEN_BATCH,
+                              step_type="ddim", device=dev)
+        sp = sharded_sampler(sampler, mesh, partition="spatial")
+
+        def draw(s):
+            return lambda: s.batch_sample(torch.Generator(device=dev).manual_seed(5))["x"]
+
+        mesh.model_stats.reset()
+        got, launches = counted(draw(sp), counters)
+        halo = mesh.model_stats["collective-permute"]
+        want = draw(sampler)()
+        torch.cuda.synchronize()
+        err, ok, atol = compare_to_typical(got, want, FORWARD_TOL, FORWARD_TOL)
+        launches = dict(zip(keys, launches))
+        used = {k: v for k, v in launches.items() if v}
+        res = {"rank": rank, "err": err, "atol": atol, "halo_bytes": halo,
+               "launches": launches, "shape": list(got.shape)}
+        log(f"{label}: sharded_sampler(partition='spatial') of the tiny UNet at "
+            f"{UNEVEN_SIZE} x {UNEVEN_SIZE}, fp32 DDIM-{UNEVEN_STEPS} at batch "
+            f"{UNEVEN_BATCH}: max |diff| {err:.4g} against the unsharded sampler (tol "
+            f"{FORWARD_TOL} |x| + {atol:.4g}); halo bytes {halo}; launches {used}")
+        if not ok or tuple(got.shape) != (UNEVEN_BATCH, 3, UNEVEN_SIZE, UNEVEN_SIZE):
+            fail(f"{label}: the spatial sampler on uneven rows disagrees with the "
+                 f"unsharded one")
+        if halo or any(launches[k] for k, _, _ in SPLIT_COUNTERS):
+            fail(f"{label}: rows were split (halo bytes {halo}, launches {launches})")
+        # one fp32 spatial train step at the same height against one process
+        weights = {k: v.cpu() for k, v in net.state_dict().items()}
+        x0 = torch.from_numpy(np.random.RandomState(22).standard_normal(
+            (UNEVEN_BATCH, 3, UNEVEN_SIZE, UNEVEN_SIZE)).astype(np.float32)).to(dev)
+        one = mp_fp32_step(weights, sched, dev, x0, None, "spatial", config=TINY_UNET)
+        mesh.model_stats.reset()
+        got, step_launches = counted(
+            lambda: mp_fp32_step(weights, sched, dev, x0, mesh, "spatial",
+                                 config=TINY_UNET), counters)
+        step_halo = mesh.model_stats["collective-permute"]
+        loss_err, worst_grad, excess = mp_step_agreement(got, one)
+        step_launches = dict(zip(keys, step_launches))
+        res["fp32_step"] = {"loss_err": loss_err, "grad": worst_grad, "excess": excess,
+                            "halo_bytes": step_halo, "launches": step_launches}
+        log(f"{label}: fp32 spatial train step of the tiny UNet at {UNEVEN_SIZE} x "
+            f"{UNEVEN_SIZE}, batch {UNEVEN_BATCH}, against one process: loss "
+            f"{got[0]:.7g} vs {one[0]:.7g} (rel {loss_err:.3g}, tol {TRAIN_TOL['loss']}); "
+            f"worst gradient {worst_grad:.3g} of its tolerance; params after Adam within "
+            f"the bound the gradients allow, worst excess {excess:.3g}; halo bytes "
+            f"{step_halo}; launches {({k: v for k, v in step_launches.items() if v})}")
+        if loss_err > TRAIN_TOL["loss"] or worst_grad > 1.0 or excess > 0:
+            fail(f"{label}: the spatial train step on uneven rows disagrees with one "
+                 f"process")
+        if step_halo or any(step_launches[k] for k, _, _ in SPLIT_COUNTERS):
+            fail(f"{label}: the train step split rows (halo bytes {step_halo}, launches "
+                 f"{step_launches})")
+        with open(os.path.join(tmp, f"uneven{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(child, nprocs: int, tmp: str, what: str) -> None:
+    """``child(rank, tmp)`` on ``nprocs`` spawned processes sharing the card;
+    fails when one fails or all outlive MP_TIMEOUT_S."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(child, args=(tmp,), nprocs=nprocs, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + MP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                fail(f"{what}: the {nprocs} ranks outlived {MP_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    log(f"{what}: {nprocs} ranks on one card under gloo passed in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def model_axis_phase(time_ms, dev) -> dict:
     """Phase 21: (a) rows 3s and 4s in one process (split_gn_phase), (b)
     two gloo ranks sharing the card on a 1 x 2 mesh (model_axis_child),
-    (c) the byte bill and its NVLink projection (in (b)'s report)."""
-    import torch.multiprocessing as mp
-
+    with the byte bill and its NVLink projection in its report, (c) four
+    gloo ranks on a 1 x 4 mesh: the spatial sampler and a spatial train
+    step on an image whose rows 4 does not divide (uneven_sampler_child)."""
     out = {"split": split_gn_phase(time_ms, dev)}
     tmp = tempfile.mkdtemp()
     try:
-        t0 = time.perf_counter()
-        ctx = mp.start_processes(model_axis_child, args=(tmp,), nprocs=2, join=False,
-                                 start_method="spawn")
-        deadline = time.monotonic() + MP_TIMEOUT_S
-        try:
-            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
-                if time.monotonic() > deadline:
-                    fail(f"model axis (b): the two ranks outlived {MP_TIMEOUT_S} s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        kids = [json.load(open(os.path.join(tmp, f"mp{r}.json"))) for r in range(2)]
-        log(f"model axis (b): two ranks on one card under gloo passed in "
-            f"{time.perf_counter() - t0:.1f} s")
-        out["ranks"] = kids
+        spawn_ranks(model_axis_child, 2, tmp, "model axis (b)")
+        out["ranks"] = [json.load(open(os.path.join(tmp, f"mp{r}.json")))
+                        for r in range(2)]
+        spawn_ranks(uneven_sampler_child, UNEVEN_RANKS, tmp, "model axis (c)")
+        out["uneven"] = [json.load(open(os.path.join(tmp, f"uneven{r}.json")))
+                         for r in range(UNEVEN_RANKS)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -5242,22 +5478,45 @@ def main() -> int:
                     "ms_per_step": run["train"][part]["ms"],
                     "note": f"launch count only: one bf16 train step at batch "
                             f"{MP_BF16_BATCH} over a 1 x 2 mesh"}
+    # phase 21(c): the uneven-height spatial sampler and train step on four
+    # ranks (rows whole: rows 1-4)
+    for key, (name, _) in cli_paths.items():
+        k = next(k for k in kernels if k["name"] == name)
+        for kid in model_axis["uneven"]:
+            where = (f"{UNEVEN_SIZE} x {UNEVEN_SIZE} rows whole, rank {kid['rank']} of "
+                     f"{UNEVEN_RANKS}, gloo")
+            for what, launches, steps, note in (
+                    ("spatial sampler", kid["launches"], UNEVEN_STEPS,
+                     f"the tiny UNet's fp32 DDIM-{UNEVEN_STEPS}"),
+                    ("spatial training", kid["fp32_step"]["launches"], 1,
+                     "one fp32 train step of the tiny UNet")):
+                n = launches[key]
+                if n:
+                    k["launches"] += n
+                    k["paths"][f"{what}, {where}"] = {
+                        "launches": n, "launches_per_step": n / steps,
+                        "note": f"launch count only: {note} at batch {UNEVEN_BATCH} "
+                                f"over a 1 x 4 mesh"}
     split_rows = model_axis["split"]["rows"]
-    sp_names = {"stats": ("group_norm_stats", "3s", "groupnorm.cu",
-                          "per-rank sums of x and x^2 in row 3's plan and order, "
-                          "streaming (x read once)"),
-                "apply": ("group_norm_apply", "3s", "groupnorm.cu",
-                          "elementwise normalise from the all-reduced sums, each "
-                          "block's channel constants in shared memory"),
-                "bwd_stats": ("group_norm_bwd_stats", "4s", "groupnorm_bwd.cu",
-                              "per-rank dgamma/dbeta partials and group sums of dn, "
-                              "dn n_hat in row 4's plan and order, streaming"),
-                "bwd_apply": ("group_norm_bwd_apply", "4s", "groupnorm_bwd.cu",
-                              "elementwise dx from the all-reduced group sums")}
+    sp_names = {"stats": ("group_norm_stats", "3s", "groupnorm_split.cu",
+                          "streaming reduction: a block a slab of rows, 16-byte "
+                          "vectors four rows ahead, slab partials folded in slab "
+                          "order by each image's last block"),
+                "apply": ("group_norm_apply", "3s", "groupnorm_split.cu",
+                          "streaming normalise from the all-reduced sums, the "
+                          "channels' coefficients made once a block, 16-byte "
+                          "vectors four rows ahead"),
+                "bwd_stats": ("group_norm_bwd_stats", "4s", "groupnorm_split.cu",
+                              "as 3s's statistics over x and dy; each image's last "
+                              "block folds its slabs, the last image folds dgamma and "
+                              "dbeta over the batch in image order: one launch"),
+                "bwd_apply": ("group_norm_bwd_apply", "4s", "groupnorm_split.cu",
+                              "streaming dx = a dz + b x + c from per-channel "
+                              "coefficients made once a block")}
     for kern, (name, row, src, design) in sp_names.items():
         mine = [r for r in split_rows if r["kernel"] == kern]
         head = next(r for r in mine if r["dtype"] == "bfloat16" and r["pieces"] == 2
-                    and r["shape"][2] == 128)
+                    and r["shape"] == [64, 512, 128])
         key = name
         paths = {}
         total = 0
@@ -5281,7 +5540,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "design": design,
             "source": f"pdm_tpu_torch/csrc/{src}",
-            "replaces": ("pdm_tpu/ops/groupnorm.py:175 (row " + row + ": no TPU kernel "
+            "replaces": ("pdm_tpu/ops/groupnorm.py:" + ("175" if row == "3s" else "192")
+                         + " (row " + row + ": no TPU kernel "
                          "of its own; GSPMD's partition of the statistics of "
                          + ("_fgn_call" if row == "3s" else "_fgn_bwd") + ")"),
             "launches": total,
@@ -5294,9 +5554,10 @@ def main() -> int:
                        "apply": "none: no single call normalises with given statistics",
                        "bwd_stats": "none: no single call gives the partial sums",
                        "bwd_apply": "autograd of F.group_norm and F.silu (the whole "
-                                    "backward)"}[kern] + ")",
-            **{k: head[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")},
+                                    "backward)"}[kern] + "; cold_ms: back-to-back "
+                   "calls, each on a copy of its inputs that L2 no longer holds)",
+            **{k: head[k] for k in ("ms", "cold_ms", "host_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
             "paths": paths,
             "shapes": mine,
         })

@@ -424,16 +424,24 @@ class DDPMTrainer:
         ab = alpha_bar_from_log_temp(sched.log_temp_from_tau(tau))
         target = training_target(x0, eps, ab, self.ddpm.parametrization)
         if getattr(self.ddpm.module, "partition", None) == "spatial":
-            # this rank's rows of the noised images and of the target
+            # this rank's rows of the noised images and of the target (all
+            # of them where the model axis does not divide the height)
+            height = xt.shape[2]
             xt, target = self._own_rows(xt), self._own_rows(target)
-        pred = self.ddpm.module(xt, tau, generator)
+            pred = self.ddpm.module(xt, tau, generator, height=height)
+        else:
+            pred = self.ddpm.module(xt, tau, generator)
         return torch.mean(torch.square(pred - target.to(pred.dtype)))
 
     def _own_rows(self, t: Tensor) -> Tensor:
+        """This rank's rows of whole images: H / m of them where the model
+        axis m divides the height H, else all (every level then runs whole
+        on every rank; each rank back-propagates 1/m of the same loss and
+        the model group sums the whole leaves' gradients, which gives the
+        one-device gradient)."""
         m, r = self.ddpm.module.model_size, self.ddpm.module.model_index
         if t.shape[2] % m:
-            raise ValueError(f"spatial parallelism: the image's {t.shape[2]} "
-                             f"rows do not split over the model axis ({m})")
+            return t
         h = t.shape[2] // m
         return t[:, :, r * h:(r + 1) * h]
 

@@ -32,22 +32,23 @@ ranks of a model group (spatial parallelism, ``parallel/model_parallel.py``),
 where JAX's GSPMD psums the TPU kernel's statistics over the model axis.
 :func:`split_group_norm_act` runs a statistics launch
 (:func:`group_norm_stats`: the fp32 sum and sum of squares of each image's
-groups over the rank's rows, in row 3's order), an fp32 all-reduce of the
+groups over the rank's rows), an fp32 all-reduce of the
 (B, G, 2) sums over the group, and a normalise launch
 (:func:`group_norm_apply`); its backward runs :func:`group_norm_bwd_stats`
 (each group's partial sum of dn and of dn * n_hat, each channel's partial
-dgamma and dbeta), an all-reduce of the group sums, and
-:func:`group_norm_bwd_apply` (dx). dgamma and dbeta stay partial: the
-trainer sums every gradient over the mesh. Kernels in
-``csrc/groupnorm.cu`` and ``csrc/groupnorm_bwd.cu``; each has its plain
-version here, for CPU tensors, and its launch counter.
+dgamma and dbeta over the rank's rows of every image), an all-reduce of
+the group sums, and :func:`group_norm_bwd_apply` (dx). dgamma and dbeta
+stay partial: the trainer sums every gradient over the mesh. The four
+kernels are in ``csrc/groupnorm_split.cu`` and share one launch plan
+(:func:`plan_split`); each has its plain version here, for CPU tensors,
+and its launch counter.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -356,30 +357,50 @@ group_norm_bwd.launches = 0
 # rows 3s and 4s: split statistics for a row-sharded image
 # ---------------------------------------------------------------------
 
-# elements of (B, S, C) a block of an apply kernel covers, in whole rows
-SPLIT_APPLY_ELEMS = 8192
+# Rows 3s and 4s' launch plan (csrc/groupnorm_split.cu): each image's rows
+# are cut into slabs, one block a slab, grid (slabs, B). A block has up to
+# SPLIT_THREADS threads; thread t takes column vector t % V and rows
+# t // V, t // V + P, ... (vectors of 16 bytes where C and the alignment
+# allow), and loads SPLIT_UNROLL rows before it adds or writes any. A slab
+# is at least as many rows as keep each thread's SPLIT_UNROLL loads busy,
+# and the slabs are cut so that the grid has about SPLIT_WAVE blocks: four
+# blocks on each of the H100's 132 SMs, one full wave.
+SPLIT_THREADS = 256
+SPLIT_UNROLL = 4
+SPLIT_WAVE = 4 * 132
 
 
-def plan_split_stats(B: int, S: int, C: int, groups: int, itemsize: int,
-                     backward: bool, align: int = 16) -> GroupNormPlan:
-    """Row 3's (or 4's) launch plan for the shape, streaming: the same
-    blocks, lanes and cluster, so the sums run in row 3's (4's) order, and
-    no tile in shared memory, since the statistics read x (and dy) once."""
-    plan = plan_group_norm(B, S, C, groups, itemsize, backward, align)
-    nq = 2 if backward else 1
-    return plan._replace(hold=0, smem=_smem_bytes(
-        plan.lanes_v, plan.lanes_p, plan.vec, plan.cb,
-        plan.cb // (C // groups), plan.rows, itemsize, nq, False))
+class SplitPlan(NamedTuple):
+    """One launch of a row 3s or 4s kernel; mirrors ``SplitPlan`` in
+    csrc/groupnorm_split.cu. Block (k, b) of the grid (slabs, B) owns rows
+    [k rows, (k + 1) rows) (clipped to S) of image b and all C channels;
+    its threads t < lanes_v * lanes_p take column vectors t % lanes_v +
+    j lanes_v and rows t // lanes_v + i lanes_p."""
+    vec: int
+    lanes_v: int
+    lanes_p: int
+    threads: int
+    rows: int
+    slabs: int
 
 
-def plan_split_apply(S: int, C: int, itemsize: int, align: int = 16
-                     ) -> Tuple[int, int]:
-    """(rows a block, vector width) of an apply kernel: about
-    SPLIT_APPLY_ELEMS elements a block in whole rows; vectors of 4, 2 or 1
-    elements that divide C and the pointers' alignment."""
-    rows = max(1, min(S, SPLIT_APPLY_ELEMS // C))
-    vec = next(v for v in (4, 2, 1) if C % v == 0 and align % (v * itemsize) == 0)
-    return rows, vec
+def plan_split(B: int, S: int, C: int, itemsize: int, align: int = 16
+               ) -> SplitPlan:
+    """The launch plan of rows 3s and 4s (all four launches) for x of shape
+    (B, S, C) with ``itemsize``-byte elements whose pointers share
+    ``align``-byte alignment. Pure: the same arguments give the same plan,
+    so a call is bitwise repeatable."""
+    vec = next(v for v in (8, 4, 2, 1)
+               if v * itemsize <= 16 and C % v == 0 and align % (v * itemsize) == 0)
+    vpr = C // vec
+    lanes_v = min(vpr, SPLIT_THREADS)
+    lanes_p = max(1, SPLIT_THREADS // lanes_v)
+    threads = -(-lanes_v * lanes_p // 32) * 32
+    passes = -(-vpr // lanes_v)
+    least = lanes_p * -(-SPLIT_UNROLL // passes)
+    rows = max(least, -(-S // -(-SPLIT_WAVE // B)))
+    rows = min(S, -(-rows // lanes_p) * lanes_p)
+    return SplitPlan(vec, lanes_v, lanes_p, threads, rows, -(-S // rows))
 
 
 def _stats_of(sums: Tensor, n: float, eps: float):
@@ -474,20 +495,44 @@ def _cuda(x: Tensor) -> bool:
     return True
 
 
+_COUNTERS: Dict[Tuple[int, int], Tensor] = {}
+
+
+def _counters(x: Tensor, n: int) -> Tensor:
+    """At least ``n`` zeroed int32 counters for the statistics kernels'
+    last-block folds, one buffer per device and stream (a kernel leaves
+    its counters zero, and launches on one stream do not overlap)."""
+    key = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 256), dtype=torch.int32, device=x.device)
+        _COUNTERS[key] = c
+    return c
+
+
+def _split_plan(x: Tensor, *others: Tensor) -> _SplitPlan:
+    B, S, C = x.shape
+    return _SplitPlan(*plan_split(B, S, C, x.element_size(),
+                                  _alignment(x, *others)))
+
+
 def group_norm_stats(x: Tensor, groups: int) -> Tensor:
     """Row 3s's statistics: (B, G, 2) fp32 sums of x and x^2 of each
-    image's groups over x's rows (in row 3's order on the card)."""
+    image's groups over x's rows (on the card: each slab's sums added in
+    slab order, bitwise repeatable)."""
     if not _cuda(x):
         return group_norm_stats_reference(x, groups)
     _check_x(x, groups)
     B, S, C = x.shape
     sums = torch.empty((B, groups, 2), dtype=torch.float32, device=x.device)
-    plan = _GnPlan(*plan_split_stats(B, S, C, groups, x.element_size(), False,
-                                     _alignment(x)))
+    plan = _split_plan(x)
+    part = torch.empty((B, plan.slabs, groups, 2), dtype=torch.float32,
+                       device=x.device)
     fn = _build.entry("pdm_group_norm_stats", _STATS_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), sums.data_ptr(), ctypes.byref(plan), B, S, C,
+        err = fn(x.data_ptr(), sums.data_ptr(), part.data_ptr(),
+                 _counters(x, B).data_ptr(), ctypes.byref(plan), B, S, C,
                  groups, _DTYPE_CODES[x.dtype], stream)
     _build.check(err, "pdm_group_norm_stats")
     group_norm_stats.launches += 1
@@ -508,13 +553,13 @@ def group_norm_apply(x: Tensor, scale: Tensor, bias: Tensor, sums: Tensor,
     _check_sums(sums, x, groups, "sums")
     B, S, C = x.shape
     out = torch.empty_like(x)
-    rows, vec = plan_split_apply(S, C, x.element_size(), _alignment(x, out))
+    plan = _split_plan(x, out)
     fn = _build.entry("pdm_group_norm_apply", _APPLY_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                 sums.data_ptr(), out.data_ptr(), B, S, C, groups, rows, vec,
-                 float(n), float(eps), int(act == "silu"),
+                 sums.data_ptr(), out.data_ptr(), ctypes.byref(plan), B, S, C,
+                 groups, float(n), float(eps), int(act == "silu"),
                  _DTYPE_CODES[x.dtype], stream)
     _build.check(err, "pdm_group_norm_apply")
     group_norm_apply.launches += 1
@@ -526,8 +571,10 @@ def group_norm_bwd_stats(
     groups: int, n: float, eps: float, act: str = "none",
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Row 4s's statistics: the (B, G, 2) sums of dn and dn * n_hat over
-    x's rows, and the partial dscale and dbias (fp32, summed over B here),
-    from the forward's (all-reduced) ``sums``."""
+    x's rows, and the partial dscale and dbias (fp32, over x's rows of
+    every image), from the forward's (all-reduced) ``sums``. On the card
+    one launch: each slab's channel sums added in slab order, each image's
+    totals in image order (bitwise repeatable)."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}: {act!r}")
     if not _cuda(x):
@@ -541,21 +588,23 @@ def group_norm_bwd_stats(
     dy = dy.contiguous()
     B, S, C = x.shape
     gsums = torch.empty((B, groups, 2), dtype=torch.float32, device=x.device)
-    parts = torch.empty((2, B, C), dtype=torch.float32, device=x.device)
-    plan = _GnPlan(*plan_split_stats(B, S, C, groups, x.element_size(), True,
-                                     _alignment(x, dy)))
+    dparams = torch.empty((2, C), dtype=torch.float32, device=x.device)
+    plan = _split_plan(x, dy)
+    part = torch.empty((B, plan.slabs, 2, C), dtype=torch.float32,
+                       device=x.device)
+    totals = torch.empty((B, 2, C), dtype=torch.float32, device=x.device)
     fn = _build.entry("pdm_group_norm_bwd_stats", _BWD_STATS_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                 sums.data_ptr(), gsums.data_ptr(), parts[0].data_ptr(),
-                 parts[1].data_ptr(), ctypes.byref(plan), B, S, C, groups,
-                 float(n), float(eps), int(act == "silu"),
+                 sums.data_ptr(), gsums.data_ptr(), dparams.data_ptr(),
+                 part.data_ptr(), totals.data_ptr(),
+                 _counters(x, B + 1).data_ptr(), ctypes.byref(plan), B, S, C,
+                 groups, float(n), float(eps), int(act == "silu"),
                  _DTYPE_CODES[x.dtype], stream)
     _build.check(err, "pdm_group_norm_bwd_stats")
     group_norm_bwd_stats.launches += 1
-    dscale, dbias = parts.sum(dim=1)
-    return gsums, dscale, dbias
+    return gsums, dparams[0], dparams[1]
 
 
 def group_norm_bwd_apply(
@@ -578,14 +627,14 @@ def group_norm_bwd_apply(
     dy = dy.contiguous()
     B, S, C = x.shape
     dx = torch.empty_like(x)
-    rows, vec = plan_split_apply(S, C, x.element_size(), _alignment(x, dy, dx))
+    plan = _split_plan(x, dy, dx)
     fn = _build.entry("pdm_group_norm_bwd_apply", _BWD_APPLY_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                 sums.data_ptr(), gsums.data_ptr(), dx.data_ptr(), B, S, C,
-                 groups, rows, vec, float(n), float(eps), int(act == "silu"),
-                 _DTYPE_CODES[x.dtype], stream)
+                 sums.data_ptr(), gsums.data_ptr(), dx.data_ptr(),
+                 ctypes.byref(plan), B, S, C, groups, float(n), float(eps),
+                 int(act == "silu"), _DTYPE_CODES[x.dtype], stream)
     _build.check(err, "pdm_group_norm_bwd_apply")
     group_norm_bwd_apply.launches += 1
     return dx
@@ -636,7 +685,10 @@ def split_group_norm_act(
     process ``group``: statistics, their all-reduce over the group
     (counted in ``stats``), normalise; differentiable through rows 4s
     (dscale and dbias are this rank's part). With no group it is the
-    whole image's GroupNorm through the two launches."""
+    whole image's GroupNorm through the two launches. A group's element
+    count is S * size * C / groups, right for an even split only: the
+    spatial layout runs a level whose height the model axis does not
+    divide whole, through rows 3 and 4, and never reaches this."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}: {act!r}")
     n = float(x.shape[1] * size) * float(x.shape[2] // groups)
@@ -652,13 +704,16 @@ class _GnPlan(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in GroupNormPlan._fields]
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+class _SplitPlan(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in SplitPlan._fields]
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PLAN = ctypes.POINTER(_GnPlan)
-_FWD_ARGS = [_P, _P, _P, _P, _PLAN, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
-_BWD_ARGS = [_P] * 7 + [_PLAN] + [_I] * 4 + [ctypes.c_float, _I, _I, _P]
-_STATS_ARGS = [_P, _P, _PLAN, _I, _I, _I, _I, _I, _P]
-_APPLY_ARGS = [_P] * 5 + [_I] * 6 + [ctypes.c_float, ctypes.c_float, _I, _I, _P]
-_BWD_STATS_ARGS = [_P] * 8 + [_PLAN] + [_I] * 4 + [ctypes.c_float,
-                                                    ctypes.c_float, _I, _I, _P]
-_BWD_APPLY_ARGS = [_P] * 7 + [_I] * 6 + [ctypes.c_float, ctypes.c_float, _I,
-                                         _I, _P]
+_SPLIT = ctypes.POINTER(_SplitPlan)
+_FWD_ARGS = [_P, _P, _P, _P, _PLAN, _I, _I, _I, _I, _F, _I, _I, _P]
+_BWD_ARGS = [_P] * 7 + [_PLAN] + [_I] * 4 + [_F, _I, _I, _P]
+_STATS_ARGS = [_P] * 4 + [_SPLIT] + [_I] * 5 + [_P]
+_APPLY_ARGS = [_P] * 5 + [_SPLIT] + [_I] * 4 + [_F, _F, _I, _I, _P]
+_BWD_STATS_ARGS = [_P] * 10 + [_SPLIT] + [_I] * 4 + [_F, _F, _I, _I, _P]
+_BWD_APPLY_ARGS = [_P] * 7 + [_SPLIT] + [_I] * 4 + [_F, _F, _I, _I, _P]

@@ -126,7 +126,11 @@ def sharded_sampler(sampler, mesh, partition: str = "data"):
     rows over 'model', through the spatial-parallel UNet
     (``mesh.unet_with_sp``): each rank steps its rows of its images (x_T
     and every step's noise cut from the global draws) and the result is
-    gathered, so every rank returns the whole batch. It needs a UNet
+    gathered, so every rank returns the whole batch. Where the model axis
+    does not divide the image's rows, every level of the UNet runs whole
+    on every rank of a model group (the layout's rule for such a level),
+    so each rank steps the whole images with the UNet itself and only the
+    data axis is gathered. It needs a UNet
     (``UNetDDPM``): the analytic TrueDDPM has no spatial activations, and
     raises JAX's error. ``batch_size`` is the first precondition, checked
     first."""
@@ -144,11 +148,15 @@ def sharded_sampler(sampler, mesh, partition: str = "data"):
     if mesh.shape["model"] <= 1:
         return dataclasses.replace(sampler, batch_sharding=batch_sharding(mesh))
     from ..models.unet_ddpm import UNetDDPM
+    from .model_parallel import refuse_fused_block
 
+    refuse_fused_block()
+    if sampler.obj_size[1] % mesh.model_size:
+        # every level runs whole on every rank of a model group: the UNet
+        # itself over the data axis
+        return dataclasses.replace(sampler, batch_sharding=batch_sharding(mesh))
     ddpm = sampler.ddpm
     sp = UNetDDPM(ddpm.scheduler, unet_with_sp(module, mesh),
                   ddpm.parametrization, ddpm.tau_scale, device=ddpm.device,
                   params=ddpm.params)
-    shard = SpatialSharding(mesh)
-    shard.row_slice(sampler.obj_size[1])  # the image's rows must split
-    return dataclasses.replace(sampler, ddpm=sp, batch_sharding=shard)
+    return dataclasses.replace(sampler, ddpm=sp, batch_sharding=SpatialSharding(mesh))

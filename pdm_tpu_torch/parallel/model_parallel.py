@@ -29,7 +29,11 @@ model group hold the same images and split their work:
 * ``"spatial"``: parameters are whole; an activation holds this rank's
   contiguous rows of the image (NCHW dim 2) at every level whose height
   divides by m, and the whole image at a level whose height does not
-  (every rank then computes that level whole). 3x3 convs exchange one
+  (every rank then computes that level whole). The input follows the
+  same rule, and the caller says which it is (``forward``'s ``height``):
+  where m does not divide the image's height no deeper level divides
+  either (if m divided H / 2 it would divide H), so the whole UNet runs
+  on every rank, with no collective. 3x3 convs exchange one
   halo row with each neighbour (zeros at the image's edges; ``Downsample``
   one row from one side, the next rank for diffusers' ``downsample_padding``
   0, the previous one for 1; ``Upsample`` after its nearest x2). GroupNorm
@@ -39,7 +43,7 @@ model group hold the same images and split their work:
   image (rows 1 and 2 at the full T), and keeps its rows: the blocks sit at
   the lowest resolutions, where the compute is smallest, and the gather is
   the one JAX's GSPMD makes there. The input and the output are the rank's
-  rows.
+  rows (the whole image where m does not divide its height).
 
 Every collective's backward is its transpose (an all-gather's is an
 all-reduce, then this rank's slice), which makes each rank's gradient of a
@@ -243,9 +247,15 @@ class _Channel(_Layout):
 
 
 class _Spatial(_Layout):
-    """Spatial parallelism: activations hold this rank's image rows."""
+    """Spatial parallelism: activations hold this rank's image rows.
+    ``height`` is the input image's rows (None: the input is this rank's
+    rows of an image m splits evenly)."""
 
     dim = 2
+
+    def __init__(self, mp: "ModelParallelUNet", height: Optional[int] = None):
+        super().__init__(mp)
+        self.height = height
 
     def whole(self, a: _Act) -> Tensor:
         if not a.split:
@@ -262,7 +272,18 @@ class _Spatial(_Layout):
         return _Act(_cl(self.own(t, 2)), True, whole=t)
 
     def enter(self, x: Tensor) -> _Act:
-        return _Act(x, True)
+        """The input at its level's layout: this rank's rows where m
+        divides the image's height, else the whole image, as the caller
+        says (a rank's share of an even split may itself be a height m
+        does not divide, so the shape cannot tell)."""
+        split = self.height is None or self.height % self.m == 0
+        if self.height is not None:
+            want = self.height // self.m if split else self.height
+            if x.shape[2] != want:
+                raise ValueError(
+                    f"spatial parallelism: an input of {x.shape[2]} rows for an "
+                    f"image of {self.height} over {self.m} ranks (want {want})")
+        return _Act(x, split)
 
     def halo(self, t: Tensor, top: int, bottom: int) -> Tensor:
         return _cl(halo_rows(t, 2, top, bottom, self.group, self.m, self.r,
@@ -322,8 +343,9 @@ class ModelParallelUNet(nn.Module):
     """A ``UNet2D`` partitioned over the model axis of ``mesh``
     (``partition`` "channel" or "spatial"; see the module docstring),
     holding this rank's parameters under the UNet's names. ``forward(x,
-    tau, generator)`` takes and returns whole images under "channel" and
-    this rank's rows of them under "spatial". The tensors it keeps whole
+    tau, generator, height)`` takes and returns whole images under
+    "channel" and this rank's rows of them under "spatial" (whole images
+    where m does not divide ``height``). The tensors it keeps whole
     are ``net``'s own, shared: a write to one is a write to the other."""
 
     def __init__(self, net: UNet2D, mesh, partition: str = "channel"):
@@ -391,9 +413,15 @@ class ModelParallelUNet(nn.Module):
         return out
 
     def forward(self, x: Tensor, tau: Tensor,
-                generator: Optional[torch.Generator] = None) -> Tensor:
+                generator: Optional[torch.Generator] = None,
+                height: Optional[int] = None) -> Tensor:
+        """Under "spatial", ``height`` is the image's rows: ``x`` holds this
+        rank's rows of it where m divides them, else the whole image (and
+        the output is then whole too); None means this rank's rows of an
+        evenly split image. "channel" takes whole images either way."""
         refuse_fused_block()
-        layout = (_Channel if self.partition == "channel" else _Spatial)(self)
+        layout = (_Channel(self) if self.partition == "channel"
+                  else _Spatial(self, height))
         return run_unet(self, layout, x, tau, generator)
 
 

@@ -52,9 +52,12 @@ def _inputs(dev, B, S, C, dtype):
 
 # (B, S, C, groups): the flagship's 32x32 level split in 2, its 16x16 level
 # split in 4, C 64 in 16 groups (a channel-parallel rank's slice of 128),
-# 3 channels a group, one group of 512 channels
+# 3 channels a group, one group of 512 channels, the headline shape at C
+# 256 (B 64, S 512 of 1024) and the first level of a 256 x 256 image split
+# in two (B 8, S 32768: 64 slabs an image)
 SHAPES = [(8, 512, 128, 32), (8, 64, 256, 32), (4, 256, 64, 16),
-          (4, 16, 96, 32), (2, 128, 512, 1)]
+          (4, 16, 96, 32), (2, 128, 512, 1), (64, 512, 256, 32),
+          (8, 32768, 128, 32)]
 
 
 @pytest.mark.cuda
@@ -91,12 +94,35 @@ def test_split_kernels_match_plain_on_card(cuda_device, B, S, C, G, dtype, act):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,C,G", SHAPES)
+def test_split_kernels_are_bitwise_repeatable(cuda_device, B, S, C, G, dtype):
+    """Two calls of each launch give bitwise the same outputs: the slabs'
+    partials (and 4s's images' totals) are added in a fixed order, the
+    counters only pick the block that adds them."""
+    x, dy, scale, bias = _inputs(cuda_device, B, S, C, dtype)
+    n = float(2 * S) * float(C // G)
+    calls = [
+        lambda: (tg.group_norm_stats(x, G),),
+        lambda: (tg.group_norm_apply(x, scale, bias, sums, G, n, EPS, "silu"),),
+        lambda: tg.group_norm_bwd_stats(x, dy, scale, bias, sums, G, n, EPS, "silu"),
+        lambda: (tg.group_norm_bwd_apply(x, dy, scale, bias, sums, gs, G, n, EPS,
+                                         "silu"),)]
+    sums = tg.group_norm_stats(x, G) * 2
+    gs = tg.group_norm_bwd_stats(x, dy, scale, bias, sums, G, n, EPS, "silu")[0] * 2
+    for call in calls:
+        first, second = call(), call()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("R", [1, 2, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C", [128, 256])
 def test_split_pair_matches_rows_3_and_4_on_the_whole_image(cuda_device, C, dtype, R):
     """At the flagship's 32x32 level (B 64, S 1024, G 32) cut into R row
-    pieces; at R = 1 the statistics are row 3's sums in row 3's order."""
+    pieces (R = 1: the pair on the whole image)."""
     B, S, G = 64, 1024, 32
     x, dy, scale, bias = _inputs(cuda_device, B, S, C, dtype)
     y, dx, dsc, dbi, _, _ = split_gn_pieces(x, dy, scale, bias, G, R, EPS, "silu")

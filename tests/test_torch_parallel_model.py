@@ -30,7 +30,12 @@ attention level, 4 groups) with random JAX parameters carried over by
   for TrueDDPM;
 * the byte bill of one TP and one SP step against formulas written here;
 * rows 3s and 4s' plain versions (split over row pieces, the sums added)
-  against JAX's GroupNorm and its VJP (interpret mode), 1e-5.
+  against JAX's GroupNorm and its VJP (interpret mode), 1e-5, and their
+  kernels' launch plan;
+* the spatial partition on 18 x 18 images over a 1 x 4 mesh (4 does not
+  divide 18: every level whole on every rank): the sampler (DDPM, DDIM,
+  the states) and three train steps against JAX's one device, and a
+  16 x 16 image on the same mesh, which still splits.
 """
 
 import json
@@ -400,6 +405,116 @@ def test_spatial_sampler_draws_as_one_process(sampler, two_torch_threads):
 
 
 # ---------------------------------------------------------------------
+# the spatial partition on images whose rows the model axis does not
+# divide (1 x 4 mesh, 18 x 18: every level whole on every rank)
+# ---------------------------------------------------------------------
+
+UNEVEN, UNEVEN_B = 18, 4
+
+
+@pytest.fixture(scope="module")
+def uneven(tmp_path_factory):
+    """JAX's one-device sampler (DDPM and DDIM, 3 steps, the states) and
+    three train steps at 18 x 18; the port's one-process gradients of the
+    same steps (for the Adam bound); a 16 x 16 DDIM step in one process
+    (the even split's reference); one 4-rank launch for all of it."""
+    from pdm_tpu_torch.diffusion.sampling import DDPMSampler
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+    from torch_dist_workers import mp_net
+
+    tmp = tmp_path_factory.mktemp("mpuneven")
+    jnet, params = _jax_model(TINY, UNEVEN)
+    jm = JUNetDDPM(scheduler=JLinear(1e-4, 1e2),
+                   params=jax.tree_util.tree_map(jnp.asarray, params), module=jnet)
+    shape, key = (UNEVEN_B, 3, UNEVEN, UNEVEN), jax.random.PRNGKey(7)
+    want = {step_type: js.DDPMSampler(
+        ddpm=jm, scheduler=jm.scheduler, n_steps=3, obj_size=shape[1:],
+        batch_size=shape[0], n_samples=shape[0], step_type=step_type,
+        track_states=True).batch_sample(key) for step_type in ("ddpm", "ddim")}
+    x_init, noise = jax_sampler_draws(key, 3, shape)
+    x0 = np.random.RandomState(2).standard_normal(shape).astype(np.float32)
+    rng = np.random.RandomState(3)
+    inp = {"x_init": x_init, "noise": noise, "x0": x0, **_flat(params, "u"),
+           "even.x_init": rng.standard_normal((4, 3, 16, 16)).astype(np.float32),
+           "even.noise": rng.standard_normal((1, 4, 3, 16, 16)).astype(np.float32)}
+    for i in range(3):
+        inp[f"tau{i}"], inp[f"eps{i}"] = _jax_noise(jm, jax.random.PRNGKey(10 + i), x0)
+    np.savez(tmp / "inputs.npz", **inp)
+    trainer = JTrainer(ddpm=jm, noise_rng_impl="threefry",
+                       dropout_rng_impl="threefry", **OPT)
+    state = trainer.init_state()
+    metrics = []
+    for i in range(3):
+        state, m = trainer.train_step(state, jax.random.PRNGKey(10 + i),
+                                      jnp.asarray(x0))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    names = [str(n) for n in inp["u.names"]]
+    tr = mp_trainer("channel")
+    st = tr.init_state({n: torch.from_numpy(inp[f"u.p.{n}"]) for n in names})
+    seen = record_grads(tr)
+    for i in range(3):
+        tr.train_step(st, torch.from_numpy(x0), tau=torch.from_numpy(inp[f"tau{i}"]),
+                      eps=torch.from_numpy(inp[f"eps{i}"]))
+    order = [n for n, _ in tr.ddpm.module.named_parameters()]
+    net = mp_net(TINY, names, inp, "u")
+    ddpm = UNetDDPM(LinearBetaScheduler(1e-4, 1e2), net, device="cpu")
+    even = DDPMSampler(ddpm=ddpm, scheduler=ddpm.scheduler, n_steps=1,
+                       obj_size=(3, 16, 16), batch_size=4, n_samples=4,
+                       step_type="ddim", device="cpu").batch_sample(
+        x_init=torch.from_numpy(inp["even.x_init"]),
+        noise=torch.from_numpy(inp["even.noise"]))["x"].numpy()
+    return {"want": want, "metrics": metrics, "names": names,
+            "p": from_flax_params(jax.device_get(state.params)),
+            "one": [dict(zip(order, g)) for g in seen], "even": even,
+            "outs": launch("mp_uneven", 4, str(tmp))}
+
+
+@pytest.mark.parametrize("step_type", ["ddpm", "ddim"])
+def test_uneven_spatial_sampler_matches_jax(uneven, step_type):
+    """sharded_sampler(partition="spatial") at 18 x 18 on a 1 x 4 mesh
+    against JAX's one-device sampler (1e-4 of the scale), with no halo
+    exchanged: every rank steps the whole images."""
+    want = uneven["want"][step_type]
+    wx, ws = np.asarray(want["x"]), np.asarray(want["states"])
+    for out in uneven["outs"]:
+        np.testing.assert_allclose(out[f"{step_type}.x"], wx, rtol=0,
+                                   atol=1e-4 * float(np.abs(wx).max()))
+        np.testing.assert_allclose(out[f"{step_type}.states"], ws, rtol=0,
+                                   atol=1e-4 * float(np.abs(ws).max()))
+        assert int(out[f"{step_type}.halo"]) == 0
+
+
+def test_uneven_spatial_train_steps_match_jax(uneven):
+    """Three spatial train steps at 18 x 18 on a 1 x 4 mesh: loss and
+    grad_norm to 1e-5 relative of JAX's one-device steps, params within
+    2e-6 of JAX's plus the Adam bound of the mesh's gradients against one
+    process's; no halo exchanged."""
+    for out in uneven["outs"]:
+        for i, (loss, norm) in enumerate(uneven["metrics"]):
+            np.testing.assert_allclose(out[f"loss{i}"], loss, rtol=1e-5)
+            np.testing.assert_allclose(out[f"grad_norm{i}"], norm, rtol=1e-5)
+        for name in uneven["names"]:
+            bound = sum(adam_first_step_bound(
+                torch.from_numpy(out[f"g{i}.{name}"]), uneven["one"][i][name],
+                OPT["learning_rate"]) for i in range(3)).numpy() + 2e-6
+            err = np.abs(out[f"p.{name}"] - uneven["p"][name].numpy())
+            assert (err <= bound).all(), (name, float(err.max()))
+        assert int(out["train.halo"]) == 0
+
+
+def test_even_split_on_the_same_mesh_still_splits(uneven):
+    """At 16 x 16 the same 1 x 4 mesh splits the rows (halo bytes
+    exchanged) and the DDIM step matches one process (1e-4 of the
+    scale)."""
+    want = uneven["even"]
+    for out in uneven["outs"]:
+        assert int(out["even.halo"]) > 0
+        np.testing.assert_allclose(out["even.x"], want, rtol=0,
+                                   atol=1e-4 * float(np.abs(want).max()))
+
+
+# ---------------------------------------------------------------------
 # rows 3s and 4s: the plain versions against JAX's GroupNorm
 # ---------------------------------------------------------------------
 
@@ -458,19 +573,74 @@ def test_split_group_norm_act_autograd_is_the_whole_group_norm():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
+def _split_coverage(plan, S, C):
+    """How often the blocks and threads of a row 3s/4s plan touch each row
+    and each channel of an image: block k's thread t = cvi + lane * V
+    takes rows k rows + lane + i P (< its slab's end) and channels
+    (cvi + j V) vec + e, every (cvi, lane) pair once, so an element's
+    count is its row's count times its channel's."""
+    rows, cols = np.zeros(S, np.int64), np.zeros(C, np.int64)
+    for k in range(plan.slabs):
+        end = min((k + 1) * plan.rows, S)
+        for lane in range(plan.lanes_p):
+            np.add.at(rows, np.arange(k * plan.rows + lane, end, plan.lanes_p), 1)
+    vpr = C // plan.vec
+    for cvi in range(plan.lanes_v):
+        for cv in range(cvi, vpr, plan.lanes_v):
+            np.add.at(cols, np.arange(cv * plan.vec, (cv + 1) * plan.vec), 1)
+    return rows, cols
+
+
+def _check_split_plan(plan, B_, S, C, itemsize, align):
+    assert plan.lanes_v * plan.lanes_p <= plan.threads <= tg.SPLIT_THREADS
+    assert plan.threads % 32 == 0 and plan.rows * (plan.slabs - 1) < S
+    rows, cols = _split_coverage(plan, S, C)
+    assert (rows == 1).all() and (cols == 1).all()
+    assert C % plan.vec == 0 and align % (plan.vec * itemsize) == 0
+    assert plan.vec * itemsize <= 16
+
+
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("B_,S", [(64, 1024), (128, 256), (2, 16)])
 def test_row3_plan_takes_a_channel_parallel_slice(B_, S, backward):
     """A TP rank's GroupNorm runs row 3 (4) on C / m channels and G / m
     groups: the plan at C 64 in 16 groups (the flagship's 128 channels and
-    32 groups on 2 ranks) covers whole groups and every channel; the split
-    statistics keep its blocks, lanes and cluster, streaming."""
+    32 groups on 2 ranks) covers whole groups and every channel. The split
+    kernels' plan (rows 3s and 4s, one plan for both directions) covers
+    every row and channel exactly once, in 16-byte vectors of bf16."""
     plan = tg.plan_group_norm(B_, S, 64, 16, 2, backward)
     assert plan.cb % 4 == 0 and 16 % plan.kc == 0 and plan.cb * plan.kc == 64
     assert 1 <= plan.kr <= tg.MAX_CLUSTER_BLOCKS and plan.rows * plan.kr >= S
-    split = tg.plan_split_stats(B_, S, 64, 16, 2, backward)
-    assert split._replace(hold=plan.hold, smem=plan.smem) == plan
-    assert split.hold == 0 and split.smem <= plan.smem
+    split = tg.plan_split(B_, S, 64, 2)
+    _check_split_plan(split, B_, S, 64, 2, 16)
+    assert split.vec == 8
+
+
+@pytest.mark.parametrize("itemsize,align", [(2, 16), (2, 8), (2, 4), (2, 2),
+                                            (4, 16), (4, 8), (4, 4)])
+@pytest.mark.parametrize("B_,S,C", [(8, 32768, 128), (64, 512, 128), (64, 512, 256),
+                                    (128, 512, 384), (4, 16, 96), (2, 128, 512),
+                                    (3, 7, 6)])
+def test_split_plan_covers_and_fills_the_card(B_, S, C, itemsize, align):
+    """Rows 3s/4s' plan at the headline shapes (the flagship's first level
+    split in two, C 128 / 256 / 384), the first level of a 256 x 256 image
+    split in two (B 8, S 32768) and edge shapes: every row and channel
+    once, the widest vector that C and the alignment allow (16 bytes at
+    most), every thread SPLIT_UNROLL loads at least where the image has
+    the rows, and at least a block for each of the H100's 132 SMs wherever
+    the batch has the rows for it."""
+    plan = tg.plan_split(B_, S, C, itemsize, align)
+    _check_split_plan(plan, B_, S, C, itemsize, align)
+    widest = max(v for v in (1, 2, 4, 8) if v * itemsize <= min(16, align)
+                 and C % v == 0)
+    assert plan.vec == widest
+    passes = -(-(C // plan.vec) // plan.lanes_v)
+    if S >= plan.lanes_p * tg.SPLIT_UNROLL:
+        assert passes * (plan.rows // plan.lanes_p) >= tg.SPLIT_UNROLL
+    if B_ * S >= 132 * plan.lanes_p * tg.SPLIT_UNROLL:
+        assert B_ * plan.slabs >= 132
+    if (B_, S) == (8, 32768):
+        assert B_ * plan.slabs >= 132
 
 
 def test_spatial_sampler_refuses_a_model_without_spatial_activations():

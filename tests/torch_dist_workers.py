@@ -631,6 +631,59 @@ def mp_sampler_suite(rank, world, inp, tmp):
     return out
 
 
+def mp_uneven_suite(rank, world, inp, tmp):
+    """On a 1 x 4 mesh: images of 18 rows, which 4 does not divide (every
+    level of the tiny UNet whole on every rank): sharded_sampler(partition=
+    "spatial") DDPM and DDIM from JAX's draws with the states, and three
+    spatial train steps on JAX's parameters and noise; then images of 16
+    rows, which split, through a DDIM step of the spatial sampler. The
+    model axis's halo bytes of each."""
+    from pdm_tpu_torch.diffusion.sampling import DDPMSampler
+    from pdm_tpu_torch.diffusion.trainer import whole_tensors
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+    from pdm_tpu_torch.parallel import make_mesh, sharded_sampler
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+
+    mesh = make_mesh(data=1, model=world)
+    names = [str(n) for n in inp["u.names"]]
+    net = mp_net(TINY, names, inp, "u")
+    ddpm = UNetDDPM(LinearBetaScheduler(1e-4, 1e2), net, device="cpu")
+    out = {}
+
+    def sample(x_init, noise, step_type, states):
+        mesh.model_stats.reset()
+        sampler = DDPMSampler(ddpm=ddpm, scheduler=ddpm.scheduler,
+                              n_steps=noise.shape[0], obj_size=tuple(x_init.shape[1:]),
+                              batch_size=x_init.shape[0], n_samples=x_init.shape[0],
+                              step_type=step_type, track_states=states, device="cpu")
+        res = sharded_sampler(sampler, mesh, partition="spatial").batch_sample(
+            x_init=x_init, noise=noise)
+        return res, np.asarray(mesh.model_stats["collective-permute"])
+
+    for step_type in ("ddpm", "ddim"):
+        res, halo = sample(_t(inp["x_init"]), _t(inp["noise"]), step_type, True)
+        out[f"{step_type}.x"], out[f"{step_type}.states"] = (
+            res["x"].numpy(), res["states"].numpy())
+        out[f"{step_type}.halo"] = halo
+    tr = mp_trainer("spatial")
+    state = tr.init_state({n: _t(inp[f"u.p.{n}"]) for n in names}, mesh)
+    seen = record_grads(tr)
+    mesh.model_stats.reset()
+    for i in range(3):
+        state, m = tr.train_step(state, _t(inp["x0"]), tau=_t(inp[f"tau{i}"]),
+                                 eps=_t(inp[f"eps{i}"]))
+        out[f"loss{i}"], out[f"grad_norm{i}"] = m["loss"].numpy(), m["grad_norm"].numpy()
+        for n, g in whole_grads(tr, seen[i]).items():
+            out[f"g{i}.{n}"] = g.numpy()
+    out["train.halo"] = np.asarray(mesh.model_stats["collective-permute"])
+    for n, t in whole_tensors(state, state.params).items():
+        out[f"p.{n}"] = t.numpy()
+    res, out["even.halo"] = sample(_t(inp["even.x_init"]), _t(inp["even.noise"]),
+                                   "ddim", False)
+    out["even.x"] = res["x"].numpy()
+    return out
+
+
 TINY_CLI_UNET = ("{block_out_channels: [16, 32], down_block_types: [DownBlock2D, "
                  "AttnDownBlock2D], up_block_types: [AttnUpBlock2D, UpBlock2D], "
                  "layers_per_block: 1, attention_head_dim: 8, norm_groups: 4, "
@@ -678,6 +731,7 @@ def env_model_cli_suite(rank, world, inp, tmp):
 SUITES = {"stats": stats_suite, "steps": steps_suite, "loops": loops_suite,
           "submesh": submesh_suite, "mp_forward": mp_forward_suite,
           "mp_train": mp_train_suite, "mp_sampler": mp_sampler_suite,
+          "mp_uneven": mp_uneven_suite,
           "env_multihost": env_multihost_suite,
           "env_model_cli": env_model_cli_suite,
           "env_stats_cli": env_stats_cli_suite}

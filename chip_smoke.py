@@ -122,7 +122,8 @@ any error or disagreement:
    backward's (dh, weight and bias gradients) are held and reported apart.
 14. The whole-block sampling path, PDM_FUSED_BLOCK=1 set for phases 14-16
    only: one bf16 model evaluation against the default path on the same
-   input, then the bf16 flagship's DDPM-1000 at batch 64 as phase 4, with
+   input, then the bf16 flagship's DDPM-250 at batch 64 (phase 4 runs
+   1000; the counts are per step), with
    exactly 8 row-5 launches, no row-1 launch and 69 GroupNorm launches
    per step, the card's busy time and a profiler breakdown; then the
    default and whole-block paths in ten alternating pairs of short turns
@@ -180,6 +181,13 @@ any error or disagreement:
    rows 1-4's and row 8's launch counters zeroed just before and read
    just after (exact counts), its wall time, and its artifact read back
    (a finite, non-negative FID in the training log and the FID table).
+   Then (18e) the nine offline experiment CLIs (sample_gmm, the three
+   verify_*_metric, analyze_synthetic_stats, compute_stats_empirical and
+   compute_model_metric_schedule on the analytic denoiser over the same
+   cache, reproduce_high_dim, e2e_synthetic) and export_sampler with its
+   artifact replayed, each once through its main() at the CPU tests'
+   sizes, with its wall time and launches (rows 7 and 8 exact; rows 1
+   and 3 in e2e_synthetic printed).
 19. Schedule optimization through the sampler. (a) Row 7b, the
    posterior mean's VJP (csrc/boltzmann_moments_vjp.cu), against its
    plain version on the same card inputs at VJP_SHAPES (the CLI's B 1024
@@ -266,10 +274,27 @@ any error or disagreement:
    whole on every rank), fp32 DDIM-3 at batch 4, against the unsharded
    sampler, and one fp32 spatial train step at 18 x 18, batch 4, against
    one process, each with no halo exchanged and no row 3s/4s launch.
-22. One JSON line {"kernels": [...]} with all thirteen kernels (the eight
+22. Serving (pdm_tpu_torch/utils/serving.py, rows 1, 3, 5 and 7 as
+   torch.library custom ops). (a) The bf16 flagship (phase 4's weights)
+   in DDPMSampler(step_type="ddim", n_steps=50, batch_size=64,
+   precision="half"): one step exported with torch.export into a
+   temporary directory, replayed in a fresh process that imports only
+   pdm_tpu_torch.ops and the loader, against batch_sample on the same
+   seed (within 1e-4, bitwise expected), with exactly 8 row-1 and 69
+   row-3 launches a step; export s, bytes, replay and eager ms a step in
+   alternating turns, row 3's enqueue through the op against the direct
+   launch, and five steps of the loaded program and of the eager step
+   module under the profiler (card ms, host self CPU ms, the pdm:: ops'
+   share). (b) The same exported with PDM_FUSED_BLOCK=1, DDIM-10,
+   replayed with the setting unset: 8 row-5 and 69 row-3 launches a
+   step. (c) TrueDDPM over phase 11's 50,000 CIFAR-shaped N(0, 1) points
+   at batch 1000 with DDPM-10 (the loader draws each step's noise): 2
+   row-7 launches a step, bitwise batch_sample. The directory is deleted.
+23. One JSON line {"kernels": [...]} with all thirteen kernels (the eight
    rows, 7b, and rows 3s/4s' four entries, each with its worst error as
-   a fraction of its tolerance; phases 20's and 21's launches among
-   their paths), then the last line {"ok": true, "device": {...}}.
+   a fraction of its tolerance; phases 18e's, 20's, 21's and 22's
+   launches among their paths), then the last line {"ok": true,
+   "device": {...}}.
 """
 
 from __future__ import annotations
@@ -373,6 +398,9 @@ BLOCK_BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2 ** -6, 2 ** -6)}
 FUSED_VS_DEFAULT_TOL = 2e-2
 # per-step launches of the whole-block training path: 8 blocks, once
 # forward and once backward (three kernels), no row 1 or 2 launch
+# phase 14's whole-block DDPM sampler (phase 4 runs the default path's
+# 1000): launch counts are per step, so fewer steps check as much
+BLOCK_SAMPLER_STEPS = 250
 TURN_STEPS = 50        # sampler steps per turn of the two paths' comparison
 TURN_PAIRS = 10        # alternating (default, whole block) pairs of turns
 TRAIN_TURN_STEPS = 10  # train steps per turn
@@ -2112,6 +2140,123 @@ def entry_points(dev, smi: str) -> dict:
     return out
 
 
+def experiment_clis(dev, smi: str) -> dict:
+    """Phase 18e: the offline experiment CLIs and export_sampler, each once
+    on the card through its main() at the CPU tests' sizes
+    (tests/test_torch_scripts.py), in phase 18's working directory: its
+    wall time, its launches of rows 1, 3, 7 and 8 (zeroed just before,
+    read just after; exact where the count follows from the sizes) and its
+    outputs read back."""
+    import shutil as _shutil
+
+    import torch
+
+    from pdm_tpu_torch.config.loader import DEFAULT_CONFIG_PATH
+    from pdm_tpu_torch.ops import attention as attn_op
+    from pdm_tpu_torch.ops import boltzmann as bz
+    from pdm_tpu_torch.ops import boltzmann_sweep as sw
+    from pdm_tpu_torch.ops import groupnorm as gn_op
+    from pdm_tpu_torch.scripts import (
+        analyze_synthetic_stats, compute_model_metric_schedule,
+        compute_stats_empirical, e2e_synthetic, export_sampler,
+        reproduce_high_dim, sample_gmm, verify_logsnr_metric,
+        verify_mc_metric, verify_rescaled_metric,
+    )
+    from pdm_tpu_torch.utils.serving import load_exported
+
+    counters = (("attention", attn_op.fused_spatial_attention),
+                ("group_norm", gn_op.fused_group_norm_act),
+                ("moments", bz.boltzmann_moments), ("sweep", sw.boltzmann_sweep))
+    out = {}
+
+    def run(name, fn, want=None):
+        for _, c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters}
+        log(f"experiment CLIs: {name} in {wall:.2f} s wall; launches {launches}"
+            + (f" (want {want})" if want is not None else "") + f" ({smi})")
+        if want is not None and launches != want:
+            fail(f"experiment CLIs: {name} launch counts {launches} != {want}")
+        out[name] = {"wall_s": wall, "launches": launches}
+        return result
+
+    def only(**kw):
+        return {"attention": 0, "group_norm": 0, "moments": 0, "sweep": 0, **kw}
+
+    k = 4  # grid points of the verify CLIs; one moments call (2 launches) each
+    for name, mod, size in (("verify_mc_metric", verify_mc_metric, "n_sigmas"),
+                            ("verify_logsnr_metric", verify_logsnr_metric, "n_lambdas"),
+                            ("verify_rescaled_metric", verify_rescaled_metric,
+                             "n_sigma_sqs")):
+        res = run(name, lambda: mod.main([], n_points=200, n_y=300, **{size: k}),
+                  only(moments=2 * k))
+        if not np.isfinite(res["mc"]).all():
+            fail(f"experiment CLIs: {name} estimates not finite")
+    res = run("sample_gmm", lambda: sample_gmm.main(
+        [], n_data=5000, n_samples=20, n_ref=1000), only(moments=2 * 10))
+    log(f"experiment CLIs: sample_gmm MMD {res['Initial']['mmd']:.6f}")
+    res = run("analyze_synthetic_stats", lambda: analyze_synthetic_stats.main(
+        ["--d", "10", "--sizes", "60", "120", "--n_samples", "32"]),
+        only(sweep=2 * 3))
+    log(f"experiment CLIs: analyze_synthetic_stats mid-range |S_mc - S_exact| "
+        f"{res['mid_err']:.4f}")
+    true_cifar = ["--dataset_name", "cifar10", "--ddpm.model_name", "true",
+                  "--ddpm.parametrization", "x0"]
+    written = run("compute_stats_empirical", lambda: compute_stats_empirical.main(
+        argv=[*true_cifar, "--empirical_stats.n_temps", "5",
+              "--empirical_stats.n_steps_per_temp", "2",
+              "--empirical_stats.batch_size", "8"]), only(moments=2 * 5 * 2))
+    for emp_path in written:
+        emp = dict(np.load(emp_path))
+        log(f"experiment CLIs: {emp_path}: entropy {emp['entropy'].tolist()}")
+        if not all(np.isfinite(v).all() for v in emp.values()):
+            fail("experiment CLIs: the empirical statistics are not finite")
+    yaml_dir = os.path.abspath("yaml_true")
+    _shutil.copytree(os.path.dirname(DEFAULT_CONFIG_PATH), yaml_dir)
+    ddpm_yaml = os.path.join(yaml_dir, "groups", "ddpm.yaml")
+    with open(ddpm_yaml) as f:
+        text = f.read()
+    with open(ddpm_yaml, "w") as f:
+        f.write(text.replace("model_name: unet", 'model_name: "true"')
+                .replace("parametrization: eps", "parametrization: x0"))
+    with env_var("PDM_CONFIG", os.path.join(yaml_dir, "config.yaml")):
+        res = run("compute_model_metric_schedule",
+                  lambda: compute_model_metric_schedule.main(
+                      ["--n_samples", "24", "--n_temps", "5"]), only(moments=2 * 5))
+    if not np.isfinite(res["stats"]["metric"]).all() or res["timestamps"][-1] != 1.0:
+        fail("experiment CLIs: the model metric schedule is not finite")
+    with env_var("PDM_CONFIG", None):
+        res = run("reproduce_high_dim", lambda: reproduce_high_dim.main(
+            [], n_train=300, n_gen=50, n_temps=8, sweep_samples=32, sweep_batch=32,
+            n_steps=3), only(moments=2 * 2 * 3, sweep=2))
+    log("experiment CLIs: reproduce_high_dim table " + json.dumps(
+        {k_: {"mmd": v["mmd"], "kl": v["kl"], "mse": v["mse"]}
+         for k_, v in res["table"].items()}))
+    res = run("e2e_synthetic", lambda: e2e_synthetic.main(
+        ["--steps", "2", "--n_data", "300", "--batch_size", "16", "--fid_samples",
+         "64", "--sample_steps", "2"]))
+    if not (math.isfinite(res["best_fid"]) and math.isfinite(res["floor"])):
+        fail("experiment CLIs: e2e_synthetic's FIDs are not finite")
+    gmm = ["--dataset_name", "gmm1d", "--ddpm.model_name", "true",
+           "--ddpm.parametrization", "x0", "--ddpm.noise_schedule_type", "log_snr",
+           "--diffusion.min_temp", "1e-4", "--diffusion.max_temp", "1e1",
+           "--sample.n_steps", "6", "--sample.batch_size", "32",
+           "--sample.n_samples", "32", "--sample.step_type", "ddim"]
+    path = run("export_sampler", lambda: export_sampler.main(
+        [*gmm, "--out", "serving/gmm.pt2"]), only())
+    fn, manifest = load_exported(path)
+    replay = run("export_sampler's artifact replayed", lambda: fn(7),
+                 only(moments=2 * 6))
+    if tuple(replay.shape) != (32, 1, 1, 1) or not bool(torch.isfinite(replay).all()):
+        fail("experiment CLIs: the exported GMM sampler's replay is not finite")
+    return out
+
+
 def fid_and_entry_points(dev, smi: str, weights_path: str) -> dict:
     """Phase 18, in a temporary working directory with PDM_DATA_CACHE
     pointing into it and PDM_INCEPTION_WEIGHTS at the seeded weights."""
@@ -2126,6 +2271,7 @@ def fid_and_entry_points(dev, smi: str, weights_path: str) -> dict:
             out["inception"] = inception_phase(dev, smi, weights_path)
             out["lenet"] = lenet_phase(dev, smi)
             out["cli"] = entry_points(dev, smi)
+            out["experiments"] = experiment_clis(dev, smi)
             log(f"phase 18 took {time.perf_counter() - t0:.1f} s")
             return out
         finally:
@@ -4568,6 +4714,384 @@ def model_axis_phase(time_ms, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 22: serving export (utils/serving.py) through the pdm:: custom ops
+# ---------------------------------------------------------------------
+
+SERVE_STEPS = 50        # (a) the bf16 flagship's DDIM steps
+SERVE_BLOCK_STEPS = 10  # (b) the same with PDM_FUSED_BLOCK=1
+SERVE_TRUE_STEPS = 10   # (c) TrueDDPM DDPM steps at CIFAR-10 scale
+SERVE_SEED = 7
+SERVE_TOL = 1e-4        # tests/test_serving.py's replay tolerance (rtol, atol)
+SERVE_TURNS = 2         # (eager, replay) pairs of whole samples, order alternating
+SERVE_DISPATCH = (64, 1024, 128, 200)  # B, S, C of row 3's op; calls a block
+SERVE_PROFILE_STEPS = 5  # steps of the program and of the eager step profiled
+
+# the fresh process of (a): it imports pdm_tpu_torch.ops (which registers
+# the custom ops) and the loader, nothing else of the port, replays the
+# artifact twice and reports the launches of the second replay
+SERVE_CHILD = r"""
+import json, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import pdm_tpu_torch.ops
+from pdm_tpu_torch.utils.serving import load_exported
+from pdm_tpu_torch.ops import attention, attention_block, groupnorm
+path, out, seed = sys.argv[1], sys.argv[2], int(sys.argv[3])
+t0 = time.perf_counter()
+fn, manifest = load_exported(path)
+load_s = time.perf_counter() - t0
+walls = []
+for _ in range(2):
+    attention.fused_spatial_attention.launches = 0
+    groupnorm.fused_group_norm_act.launches = 0
+    attention_block.fused_attention_block.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = fn(seed)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+torch.save(x.cpu(), out)
+print(json.dumps({
+    "load_s": load_s, "walls_s": walls, "manifest": manifest,
+    "launches": {"attention": attention.fused_spatial_attention.launches,
+                 "group_norm": groupnorm.fused_group_norm_act.launches,
+                 "block": attention_block.fused_attention_block.launches},
+    "jax_loaded": "jax" in sys.modules,
+    "port_modules": sorted(m for m in sys.modules
+                           if m.startswith("pdm_tpu_torch."))}))
+"""
+
+
+def serve_counters():
+    from pdm_tpu_torch.ops import attention, attention_block, boltzmann, groupnorm
+
+    return {"attention": attention.fused_spatial_attention,
+            "group_norm": groupnorm.fused_group_norm_act,
+            "block": attention_block.fused_attention_block,
+            "moments": boltzmann.boltzmann_moments}
+
+
+def serve_counted(fn):
+    """fn() with every serving counter set to 0 just before and read just
+    after: (result, launches by counter)."""
+    import torch
+
+    counters = serve_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def serve_turns(sampler, fn, n_steps, seed):
+    """Eager batch_sample and the loaded artifact's fn in SERVE_TURNS pairs
+    of whole samples, the order alternating: each one's ms a step."""
+    import torch
+
+    ms = {"eager": [], "replay": []}
+    runs = {"eager": lambda: sampler.batch_sample(
+                torch.Generator(device=sampler.device).manual_seed(seed)),
+            "replay": lambda: fn(seed)}
+    for pair in range(SERVE_TURNS):
+        for kind in (("eager", "replay") if pair % 2 == 0 else ("replay", "eager")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[kind]()
+            torch.cuda.synchronize()
+            ms[kind].append((time.perf_counter() - t0) / n_steps * 1e3)
+    return {"eager_ms": ms["eager"], "replay_ms": ms["replay"],
+            "eager_median_ms": statistics.median(ms["eager"]),
+            "replay_median_ms": statistics.median(ms["replay"])}
+
+
+def serve_dispatch_us(dev) -> dict:
+    """The host's enqueue of one row 3 call (SERVE_DISPATCH's shape, bf16,
+    SiLU) through the custom op and launched directly, in alternating
+    blocks of calls behind a sleep kernel, under inference mode: medians
+    of us a call."""
+    import torch
+
+    from pdm_tpu_torch.ops import groupnorm as gn_op
+
+    B, S, C, n = SERVE_DISPATCH
+    x = torch.randn(B, S, C, device=dev).bfloat16()
+    scale = torch.ones(C, device=dev)
+    bias = torch.zeros(C, device=dev)
+    calls = {"op_us": lambda: torch.ops.pdm.group_norm_act(
+                 x, scale, bias, 32, 1e-6, "silu"),
+             "direct_us": lambda: gn_op.launch_fwd(x, scale, bias, 32, 1e-6, "silu")}
+    rate = sleep_rate()
+    us = {k: [] for k in calls}
+    with torch.inference_mode():
+        for block in range(6):
+            for k in (("op_us", "direct_us") if block % 2 == 0
+                      else ("direct_us", "op_us")):
+                torch.cuda.synchronize()
+                torch.cuda._sleep(int(50 * rate))
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    calls[k]()
+                us[k].append((time.perf_counter() - t0) / n * 1e6)
+                torch.cuda.synchronize()
+    return {k: statistics.median(v) for k, v in us.items()}
+
+
+def serve_host_profile(sampler, fn, seed) -> dict:
+    """SERVE_PROFILE_STEPS steps of the loaded program (``fn.programs[0]``)
+    and of the eager step module on the same rows and input, each under
+    torch.profiler and inference mode: per step, the card's busy ms (the
+    kernels' device time), the host's self CPU ms over the profiled
+    operators, and that of the pdm:: ops alone."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pdm_tpu_torch.core.draws import batch_randn
+    from pdm_tpu_torch.diffusion.sampling import (
+        STEP_MODULES, _step_tables, step_rows,
+    )
+
+    rows = step_rows(_step_tables(sampler._grid()))
+    x = batch_randn((sampler.batch_size, *sampler.obj_size),
+                    torch.Generator(device=sampler.device).manual_seed(seed),
+                    device=sampler.device, dtype=torch.float32)
+    steps = {"replay": fn.programs[0],
+             "eager": STEP_MODULES[sampler.step_type](
+                 sampler.ddpm, sampler.precision == "half")}
+    out = {}
+    with torch.inference_mode():
+        for kind, step in steps.items():
+            step(rows[0], x)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for i in range(SERVE_PROFILE_STEPS):
+                    step(rows[i], x)
+                torch.cuda.synchronize()
+            card = sum(e.device_time_total for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False))
+            rows_avg = prof.key_averages()
+            host = sum(r.self_cpu_time_total for r in rows_avg)
+            ops = sum(r.self_cpu_time_total for r in rows_avg
+                      if r.key.startswith("pdm::"))
+            n = SERVE_PROFILE_STEPS
+            out[kind] = {"card_ms": card / 1e3 / n, "host_self_ms": host / 1e3 / n,
+                         "pdm_ops_self_ms": ops / 1e3 / n}
+    return out
+
+
+def serve_diff(got, want):
+    """(max |diff|, bitwise equal, within SERVE_TOL as rtol and atol)."""
+    import torch
+
+    got, want = got.float().cpu(), want.float().cpu()
+    d = (got - want).abs()
+    ok = bool((d <= SERVE_TOL + SERVE_TOL * want.abs()).all())
+    return float(d.max()), torch.equal(got, want), ok
+
+
+def serve_export(sampler, path, label):
+    """export_sampler with its wall time: (seconds, bytes, manifest)."""
+    import torch
+
+    from pdm_tpu_torch.utils.serving import export_sampler
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export_sampler(sampler, path)
+    export_s = time.perf_counter() - t0
+    with open(path + ".json") as f:
+        manifest = json.load(f)
+    log(f"serving {label}: exported in {export_s:.3f} s to {manifest['bytes']} "
+        f"bytes ({', '.join(manifest['programs'])}); manifest "
+        + json.dumps({k: manifest[k] for k in (
+            "batch_size", "n_steps", "step_type", "obj_size", "precision",
+            "platforms", "out_shape")}))
+    return export_s, manifest["bytes"], manifest
+
+
+def serving_phase(dev, weights) -> dict:
+    """Phase 22: the serving export. (a) The bf16 flagship's DDIM-50 at
+    batch 64 (phase 4's weights): exported, replayed in a fresh process that
+    imports only pdm_tpu_torch.ops and the loader, within SERVE_TOL of
+    batch_sample on the same seed (bitwise expected), with 8 row-1 and 69
+    row-3 launches a step; export s, bytes, replay and eager ms a step in
+    turns. (b) The same with PDM_FUSED_BLOCK=1 set for the export only,
+    DDIM-10: 8 row-5 and 69 row-3 launches a step. (c) TrueDDPM at phase
+    11's CIFAR-10 shape (50,000 N(0, 1) points of 3072 dimensions, batch
+    1000) with DDPM-10, so that the loader draws each step's noise: 2 row-7
+    launches a step, bitwise the eager sampler. The artifacts live in a
+    temporary directory, deleted at the end."""
+    import torch
+
+    from pdm_tpu_torch.diffusion.sampling import DDPMSampler
+    from pdm_tpu_torch.models.base import TrueDDPM
+    from pdm_tpu_torch.models.unet import unet_from_config
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+    from pdm_tpu_torch.utils.serving import load_exported
+
+    t_phase = time.perf_counter()
+    out = {}
+    sched = LinearBetaScheduler(1e-4, 2.478e4)
+    tmp = tempfile.mkdtemp(prefix="pdm_serving_")
+    opt_in_before = os.environ.pop("PDM_FUSED_BLOCK", None)
+    try:
+        net = unet_from_config(3, FLAGSHIP, dtype=torch.bfloat16, device=dev)
+        net.load_state_dict(weights)
+        ddpm = UNetDDPM(sched, net, parametrization="eps", device=dev)
+
+        def unet_sampler(n_steps):
+            return DDPMSampler(ddpm=ddpm, scheduler=sched, n_steps=n_steps,
+                               obj_size=(3, 32, 32), batch_size=BATCH,
+                               n_samples=BATCH, step_type="ddim",
+                               precision="half", device=dev)
+
+        # (a) rows 1 and 3, replayed in a fresh process
+        sampler = unet_sampler(SERVE_STEPS)
+        path = os.path.join(tmp, "flagship_ddim50.pt2")
+        export_s, n_bytes, _ = serve_export(sampler, path, "(a) bf16 flagship DDIM-50")
+        eager_x, eager_n = serve_counted(lambda: sampler.batch_sample(
+            torch.Generator(device=dev).manual_seed(SERVE_SEED))["x"])
+        x_path = os.path.join(tmp, "replay_x.pt")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", SERVE_CHILD, path, x_path, str(SERVE_SEED)],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"serving (a): the fresh replay process exited "
+                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        replay_x = torch.load(x_path)
+        err, bitwise, ok = serve_diff(replay_x, eager_x.cpu())
+        want = {"attention": 8 * SERVE_STEPS, "group_norm": 69 * SERVE_STEPS,
+                "block": 0}
+        log(f"serving (a): fresh process ({child_s:.1f} s in all, load "
+            f"{child['load_s']:.3f} s, replays {child['walls_s'][0]:.3f} and "
+            f"{child['walls_s'][1]:.3f} s; jax loaded {child['jax_loaded']}; "
+            f"port modules {child['port_modules']}): launches "
+            f"{child['launches']} (want {want}; eager {eager_n}); replay vs "
+            f"batch_sample on seed {SERVE_SEED}: max_abs_err {err:.3g}, "
+            f"bitwise {bitwise} (tol {SERVE_TOL})")
+        if child["launches"] != want:
+            fail(f"serving (a): replay launches {child['launches']} != {want}")
+        if (eager_n["attention"], eager_n["group_norm"]) != (want["attention"],
+                                                            want["group_norm"]):
+            fail(f"serving (a): eager launches {eager_n}")
+        if not ok or child["jax_loaded"] or any(
+                m.startswith(("pdm_tpu_torch.models", "pdm_tpu_torch.diffusion"))
+                for m in child["port_modules"]):
+            fail("serving (a): the fresh replay disagrees with batch_sample or "
+                 "loaded more than the ops and the loader")
+        if tuple(replay_x.shape) != (BATCH, 3, 32, 32) or not bool(
+                torch.isfinite(replay_x).all()):
+            fail("serving (a): replay not finite of shape (64, 3, 32, 32)")
+        fn, _ = load_exported(path)
+        turns = serve_turns(sampler, fn, SERVE_STEPS, SERVE_SEED)
+        dispatch = serve_dispatch_us(dev)
+        prof = serve_host_profile(sampler, fn, SERVE_SEED)
+        log("serving (a): under torch.profiler, per step: " + ", ".join(
+            f"{kind} card {v['card_ms']:.3f} ms, host self CPU "
+            f"{v['host_self_ms']:.3f} ms (pdm:: ops {v['pdm_ops_self_ms']:.3f})"
+            for kind, v in prof.items()))
+        log(f"serving (a): eager {turns['eager_median_ms']:.3f} ms a step, "
+            f"replay {turns['replay_median_ms']:.3f} (medians of {SERVE_TURNS} "
+            f"turns each, in alternating order); the host's enqueue of row 3 at "
+            f"B {SERVE_DISPATCH[0]}, S {SERVE_DISPATCH[1]}, C {SERVE_DISPATCH[2]}: "
+            f"{dispatch['op_us']:.1f} us a call through pdm::group_norm_act, "
+            f"{dispatch['direct_us']:.1f} launched directly (the replay's "
+            f"77 op calls a step: {77 * (dispatch['op_us'] - dispatch['direct_us']) / 1e3:.3f} "
+            f"ms more) " + json.dumps(turns))
+        out["flagship"] = {
+            "export_s": export_s, "bytes": n_bytes, "max_abs_err": err,
+            "bitwise": bitwise, "launches": child["launches"],
+            "steps": SERVE_STEPS, "child_s": child_s,
+            "replay_walls_s": child["walls_s"], "dispatch": dispatch,
+            "profile": prof, **turns}
+        del fn
+
+        # (b) row 5 with row 3: PDM_FUSED_BLOCK=1 read at export, baked in
+        sampler = unet_sampler(SERVE_BLOCK_STEPS)
+        path = os.path.join(tmp, "flagship_block_ddim10.pt2")
+        with env_var("PDM_FUSED_BLOCK", "1"):
+            export_s, n_bytes, _ = serve_export(
+                sampler, path, "(b) bf16 flagship DDIM-10, PDM_FUSED_BLOCK=1")
+            eager_x, eager_n = serve_counted(lambda: sampler.batch_sample(
+                torch.Generator(device=dev).manual_seed(SERVE_SEED))["x"])
+            fn, _ = load_exported(path)
+            turns = serve_turns(sampler, fn, SERVE_BLOCK_STEPS, SERVE_SEED)
+        # the replay, with the setting unset again
+        replay_x, replay_n = serve_counted(lambda: fn(SERVE_SEED))
+        err, bitwise, ok = serve_diff(replay_x, eager_x)
+        want = {"attention": 0, "group_norm": 69 * SERVE_BLOCK_STEPS,
+                "block": 8 * SERVE_BLOCK_STEPS, "moments": 0}
+        log(f"serving (b): replay (PDM_FUSED_BLOCK unset) launches {replay_n} "
+            f"(want {want}; eager {eager_n}); vs batch_sample: max_abs_err "
+            f"{err:.3g}, bitwise {bitwise}; eager {turns['eager_median_ms']:.3f} "
+            f"ms a step, replay {turns['replay_median_ms']:.3f} " + json.dumps(turns))
+        if replay_n != want or eager_n != want or not ok:
+            fail("serving (b): the whole-block replay disagrees with batch_sample "
+                 "or its launch counts")
+        out["whole_block"] = {
+            "export_s": export_s, "bytes": n_bytes, "max_abs_err": err,
+            "bitwise": bitwise, "launches": replay_n,
+            "steps": SERVE_BLOCK_STEPS, **turns}
+        del fn, net, ddpm, sampler
+        torch.cuda.empty_cache()
+
+        # (c) row 7: TrueDDPM at CIFAR-10 scale, DDPM (noise drawn by the loader)
+        label, B, N, D, _ = MOMENTS_MAIN
+        data = torch.randn(N, 3, 32, 32, generator=torch.Generator(
+            device=dev).manual_seed(5), device=dev)
+        true = TrueDDPM(sched, data, device=dev)
+        sampler = DDPMSampler(ddpm=true, scheduler=sched, n_steps=SERVE_TRUE_STEPS,
+                              obj_size=(3, 32, 32), batch_size=B, n_samples=B,
+                              step_type="ddpm", device=dev)
+        path = os.path.join(tmp, "true_cifar_ddpm10.pt2")
+        export_s, n_bytes, _ = serve_export(
+            sampler, path, f"(c) TrueDDPM {label} N={N} D={D} DDPM-10")
+        t0 = time.perf_counter()
+        fn, _ = load_exported(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        eager_x, eager_n = serve_counted(lambda: sampler.batch_sample(
+            torch.Generator(device=dev).manual_seed(SERVE_SEED))["x"])
+        replay_x, replay_n = serve_counted(lambda: fn(SERVE_SEED))
+        err, bitwise, _ = serve_diff(replay_x, eager_x)
+        turns = serve_turns(sampler, fn, SERVE_TRUE_STEPS, SERVE_SEED)
+        want = {"attention": 0, "group_norm": 0, "block": 0,
+                "moments": 2 * SERVE_TRUE_STEPS}
+        log(f"serving (c): loaded in {load_s:.3f} s; replay launches {replay_n} "
+            f"(want {want}; eager {eager_n}); vs batch_sample: max_abs_err "
+            f"{err:.3g}, bitwise {bitwise}; eager {turns['eager_median_ms']:.3f} ms "
+            f"a step, replay {turns['replay_median_ms']:.3f} " + json.dumps(turns))
+        if replay_n != want or eager_n != want or not bitwise:
+            fail("serving (c): the TrueDDPM replay is not bitwise batch_sample "
+                 "or its launch counts differ")
+        if not bool(torch.isfinite(replay_x).all()):
+            fail("serving (c): replay not finite")
+        out["true"] = {
+            "export_s": export_s, "bytes": n_bytes, "load_s": load_s,
+            "max_abs_err": err, "bitwise": bitwise, "launches": replay_n,
+            "steps": SERVE_TRUE_STEPS, **turns}
+        del fn, true, data, sampler
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if opt_in_before is not None:
+            os.environ["PDM_FUSED_BLOCK"] = opt_in_before
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 22 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -5135,7 +5659,7 @@ def main() -> int:
             fail("the whole-block path disagrees with the default path")
         sampler_of(2).batch_sample(torch.Generator(device=dev).manual_seed(1))
         torch.cuda.synchronize()
-        sampler = sampler_of(N_STEPS)
+        sampler = sampler_of(BLOCK_SAMPLER_STEPS)
         gen = torch.Generator(device=dev).manual_seed(0)
         block_op.fused_attention_block.launches = 0
         attn_op.fused_spatial_attention.launches = 0
@@ -5147,20 +5671,20 @@ def main() -> int:
         fused_launches = block_op.fused_attention_block.launches
         row1_launches = attn_op.fused_spatial_attention.launches
         gn_launches_f = gn_op.fused_group_norm_act.launches
-        ms_step_f = wall / N_STEPS * 1e3
-        log(f"whole-block sampling path: DDPM {N_STEPS} steps, batch {BATCH}, bf16 "
+        ms_step_f = wall / BLOCK_SAMPLER_STEPS * 1e3
+        log(f"whole-block sampling path: DDPM {BLOCK_SAMPLER_STEPS} steps, batch {BATCH}, bf16 "
             f"flagship, PDM_FUSED_BLOCK=1: {wall:.3f} s, {ms_step_f:.3f} ms/step, "
             f"{BATCH / wall:.3f} samples/s; launches whole block {fused_launches} "
-            f"({fused_launches / N_STEPS:g}/step), attention {row1_launches}, "
-            f"GroupNorm {gn_launches_f} ({gn_launches_f / N_STEPS:g}/step); output "
+            f"({fused_launches / BLOCK_SAMPLER_STEPS:g}/step), attention {row1_launches}, "
+            f"GroupNorm {gn_launches_f} ({gn_launches_f / BLOCK_SAMPLER_STEPS:g}/step); output "
             f"{tuple(x.shape)} mean {float(x.mean()):.4g} std {float(x.std()):.4g}")
         if tuple(x.shape) != (BATCH, 3, 32, 32) or not bool(torch.isfinite(x).all()):
             fail("whole-block sampling output not finite of shape (64, 3, 32, 32)")
         if (fused_launches, row1_launches, gn_launches_f) != (
-                8 * N_STEPS, 0, 69 * N_STEPS):
+                8 * BLOCK_SAMPLER_STEPS, 0, 69 * BLOCK_SAMPLER_STEPS):
             fail(f"whole-block sampling launch counts {fused_launches}, "
-                 f"{row1_launches}, {gn_launches_f} != {8 * N_STEPS}, 0, "
-                 f"{69 * N_STEPS}")
+                 f"{row1_launches}, {gn_launches_f} != {8 * BLOCK_SAMPLER_STEPS}, 0, "
+                 f"{69 * BLOCK_SAMPLER_STEPS}")
         with torch.inference_mode():
             eval_ms_f, eval_host_ms_f = time_ms(
                 lambda: ddpm.get_predictions(x_in, lt_top), reps=5, inner=1)
@@ -5323,8 +5847,12 @@ def main() -> int:
     log(f"phase 21 at {time.perf_counter() - t_start:.1f} s")
     model_axis = model_axis_phase(time_ms, dev)
 
-    # ---- phase 22: the kernels line and the result ----
+    # ---- phase 22: serving export through the custom ops ----
     log(f"phase 22 at {time.perf_counter() - t_start:.1f} s")
+    serving = serving_phase(dev, weights)
+
+    # ---- phase 23: the kernels line and the result ----
+    log(f"phase 23 at {time.perf_counter() - t_start:.1f} s")
 
     def per_path(rows, launches, n_steps):
         main = [r for r in rows if r["calls_per_step"]]
@@ -5404,7 +5932,8 @@ def main() -> int:
               "a cluster per image group on a TMA ring into wgmma, q, k, v "
               "straight into swizzled tiles, W_out loaded during the "
               "attention, packed images at T <= 64",
-              [("whole-block sampling", block_rows, fused_launches, N_STEPS),
+              [("whole-block sampling", block_rows, fused_launches,
+                BLOCK_SAMPLER_STEPS),
                ("whole-block training", block_train_rows,
                 block_train_launches["block_fwd"], TRAIN_STEPS)], block_fwd_edges),
         entry("attention_block_bwd", "pdm_tpu_torch/csrc/attention_block_bwd.cu",
@@ -5649,6 +6178,42 @@ def main() -> int:
                   for (path, v), kind in zip(opt_paths.items(), ("small", "large"))},
         "shapes": vjp_rows,
     })
+    # phase 18e: the offline experiment CLIs and export_sampler (launch
+    # counts only; their shapes are the tests' small ones)
+    by_key = {"attention": "fused_spatial_attention",
+              "group_norm": "fused_group_norm_act",
+              "moments": "boltzmann_moments", "sweep": "boltzmann_sweep"}
+    for cli_name, run in fid_out["experiments"].items():
+        for key, name in by_key.items():
+            n = run["launches"][key]
+            if n:
+                k = next(k for k in kernels if k["name"] == name)
+                k["launches"] += n
+                k["paths"][f"{cli_name} (experiment CLI)"] = {
+                    "launches": n, "wall_s": run["wall_s"],
+                    "note": "launch count only, at the CPU tests' sizes"}
+    # phase 22: the exported samplers' replays
+    serve_paths = (
+        ("fused_spatial_attention", "flagship", "attention",
+         f"serving replay (a): bf16 flagship DDIM-{SERVE_STEPS}, a fresh process"),
+        ("fused_group_norm_act", "flagship", "group_norm",
+         f"serving replay (a): bf16 flagship DDIM-{SERVE_STEPS}, a fresh process"),
+        ("fused_group_norm_act", "whole_block", "group_norm",
+         f"serving replay (b): PDM_FUSED_BLOCK=1 at export, DDIM-{SERVE_BLOCK_STEPS}"),
+        ("fused_attention_block", "whole_block", "block",
+         f"serving replay (b): PDM_FUSED_BLOCK=1 at export, DDIM-{SERVE_BLOCK_STEPS}"),
+        ("boltzmann_moments", "true", "moments",
+         f"serving replay (c): TrueDDPM at CIFAR-10 scale, DDPM-{SERVE_TRUE_STEPS}"))
+    for name, case, key, where in serve_paths:
+        run = serving[case]
+        k = next(k for k in kernels if k["name"] == name)
+        n = run["launches"][key]
+        k["launches"] += n
+        k["paths"][where] = {
+            "launches": n, "launches_per_step": n / run["steps"],
+            "replay_ms_per_step": run["replay_median_ms"],
+            "eager_ms_per_step": run["eager_median_ms"],
+            "note": "launch count only: the replay's shapes are the eager path's"}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

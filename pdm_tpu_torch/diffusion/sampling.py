@@ -29,6 +29,13 @@ images' rows as well.
 ``precision="half"`` runs the model on bf16 inputs and casts x0 back to
 fp32, where the JAX package does; all step arithmetic is fp32.
 
+Each step type is a module (:class:`DDPMStep`, :class:`DDIMStep`,
+:class:`DPMStep`, :class:`HeunStep`, :class:`HeunFinalStep`) taking its
+row of the step tables (:func:`step_rows`) and xt; the model call is a
+:class:`Denoiser` module, which holds the UNet or ``TrueDDPM``'s dataset
+and pack. The loop is ``utils/serving.py::run_steps``, which an exported
+sampler (a ``torch.export`` program of one step) replays.
+
 The loop is differentiable in the grid (``diffusion/schedule_opt.py``
 calls it under grad, outside ``batch_sample``'s inference mode). With
 ``remat`` each step, Heun's peeled final step included, runs under
@@ -47,15 +54,18 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch import Tensor
+from torch import Tensor, nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike, resolve_device
 from ..core.draws import batch_randn
 from ..core.temperature import alpha_bar_from_log_temp
-from ..models.base import DDPM
+from ..models.base import DDPM, TrueDDPM
+from ..models.predictions import Predictions
+from ..ops.boltzmann_sweep import PreparedY
 from ..parallel.mesh import BatchSharding
 from ..schedulers.base import Scheduler
+from ..utils.serving import run_steps
 
 STEP_TYPES = ("ddpm", "ddim", "heun", "dpmpp_2m")
 
@@ -95,6 +105,12 @@ def safe_sqrt(u: Tensor) -> Tensor:
     keeps a backward through the schedule off the singular branch."""
     pos = u > 0.0
     return torch.where(pos, torch.sqrt(torch.where(pos, u, 1.0)), 0.0)
+
+
+# the columns of step_rows: _step_tables' keys, in its order
+TABLE_KEYS = ("log_temp", "ab", "ab_prev", "ddpm_x0", "ddpm_xt", "ddpm_noise",
+              "ddim_x0", "ddim_eps", "sqrt_ab", "sqrt_ab_prev", "sig",
+              "sig_prev", "heun_lt_prev", "dpm_cx", "dpm_cd", "dpm_k")
 
 
 def _step_tables(log_temp: Tensor) -> Dict[str, Tensor]:
@@ -283,6 +299,122 @@ class DDPMSampler:
         return res
 
 
+class Denoiser(nn.Module):
+    """The sampler's model call, ``ddpm.get_predictions(xt, log_temp)``, as a
+    module that holds what the call reads: a UNet model's module as the
+    submodule ``net``, or ``TrueDDPM``'s dataset and kernel pack (the one
+    for the precision mode in force when the module is made) as buffers.
+    An exported step program (``utils/serving.py``) thus carries them as
+    its parameters and buffers. Any other model is called as it is."""
+
+    def __init__(self, ddpm: DDPM):
+        super().__init__()
+        self.ddpm = ddpm
+        self.pack_of = None
+        if isinstance(ddpm, TrueDDPM):
+            self.register_buffer("train_data", ddpm.train_data)
+            prep = ddpm.pack()
+            if prep is not None:
+                self.register_buffer("yt_hi", prep.yt_hi)
+                self.register_buffer("yt_lo", prep.yt_lo)
+                self.register_buffer("ysq", prep.ysq)
+                self.pack_of = (prep.n, prep.d, prep.mode)
+        elif isinstance(getattr(ddpm, "module", None), nn.Module):
+            self.net = ddpm.module
+
+    def forward(self, xt: Tensor, log_temp: Tensor) -> Predictions:
+        if not isinstance(self.ddpm, TrueDDPM):
+            return self.ddpm.get_predictions(xt, log_temp)
+        prep = None
+        if self.pack_of is not None:
+            prep = PreparedY(self.yt_hi, self.yt_lo, self.ysq, *self.pack_of)
+        return self.ddpm.get_predictions(
+            xt, log_temp, forward=lambda x, tau: self.ddpm.posterior_mean(
+                x, tau, self.train_data, prep))
+
+
+def step_rows(tables: Dict[str, Tensor]) -> Tensor:
+    """The step tables as one (n_steps, len(TABLE_KEYS)) matrix: row i holds
+    step i's coefficients, the input a step module takes."""
+    return torch.stack([tables[k] for k in TABLE_KEYS], dim=1)
+
+
+def _col(name: str) -> int:
+    return TABLE_KEYS.index(name)
+
+
+class _Step(nn.Module):
+    """A step of the reverse process as a module: ``forward(row, xt, ...)``
+    with ``row`` the step's row of :func:`step_rows`. Under ``half`` the
+    model runs on bf16 inputs and x0 (or eps) is cast back to fp32; the
+    step arithmetic is fp32."""
+
+    def __init__(self, ddpm: DDPM, half: bool):
+        super().__init__()
+        self.denoiser = Denoiser(ddpm)
+        self.half = half
+
+    def predict(self, xt: Tensor, log_temp: Tensor) -> Predictions:
+        return self.denoiser(xt.to(torch.bfloat16) if self.half else xt,
+                             log_temp)
+
+
+class DDPMStep(_Step):
+    """x_prev = c_x0 x0_hat + c_xt xt + c_n xi, ``xi`` the step's noise."""
+
+    def forward(self, row: Tensor, xt: Tensor, xi: Tensor) -> Tensor:
+        x0 = self.predict(xt, row[_col("log_temp")]).x0.float()
+        return (row[_col("ddpm_x0")] * x0 + row[_col("ddpm_xt")] * xt
+                + row[_col("ddpm_noise")] * xi)
+
+
+class DDIMStep(_Step):
+    """x_prev = sqrt(ab_prev) x0_hat + sqrt(1 - ab_prev) eps_hat."""
+
+    def forward(self, row: Tensor, xt: Tensor) -> Tensor:
+        preds = self.predict(xt, row[_col("log_temp")])
+        return (row[_col("ddim_x0")] * preds.x0.float()
+                + row[_col("ddim_eps")] * preds.eps.float())
+
+
+class DPMStep(_Step):
+    """DPM-Solver++(2M): returns (x_prev, x0_hat), the latter the next
+    step's ``x0_prev`` (zeros before the first step)."""
+
+    def forward(self, row: Tensor, xt: Tensor, x0_prev: Tensor
+                ) -> Tuple[Tensor, Tensor]:
+        x0 = self.predict(xt, row[_col("log_temp")]).x0.float()
+        k = row[_col("dpm_k")]
+        d = (1.0 + k) * x0 - k * x0_prev
+        return row[_col("dpm_cx")] * xt + row[_col("dpm_cd")] * d, x0
+
+
+class HeunStep(_Step):
+    """Euler predictor and trapezoid corrector on the PF-ODE in z = x /
+    sqrt(ab), sigma = sqrt(T): two model evaluations, at the step's level
+    and at the next lower one."""
+
+    def forward(self, row: Tensor, xt: Tensor) -> Tensor:
+        eps1 = self.predict(xt, row[_col("log_temp")]).eps.float()
+        z = xt / row[_col("sqrt_ab")]
+        dsig = row[_col("sig_prev")] - row[_col("sig")]
+        x_p = (z + dsig * eps1) * row[_col("sqrt_ab_prev")]
+        eps2 = self.predict(x_p, row[_col("heun_lt_prev")]).eps.float()
+        return (z + dsig * 0.5 * (eps1 + eps2)) * row[_col("sqrt_ab_prev")]
+
+
+class HeunFinalStep(_Step):
+    """Heun's peeled final step to sigma = 0: x0_hat at the last row's
+    level."""
+
+    def forward(self, row: Tensor, xt: Tensor) -> Tensor:
+        return self.predict(xt, row[_col("log_temp")]).x0.float()
+
+
+STEP_MODULES = {"ddpm": DDPMStep, "ddim": DDIMStep, "dpmpp_2m": DPMStep,
+                "heun": HeunStep}
+
+
 def _sample_loop(
     ddpm: DDPM,
     tables: Dict[str, Tensor],
@@ -294,75 +426,27 @@ def _sample_loop(
     noise: Optional[Tensor],
     remat: bool = False,
 ) -> Tuple[Tensor, Optional[Tensor]]:
-    n = tables["log_temp"].shape[0]
+    """The reverse process over the step modules, through the loop
+    (``utils/serving.py::run_steps``) that an exported sampler replays:
+    the same operations in the same order."""
+    rows = step_rows(tables)
+    final = HeunFinalStep(ddpm, half) if step_type == "heun" else None
 
-    def model_in(x):
-        return x.to(torch.bfloat16) if half else x
-
-    def tab(i):
-        return {k: v[i] for k, v in tables.items()}
-
-    def run(step, *args):
+    def call(fn, *args):
         if remat:
-            return checkpoint(step, *args, use_reentrant=False)
-        return step(*args)
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
 
     def draw():
         return batch_randn(xt.shape, generator, device=xt.device,
                            dtype=torch.float32)
 
+    if step_type == "ddpm" and noise is None and remat:
+        noise = torch.stack([draw() for _ in range(rows.shape[0])])
     states = []
-
-    def keep(x):
-        if track_states:
-            states.append(x)
-
-    if step_type == "dpmpp_2m":
-        def dpm_step(t, xt, x0_prev):
-            x0 = ddpm.get_predictions(model_in(xt), t["log_temp"]).x0.float()
-            d = (1.0 + t["dpm_k"]) * x0 - t["dpm_k"] * x0_prev
-            return t["dpm_cx"] * xt + t["dpm_cd"] * d, x0
-
-        x0_prev = torch.zeros_like(xt)
-        for i in range(n):
-            xt, x0_prev = run(dpm_step, tab(i), xt, x0_prev)
-            keep(xt)
-    elif step_type == "heun":
-        def heun_step(t, xt):
-            eps1 = ddpm.get_predictions(model_in(xt), t["log_temp"]).eps.float()
-            z = xt / t["sqrt_ab"]
-            dsig = t["sig_prev"] - t["sig"]
-            x_p = (z + dsig * eps1) * t["sqrt_ab_prev"]
-            eps2 = ddpm.get_predictions(
-                model_in(x_p), t["heun_lt_prev"]).eps.float()
-            return (z + dsig * 0.5 * (eps1 + eps2)) * t["sqrt_ab_prev"]
-
-        def final_step(lt, xt):
-            return ddpm.get_predictions(model_in(xt), lt).x0.float()
-
-        # every looped step has a real lower level to re-evaluate at; the
-        # final step to sigma = 0 is peeled below and returns x0_hat
-        for i in range(n - 1):
-            xt = run(heun_step, tab(i), xt)
-            keep(xt)
-        xt = run(final_step, tables["log_temp"][-1], xt)
-        keep(xt)
-    else:
-        def step(t, xt, xi):
-            preds = ddpm.get_predictions(model_in(xt), t["log_temp"])
-            x0 = preds.x0.float()
-            if step_type == "ddpm":
-                return t["ddpm_x0"] * x0 + t["ddpm_xt"] * xt + t["ddpm_noise"] * xi
-            return t["ddim_x0"] * x0 + t["ddim_eps"] * preds.eps.float()
-
-        if step_type == "ddpm" and noise is None and remat:
-            noise = torch.stack([draw() for _ in range(n)])
-        for i in range(n):
-            xi = None
-            if step_type == "ddpm":
-                xi = noise[i] if noise is not None else draw()
-            xt = run(step, tab(i), xt, xi)
-            keep(xt)
+    xt = run_steps(step_type, STEP_MODULES[step_type](ddpm, half), final,
+                   rows, xt, draw, noise, call,
+                   states.append if track_states else None)
     if not track_states:
         return xt, None
     # the reference stacks states low-T -> high-T; the loop runs hot -> cold

@@ -8,7 +8,7 @@ A model bundles a scheduler, a parametrization tag and whatever its
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import Tensor
@@ -34,16 +34,21 @@ class DDPM:
     def __call__(self, xt: Tensor, tau: Tensor) -> Tensor:
         return self.forward(xt, tau)
 
-    def get_predictions(self, xt: Tensor, log_temp: Tensor) -> Predictions:
+    def get_predictions(
+        self, xt: Tensor, log_temp: Tensor,
+        forward: Optional[Callable[[Tensor, Tensor], Tensor]] = None,
+    ) -> Predictions:
         """log_temp -> tau (clipped to [0, 1]) -> alpha_bar of the CLIPPED
         tau -> forward -> full parametrization triple. The clip is
         jnp.clip's max-then-min, whose gradient splits evenly where tau
-        sits on a bound (a schedule's top knot, at tau = 1), as JAX's."""
+        sits on a bound (a schedule's top knot, at tau = 1), as JAX's.
+        ``forward`` replaces ``self.forward`` (the sampler's ``Denoiser``
+        passes one that reads its own buffers)."""
         tau = self.scheduler.tau_from_log_temp(log_temp)
         tau = torch.minimum(torch.maximum(tau, tau.new_zeros(())),
                             tau.new_ones(()))
         alpha_bar = alpha_bar_from_log_temp(self.scheduler.log_temp_from_tau(tau))
-        pred = self.forward(xt, tau)
+        pred = (forward or self.forward)(xt, tau)
         return convert_prediction(pred, xt, alpha_bar, self.parametrization)
 
     @property
@@ -87,10 +92,16 @@ class TrueDDPM(DDPM):
         return self._packs[mode]
 
     def forward(self, xt: Tensor, tau: Tensor) -> Tensor:
+        return self.posterior_mean(xt, tau, self.train_data, self.pack())
+
+    def posterior_mean(self, xt: Tensor, tau: Tensor, data: Tensor,
+                       prep: Optional[PreparedY]) -> Tensor:
+        """E[x0 | xt] over ``data`` (this model's dataset, or the tensors a
+        module holds for it) through its kernel pack ``prep`` (None: the
+        dataset itself, on the CPU)."""
         tau = torch.broadcast_to(torch.as_tensor(tau, device=xt.device),
                                  (xt.shape[0],))
         log_temp = self.scheduler.log_temp_from_tau(tau)
-        prep = self.pack()
         if prep is None:
-            return true_posterior_mean_x0(xt, log_temp, self.train_data)
-        return true_posterior_mean_x0(xt, log_temp, prep, values=self.train_data)
+            return true_posterior_mean_x0(xt, log_temp, data)
+        return true_posterior_mean_x0(xt, log_temp, prep, values=data)

@@ -33,3 +33,7 @@ from .distance import (
 )
 from .knn import knn_sqdist as knn_sqdist
 from .mmd import mmd_rbf as mmd_rbf
+
+# registers the sampler's forward kernels as torch.library custom ops
+# (pdm::...), which an exported sampler step calls (ops/library.py)
+from . import library as library  # noqa: E402

@@ -128,13 +128,26 @@ def _check(q: Tensor, k: Tensor, v: Tensor, heads: int) -> int:
 def attention_with_lse(
     q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float
 ) -> Tuple[Tensor, Tensor]:
-    """(out (B, T, C) in q.dtype, lse (B, heads, T) fp32)."""
+    """(out (B, T, C) in q.dtype, lse (B, heads, T) fp32). While
+    ``torch.export`` traces (``torch.compiler.is_exporting()``) the call is
+    the custom op ``pdm::attention_fwd`` on every device; eagerly the
+    kernel launches directly."""
+    if torch.compiler.is_exporting():
+        return torch.ops.pdm.attention_fwd(q, k, v, heads, float(scale))
     if q.device.type == "cpu":
         if not (q.device == k.device == v.device):
             raise ValueError("q, k, v must be on one device")
         return _reference_with_lse(q, k, v, heads, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    return launch_fwd(q, k, v, heads, scale)
+
+
+def launch_fwd(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float
+               ) -> Tuple[Tensor, Tensor]:
+    """The forward kernel's launch on CUDA tensors, counted on
+    ``fused_spatial_attention.launches``: the eager wrapper and the custom
+    op's CUDA implementation (``ops/library.py``) both end here."""
     ld = _check(q, k, v, heads)
     B, T, C = q.shape
     out = torch.empty((B, T, C), dtype=q.dtype, device=q.device)

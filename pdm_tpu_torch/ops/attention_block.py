@@ -251,7 +251,12 @@ def _ready(t: Tensor) -> Tensor:
 
 def _forward(x, h, ws, bs, w_out, b_out, heads, scale
              ) -> Tuple[Tensor, Tensor]:
-    """(out (B, T, C) in x.dtype, lse (B, heads, T) fp32)."""
+    """(out (B, T, C) in x.dtype, lse (B, heads, T) fp32); while
+    ``torch.export`` traces, the custom op ``pdm::attention_block_fwd`` on
+    every device."""
+    if torch.compiler.is_exporting():
+        return torch.ops.pdm.attention_block_fwd(
+            x, h, *ws, *bs, w_out, b_out, heads, float(scale))
     if h.device.type == "cpu":
         tensors = (x, *ws, *bs, w_out, b_out)
         if any(t.device != h.device for t in tensors):
@@ -259,6 +264,14 @@ def _forward(x, h, ws, bs, w_out, b_out, heads, scale
         return _reference_with_lse(x, h, *ws, bs, w_out, b_out, heads, scale)
     if h.device.type != "cuda":
         raise ValueError(f"unsupported device {h.device}")
+    return launch_fwd(x, h, ws, bs, w_out, b_out, heads, scale)
+
+
+def launch_fwd(x, h, ws, bs, w_out, b_out, heads, scale
+               ) -> Tuple[Tensor, Tensor]:
+    """The forward kernel's launch on CUDA tensors, counted on
+    ``fused_attention_block.launches``: the eager wrapper and the custom
+    op's CUDA implementation (``ops/library.py``) both end here."""
     if x.shape != h.shape or x.dtype != h.dtype or x.device != h.device:
         raise ValueError(f"x must match h: {tuple(x.shape)} {x.dtype} "
                          f"{x.device}, h {tuple(h.shape)} {h.dtype} {h.device}")

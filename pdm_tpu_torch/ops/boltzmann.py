@@ -229,9 +229,17 @@ def boltzmann_moments(
     kernel (two launches, ``boltzmann_moments.launches``; no input may
     require grad: the kernel has no backward, as the TPU kernel has none),
     on CPU tensors the plain version; any other device raises.
-    ``chunk_size`` only splits the plain version's passes.
+    ``chunk_size`` only splits the plain version's passes. While
+    ``torch.export`` traces (``torch.compiler.is_exporting()``), the call
+    is the custom op ``pdm::boltzmann_moments`` on every device
+    (``ops/library.py::traced_moments``).
     """
     mode = boltzmann_precision_mode(mxu_precision)
+    if torch.compiler.is_exporting():
+        from .library import traced_moments
+
+        return traced_moments(x, y, inv_temp, y_scale, values=values,
+                              compute_mean=compute_mean, mode=mode)
     if x.device.type == "cpu":
         return boltzmann_moments_reference(
             x, y, inv_temp, y_scale, values=values, compute_mean=compute_mean,

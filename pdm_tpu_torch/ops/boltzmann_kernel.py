@@ -214,6 +214,17 @@ def device_plan(ops: MomentsOperands) -> MomentsPlan:
 
 def launch(ops: MomentsOperands) -> BoltzmannMoments:
     """The partials and merge launches on laid-out operands."""
+    out, mean = launch_raw(ops)
+    return BoltzmannMoments(log_z=out[0], shift=out[1], e1_hat=out[2],
+                            e2_hat=out[3], mean=mean)
+
+
+def launch_raw(ops: MomentsOperands) -> Tuple[Tensor, Optional[Tensor]]:
+    """The partials and merge launches on laid-out operands, counted on
+    ``ops.boltzmann.boltzmann_moments.launches``: (log_z, shift, e1_hat,
+    e2_hat) as one (4, B) tensor, and the payload's mean (B, K) or None.
+    The eager dispatcher and the custom op's CUDA implementation
+    (``ops/library.py``) both end here."""
     prep, v, B = ops.prep, ops.values, ops.n_rows
     dev = ops.x_hi.device
     D, b_pad = ops.x_hi.shape
@@ -252,8 +263,7 @@ def launch(ops: MomentsOperands) -> BoltzmannMoments:
                  n_chunks, K, stream)
         _build.check(err, "pdm_boltzmann_moments_merge")
         _boltzmann.boltzmann_moments.launches += 1
-    return BoltzmannMoments(log_z=out[0], shift=out[1], e1_hat=out[2],
-                            e2_hat=out[3], mean=mean)
+    return out, mean
 
 
 def boltzmann_moments_cuda(x: Tensor, y, inv_temp, y_scale=1.0, *,

@@ -216,11 +216,24 @@ def _check(x: Tensor, scale: Tensor, bias: Tensor, groups: int) -> None:
 
 def _forward(x: Tensor, scale: Tensor, bias: Tensor, groups: int, eps: float,
              act: str) -> Tensor:
+    """The forward on x's device; while ``torch.export`` traces, the
+    custom op ``pdm::group_norm_act`` on every device."""
+    if torch.compiler.is_exporting():
+        return torch.ops.pdm.group_norm_act(x, scale, bias, groups,
+                                            float(eps), act)
     if x.device.type == "cpu":
         return group_norm_reference(x, scale, bias, groups, eps, act).to(
             x.dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    return launch_fwd(x, scale, bias, groups, eps, act)
+
+
+def launch_fwd(x: Tensor, scale: Tensor, bias: Tensor, groups: int,
+               eps: float, act: str) -> Tensor:
+    """The forward kernel's launch on CUDA tensors, counted on
+    ``fused_group_norm_act.launches``: the eager wrapper and the custom
+    op's CUDA implementation (``ops/library.py``) both end here."""
     _check(x, scale, bias, groups)
     B, S, C = x.shape
     out = torch.empty_like(x)

@@ -794,6 +794,105 @@ def test_true_ddpm_sample_on_card_matches_cpu(cuda_device):
         want.abs().max())
 
 
+def _serve_counts():
+    return {"attention": ta.fused_spatial_attention.launches,
+            "group_norm": tg.fused_group_norm_act.launches,
+            "block": tb.fused_attention_block.launches,
+            "moments": bz.boltzmann_moments.launches}
+
+
+def _counted(fn):
+    before = _serve_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in _serve_counts().items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["tiny_unet", "gmm"])
+def test_exported_sampler_replays_on_card(cuda_device, tmp_path, model,
+                                          monkeypatch):
+    """An exported step replays batch_sample on the card bitwise, through
+    the pdm:: custom ops' CUDA implementations, with exact launch counts:
+    the tiny bf16 UNet's DDIM-4 (rows 1 and 3) and TrueDDPM on the 1-D GMM
+    with DDPM-6 (row 7, two launches a step; the loader draws the
+    noise). Export traces no launch."""
+    from pdm_tpu_torch.models.base import TrueDDPM
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+    from pdm_tpu_torch.schedulers.analytic import LogSNRScheduler
+    from pdm_tpu_torch.utils.serving import export_sampler, load_exported
+    from pdm_tpu_torch.utils.synthetic import generate_gmm_1d
+
+    monkeypatch.delenv("PDM_FUSED_BLOCK", raising=False)
+    sched = LogSNRScheduler(1e-4, 1e1)
+    if model == "tiny_unet":
+        net = unet_from_config(3, TINY, dtype=torch.bfloat16, device=cuda_device)
+        g = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for p in net.parameters():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+        ddpm = UNetDDPM(sched, net, device=cuda_device)
+        kw = dict(n_steps=4, obj_size=(3, 16, 16), batch_size=8,
+                  step_type="ddim", precision="half")
+        # TINY's attention blocks: one down, one mid, two up (8 x 8)
+        per_step = {"attention": 4, "group_norm": None, "block": 0,
+                    "moments": 0}
+    else:
+        ddpm = TrueDDPM(sched, generate_gmm_1d(20_000), device=cuda_device)
+        kw = dict(n_steps=6, obj_size=(1, 1, 1), batch_size=32,
+                  step_type="ddpm")
+        per_step = {"attention": 0, "group_norm": 0, "block": 0, "moments": 2}
+    sampler = ts.DDPMSampler(ddpm=ddpm, scheduler=sched, n_samples=kw[
+        "batch_size"], device=cuda_device, **kw)
+    path = str(tmp_path / "sampler.pt2")
+    _, traced = _counted(lambda: export_sampler(sampler, path))
+    assert traced == dict.fromkeys(traced, 0)
+    fn, manifest = load_exported(path)
+    assert manifest["platforms"] == ["cuda"]
+    want, eager_n = _counted(lambda: sampler.batch_sample(
+        torch.Generator(device=cuda_device).manual_seed(3))["x"])
+    got, replay_n = _counted(lambda: fn(3))
+    assert torch.equal(got, want)
+    assert replay_n == eager_n
+    n = kw["n_steps"]
+    for key, per in per_step.items():
+        if per is not None:
+            assert replay_n[key] == per * n, (key, replay_n)
+    assert replay_n["group_norm"] % n == 0
+
+
+@pytest.mark.cuda
+def test_custom_ops_opcheck_on_card(cuda_device):
+    """torch.library.opcheck on the four pdm:: ops' CUDA implementations
+    (schema, fake against real, autograd registration, AOT dispatch)."""
+    from pdm_tpu_torch.ops.boltzmann_sweep import prepare_y
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = t(2, 256, 384, dtype=dt).chunk(3, dim=-1)
+        cases.append(("attention_fwd", (q, k, v, 2, 0.125)))
+        cases.append(("group_norm_act", (t(2, 256, 128, dtype=dt), t(128), t(128),
+                                         32, 1e-6, "silu")))
+        cases.append(("attention_block_fwd", (
+            t(2, 64, 128, dtype=dt), t(2, 64, 128, dtype=dt),
+            *(t(128, 128, dtype=dt) * 0.05 for _ in range(3)), t(128), t(128),
+            t(128), t(128, 128, dtype=dt) * 0.05, t(128), 2, 0.125)))
+    y = t(3000, 64)
+    for mode, values in (("fp32", y), ("bf16_3x", None), ("bf16", t(3000, 8))):
+        prep = prepare_y(y, mode)
+        cases.append(("boltzmann_moments", (
+            t(100, 64), prep.yt_hi, prep.yt_lo, prep.ysq, prep.n, mode,
+            torch.rand(100, generator=g, device=cuda_device) + 0.5,
+            torch.rand(100, generator=g, device=cuda_device) + 0.5, values)))
+    for name, args in cases:
+        torch.library.opcheck(getattr(torch.ops.pdm, name).default, args)
+
+
 def test_chip_smoke_refuses_without_a_card():
     """Without a CUDA device the smoke script exits non-zero and prints
     no result on stdout."""

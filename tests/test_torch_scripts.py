@@ -396,3 +396,268 @@ def test_clis_need_the_card_unless_told_cpu(workdir):
         sample.main(argv=TRUE_MODEL)
     with pytest.raises(RuntimeError, match="CUDA"):
         compute_stats_metric.main(["--dataset", "mnist"])
+
+
+# ---------------------------------------------------------------------------
+# serving export and the offline experiment CLIs
+# ---------------------------------------------------------------------------
+
+import jax.numpy as jnp  # noqa: E402
+
+from pdm_tpu.ops.mmd import mmd_rbf as j_mmd_rbf  # noqa: E402
+from pdm_tpu.stats import hypersphere as jhyper  # noqa: E402
+from pdm_tpu.stats import mc_metric as jmc  # noqa: E402
+from pdm_tpu.stats import model_metric as jmm  # noqa: E402
+from pdm_tpu.stats.sweep import thermo_sweep as j_thermo_sweep  # noqa: E402
+from pdm_tpu.diffusion.sampling import DDPMSampler as JSampler  # noqa: E402
+from pdm_tpu.models.base import TrueDDPM as JTrueDDPM  # noqa: E402
+from pdm_tpu.schedulers.analytic import (  # noqa: E402
+    LinearBetaScheduler as JLinear, LogSNRScheduler as JLogSNR,
+)
+
+from pdm_tpu_torch.scripts import (  # noqa: E402
+    analyze_synthetic_stats, compute_model_metric_schedule,
+    compute_stats_empirical, e2e_synthetic, export_sampler,
+    reproduce_high_dim, sample_gmm, verify_logsnr_metric, verify_mc_metric,
+    verify_rescaled_metric,
+)
+from pdm_tpu_torch.scripts.sample import build_sampler  # noqa: E402
+from pdm_tpu_torch.utils.data import get_data_tensor  # noqa: E402
+from pdm_tpu_torch.utils.serving import load_exported  # noqa: E402
+from pdm_tpu_torch.utils.synthetic import (  # noqa: E402
+    generate_anisotropic_gmm, generate_gmm_1d, sample_on_hypersphere,
+)
+from test_torch_stats import jax_draws  # noqa: E402
+from test_torch_true_model import _mc_draws, jax_metric_draws  # noqa: E402
+from torch_port_fixtures import jax_sampler_draws  # noqa: E402
+
+GMM_EXPORT = ["--dataset_name", "gmm1d", "--ddpm.model_name", "true",
+              "--ddpm.parametrization", "x0", "--ddpm.noise_schedule_type",
+              "log_snr", "--diffusion.min_temp", "1e-4", "--diffusion.max_temp",
+              "1e1", "--sample.n_steps", "6", "--sample.batch_size", "32",
+              "--sample.n_samples", "32", "--sample.step_type", "ddim"]
+
+
+def test_export_sampler_cli(tmp_path, monkeypatch, capsys):
+    """tests/test_scripts_smoke.py::test_export_sampler_cli's flags; the
+    artifact replays the sampler the flags build, bitwise."""
+    monkeypatch.chdir(tmp_path)
+    path = str(tmp_path / "gmm.pt2")
+    assert export_sampler.main([*GMM_EXPORT, "--out", path, *CPU]) == path
+    assert f"exported {path}" in capsys.readouterr().out
+    assert (tmp_path / "gmm.pt2.json").exists()
+    fn, manifest = load_exported(path)
+    assert manifest["step_type"] == "ddim" and manifest["n_steps"] == 6
+    sampler = build_sampler(port_config(GMM_EXPORT), device="cpu")
+    want = sampler.batch_sample(torch.Generator().manual_seed(7))["x"]
+    assert torch.equal(fn(7), want)
+    # the default path, JAX's form with .pt2
+    argv = [*GMM_EXPORT, "--sample.n_steps", "3"]
+    out = export_sampler.main([*argv, *CPU])
+    cfg = port_config(argv)
+    assert out == (f"serving/{cfg.experiment_name}_"
+                   f"{cfg.sample.noise_schedule_type}3.pt2")
+    assert os.path.exists(out) and os.path.exists(out + ".json")
+
+
+@pytest.mark.parametrize("name", ["mc", "logsnr", "rescaled"])
+def test_verify_metric_clis_match_jax(tmp_path, monkeypatch, name):
+    """Each verify CLI's MC estimates against pdm_tpu.stats.mc_metric on
+    the same points and JAX's own draws (the tolerance of the port's
+    estimator tests), beside its closed form."""
+    monkeypatch.chdir(tmp_path)
+    n, n_y, k = 200, 300, 4
+    x = np.array(jax.random.normal(jax.random.PRNGKey(42), (n, 1)))
+    draws = [_mc_draws(jax.random.PRNGKey(i), n, 1, n_y) for i in range(k)]
+    script = {"mc": verify_mc_metric, "logsnr": verify_logsnr_metric,
+              "rescaled": verify_rescaled_metric}[name]
+    size = {"mc": "n_sigmas", "logsnr": "n_lambdas", "rescaled": "n_sigma_sqs"}[name]
+    got = script.main(CPU, n_points=n, n_y=n_y, x=x, draws=draws, **{size: k})
+    grid = got[{"mc": "sigma", "logsnr": "lambda", "rescaled": "sigma_sq"}[name]]
+    for i, g in enumerate(grid):
+        key = jax.random.PRNGKey(i)
+        if name == "rescaled":
+            want = float(jmc.rescaled_metric_diag(
+                jnp.asarray([g], jnp.float32), jnp.asarray(x), key, n_y=n_y)[0])
+            mine = got["mc"][i]
+        else:
+            lam = float(np.log(g ** 2)) if name == "mc" else float(g)
+            want = float(jmc.metric_scalar(jnp.asarray(lam), jnp.asarray(x), key,
+                                           n_y=n_y))
+            mine = got["mc"][i] / ((2.0 / g) ** 2 if name == "mc" else 1.0)
+        np.testing.assert_allclose(mine, want, rtol=1e-4, atol=1e-5)
+    assert np.all(np.isfinite(got["analytical"])) and len(got["mc"]) == k
+
+
+def test_sample_gmm_cli_matches_jax(tmp_path, monkeypatch):
+    """The CLI's sampler on JAX's draws against JAX's sampler (1e-4, the
+    port's GMM sampling tolerance) and its MMD against JAX's mmd_rbf on the
+    same samples."""
+    monkeypatch.chdir(tmp_path)
+    n_data, n_samples, n_ref = 5000, 20, 1000
+    key = jax.random.PRNGKey(0)
+    draws = jax_sampler_draws(key, 10, (n_samples, 1, 1, 1))
+    got = sample_gmm.main(CPU, n_data=n_data, n_samples=n_samples, n_ref=n_ref,
+                          draws=draws)
+    data = generate_gmm_1d(n_data)
+    want = JSampler(
+        ddpm=JTrueDDPM(scheduler=JLogSNR(1e-4, 1e1), train_data=jnp.asarray(data)),
+        scheduler=JLogSNR(1e-4, 1e1), n_steps=10, obj_size=(1, 1, 1),
+        batch_size=n_samples, n_samples=n_samples, step_type="ddpm",
+        track_states=True).batch_sample(key)
+    x = got["Initial"]["x"]
+    np.testing.assert_allclose(x, np.asarray(want["x"]).reshape(-1), rtol=0,
+                               atol=1e-4)
+    assert got["states"].shape == np.asarray(want["states"]).shape
+    mmd = float(j_mmd_rbf(jnp.asarray(x[:, None]),
+                          jnp.asarray(data[:n_ref]).reshape(-1, 1), sigmas=(0.1,)))
+    # the MMD is a difference of means of O(1) kernel values over up to
+    # 10^6 pairs, summed in fp32 in two orders: 1e-6 absolute
+    np.testing.assert_allclose(got["Initial"]["mmd"], mmd, rtol=1e-5, atol=1e-6)
+
+
+def test_analyze_synthetic_stats_cli_matches_jax(tmp_path, monkeypatch):
+    """The Bessel oracle against pdm_tpu.stats.hypersphere, the MC curves
+    against JAX's thermo_sweep on the same points and JAX's draws."""
+    monkeypatch.chdir(tmp_path)
+    d, sizes, n_s = 10, [60, 120], 32
+    got = analyze_synthetic_stats.main(
+        ["--d", str(d), "--sizes", *map(str, sizes), "--n_samples", str(n_s),
+         *CPU], draws=lambda n, seed: jax_draws(jax.random.PRNGKey(seed), n, d,
+                                                n_s, n_s))
+    temps = got["temp"]
+    want = jhyper.marginal_stats(temps, d=d)
+    for k in ("S", "C"):
+        np.testing.assert_allclose(got["oracle"][k], want[k], rtol=1e-12)
+    for n, curves in [*got["curves"].items(), (max(sizes), got["check"])]:
+        seed = 1 if curves is got["check"] else 0
+        data = sample_on_hypersphere(d, n=n, radius=1.0, seed=0)
+        ref = j_thermo_sweep(jax.random.PRNGKey(seed), jnp.asarray(data), temps,
+                             n_samples=n_s, batch_size=n_s)
+        for k in ("entropy", "heat_capacity"):
+            w = np.asarray(ref[k], np.float64)
+            np.testing.assert_allclose(curves[k], w, rtol=1e-5,
+                                       atol=1e-5 * (1.0 + np.abs(w).max()))
+    mid = analyze_synthetic_stats.MID
+    assert got["mid_err"] == pytest.approx(
+        np.abs(got["check"]["entropy"][mid] - want["S"][mid]).max())
+
+
+def test_compute_stats_empirical_cli_matches_jax(workdir):
+    """TrueDDPM on the MNIST-shaped cache: the npz against JAX's
+    empirical_entropy_stats on the same data and JAX's draws."""
+    key = jax.random.PRNGKey(0)
+    n_temps, per_temp, bs = 5, 2, 8
+    args = [*TRUE_MODEL, "--empirical_stats.n_temps", str(n_temps),
+            "--empirical_stats.n_steps_per_temp", str(per_temp),
+            "--empirical_stats.batch_size", str(bs)]
+    draws = jax_metric_draws(key, N_TRAIN, (1, 32, 32), n_temps,
+                             per_temp * bs, bs, "vp")
+    written = compute_stats_empirical.main(argv=[*args, *CPU], draws=draws)
+    cfg = port_config(args)
+    path = cfg.empirical_stats_path
+    assert list(written) == [path]
+    out = np.load(path)
+    assert set(out.files) == {"temp", "entropy", "rescaled_entropy",
+                              "d_entropy_d_log_temp"}
+    data = get_data_tensor(cfg, device="cpu").numpy()
+    temp = np.logspace(np.log10(1e-4), np.log10(2.478e4), n_temps)
+    want = jmm.empirical_entropy_stats(
+        key, JTrueDDPM(scheduler=JLinear(1e-4, 2.478e4),
+                       train_data=jnp.asarray(data.transpose(0, 2, 3, 1))),
+        jnp.asarray(data.transpose(0, 2, 3, 1)), temp, n_samples=per_temp * bs,
+        batch_size=bs)
+    np.testing.assert_allclose(out["temp"], temp)
+    for k in ("entropy", "rescaled_entropy", "d_entropy_d_log_temp"):
+        assert out[k].shape == (n_temps,)
+        np.testing.assert_allclose(out[k], want[k], rtol=1e-4, atol=1e-6)
+
+
+def test_compute_model_metric_schedule_cli_matches_jax(workdir, monkeypatch):
+    """The metric statistics against JAX's model_metric_stats on JAX's
+    draws; the dense schedule table builds a custom schedule."""
+    import shutil
+
+    from pdm_tpu_torch.config.loader import DEFAULT_CONFIG_PATH
+    from pdm_tpu_torch.schedulers.interpolated import custom_scheduler
+
+    yaml_dir = workdir / "yaml"
+    shutil.copytree(os.path.dirname(DEFAULT_CONFIG_PATH), yaml_dir)
+    root = (yaml_dir / "config.yaml").read_text()
+    (yaml_dir / "config.yaml").write_text(
+        root.replace("dataset_name: cifar10", "dataset_name: mnist"))
+    ddpm_yaml = (yaml_dir / "groups" / "ddpm.yaml").read_text()
+    (yaml_dir / "groups" / "ddpm.yaml").write_text(
+        ddpm_yaml.replace("model_name: unet", 'model_name: "true"')
+        .replace("parametrization: eps", "parametrization: x0"))
+    monkeypatch.setenv("PDM_CONFIG", str(yaml_dir / "config.yaml"))
+    key = jax.random.PRNGKey(0)
+    n_s, n_temps = 24, 5
+    draws = jax_metric_draws(key, N_TRAIN, (1, 32, 32), n_temps, n_s, 256, "ve")
+    got = compute_model_metric_schedule.main(
+        ["--n_samples", str(n_s), "--n_temps", str(n_temps), *CPU], draws=draws)
+    assert got["stats_path"] == "stats/mnist_metric_model.npz"
+    stats = np.load(got["stats_path"])
+    assert set(stats.files) == {"temp", "metric", "log_temp", "dataset_tr_sigma0"}
+    data = get_data_tensor(load_config(), device="cpu").numpy().transpose(0, 2, 3, 1)
+    temp = np.logspace(np.log10(1e-4), np.log10(2.478e4), n_temps)
+    want = jmm.model_metric_stats(
+        key, JTrueDDPM(scheduler=JLinear(1e-4, 2.478e4),
+                       train_data=jnp.asarray(data)),
+        jnp.asarray(data), temp, n_samples=n_s)
+    np.testing.assert_allclose(stats["metric"], want["metric"], rtol=1e-4,
+                               atol=1e-6)
+    table = np.load(got["schedule_path"])
+    assert got["schedule_path"] == "stats/mnist_metric_model_schedule.npz"
+    assert table["log_temp"].shape == table["timestamps"].shape == (n_temps,)
+    assert table["timestamps"][0] == 0.0 and table["timestamps"][-1] == 1.0
+    sched = custom_scheduler(got["schedule_path"], device="cpu")
+    assert np.isfinite(sched.log_temp_from_tau(torch.linspace(0, 1, 5)).numpy()).all()
+
+
+def test_reproduce_high_dim_cli(tmp_path, monkeypatch, capsys):
+    """At a cut size: the npz keys and shapes JAX's script writes, the
+    sweep against JAX's thermo_sweep on JAX's draws, and the KL column
+    skipped with its reason where scikit-learn is missing."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("PDM_CONFIG", raising=False)
+    monkeypatch.setattr(reproduce_high_dim, "kl_backend",
+                        lambda: "sklearn is not installed")
+    n_train, n_temps, n_s = 300, 8, 32
+    got = reproduce_high_dim.main(
+        CPU, n_train=n_train, n_gen=50, n_temps=n_temps, sweep_samples=n_s,
+        sweep_batch=n_s, n_steps=3,
+        draws=jax_draws(jax.random.PRNGKey(0), n_train, 100, n_s, n_s))
+    fwd = np.load("stats/anisotropic_gmm_repro_forward.npz")
+    met = np.load("stats/anisotropic_gmm_repro_metric.npz")
+    assert set(fwd.files) == {"temp", "entropy"}
+    assert set(met.files) == {"temp", "metric", "log_temp", "dataset_tr_sigma0"}
+    assert fwd["entropy"].shape == met["metric"].shape == (n_temps,)
+    data, _, _ = generate_anisotropic_gmm(dim=100, n_components=5,
+                                          n_samples=n_train)
+    temps = np.logspace(-4, 4, n_temps)
+    want = j_thermo_sweep(jax.random.PRNGKey(0), jnp.asarray(data), temps,
+                          n_samples=n_s, batch_size=n_s)
+    for k in ("entropy", "metric"):
+        w = np.asarray(want[k], np.float64)
+        np.testing.assert_allclose(got["stats"][k], w, rtol=1e-5,
+                                   atol=1e-5 * (1.0 + np.abs(w).max()))
+    out = capsys.readouterr().out
+    assert "KL skipped: sklearn is not installed" in out
+    assert set(got["table"]) == {"Baseline (True)", "Cosine", "Metric"}
+    for row in got["table"].values():
+        assert row["kl"] is None and np.isfinite(row["mmd"])
+        np.testing.assert_allclose(row["occupancy"].sum(), 1.0)
+
+
+def test_e2e_synthetic_cli(tmp_path, monkeypatch, capsys):
+    """A few train steps of the blob UNet, then sampling and LeNet FID on
+    every schedule: the pipeline runs and reports."""
+    monkeypatch.chdir(tmp_path)
+    got = e2e_synthetic.main(["--steps", "2", "--n_data", "300", "--batch_size",
+                              "16", "--fid_samples", "64", "--sample_steps", "2",
+                              *CPU])
+    assert [r[:2] for r in got["results"]] == [
+        ("linear_beta", 2), ("cosine", 2), ("entropy", 2)]
+    assert np.isfinite(got["floor"]) and np.isfinite(got["best_fid"])
+    assert capsys.readouterr().out.splitlines()[-1].startswith("RESULT best_fid=")

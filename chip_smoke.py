@@ -20,16 +20,18 @@ any error or disagreement:
    edge shapes ATTN_EDGES in bf16: head dims that pad to 16, 32, 64 and
    128, and T 512 (the two-pass kernel); GroupNorm (row 3) also at
    GN_EDGES (one group of 512 channels, 3 channels a group, fp32 at the
-   largest tile), each shape called twice (bitwise equal) with its launch
-   plan printed.
+   largest tile). Every shape's kernel is called twice (bitwise equal);
+   GroupNorm's launch plan is printed.
 3. The full-width flagship UNet in fp32 on the card (kernels) against the
    same weights on the CPU (plain versions) at batch 2, and a 10-step
    fp32 DDIM sample on both from the same starting noise.
 4. The main path: the bf16 flagship (seeded random weights, std 0.02) in
-   DDPMSampler(step_type="ddpm", n_steps=1000, batch_size=64,
-   precision="half") on LinearBetaScheduler(1e-4, 2.478e4). The launch
-   counters are zeroed just before and read just after; each kernel must
-   have launched exactly its per-forward count times 1000. Then the card's
+   DDPMSampler(step_type="ddpm", n_steps=N_STEPS, batch_size=64,
+   precision="half") on LinearBetaScheduler(1e-4, 2.478e4): 500 steps of
+   bench.py's 1000 (launch counts are per step, so fewer steps check as
+   much). The launch counters are zeroed just before and read just after;
+   each kernel must have launched exactly its per-forward count times
+   N_STEPS. Then the card's
    busy time for one model evaluation against the step's wall time, and a
    torch.profiler trace of 20 more steps: the card's time per step by
    kernel and by kind of kernel.
@@ -39,8 +41,8 @@ any error or disagreement:
    their plain versions, with times beside the bound, the plain version
    and one library call's backward alone (torch.autograd.grad over
    scaled_dot_product_attention, and over group_norm then silu); the
-   GroupNorm backward (row 4) also at GN_EDGES, each shape called twice
-   (bitwise equal) with its launch plan printed. Then
+   GroupNorm backward (row 4) also at GN_EDGES. Every shape's kernels are
+   called twice (bitwise equal); GroupNorm's launch plan is printed. Then
    rows 1 and 2, untimed, at every head dim they take (8 to 128 by 8) at
    T 16, 64, 256 and 512, bf16 and fp32.
 6. The full-width fp32 flagship train step (batch 2, dropout off, the
@@ -123,7 +125,7 @@ any error or disagreement:
 14. The whole-block sampling path, PDM_FUSED_BLOCK=1 set for phases 14-16
    only: one bf16 model evaluation against the default path on the same
    input, then the bf16 flagship's DDPM-250 at batch 64 (phase 4 runs
-   1000; the counts are per step), with
+   500; the counts are per step), with
    exactly 8 row-5 launches, no row-1 launch and 69 GroupNorm launches
    per step, the card's busy time and a profiler breakdown; then the
    default and whole-block paths in ten alternating pairs of short turns
@@ -290,11 +292,32 @@ any error or disagreement:
    step. (c) TrueDDPM over phase 11's 50,000 CIFAR-shaped N(0, 1) points
    at batch 1000 with DDPM-10 (the loader draws each step's noise): 2
    row-7 launches a step, bitwise batch_sample. The directory is deleted.
-23. One JSON line {"kernels": [...]} with all thirteen kernels (the eight
-   rows, 7b, and rows 3s/4s' four entries, each with its worst error as
-   a fraction of its tolerance; phases 18e's, 20's, 21's and 22's
-   launches among their paths), then the last line {"ok": true,
-   "device": {...}}.
+23. The 256x256 family (models/configs.py's CELEBAHQ_UNET:
+   google/ddpm-celebahq-256's architecture, 113.67 M parameters, six
+   attention blocks of one head of 512) in bf16 with seeded weights, and
+   the single-head 32 x 32 DDPM (heads of 256). Rows 1 and 2 (head dims
+   above 128: attention_wide.cu) against their plain versions at every
+   attention shape of both models,
+   bf16 and fp32, timed beside the bound, the plain version and SDPA (its
+   backend named), and untimed at head dims 136-576 and T 8-1024, each
+   call twice (bitwise equal); rows 3 and 4 at every GroupNorm shape of
+   the family at batch 8 (S 65536 x C 128 down to S 64 x C 512). Then
+   config.json and the weights (write_safetensors) in a temporary
+   directory -> load_config -> ddpm_from_config(model_name diffusers) ->
+   the sample CLI's build_sampler: DDIM-50 at batch 8, two batches, with
+   exactly 6 row-1 and 71 row-3 launches a step and no plain attention on
+   a CUDA tensor; DDPMTrainer at batch 8 x grad_accum 16, three steps
+   (rows 1-4 exactly 6, 12, 71 and 71 a micro-batch, finite loss); the
+   fp32 family at batch 1, card vs CPU (FORWARD_TOL); the single-head
+   32 x 32 DDPM's DDIM-10 at batch 64 (6 row-1 launches a step). The
+   host's load, clocks and a fixed loop's time are sampled before and
+   after the family's sampler and train steps (host_clock), beside their
+   host-bound times.
+24. One JSON line {"kernels": [...]} with all fifteen kernels (the eight
+   rows, 7b, rows 1 and 2 at wide head dims, and rows 3s/4s' four
+   entries, each with its worst error as a fraction of its tolerance;
+   phases 18e's, 20's, 21's, 22's and 23's launches among their paths),
+   then the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -320,7 +343,7 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
-N_STEPS = 1000
+N_STEPS = 500  # the main path's DDPM steps (bench.py runs 1000)
 BATCH = 64
 PROFILE_STEPS = 20  # main-path steps traced for the time breakdown
 FLAGSHIP = {
@@ -399,7 +422,7 @@ FUSED_VS_DEFAULT_TOL = 2e-2
 # per-step launches of the whole-block training path: 8 blocks, once
 # forward and once backward (three kernels), no row 1 or 2 launch
 # phase 14's whole-block DDPM sampler (phase 4 runs the default path's
-# 1000): launch counts are per step, so fewer steps check as much
+# N_STEPS): launch counts are per step, so fewer steps check as much
 BLOCK_SAMPLER_STEPS = 250
 TURN_STEPS = 50        # sampler steps per turn of the two paths' comparison
 TURN_PAIRS = 10        # alternating (default, whole block) pairs of turns
@@ -5092,9 +5115,682 @@ def serving_phase(dev, weights) -> dict:
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------
+# phase 23: the 256x256 family (rows 1 and 2 at one head of 512)
+# ---------------------------------------------------------------------
+
+# rows 1 and 2 off the main paths, untimed: head dims at the wide kernels'
+# edges (the first above the narrow kernels' 128, ragged chunks, the
+# family's 512, and past it: the kernels have no head-dim bound) at T 8,
+# 64, 256 and 1024, one head, B 2
+WIDE_EDGE_HD = (136, 200, 264, 384, 504, 512, 520, 576)
+WIDE_EDGE_T = (8, 64, 256, 1024)
+# the single-head 32 x 32 DDPM (the original DDPM's attention): the
+# flagship's block layout with two layers a block and one head a block,
+# 35.75 M parameters, 51 GroupNorms, six heads of 256 (five at 16 x 16,
+# the mid block at 4 x 4)
+SINGLE_HEAD = {**FLAGSHIP, "layers_per_block": 2, "attention_head_dim": None}
+SINGLE_HEAD_CALLS = {"attention": 6, "group_norm": 51}
+SINGLE_HEAD_STEPS = 10
+# the family's sampler (README's 256 x 256 sampling row: DDIM-50 at batch
+# 8, two batches) and train step (scripts/endurance_256.py: micro-batch 8
+# x grad_accum 16, lr 1e-4, warmup 100, clip 1.0, EMA 0.999)
+HIGHRES_STEPS = 50
+HIGHRES_BATCH = 8
+HIGHRES_SAMPLES = 16
+HIGHRES_ACCUM = 16
+HIGHRES_TRAIN_STEPS = 3
+HIGHRES_PROFILE_STEPS = 5
+
+
+def sdpa_backend(qh, kh, vh, scale: float) -> str:
+    """The backend torch's scaled_dot_product_attention picks for these
+    inputs (its own dispatcher's choice)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    choice = int(torch._fused_sdp_choice(qh, kh, vh, scale=scale))
+    return next((b.name for b in SDPBackend.__members__.values()
+                 if int(b) == choice), str(choice))
+
+
+def attention_rows(time_ms, dev, g, B, T, C, heads, calls, dtype,
+                   forward: bool = True, backward: bool = True, timed: bool = True):
+    """Rows 1 and 2 at (B, T, C, heads) on the column thirds of one
+    (B, T, 3C) projection (the UNet's layout) against their plain
+    versions: the forward (and lse) to TOL, the three gradients to
+    BWD_TOL, each kernel called twice and bitwise equal. `forward` and
+    `backward` pick the rows made (the backward runs on the forward's lse
+    either way). Timed: ms beside the bound, the plain version and SDPA
+    (its backend named). Returns (forward row or None, backward row or
+    None)."""
     import torch
     import torch.nn.functional as F
+
+    from pdm_tpu_torch.ops import attention as attn_op
+
+    dname = str(dtype).split(".")[1]
+    hd = C // heads
+    qkv = torch.randn(B, T, 3 * C, generator=g, device=dev).to(dtype)
+    q, k, v = qkv.split(C, dim=-1)
+    do = (torch.randn(B, T, C, generator=g, device=dev).to(dtype)
+          if backward else None)
+    scale = 1.0 / math.sqrt(hd)
+    kind = attn_op._entry("fwd", hd)  # the C entry a call launches: the rows' label
+    where = f"{kind} {dname} B={B} T={T} C={C} heads={heads}"
+    esz = qkv.element_size()
+    reps, inner = (5, 5) if dtype == torch.float32 and hd > attn_op.NARROW_MAX_HEAD_DIM \
+        else (10, 20)
+    qh, kh, vh = (t.reshape(B, T, heads, hd).transpose(1, 2) for t in (q, k, v))
+    backend = sdpa_backend(qh, kh, vh, scale) if timed else None
+    base = {"shape": [B, T, C], "heads": heads, "dtype": dname, "kernel": kind,
+            "calls_per_step": calls}
+    out, lse = attn_op.attention_with_lse(q, k, v, heads, scale)
+    fwd = bwd = None
+    if forward:
+        out2, lse2 = attn_op.attention_with_lse(q, k, v, heads, scale)
+        ref, ref_lse = attn_op._reference_with_lse(q, k, v, heads, scale)
+        torch.cuda.synchronize()
+        err, ok, rtol, atol = compare(out, ref, dname)
+        lse_err = float((lse - ref_lse).abs().max())
+        lse_tol = 1e-4 * (1.0 + float(ref_lse.abs().max()))
+        worst = max(compare_fraction(out, ref, dname), lse_err / lse_tol)
+        same = torch.equal(out, out2) and torch.equal(lse, lse2)
+        fwd = {**base, "max_abs_err": err, "lse_max_abs_err": lse_err,
+               "worst_of_tolerance": worst, "bitwise_repeat": same,
+               "rtol": rtol, "atol": atol}
+        del out2, lse2, ref, ref_lse
+        if timed:
+            b_ms, b_by = bound(4 * B * T * C * esz + B * heads * T * 4,
+                               4 * B * T * T * C, dname)
+            ms, host_ms = time_ms(lambda: attn_op.attention_with_lse(
+                q, k, v, heads, scale), reps=reps, inner=inner)
+            fwd.update({
+                "ms": ms, "host_ms": host_ms,
+                "plain_ms": time_ms(lambda: attn_op._reference_with_lse(
+                    q, k, v, heads, scale), reps=reps, inner=5)[0],
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, scale=scale), reps=reps, inner=inner)[0],
+                "library_backend": backend, "bound_ms": b_ms, "bound_by": b_by})
+            log(f"attention {where} x{calls}/step: max_abs_err {err:.3g} (lse "
+                f"{lse_err:.3g}; tol rtol {rtol} atol {atol}; worst {worst:.3g} "
+                f"of it; bitwise repeat {same}) kernel_ms {ms:.4f} (host "
+                f"{host_ms:.4f}) plain_ms {fwd['plain_ms']:.4f} SDPA ({backend}) "
+                f"{fwd['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by})")
+        if not (ok and lse_err <= lse_tol and same):
+            fail(f"attention kernel disagrees with its plain version or is not "
+                 f"bitwise repeatable at {where}: worst {worst:.3g} of tol, "
+                 f"bitwise {same}")
+    if backward:
+        got = attn_op.attention_bwd(q, k, v, lse, do, heads, scale)
+        got2 = attn_op.attention_bwd(q, k, v, lse, do, heads, scale)
+        want = attn_op.attention_bwd_reference(q, k, v, lse, do, heads, scale)
+        torch.cuda.synchronize()
+        rtol, atol = BWD_TOL[dname]
+        checks = [compare_to_scale(a_, b_, rtol, atol) for a_, b_ in zip(got, want)]
+        err = max(c[0] for c in checks)
+        worst = max(tol_fraction(a_, b_, rtol, atol) for a_, b_ in zip(got, want))
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(got, got2))
+        bwd = {**base, "max_abs_err": err, "worst_of_tolerance": worst,
+               "bitwise_repeat": same, "rtol": rtol, "atol_of_scale": atol}
+        del got2, want
+        if timed:
+            qg, kg, vg = (t.detach().clone().requires_grad_() for t in (qh, kh, vh))
+            lib_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+            do_h = do.reshape(B, T, heads, hd).transpose(1, 2)
+            b_ms, b_by = bound(7 * B * T * C * esz + B * heads * T * 4,
+                               10 * B * T * T * C, dname)
+            ms, host_ms = time_ms(lambda: attn_op.attention_bwd(
+                q, k, v, lse, do, heads, scale), reps=reps, inner=inner)
+            bwd.update({
+                "ms": ms, "host_ms": host_ms,
+                "plain_ms": time_ms(lambda: attn_op.attention_bwd_reference(
+                    q, k, v, lse, do, heads, scale), reps=reps, inner=3)[0],
+                "library_ms": time_ms(lambda: torch.autograd.grad(
+                    lib_out, (qg, kg, vg), do_h, retain_graph=True),
+                    reps=reps, inner=inner)[0],
+                "library_backend": backend, "bound_ms": b_ms, "bound_by": b_by})
+            del lib_out, qg, kg, vg
+            log(f"attention backward {where} x{calls}/step: max_abs_err {err:.3g} "
+                f"(tol rtol {rtol} atol {atol} of scale; worst {worst:.3g} of it; "
+                f"bitwise repeat {same}) kernel_ms {ms:.4f} (host {host_ms:.4f}) "
+                f"plain_ms {bwd['plain_ms']:.4f} SDPA backward ({backend}) "
+                f"{bwd['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by})")
+        if not (all(c[1] for c in checks) and same):
+            fail(f"attention backward kernels disagree with their plain version "
+                 f"or are not bitwise repeatable at {where}: worst {worst:.3g} of "
+                 f"tol, bitwise {same}")
+    return fwd, bwd
+
+
+def group_norm_rows(time_ms, dev, g, B, S, C, G, dname, act, calls,
+                    forward: bool = True, backward: bool = True):
+    """Rows 3 and 4 at (B, S, C), G groups, against their plain versions:
+    the forward to TOL, dx to BWD_TOL and dscale / dbias to
+    PARAM_GRAD_TOL, each kernel called twice and bitwise equal; each timed
+    beside the bound, the plain version and F.group_norm (+ SiLU) on the
+    channels_last image. `forward` and `backward` pick the rows made.
+    Returns (forward row or None, backward row or None)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pdm_tpu_torch.ops import groupnorm as gn_op
+
+    dtype = getattr(torch, dname)
+    x = torch.randn(B, S, C, generator=g, device=dev).to(dtype)
+    dy = torch.randn(B, S, C, generator=g, device=dev).to(dtype) if backward else None
+    scale = 1.0 + 0.2 * torch.randn(C, generator=g, device=dev)
+    bias = 0.1 * torch.randn(C, generator=g, device=dev)
+    side = int(round(math.sqrt(S)))
+    x4 = x.view(B, side, side, C).permute(0, 3, 1, 2)  # channels_last
+    sc_b, bi_b = scale.to(dtype), bias.to(dtype)
+    where = f"{dname} B={B} S={S} C={C} groups={G} act={act}"
+    base = {"shape": [B, S, C], "groups": G, "act": act, "dtype": dname,
+            "calls_per_step": calls}
+    fwd = bwd = None
+    if forward:
+        y = gn_op.fused_group_norm_act(x, scale, bias, G, 1e-6, act)
+        y2 = gn_op.fused_group_norm_act(x, scale, bias, G, 1e-6, act)
+        ref = gn_op.group_norm_reference(x, scale, bias, G, 1e-6, act).to(dtype)
+        torch.cuda.synchronize()
+        err, ok, rtol, atol = compare(y, ref, dname)
+        worst = compare_fraction(y, ref, dname)
+        same = bool(torch.equal(y, y2))
+        plan = gn_op.plan_group_norm(B, S, C, G, x.element_size(), False)
+        del y, y2, ref
+
+        def library():
+            z = F.group_norm(x4, G, sc_b, bi_b, 1e-6)
+            return F.silu(z) if act == "silu" else z
+
+        b_ms, b_by = bound(2 * x.numel() * x.element_size() + 2 * C * 4,
+                           (12 if act == "silu" else 8) * x.numel(), "float32")
+        ms, host_ms = time_ms(
+            lambda: gn_op.fused_group_norm_act(x, scale, bias, G, 1e-6, act))
+        fwd = {**base, "plan": list(plan), "max_abs_err": err,
+               "worst_of_tolerance": worst, "bitwise_repeat": same, "rtol": rtol,
+               "atol": atol, "ms": ms, "host_ms": host_ms,
+               "plain_ms": time_ms(lambda: gn_op.group_norm_reference(
+                   x, scale, bias, G, 1e-6, act).to(dtype), inner=5)[0],
+               "library_ms": time_ms(library)[0],
+               "bound_ms": b_ms, "bound_by": b_by}
+        log(f"groupnorm {where} x{calls}/step plan {tuple(plan)}: max_abs_err "
+            f"{err:.3g} (tol rtol {rtol} atol {atol}; worst {worst:.3g} of it; "
+            f"bitwise repeat {same}) kernel_ms {ms:.4f} (host {host_ms:.4f}) "
+            f"plain_ms {fwd['plain_ms']:.4f} library_ms {fwd['library_ms']:.4f} "
+            f"bound_ms {b_ms:.4f} ({b_by})")
+        if not (ok and same):
+            fail(f"GroupNorm kernel disagrees with its plain version or is not "
+                 f"bitwise repeatable at {where}")
+    if backward:
+        got = gn_op.group_norm_bwd(x, scale, bias, dy, G, 1e-6, act)
+        again = gn_op.group_norm_bwd(x, scale, bias, dy, G, 1e-6, act)
+        want = gn_op.group_norm_bwd_reference(x, scale, bias, dy, G, 1e-6, act)
+        torch.cuda.synchronize()
+        rtol, atol = BWD_TOL[dname]
+        checks = [compare_to_scale(got[0], want[0], rtol, atol)] + [
+            compare_to_scale(a_, b_, *PARAM_GRAD_TOL) for a_, b_ in zip(got[1:], want[1:])]
+        err, ok = max(c[0] for c in checks), all(c[1] for c in checks)
+        worst = max([tol_fraction(got[0], want[0], rtol, atol)] + [
+            tol_fraction(a_, b_, *PARAM_GRAD_TOL) for a_, b_ in zip(got[1:], want[1:])])
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+        plan = gn_op.plan_group_norm(B, S, C, G, x.element_size(), True)
+        del got, again, want
+        x4g = x4.detach().clone().requires_grad_()
+        sc_g, bi_g = sc_b.clone().requires_grad_(), bi_b.clone().requires_grad_()
+        lib_out = F.group_norm(x4g, G, sc_g, bi_g, 1e-6)
+        if act == "silu":
+            lib_out = F.silu(lib_out)
+        dy4 = dy.view(B, side, side, C).permute(0, 3, 1, 2)
+        b_ms, b_by = bound(3 * x.numel() * x.element_size() + 4 * C * 4,
+                           GN_BWD_OPS[act] * x.numel(), "float32")
+        ms, host_ms = time_ms(lambda: gn_op.group_norm_bwd(
+            x, scale, bias, dy, G, 1e-6, act))
+        bwd = {**base, "plan": list(plan), "max_abs_err": err,
+               "worst_of_tolerance": worst, "bitwise_repeat": same, "rtol": rtol,
+               "atol_of_scale": atol, "ms": ms, "host_ms": host_ms,
+               "plain_ms": time_ms(lambda: gn_op.group_norm_bwd_reference(
+                   x, scale, bias, dy, G, 1e-6, act), inner=3)[0],
+               "library_ms": time_ms(lambda: torch.autograd.grad(
+                   lib_out, (x4g, sc_g, bi_g), dy4, retain_graph=True))[0],
+               "bound_ms": b_ms, "bound_by": b_by}
+        del lib_out, x4g
+        log(f"groupnorm backward {where} x{calls}/step plan {tuple(plan)}: "
+            f"max_abs_err {err:.3g} (dx tol rtol {rtol} atol {atol} of scale; "
+            f"dscale/dbias {PARAM_GRAD_TOL}; worst {worst:.3g} of it; bitwise "
+            f"repeat {same}) kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms "
+            f"{bwd['plain_ms']:.4f} library_ms {bwd['library_ms']:.4f} bound_ms "
+            f"{b_ms:.4f} ({b_by})")
+        if not (ok and same):
+            fail(f"GroupNorm backward kernel disagrees with its plain version or "
+                 f"is not bitwise repeatable at {where}")
+    return fwd, bwd
+
+
+def wide_edge_rows(dev, g):
+    """Rows 1 and 2, untimed, at WIDE_EDGE_HD x WIDE_EDGE_T (one head, B 2,
+    every shape the gate admits), bf16 and fp32; the worst of each kernel
+    and dtype printed."""
+    import torch
+
+    from pdm_tpu_torch.ops import attention as attn_op
+
+    fwd_rows, bwd_rows = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for T in WIDE_EDGE_T:
+            for hd in WIDE_EDGE_HD:
+                if not attn_op.use_fused_attention(T, hd, 1):
+                    continue
+                f, b = attention_rows(None, dev, g, 2, T, hd, 1, 0, dtype,
+                                      timed=False)
+                fwd_rows.append(f)
+                bwd_rows.append(b)
+    for dname in ("bfloat16", "float32"):
+        f = [r for r in fwd_rows if r["dtype"] == dname]
+        b = [r for r in bwd_rows if r["dtype"] == dname]
+        log(f"attention wide-head edges {dname}: hd {WIDE_EDGE_HD} x T "
+            f"{WIDE_EDGE_T}, {len(f)} shapes: worst forward "
+            f"{max(r['worst_of_tolerance'] for r in f):.3g}, backward "
+            f"{max(r['worst_of_tolerance'] for r in b):.3g} of the tolerance; "
+            f"every call bitwise repeatable")
+    return fwd_rows, bwd_rows
+
+
+def model_calls(net, x, tau):
+    """One forward of `net` with hooks: {(T, C, heads): calls} of its
+    attention blocks and {(S, C, act): calls} of its GroupNorms."""
+    import torch
+
+    from pdm_tpu_torch.models.unet import AttentionBlock, GroupNormAct
+
+    attn, gn = {}, {}
+
+    def count(table, key):
+        table[key] = table.get(key, 0) + 1
+
+    hooks = []
+    for m in net.modules():
+        if isinstance(m, GroupNormAct):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, a: count(gn, (a[0].shape[2] * a[0].shape[3],
+                                          a[0].shape[1], mod.act))))
+        elif isinstance(m, AttentionBlock):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, a: count(attn, (a[0].shape[2] * a[0].shape[3],
+                                            a[0].shape[1], mod.heads))))
+    try:
+        with torch.no_grad():
+            net(x, tau)
+    finally:
+        for h in hooks:
+            h.remove()
+    return attn, gn
+
+
+@contextlib.contextmanager
+def plain_attention_spy():
+    """Counts the UNet's calls of the plain attention branch
+    (models/unet.py's attention_reference) on CUDA tensors, for the
+    duration: {"cuda": n, "cpu": n}."""
+    import pdm_tpu_torch.models.unet as unet_mod
+
+    calls = {"cuda": 0, "cpu": 0}
+    plain = unet_mod.attention_reference
+
+    def spy(q, *args, **kw):
+        calls["cuda" if q.is_cuda else "cpu"] += 1
+        return plain(q, *args, **kw)
+
+    unet_mod.attention_reference = spy
+    try:
+        yield calls
+    finally:
+        unet_mod.attention_reference = plain
+
+
+def launch_counts():
+    from pdm_tpu_torch.ops import attention as attn_op
+    from pdm_tpu_torch.ops import groupnorm as gn_op
+
+    return {"attention_fwd": attn_op.fused_spatial_attention.launches,
+            "attention_bwd": attn_op.attention_bwd.launches,
+            "group_norm_fwd": gn_op.fused_group_norm_act.launches,
+            "group_norm_bwd": gn_op.group_norm_bwd.launches}
+
+
+def zero_launches():
+    from pdm_tpu_torch.ops import attention as attn_op
+    from pdm_tpu_torch.ops import groupnorm as gn_op
+
+    for fn in (attn_op.fused_spatial_attention, attn_op.attention_bwd,
+               gn_op.fused_group_norm_act, gn_op.group_norm_bwd):
+        fn.launches = 0
+
+
+def host_clock() -> dict:
+    """The host's state now, beside a host-bound time: the load average,
+    the cores' current clocks as /proc/cpuinfo lists them (none where it
+    lists none), and the ms a fixed pure-Python loop takes this thread."""
+    mhz = []
+    try:
+        with open("/proc/cpuinfo") as f:
+            mhz = [float(line.split(":")[1]) for line in f if line.startswith("cpu MHz")]
+    except (OSError, ValueError):
+        mhz = []
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(200_000):
+        acc += i & 7
+    return {"load_1m": os.getloadavg()[0],
+            "mhz_mean": statistics.fmean(mhz) if mhz else None,
+            "mhz_min": min(mhz, default=None), "mhz_max": max(mhz, default=None),
+            "loop_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def highres_phase(time_ms, dev, smi: str) -> dict:
+    """Phase 23: the 256x256 family (CELEBAHQ_UNET, bf16, seeded weights)
+    and the single-head 32 x 32 DDPM on the card. (a) The family's layout
+    from one card forward with hooks: 113.67 M parameters, 6 attention
+    blocks of one head of 512, 71 GroupNorms. (b) Rows 1 and 2 against
+    their plain versions at every attention shape of the family (B 8) and
+    of the single-head 32 x 32 model (B 64 forward, B 128 backward), bf16
+    and fp32, timed, and at the wide kernels' edge head dims, untimed;
+    rows 3 and 4 at every GroupNorm shape of the family at B 8, timed.
+    (c) Sampling through the diffusers entry point: config.json and the
+    seeded weights written by write_safetensors into a temporary
+    directory, then load_config -> ddpm_from_config(model_name diffusers)
+    -> the sample CLI's build_sampler: DDIM-50 at batch 8, two batches,
+    with exact launches (6 row-1 and 71 row-3 a step) and no plain
+    attention on a CUDA tensor; ms a step, samples/s, peak memory and the
+    card's idle share. (d) DDPMTrainer at batch 8 x grad_accum 16 (the
+    global batch 128 of scripts/endurance_256.py), three steps on seeded
+    N(0, 1) 256 x 256 data after a warm one: finite loss, exact launches
+    (rows 1-4: 6, 12, 71 and 71 a micro-batch), ms a step, img/s, peak
+    memory, idle share. (e) The fp32 family at batch 1 on the card against
+    the same weights on the CPU (FORWARD_TOL). (f) The single-head 32 x 32
+    DDPM's DDIM-10 at batch 64: 6 row-1 (head dim 256) and 51 row-3
+    launches a step."""
+    import torch
+
+    from pdm_tpu_torch.config.loader import (
+        load_config, parse_args_from_config, update_config_from_args,
+    )
+    from pdm_tpu_torch.diffusion.sampling import DDPMSampler
+    from pdm_tpu_torch.diffusion.trainer import DDPMTrainer, step_generator
+    from pdm_tpu_torch.models.configs import (
+        CELEBAHQ_UNET, HIGHRES_CALLS, HIGHRES_PARAMS_M, HIGHRES_SIZE,
+    )
+    from pdm_tpu_torch.models.diffusers_import import write_safetensors
+    from pdm_tpu_torch.models.from_config import ddpm_from_config
+    from pdm_tpu_torch.models.unet import unet_from_config
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+    from pdm_tpu_torch.scripts.sample import build_sampler
+
+    t_phase = time.perf_counter()
+    out = {"smi": smi}
+    g = torch.Generator(device=dev).manual_seed(23)
+    size = HIGHRES_SIZE
+
+    # (a) the family's layout: the fp32 CPU model (also (e)'s reference)
+    cpu_net = unet_from_config(3, CELEBAHQ_UNET, dtype=torch.float32, device="cpu")
+    weights = seeded_state_dict(cpu_net, seed=23)
+    cpu_net.load_state_dict(weights)
+    n_params = sum(p.numel() for p in cpu_net.parameters())
+    net = unet_from_config(3, CELEBAHQ_UNET, dtype=torch.bfloat16, device=dev)
+    net.load_state_dict(weights)
+    attn_calls, gn_calls = model_calls(
+        net, torch.randn(1, 3, size, size, generator=g, device=dev).bfloat16(),
+        torch.tensor([0.5], device=dev))
+    per_fwd = {"attention": sum(attn_calls.values()), "group_norm": sum(gn_calls.values())}
+    log(f"256x256 family: {n_params:,} parameters; per forward {per_fwd} "
+        f"(attention (T, C, heads): {attn_calls}; {len(gn_calls)} GroupNorm "
+        f"shapes (S, C, act))")
+    if (round(n_params / 1e6, 2) != HIGHRES_PARAMS_M or per_fwd != HIGHRES_CALLS
+            or any(h != 1 or c != 512 for _, c, h in attn_calls)):
+        fail(f"256x256 family: {n_params} parameters, {per_fwd} calls, attention "
+             f"{attn_calls}: not the family's layout")
+    del net
+
+    # (b) the kernels at the family's shapes and the single-head 32 x 32's
+    sh_attn = {(256, 256, 1): 5, (16, 256, 1): 1}
+    fwd_family, bwd_family, fwd_single, bwd_single = [], [], [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        for (T, C, heads), calls in sorted(attn_calls.items(), reverse=True):
+            f, b = attention_rows(time_ms, dev, g, HIGHRES_BATCH, T, C, heads,
+                                  calls if bf16 else 0, dtype)
+            fwd_family.append(f)
+            bwd_family.append(b)
+        for (T, C, heads), calls in sorted(sh_attn.items(), reverse=True):
+            c = calls if bf16 else 0
+            fwd_single.append(attention_rows(time_ms, dev, g, BATCH, T, C, heads, c,
+                                             dtype, backward=False)[0])
+            bwd_single.append(attention_rows(time_ms, dev, g, TRAIN_BATCH, T, C,
+                                             heads, c, dtype, forward=False)[1])
+    edge_fwd, edge_bwd = wide_edge_rows(dev, g)
+    gn_fwd, gn_bwd = [], []
+    for (S, C, act), calls in sorted(gn_calls.items(), key=lambda kv: -kv[0][0] * kv[0][1]):
+        f, b = group_norm_rows(time_ms, dev, g, HIGHRES_BATCH, S, C, 32, "bfloat16",
+                               act, calls)
+        gn_fwd.append(f)
+        gn_bwd.append(b)
+    torch.cuda.empty_cache()
+    out["rows"] = {"attention_fwd": fwd_family, "attention_bwd": bwd_family,
+                   "single_fwd": fwd_single, "single_bwd": bwd_single,
+                   "edge_fwd": edge_fwd, "edge_bwd": edge_bwd,
+                   "group_norm_fwd": gn_fwd, "group_norm_bwd": gn_bwd}
+    log(f"phase 23 (b) done at {time.perf_counter() - t_phase:.1f} s")
+
+    # (c) the diffusers entry point: write, load, sample
+    tmp = tempfile.mkdtemp(prefix="pdm_highres_")
+    try:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({"_class_name": "UNet2DModel", "sample_size": size,
+                       "in_channels": 3, "out_channels": 3, **CELEBAHQ_UNET}, f)
+        t0 = time.perf_counter()
+        write_safetensors(os.path.join(tmp, "diffusion_pytorch_model.safetensors"),
+                          weights)
+        write_s = time.perf_counter() - t0
+        cfg = load_config()
+        update_config_from_args(cfg, parse_args_from_config(cfg, [
+            "--dataset_name", "celeba-hq", "--ddpm.model_name", "diffusers",
+            "--ddpm.diffusers_path", tmp, "--ddpm.precision", "bf16",
+            "--sample.step_type", "ddim", "--sample.n_steps", str(HIGHRES_STEPS),
+            "--sample.batch_size", str(HIGHRES_BATCH),
+            "--sample.n_samples", str(HIGHRES_SAMPLES),
+            "--sample.precision", "half"]))
+        t0 = time.perf_counter()
+        ddpm = ddpm_from_config(cfg, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    loaded = ddpm.module.state_dict()
+    same = loaded.keys() == weights.keys() and all(
+        torch.equal(loaded[k].cpu(), v.to(loaded[k].dtype)) for k, v in weights.items())
+    log(f"256x256 family through the diffusers entry point: safetensors "
+        f"written in {write_s:.2f} s, ddpm_from_config(model_name diffusers) "
+        f"built the {cfg.ddpm.precision} model on {ddpm.device} in {load_s:.2f} s "
+        f"(tau_scale {ddpm.tau_scale}); weights bitwise the written ones cast to "
+        f"the module's dtypes: {same}")
+    if not same or ddpm.device != dev or ddpm.module.dtype != torch.bfloat16:
+        fail("256x256 family: the diffusers import did not give the written model")
+    sampler = build_sampler(cfg, ddpm=ddpm, device=dev)
+    if (sampler.step_type, sampler.n_steps, sampler.batch_size) != (
+            "ddim", HIGHRES_STEPS, HIGHRES_BATCH):
+        fail("256x256 family: build_sampler did not give DDIM-50 at batch 8")
+    # a short run of the same sampler: the warm-up, then the profiled window
+    short = DDPMSampler(ddpm=ddpm, scheduler=sampler.scheduler,
+                        n_steps=HIGHRES_PROFILE_STEPS, obj_size=(3, size, size),
+                        batch_size=HIGHRES_BATCH, n_samples=HIGHRES_BATCH,
+                        step_type="ddim", precision="half", device=dev)
+    short.batch_sample(torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_attention_spy() as plain:
+        host = [host_clock()]
+        zero_launches()
+        t0 = time.perf_counter()
+        samples = sampler.sample()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        host.append(host_clock())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    x = torch.as_tensor(samples["x"])
+    n_steps = HIGHRES_STEPS * (HIGHRES_SAMPLES // HIGHRES_BATCH)
+    ms_step = wall / n_steps * 1e3
+    busy = profile_steps(lambda: short.batch_sample(
+        torch.Generator(device=dev).manual_seed(4)), HIGHRES_PROFILE_STEPS,
+        label="256x256 sampling profile")
+    want = {"attention_fwd": 6 * n_steps, "attention_bwd": 0,
+            "group_norm_fwd": 71 * n_steps, "group_norm_bwd": 0}
+    log(f"256x256 family sampling: DDIM-{HIGHRES_STEPS}, {HIGHRES_SAMPLES} samples "
+        f"in batches of {HIGHRES_BATCH}: {wall:.3f} s, {ms_step:.3f} ms/step, "
+        f"{HIGHRES_SAMPLES / wall:.3f} samples/s, peak memory {peak:.2f} GiB; "
+        f"launches {launches} (want {want}); plain attention calls on CUDA "
+        f"tensors {plain['cuda']}; the card busy {busy:.3f} ms of a step, idle "
+        f"{1.0 - busy / ms_step:.1%}; output {tuple(x.shape)} mean "
+        f"{float(x.float().mean()):.4g} std {float(x.float().std()):.4g}; host "
+        f"before / after {host}")
+    if launches != want or plain["cuda"]:
+        fail(f"256x256 family sampling: launches {launches} != {want} or plain "
+             f"attention on CUDA tensors {plain['cuda']} times")
+    if tuple(x.shape) != (HIGHRES_SAMPLES, 3, size, size) or not bool(
+            torch.isfinite(x).all()):
+        fail(f"256x256 family sampling: output not finite of shape "
+             f"({HIGHRES_SAMPLES}, 3, {size}, {size})")
+    out["sampling"] = {"launches": launches, "steps": n_steps, "ms_per_step": ms_step,
+                       "samples_per_s": HIGHRES_SAMPLES / wall, "peak_gib": peak,
+                       "busy_ms_per_step": busy, "idle_share": 1.0 - busy / ms_step,
+                       "plain_attention_cuda_calls": plain["cuda"], "host": host}
+    del ddpm, sampler, short, samples, x
+    torch.cuda.empty_cache()
+
+    # (d) the train step: batch 8 x grad_accum 16
+    sched = LinearBetaScheduler(1e-4, 2.478e4)
+    net_t = unet_from_config(3, CELEBAHQ_UNET, dtype=torch.bfloat16, device=dev)
+    ddpm_t = UNetDDPM(sched, net_t, parametrization="eps", device=dev)
+    trainer = DDPMTrainer(ddpm_t, learning_rate=1e-4, warmup_steps=100,
+                          total_iters=1000, grad_clip=1.0, ema_decay=0.999,
+                          grad_accum=HIGHRES_ACCUM)
+    state = trainer.init_state(weights)
+    global_batch = HIGHRES_BATCH * HIGHRES_ACCUM
+    x_train = torch.randn(global_batch, 3, size, size, generator=g, device=dev)
+    state, _ = trainer.train_step(state, x_train, step_generator(0, 1, dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    with plain_attention_spy() as plain:
+        host = [host_clock()]
+        zero_launches()
+        t0 = time.perf_counter()
+        for it in range(HIGHRES_TRAIN_STEPS):
+            state, m = trainer.train_step(state, x_train, step_generator(0, it + 2, dev))
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        host.append(host_clock())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = torch.stack(losses).float().cpu()
+    micro = HIGHRES_TRAIN_STEPS * HIGHRES_ACCUM
+    want = {"attention_fwd": 6 * micro, "attention_bwd": 12 * micro,
+            "group_norm_fwd": 71 * micro, "group_norm_bwd": 71 * micro}
+    ms_step = wall / HIGHRES_TRAIN_STEPS * 1e3
+    gen_p = step_generator(0, 100, dev)
+    busy = profile_steps(lambda: trainer.train_step(state, x_train, gen_p), 1,
+                         label="256x256 training profile")
+    log(f"256x256 family training: bf16, fp32 masters, batch {HIGHRES_BATCH} x "
+        f"grad_accum {HIGHRES_ACCUM} = {global_batch}: {HIGHRES_TRAIN_STEPS} steps "
+        f"in {wall:.3f} s, {ms_step:.3f} ms/step, {global_batch / ms_step * 1e3:.3f} "
+        f"img/s, peak memory {peak:.2f} GiB; losses {losses.tolist()}; launches "
+        f"{launches} (want {want}); plain attention calls on CUDA tensors "
+        f"{plain['cuda']}; the card busy {busy:.3f} ms of a step, idle "
+        f"{1.0 - busy / ms_step:.1%}; host before / after {host}")
+    if launches != want or plain["cuda"]:
+        fail(f"256x256 family training: launches {launches} != {want} or plain "
+             f"attention on CUDA tensors {plain['cuda']} times")
+    if not bool(torch.isfinite(losses).all()):
+        fail("256x256 family training: loss not finite")
+    out["training"] = {"launches": launches, "micro_batches": micro,
+                       "ms_per_step": ms_step, "img_per_s": global_batch / ms_step * 1e3,
+                       "peak_gib": peak, "busy_ms_per_step": busy,
+                       "idle_share": 1.0 - busy / ms_step, "losses": losses.tolist(),
+                       "host": host}
+    del trainer, state, net_t, ddpm_t, x_train
+    torch.cuda.empty_cache()
+
+    # (e) fp32 forward at batch 1, card against CPU
+    net32 = unet_from_config(3, CELEBAHQ_UNET, dtype=torch.float32, device=dev)
+    net32.load_state_dict(weights)
+    rng = np.random.RandomState(23)
+    x1 = torch.from_numpy(rng.standard_normal((1, 3, size, size)).astype(np.float32))
+    tau1 = torch.tensor([0.5])
+    zero_launches()
+    with torch.no_grad():
+        card = net32(x1.to(dev), tau1.to(dev)).cpu()
+        n_card = launch_counts()
+        t0 = time.perf_counter()
+        ref = cpu_net(x1, tau1)
+        cpu_s = time.perf_counter() - t0
+    scale_o = float(ref.abs().max())
+    err = float((card - ref).abs().max())
+    log(f"256x256 family fp32 forward B=1, card (kernels: {n_card}) vs CPU (plain, "
+        f"{cpu_s:.1f} s): max_abs_err {err:.3g} of output scale {scale_o:.3g} "
+        f"(tol {FORWARD_TOL} of scale)")
+    if not (math.isfinite(err) and err <= FORWARD_TOL * scale_o) or (
+            n_card["attention_fwd"], n_card["group_norm_fwd"]) != (6, 71):
+        fail("256x256 family fp32 forward on the card disagrees with the CPU")
+    out["card_vs_cpu"] = {"max_abs_err": err, "scale": scale_o}
+    del net32, cpu_net
+
+    # (f) the single-head 32 x 32 DDPM, DDIM-10 at batch 64
+    net_s = unet_from_config(3, SINGLE_HEAD, dtype=torch.bfloat16, device=dev)
+    net_s.load_state_dict(seeded_state_dict(
+        unet_from_config(3, SINGLE_HEAD, device="meta"), seed=24))
+    ddpm_s = UNetDDPM(sched, net_s, parametrization="eps", device=dev)
+    attn_s, gn_s = model_calls(
+        net_s, torch.randn(1, 3, 32, 32, generator=g, device=dev).bfloat16(),
+        torch.tensor([0.5], device=dev))
+    sampler = DDPMSampler(ddpm=ddpm_s, scheduler=sched, n_steps=SINGLE_HEAD_STEPS,
+                          obj_size=(3, 32, 32), batch_size=BATCH, n_samples=BATCH,
+                          step_type="ddim", precision="half", device=dev)
+    sampler.batch_sample(torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    with plain_attention_spy() as plain:
+        zero_launches()
+        t0 = time.perf_counter()
+        xs = sampler.batch_sample(torch.Generator(device=dev).manual_seed(3))["x"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    n_s = sum(p.numel() for p in net_s.parameters())
+    want = {"attention_fwd": SINGLE_HEAD_CALLS["attention"] * SINGLE_HEAD_STEPS,
+            "attention_bwd": 0,
+            "group_norm_fwd": SINGLE_HEAD_CALLS["group_norm"] * SINGLE_HEAD_STEPS,
+            "group_norm_bwd": 0}
+    log(f"single-head 32x32 DDPM ({n_s:,} parameters; attention {attn_s}): "
+        f"DDIM-{SINGLE_HEAD_STEPS} at batch {BATCH}: {wall / SINGLE_HEAD_STEPS * 1e3:.3f} "
+        f"ms/step; launches {launches} (want {want}); plain attention calls on "
+        f"CUDA tensors {plain['cuda']}")
+    if (launches != want or plain["cuda"] or set(attn_s) != set(sh_attn)
+            or sum(gn_s.values()) != SINGLE_HEAD_CALLS["group_norm"]
+            or not bool(torch.isfinite(xs).all())):
+        fail("single-head 32x32 DDPM: launches, layout or output wrong")
+    out["single_head"] = {"launches": launches, "steps": SINGLE_HEAD_STEPS,
+                          "ms_per_step": wall / SINGLE_HEAD_STEPS * 1e3,
+                          "params": n_s}
+    del net_s, ddpm_s, sampler
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 23 took {out['seconds']:.1f} s")
+    return out
+
+
+def main() -> int:
+    import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5194,52 +5890,10 @@ def main() -> int:
         ((T, heads * hd, heads), 0) for T, hd, heads in ATTN_EDGES]
 
     def attention_fwd_rows(batch, dtypes, shapes):
-        rows = []
-        for dtype in dtypes:
-            dname = str(dtype).split(".")[1]
-            for (T, C, heads), calls in shapes:
-                qkv = torch.randn(batch, T, 3 * C, generator=g, device=dev).to(dtype)
-                q, k, v = qkv.split(C, dim=-1)  # the UNet's layout: rows 3C apart
-                scale = 1.0 / math.sqrt(C // heads)
-                out, lse = attn_op.attention_with_lse(q, k, v, heads, scale)
-                ref, ref_lse = attn_op._reference_with_lse(q, k, v, heads, scale)
-                torch.cuda.synchronize()
-                err, ok, rtol, atol = compare(out, ref, dname)
-                lse_err = float((lse - ref_lse).abs().max())
-                lse_tol = 1e-4 * (1.0 + float(ref_lse.abs().max()))
-                ok = ok and lse_err <= lse_tol
-                worst = max(compare_fraction(out, ref, dname), lse_err / lse_tol)
-                hd = C // heads
-                qh, kh, vh = (t.view(batch, T, heads, hd).transpose(1, 2)
-                              for t in (q, k, v))
-                esz = qkv.element_size()
-                b_ms, b_by = bound(4 * batch * T * C * esz + batch * heads * T * 4,
-                                   4 * batch * T * T * C, dname)
-                ms, host_ms = time_ms(
-                    lambda: attn_op.attention_with_lse(q, k, v, heads, scale))
-                row = {
-                    "shape": [batch, T, C], "heads": heads, "dtype": dname,
-                    "calls_per_step": calls if dtype == torch.bfloat16 else 0,
-                    "max_abs_err": err, "lse_max_abs_err": lse_err,
-                    "worst_of_tolerance": worst,
-                    "rtol": rtol, "atol": atol, "ms": ms, "host_ms": host_ms,
-                    "plain_ms": time_ms(lambda: attn_op._reference_with_lse(
-                        q, k, v, heads, scale), inner=5)[0],
-                    "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                        qh, kh, vh, scale=scale))[0],
-                    "bound_ms": b_ms, "bound_by": b_by,
-                }
-                rows.append(row)
-                log(f"attention {dname} B={batch} T={T} C={C} heads={heads} "
-                    f"x{calls}/step: max_abs_err {err:.3g} (lse {lse_err:.3g}; tol "
-                    f"rtol {rtol} atol {atol}; worst {worst:.3g} of it) kernel_ms "
-                    f"{ms:.4f} (host {host_ms:.4f}) plain_ms "
-                    f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
-                    f"bound_ms {b_ms:.4f} ({b_by}) {'ok' if ok else 'MISMATCH'}")
-                if not ok:
-                    fail(f"attention kernel disagrees with its plain version at "
-                         f"{row['shape']} {dname}")
-        return rows
+        return [attention_rows(time_ms, dev, g, batch, T, C, heads,
+                               calls if dtype == torch.bfloat16 else 0, dtype,
+                               backward=False)[0]
+                for dtype in dtypes for (T, C, heads), calls in shapes]
 
     def group_norm_shapes(batch, edges):
         """The main path's GroupNorm shapes at `batch` (bf16, 32 groups)
@@ -5248,62 +5902,9 @@ def main() -> int:
                  for (S, C, act), calls in sorted(gn_calls.items(), reverse=True)]
                 + [(edge, 0) for edge in (GN_EDGES if edges else ())])
 
-    def gn_inputs(B, S, C, dname, with_dy=False):
-        dtype = getattr(torch, dname)
-        x = torch.randn(B, S, C, generator=g, device=dev).to(dtype)
-        dy = torch.randn(B, S, C, generator=g, device=dev).to(dtype) if with_dy else None
-        scale = 1.0 + 0.2 * torch.randn(C, generator=g, device=dev)
-        bias = 0.1 * torch.randn(C, generator=g, device=dev)
-        return x, dy, scale, bias
-
     def group_norm_fwd_rows(batch, edges):
-        rows = []
-        for (B, S, C, G, dname, act), calls in group_norm_shapes(batch, edges):
-            x, _, scale, bias = gn_inputs(B, S, C, dname)
-            y = gn_op.fused_group_norm_act(x, scale, bias, G, 1e-6, act)
-            y2 = gn_op.fused_group_norm_act(x, scale, bias, G, 1e-6, act)
-            ref = gn_op.group_norm_reference(x, scale, bias, G, 1e-6, act).to(x.dtype)
-            torch.cuda.synchronize()
-            err, ok, rtol, atol = compare(y, ref, dname)
-            worst = compare_fraction(y, ref, dname)
-            same = bool(torch.equal(y, y2))
-            plan = gn_op.plan_group_norm(B, S, C, G, x.element_size(), False)
-            side = int(round(math.sqrt(S)))
-            x4 = x.view(B, side, side, C).permute(0, 3, 1, 2)  # channels_last
-            sc_b, bi_b = scale.to(x.dtype), bias.to(x.dtype)
-
-            def library(x4=x4, sc_b=sc_b, bi_b=bi_b, act=act, G=G):
-                z = F.group_norm(x4, G, sc_b, bi_b, 1e-6)
-                return F.silu(z) if act == "silu" else z
-
-            b_ms, b_by = bound(2 * x.numel() * x.element_size() + 2 * C * 4,
-                               (12 if act == "silu" else 8) * x.numel(), "float32")
-            ms, host_ms = time_ms(
-                lambda: gn_op.fused_group_norm_act(x, scale, bias, G, 1e-6, act))
-            row = {
-                "shape": [B, S, C], "groups": G, "act": act, "dtype": dname,
-                "calls_per_step": calls, "plan": list(plan), "max_abs_err": err,
-                "worst_of_tolerance": worst, "bitwise_repeat": same, "rtol": rtol,
-                "atol": atol, "ms": ms, "host_ms": host_ms,
-                "plain_ms": time_ms(lambda: gn_op.group_norm_reference(
-                    x, scale, bias, G, 1e-6, act).to(x.dtype), inner=5)[0],
-                "library_ms": time_ms(library)[0],
-                "bound_ms": b_ms, "bound_by": b_by,
-            }
-            rows.append(row)
-            log(f"groupnorm {dname} B={B} S={S} C={C} groups={G} act={act} "
-                f"x{calls}/fwd plan {tuple(plan)}: max_abs_err {err:.3g} (tol rtol "
-                f"{rtol} atol {atol}; worst {worst:.3g} of it; two calls bitwise "
-                f"equal: {same}) kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms "
-                f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
-                f"{b_ms:.4f} ({b_by}) {'ok' if ok and same else 'MISMATCH'}")
-            if not ok:
-                fail(f"GroupNorm kernel disagrees with its plain version at "
-                     f"{row['shape']} groups={G} {dname} act={act}")
-            if not same:
-                fail(f"GroupNorm kernel not bitwise repeatable at {row['shape']} "
-                     f"groups={G} {dname} act={act}")
-        return rows
+        return [group_norm_rows(time_ms, dev, g, *shape, calls, backward=False)[0]
+                for shape, calls in group_norm_shapes(batch, edges)]
 
     attn_main = sorted(attn_calls.items(), reverse=True)
     attn_rows = (attention_fwd_rows(BATCH, (torch.bfloat16,), attn_shapes)
@@ -5395,115 +5996,16 @@ def main() -> int:
     attn_train_rows = attention_fwd_rows(TRAIN_BATCH, (torch.bfloat16,), attn_main)
     gn_train_rows = group_norm_fwd_rows(TRAIN_BATCH, edges=False)
 
-    def grad_ms(out, inputs, cot):
-        return time_ms(lambda: torch.autograd.grad(out, inputs, cot,
-                                                   retain_graph=True))[0]
-
-    attn_bwd_rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype).split(".")[1]
+    attn_bwd_rows = [
+        attention_rows(time_ms, dev, g, TRAIN_BATCH, T, C, heads,
+                       calls if dtype == torch.bfloat16 else 0, dtype, forward=False)[1]
+        for dtype in (torch.bfloat16, torch.float32)
         for (T, C, heads), calls in (attn_shapes if dtype == torch.bfloat16
-                                     else attn_main):
-            B, hd = TRAIN_BATCH, C // heads
-            qkv = torch.randn(B, T, 3 * C, generator=g, device=dev).to(dtype)
-            q, k, v = qkv.split(C, dim=-1)
-            do = torch.randn(B, T, C, generator=g, device=dev).to(dtype)
-            scale = 1.0 / math.sqrt(hd)
-            _, lse = attn_op.attention_with_lse(q, k, v, heads, scale)
-            got = attn_op.attention_bwd(q, k, v, lse, do, heads, scale)
-            want = attn_op.attention_bwd_reference(q, k, v, lse, do, heads, scale)
-            torch.cuda.synchronize()
-            rtol, atol = BWD_TOL[dname]
-            checks = [compare_to_scale(a_, b_, rtol, atol)
-                      for a_, b_ in zip(got, want)]
-            err, ok = max(c[0] for c in checks), all(c[1] for c in checks)
-            worst = max(tol_fraction(a_, b_, rtol, atol) for a_, b_ in zip(got, want))
-            esz = qkv.element_size()
-            b_ms, b_by = bound(7 * B * T * C * esz + B * heads * T * 4,
-                               10 * B * T * T * C, dname)
-            ms, host_ms = time_ms(lambda: attn_op.attention_bwd(
-                q, k, v, lse, do, heads, scale))
-            qh, kh, vh = (t.reshape(B, T, heads, hd).transpose(1, 2).detach()
-                          .clone().requires_grad_() for t in (q, k, v))
-            lib_out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
-            row = {
-                "shape": [B, T, C], "heads": heads, "dtype": dname,
-                "calls_per_step": calls if dtype == torch.bfloat16 else 0,
-                "max_abs_err": err, "worst_of_tolerance": worst, "rtol": rtol,
-                "atol_of_scale": atol, "ms": ms, "host_ms": host_ms,
-                "plain_ms": time_ms(lambda: attn_op.attention_bwd_reference(
-                    q, k, v, lse, do, heads, scale), inner=3)[0],
-                "library_ms": grad_ms(lib_out, (qh, kh, vh), do.reshape(
-                    B, T, heads, hd).transpose(1, 2)),
-                "bound_ms": b_ms, "bound_by": b_by,
-            }
-            attn_bwd_rows.append(row)
-            log(f"attention backward {dname} B={B} T={T} C={C} heads={heads} "
-                f"x{calls}/step: max_abs_err {err:.3g} (tol rtol {rtol} atol "
-                f"{atol} of scale; worst {worst:.3g} of it) "
-                f"kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms "
-                f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
-                f"bound_ms {b_ms:.4f} ({b_by}) {'ok' if ok else 'MISMATCH'}")
-            if not ok:
-                fail(f"attention backward kernels disagree with their plain "
-                     f"version at {row['shape']} {dname}")
-            del lib_out, qh, kh, vh
+                                     else attn_main)]
     attention_head_dim_sweep(attn_op, dev, g)
 
-    gn_bwd_rows = []
-    for (B, S, C, G, dname, act), calls in group_norm_shapes(TRAIN_BATCH, edges=True):
-        x, dy, scale, bias = gn_inputs(B, S, C, dname, with_dy=True)
-        got = gn_op.group_norm_bwd(x, scale, bias, dy, G, 1e-6, act)
-        again = gn_op.group_norm_bwd(x, scale, bias, dy, G, 1e-6, act)
-        want = gn_op.group_norm_bwd_reference(x, scale, bias, dy, G, 1e-6, act)
-        torch.cuda.synchronize()
-        rtol, atol = BWD_TOL[dname]
-        checks = [compare_to_scale(got[0], want[0], rtol, atol)] + [
-            compare_to_scale(a_, b_, *PARAM_GRAD_TOL)
-            for a_, b_ in zip(got[1:], want[1:])]
-        err, ok = max(c[0] for c in checks), all(c[1] for c in checks)
-        worst = max([tol_fraction(got[0], want[0], rtol, atol)] + [
-            tol_fraction(a_, b_, *PARAM_GRAD_TOL) for a_, b_ in zip(got[1:], want[1:])])
-        same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
-        plan = gn_op.plan_group_norm(B, S, C, G, x.element_size(), True)
-        side = int(round(math.sqrt(S)))
-        x4 = (x.view(B, side, side, C).permute(0, 3, 1, 2).detach().clone()
-              .requires_grad_())  # channels_last
-        sc_b = scale.to(x.dtype).requires_grad_()
-        bi_b = bias.to(x.dtype).requires_grad_()
-        lib_out = F.group_norm(x4, G, sc_b, bi_b, 1e-6)
-        if act == "silu":
-            lib_out = F.silu(lib_out)
-        b_ms, b_by = bound(3 * x.numel() * x.element_size() + 4 * C * 4,
-                           GN_BWD_OPS[act] * x.numel(), "float32")
-        ms, host_ms = time_ms(lambda: gn_op.group_norm_bwd(
-            x, scale, bias, dy, G, 1e-6, act))
-        row = {
-            "shape": [B, S, C], "groups": G, "act": act, "dtype": dname,
-            "calls_per_step": calls, "plan": list(plan), "max_abs_err": err,
-            "worst_of_tolerance": worst, "bitwise_repeat": same, "rtol": rtol,
-            "atol_of_scale": atol, "ms": ms, "host_ms": host_ms,
-            "plain_ms": time_ms(lambda: gn_op.group_norm_bwd_reference(
-                x, scale, bias, dy, G, 1e-6, act), inner=3)[0],
-            "library_ms": grad_ms(lib_out, (x4, sc_b, bi_b), dy.view(
-                B, side, side, C).permute(0, 3, 1, 2)),
-            "bound_ms": b_ms, "bound_by": b_by,
-        }
-        gn_bwd_rows.append(row)
-        log(f"groupnorm backward {dname} B={B} S={S} C={C} groups={G} act={act} "
-            f"x{calls}/step plan {tuple(plan)}: max_abs_err {err:.3g} (dx tol rtol "
-            f"{rtol} atol {atol} of scale; dscale/dbias {PARAM_GRAD_TOL}; worst "
-            f"{worst:.3g} of it; two calls bitwise equal: {same}) kernel_ms "
-            f"{ms:.4f} (host {host_ms:.4f}) plain_ms {row['plain_ms']:.4f} "
-            f"library_ms {row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}) "
-            f"{'ok' if ok and same else 'MISMATCH'}")
-        if not ok:
-            fail(f"GroupNorm backward kernel disagrees with its plain version "
-                 f"at {row['shape']} groups={G} {dname} act={act}")
-        if not same:
-            fail(f"GroupNorm backward kernel not bitwise repeatable at "
-                 f"{row['shape']} groups={G} {dname} act={act}")
-        del lib_out, x4
+    gn_bwd_rows = [group_norm_rows(time_ms, dev, g, *shape, calls, forward=False)[1]
+                   for shape, calls in group_norm_shapes(TRAIN_BATCH, edges=True)]
     torch.cuda.empty_cache()
 
     # ---- phase 6: the full-width fp32 train step, card vs CPU ----
@@ -5851,8 +6353,12 @@ def main() -> int:
     log(f"phase 22 at {time.perf_counter() - t_start:.1f} s")
     serving = serving_phase(dev, weights)
 
-    # ---- phase 23: the kernels line and the result ----
+    # ---- phase 23: the 256x256 family ----
     log(f"phase 23 at {time.perf_counter() - t_start:.1f} s")
+    highres = highres_phase(time_ms, dev, smi)
+
+    # ---- phase 24: the kernels line and the result ----
+    log(f"phase 24 at {time.perf_counter() - t_start:.1f} s")
 
     def per_path(rows, launches, n_steps):
         main = [r for r in rows if r["calls_per_step"]]
@@ -5894,6 +6400,16 @@ def main() -> int:
             "shapes": rows,
         }
 
+    hr = highres["rows"]
+    hr_sample = ("256x256 family sampling (diffusers entry point, DDIM-50, B 8)",
+                 highres["sampling"]["launches"], highres["sampling"]["steps"])
+    hr_train = ("256x256 family training (a step = a micro-batch of 8)",
+                highres["training"]["launches"], highres["training"]["micro_batches"])
+
+    def hr_path(which, rows, key):
+        path, launches, n = which
+        return (path, rows, launches[key], n)
+
     kernels = [
         entry("fused_spatial_attention", "pdm_tpu_torch/csrc/attention.cu",
               "pdm_tpu/ops/attention.py:75",
@@ -5917,15 +6433,44 @@ def main() -> int:
                ("training", gn_train_rows, train_launches["group_norm_fwd"],
                 TRAIN_STEPS)]
               + [(path, gn_train_rows, cfg_path[which]["group_norm_fwd"], CONFIG_STEPS)
-                 for path, which in cfg_train]),
+                 for path, which in cfg_train]
+              + [hr_path(w, hr["group_norm_fwd"], "group_norm_fwd")
+                 for w in (hr_sample, hr_train)]),
         entry("group_norm_bwd", "pdm_tpu_torch/csrc/groupnorm_bwd.cu",
               "pdm_tpu/ops/groupnorm.py:112",
               "a cluster's whole-row tiles, dn kept on chip",
               [("training", gn_bwd_rows, train_launches["group_norm_bwd"],
                 TRAIN_STEPS)]
               + [(path, gn_bwd_rows, cfg_path[which]["group_norm_bwd"], CONFIG_STEPS)
-                 for path, which in cfg_train]),
+                 for path, which in cfg_train]
+              + [hr_path(hr_train, hr["group_norm_bwd"], "group_norm_bwd")]),
+        entry("fused_spatial_attention_wide", "pdm_tpu_torch/csrc/attention_wide.cu",
+              "pdm_tpu/ops/attention.py:75 (row 1 at head dims above 128)",
+              "two passes on mma.sync: the head dim contracted in 64-column "
+              "chunks through shared memory, the output's head dim cut into "
+              "128-column blocks, each recomputing its scores",
+              [hr_path(hr_sample, hr["attention_fwd"], "attention_fwd"),
+               hr_path(hr_train, hr["attention_fwd"], "attention_fwd"),
+               ("single-head 32x32 sampling (DDIM-10, B 64)", hr["single_fwd"],
+                highres["single_head"]["launches"]["attention_fwd"],
+                highres["single_head"]["steps"])],
+              hr["edge_fwd"]),
+        entry("attention_bwd_wide", "pdm_tpu_torch/csrc/attention_wide.cu",
+              "pdm_tpu/ops/attention.py:123 (row 2 at head dims above 128)",
+              "dq (and D) in two sweeps, then dk or dv a block: the head dim "
+              "contracted in 64-column chunks, the outputs' head dim cut into "
+              "128-column blocks, scores recomputed per block",
+              [hr_path(hr_train, hr["attention_bwd"], "attention_bwd")],
+              hr["edge_bwd"] + hr["single_bwd"]),
     ]
+    # the single-head 32 x 32 sampler's GroupNorm launches (its shapes are
+    # the flagship's at other widths: launch count only)
+    k = next(k for k in kernels if k["name"] == "fused_group_norm_act")
+    n = highres["single_head"]["launches"]["group_norm_fwd"]
+    k["launches"] += n
+    k["paths"]["single-head 32x32 sampling (DDIM-10, B 64)"] = {
+        "launches": n, "launches_per_step": n / highres["single_head"]["steps"],
+        "note": "launch count only"}
     kernels += [
         entry("fused_attention_block", "pdm_tpu_torch/csrc/attention_block.cu",
               "pdm_tpu/ops/attention_block.py:90",

@@ -4,7 +4,8 @@ Counterpart of ``pdm_tpu/ops/attention.py::fused_spatial_attention`` and
 its VJP. On CUDA tensors the wrappers launch hand-written Hopper kernels:
 ``csrc/attention.cu`` for the forward (it replaces the TPU kernel
 ``_fwd_kernel``) and ``csrc/attention_bwd.cu`` for the backward (it
-replaces ``_bwd_kernel``). On CPU tensors they run
+replaces ``_bwd_kernel``), and ``csrc/attention_wide.cu`` for both at head
+dims above 128. On CPU tensors they run
 :func:`attention_reference` and :func:`attention_bwd_reference`, the plain
 PyTorch versions with the reference's op order and rounding points. They
 never fall back from one to the other.
@@ -12,10 +13,13 @@ never fall back from one to the other.
 Layout is the JAX package's: q, k, v are (B, T, C) with C = heads * hd,
 read as per-head column stripes. They may be the column thirds of one
 fused (B, T, 3C) qkv projection (token rows 3C apart); the kernels read
-them in place. The kernels take every head dim that is a multiple of 8 up
-to ``KERNEL_MAX_HEAD_DIM`` (128); in bf16 at T <= 256 (every flagship
-shape) the launcher picks the single-pass wgmma kernels, at longer rows
-the two-pass ones.
+them in place. The kernels take every head dim that is a multiple of 8.
+Up to 128 (``NARROW_MAX_HEAD_DIM``) they are ``attention.cu`` /
+``attention_bwd.cu``: in bf16 at T <= 256 (every flagship shape) the
+single-pass wgmma kernels, at longer rows the two-pass ones; above 128
+``csrc/attention_wide.cu``, which contracts the head dim in chunks and
+splits the output's head dim across blocks, so no head dim is too wide
+(one head of 512 channels in the 256x256 family).
 
 :func:`use_fused_attention` is the JAX package's geometry gate; the UNet's
 attention block calls the kernel inside it and runs the plain computation
@@ -44,11 +48,14 @@ from . import _build
 MAX_FUSED_TOKENS = 1024
 MAX_FUSED_SCORE_CELLS = 1 << 21  # heads * T * T
 
-# the kernels take any head dim that is a multiple of 8 up to this bound:
-# they zero-pad it to the instantiated width of 16, 32, 64 or 128 (the
-# fragments and accumulators live in registers, so the width is a template
-# parameter)
-KERNEL_MAX_HEAD_DIM = 128
+# the kernels take any head dim that is a multiple of 8. Up to
+# NARROW_MAX_HEAD_DIM attention.cu and attention_bwd.cu zero-pad it to the
+# instantiated width of 16, 32, 64 or 128 (their fragments and accumulators
+# span the head dim in registers, so the width is a template parameter);
+# wider heads go to attention_wide.cu, whose tiles zero-fill the head dim
+# to a multiple of 64 (contraction) and 128 (output) in bf16, 32 and 64 in
+# fp32
+NARROW_MAX_HEAD_DIM = 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -78,18 +85,16 @@ def _reference_with_lse(q, k, v, heads, scale) -> Tuple[Tensor, Tensor]:
 
 
 def use_fused_attention(T: int, C: int, heads: int) -> bool:
-    """The JAX gate's geometry (``pdm_tpu/ops/attention.py:309-323``) and
-    the kernels' head-dim bound: T <= 1024, heads * T^2 <= 2^21, the head
-    dim a multiple of 8 up to 128, T a multiple of 8. The JAX gate's
-    ``PDM_FUSED_ATTN`` opt-out and its TPU-backend condition have no
-    counterpart: the tensors' device chooses between kernel and plain
-    version."""
+    """The JAX gate's geometry (``pdm_tpu/ops/attention.py:309-323``):
+    T <= 1024, heads * T^2 <= 2^21, the head dim and T multiples of 8. The
+    JAX gate's ``PDM_FUSED_ATTN`` opt-out and its TPU-backend condition
+    have no counterpart: the tensors' device chooses between kernel and
+    plain version."""
     return (
         T <= MAX_FUSED_TOKENS
         and heads * T * T <= MAX_FUSED_SCORE_CELLS
         and C % heads == 0
         and (C // heads) % 8 == 0
-        and C // heads <= KERNEL_MAX_HEAD_DIM
         and T % 8 == 0
     )
 
@@ -105,9 +110,9 @@ def _check(q: Tensor, k: Tensor, v: Tensor, heads: int) -> int:
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     B, T, C = q.shape
-    if C % heads or (C // heads) % 8 or not 0 < C // heads <= KERNEL_MAX_HEAD_DIM:
+    if C % heads or (C // heads) % 8 or C // heads < 8:
         raise ValueError(f"head dim C/heads = {C}/{heads}: the kernels take "
-                         f"multiples of 8 up to {KERNEL_MAX_HEAD_DIM}")
+                         f"multiples of 8")
     ld = q.stride(1)
     for t in (q, k, v):
         if t.stride(2) != 1 or t.stride(1) != ld or t.stride(0) != T * ld:
@@ -152,7 +157,7 @@ def launch_fwd(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float
     B, T, C = q.shape
     out = torch.empty((B, T, C), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, heads, T), dtype=torch.float32, device=q.device)
-    fn = _build.entry("pdm_attention_fwd", _FWD_ARGS)
+    fn = _build.entry(_entry("fwd", C // heads), _FWD_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -221,8 +226,8 @@ def attention_bwd(
                   for _ in range(3))
     dsum = torch.empty((B, heads, T), dtype=torch.float32, device=q.device)
     code, hd = _DTYPE_CODES[q.dtype], C // heads
-    fn_dq = _build.entry("pdm_attention_bwd_dq", _BWD_DQ_ARGS)
-    fn_dkdv = _build.entry("pdm_attention_bwd_dkdv", _BWD_DKDV_ARGS)
+    fn_dq = _build.entry(_entry("bwd_dq", hd), _BWD_DQ_ARGS)
+    fn_dkdv = _build.entry(_entry("bwd_dkdv", hd), _BWD_DKDV_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -267,6 +272,14 @@ def fused_spatial_attention(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _AttentionFn.apply(q, k, v, heads, scale)
     return attention_with_lse(q, k, v, heads, scale)[0]
+
+
+def _entry(what: str, hd: int) -> str:
+    """The C entry of ``what`` at head dim ``hd``: attention.cu's and
+    attention_bwd.cu's up to NARROW_MAX_HEAD_DIM, attention_wide.cu's
+    (same arguments) above."""
+    wide = "_wide" if hd > NARROW_MAX_HEAD_DIM else ""
+    return f"pdm_attention{wide}_{what}"
 
 
 # kernel launches since the last reset (set to 0 to reset)

@@ -33,6 +33,9 @@ def _qkv(B, T, C, seed):
     (2, 256, 4, 64),   # flagship 16x16 blocks
     (2, 16, 4, 64),    # flagship 4x4 mid block
     (3, 64, 1, 32),
+    (2, 256, 1, 256),  # single-head 32x32 DDPM, 16x16 blocks
+    (2, 256, 1, 512),  # 256x256 family, 16x16 blocks
+    (2, 64, 1, 512),   # 256x256 family, 8x8 mid block
 ])
 def test_attention_matches_jax_kernel(B, T, heads, hd):
     C = heads * hd
@@ -91,9 +94,12 @@ def test_attention_kernel_checks_are_enforced():
     ta._check(q, q, q, heads=8)  # hd 8: zero-padded to 16 in the kernels
     with pytest.raises(ValueError, match="head dim"):
         ta._check(q, q, q, heads=16)  # hd 4 is not a multiple of 8
-    too_wide = torch.zeros(2, 16, 136)
+    for hd in (136, 512, 520, 1024):  # the wide kernels: no upper bound
+        w = torch.zeros(2, 16, hd)
+        ta._check(w, w, w, heads=1)
     with pytest.raises(ValueError, match="head dim"):
-        ta._check(too_wide, too_wide, too_wide, heads=1)  # hd 136 > 128
+        ta._check(torch.zeros(2, 16, 516), torch.zeros(2, 16, 516),
+                  torch.zeros(2, 16, 516), heads=1)  # hd 516: not a multiple of 8
     with pytest.raises(ValueError, match="shape"):
         ta._check(q, q, torch.zeros(2, 8, 64), heads=2)
     with pytest.raises(TypeError):
@@ -108,19 +114,20 @@ def test_attention_kernel_checks_are_enforced():
 
 
 
-@pytest.mark.parametrize("hd", [8, 24, 64, 128, 256])
+@pytest.mark.parametrize("hd", [8, 24, 64, 128, 256, 512, 520, 576])
 @pytest.mark.parametrize("T", [8, 16, 256, 1024, 1032])
 def test_gate_agrees_with_jax_geometry(monkeypatch, T, hd):
-    """use_fused_attention is the JAX gate's geometry on a TPU backend
-    (T <= 1024, heads T^2 <= 2^21, head dim and T multiples of 8) and the
-    kernels' bound, head dim <= 128. The head counts put heads T^2 on both
-    sides of 2^21 at T 256 (32 heads: exactly 2^21; 33: above) and T 1024
-    (2: exactly; 4: above)."""
+    """use_fused_attention is exactly the JAX gate's geometry on a TPU
+    backend (T <= 1024, heads T^2 <= 2^21, head dim and T multiples of 8),
+    with no head-dim bound of its own: 520 and 576 are past the widest
+    head of any UNet config in the repository (512). The head counts put
+    heads T^2 on both sides of 2^21 at T 256 (32 heads: exactly 2^21; 33:
+    above) and T 1024 (2: exactly; 4: above)."""
     monkeypatch.delenv("PDM_FUSED_ATTN", raising=False)
     monkeypatch.setattr(j_attention.jax, "default_backend", lambda: "tpu")
     for heads in (1, 2, 4, 32, 33):
         C = heads * hd
-        want = j_attention.use_fused_attention(T, C, heads) and hd <= 128
+        want = j_attention.use_fused_attention(T, C, heads)
         assert ta.use_fused_attention(T, C, heads) == want, (T, hd, heads)
     # a channel count that heads do not divide is outside both
     assert not ta.use_fused_attention(T, 3 * hd + 1, 3)
@@ -142,6 +149,8 @@ def _assert_close_to_scale(got, want, rtol, atol_of_scale):
 @pytest.mark.parametrize("B,T,heads,hd", [
     (2, 16, 4, 64),   # 4 heads of 64: two of the JAX kernel's head groups
     (2, 64, 2, 32),   # 2 heads of 32: one head group
+    (2, 256, 1, 512),  # the 256x256 family's 16x16 blocks
+    (2, 64, 1, 256),   # one head of 256 (the wide kernels' range)
 ])
 def test_attention_backward_matches_jax_vjp(dtype, B, T, heads, hd):
     """Gradients through the port's autograd Function (plain backward on
@@ -164,6 +173,19 @@ def test_attention_backward_matches_jax_vjp(dtype, B, T, heads, hd):
         assert t.grad.dtype == tdt and t.grad.shape == (B, T, C)
         _assert_close_to_scale(t.grad.float().numpy(),
                         np.asarray(w.astype(jnp.float32)), rtol, atol)
+
+
+def test_entries_split_at_head_dim_128():
+    """The launcher's C entry, forward and backward: attention.cu's and
+    attention_bwd.cu's up to head dim 128, attention_wide.cu's above it,
+    at any width."""
+    assert ta.NARROW_MAX_HEAD_DIM == 128
+    for hd in (8, 64, 128):
+        for what in ("fwd", "bwd_dq", "bwd_dkdv"):
+            assert ta._entry(what, hd) == f"pdm_attention_{what}"
+    for hd in (136, 512, 576, 2048):
+        for what in ("fwd", "bwd_dq", "bwd_dkdv"):
+            assert ta._entry(what, hd) == f"pdm_attention_wide_{what}"
 
 
 def test_attention_backward_of_strided_qkv_views():

@@ -201,6 +201,43 @@ def test_attention_backward_kernel_ragged_and_long_rows(cuda_device, T, heads,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [8, 64, 256, 1024])
+@pytest.mark.parametrize("hd", [136, 200, 256, 264, 384, 504, 512, 520, 576])
+def test_wide_attention_kernels_match_plain_on_card(cuda_device, hd, T, dtype):
+    """Rows 1 and 2 at head dims above 128 (csrc/attention_wide.cu: the
+    head dim contracted in chunks, the output's cut across blocks), one
+    head on the column thirds of one (B, T, 3C) projection: forward within
+    one rounding of the output (2^-7; fp32 1e-5), lse 1e-5, gradients to
+    BWD_TOL, and two calls bitwise equal."""
+    B, heads = 2, 1
+    C = heads * hd
+    g = torch.Generator(device=cuda_device).manual_seed(hd + T)
+    qkv = torch.randn(B, T, 3 * C, generator=g, device=cuda_device).to(dtype)
+    q, k, v = qkv.split(C, dim=-1)
+    do = torch.randn(B, T, C, generator=g, device=cuda_device).to(dtype)
+    scale = 1.0 / np.sqrt(hd)
+    f0, b0 = ta.fused_spatial_attention.launches, ta.attention_bwd.launches
+    out, lse = ta.attention_with_lse(q, k, v, heads, scale)
+    out2, lse2 = ta.attention_with_lse(q, k, v, heads, scale)
+    ref, ref_lse = ta._reference_with_lse(q, k, v, heads, scale)
+    got = ta.attention_bwd(q, k, v, lse, do, heads, scale)
+    got2 = ta.attention_bwd(q, k, v, lse, do, heads, scale)
+    want = ta.attention_bwd_reference(q, k, v, lse, do, heads, scale)
+    torch.cuda.synchronize()
+    assert ta.fused_spatial_attention.launches == f0 + 2
+    assert ta.attention_bwd.launches == b0 + 4
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    for a, b, a2 in zip(got, want, got2):
+        assert a.dtype == dtype and a.shape == (B, T, C)
+        _assert_close_to_scale(a, b, *BWD_TOL[dtype])
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.cuda
 def test_attention_autograd_on_card_matches_plain(cuda_device):
     """Through the autograd Function: the forward kernel, then the
     backward kernels, against autograd of the plain version."""
@@ -329,17 +366,16 @@ def test_tiny_unet_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim,widths,kernel", [
-    (8, [32, 64], True),       # 8 heads of 8
-    (None, [32, 64], True),    # one head of 64
-    (None, [32, 256], False),  # one head of 256: outside the gate
+@pytest.mark.parametrize("head_dim,widths", [
+    (8, [32, 64]),       # 8 heads of 8
+    (None, [32, 64]),    # one head of 64
+    (None, [32, 256]),   # one head of 256: the wide kernels
+    (None, [32, 576]),   # one head of 576: wider than any config's
 ])
-def test_tiny_unet_head_dims_on_card_match_cpu(cuda_device, head_dim, widths,
-                                               kernel):
+def test_tiny_unet_head_dims_on_card_match_cpu(cuda_device, head_dim, widths):
     """attention_head_dim 8 and null in fp32, card against CPU to 1e-4 of
-    the output scale: inside the attention gate each attention block
-    launches row 1 once; a head dim of 256 runs the model's XLA branch on
-    the card, with no row-1 launch."""
+    the output scale: inside the attention gate, at every head dim, each
+    attention block launches row 1 once."""
     cfg = {**TINY, "attention_head_dim": head_dim, "block_out_channels": widths}
     cpu = unet_from_config(3, cfg, device="cpu")
     rng = np.random.RandomState(5)
@@ -355,7 +391,7 @@ def test_tiny_unet_head_dims_on_card_match_cpu(cuda_device, head_dim, widths,
     with torch.no_grad():
         want = cpu(x, tau)
         got = card(x.to(cuda_device), tau.to(cuda_device)).cpu()
-    assert ta.fused_spatial_attention.launches - a0 == (n_attn if kernel else 0)
+    assert ta.fused_spatial_attention.launches - a0 == n_attn
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-4 * scale
 

@@ -210,6 +210,28 @@ def test_whole_block_export(tmp_path, monkeypatch):
     assert torch.equal(fn(4), want)
 
 
+def test_single_head_unet_export_calls_the_attention_op(tmp_path, monkeypatch):
+    """attention_head_dim null with a 256-channel attention level: one head
+    of 256 is inside the attention gate, so the exported step calls
+    pdm::attention_fwd (rows 1 and 3 in the graph) and replays bitwise."""
+    monkeypatch.delenv("PDM_FUSED_BLOCK", raising=False)
+    net = unet_from_config(3, {**UNET, "block_out_channels": [16, 256],
+                               "attention_head_dim": None},
+                           dtype=torch.bfloat16, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    sampler = unet_sampler(UNetDDPM(LogSNRScheduler(1e-4, 1e1), net,
+                                    device="cpu"))
+    path = str(tmp_path / "single_head.pt2")
+    export_sampler(sampler, path)
+    assert pdm_ops(path) == ["attention_fwd", "group_norm_act"]
+    fn, _ = load_exported(path)
+    want = sampler.batch_sample(torch.Generator().manual_seed(5))["x"]
+    assert torch.equal(fn(5), want)
+
+
 def test_manifest_keys_match_jax(gmm, tmp_path):
     path = str(tmp_path / "gmm.pt2")
     export_sampler(gmm_sampler(gmm), path)
@@ -267,6 +289,9 @@ def opcheck_cases():
         cases.append(("boltzmann_moments", (
             t(5, 6), prep.yt_hi, prep.yt_lo, prep.ysq, prep.n, mode,
             torch.rand(5) + 0.5, torch.rand(5) + 0.5, values)))
+    for dt in (torch.float32, torch.bfloat16):  # one head of 256
+        q, k, v = t(2, 16, 768, dtype=dt).chunk(3, dim=-1)
+        cases.append(("attention_fwd", (q, k, v, 1, 0.0625)))
     return cases
 
 

@@ -27,7 +27,7 @@ any error or disagreement:
    fp32 DDIM sample on both from the same starting noise.
 4. The main path: the bf16 flagship (seeded random weights, std 0.02) in
    DDPMSampler(step_type="ddpm", n_steps=N_STEPS, batch_size=64,
-   precision="half") on LinearBetaScheduler(1e-4, 2.478e4): 500 steps of
+   precision="half") on LinearBetaScheduler(1e-4, 2.478e4): 100 steps of
    bench.py's 1000 (launch counts are per step, so fewer steps check as
    much). The launch counters are zeroed just before and read just after;
    each kernel must have launched exactly its per-forward count times
@@ -116,7 +116,9 @@ any error or disagreement:
    fp32, with times beside the bound, the plain version and the library
    composition (F.linear, scaled_dot_product_attention, F.linear, add;
    for the backward that composition's autograd); each kernel called twice
-   (bitwise equal), the launch plan printed. Then, untimed, the edge
+   (bitwise equal), the launch plan printed; beside each, the staged
+   launch plan forced at the same shape and inputs, held to the same
+   tolerance and timed (staged_ms). Then, untimed, the edge
    shapes BLOCK_EDGES (T 16 at head dims 16 and 32 with 8 heads, T 64, a
    ragged T with packing, two packed images a strip, three key chunks, 75
    packed groups, more clusters than the card holds at once), bf16 and
@@ -124,8 +126,8 @@ any error or disagreement:
    backward's (dh, weight and bias gradients) are held and reported apart.
 14. The whole-block sampling path, PDM_FUSED_BLOCK=1 set for phases 14-16
    only: one bf16 model evaluation against the default path on the same
-   input, then the bf16 flagship's DDPM-250 at batch 64 (phase 4 runs
-   500; the counts are per step), with
+   input, then the bf16 flagship's DDPM-50 at batch 64 (phase 4 runs
+   100; the counts are per step), with
    exactly 8 row-5 launches, no row-1 launch and 69 GroupNorm launches
    per step, the card's busy time and a profiler breakdown; then the
    default and whole-block paths in ten alternating pairs of short turns
@@ -134,7 +136,8 @@ any error or disagreement:
 15. The whole-block training path: the bf16 train step at batch 128 as
    phase 7, with exact launch counts (row 5 8 and row 6 24 per step, rows
    1 and 2 none, GroupNorm 69 and 69) and the card's busy time; then the
-   two paths in turns on the same trainer (10 steps each).
+   two paths in two alternating pairs of turns on the same trainer
+   (TRAIN_TURN_STEPS steps each).
 16. The whole-block path in fp32 at full width, card vs CPU: the UNet
    forward at batch 2 and the train step as phase 6.
 17. The config path, as scripts/train_diffusion.py and make_eval_fn drive
@@ -178,8 +181,9 @@ any error or disagreement:
    counters can be read; python -m itself is not run), over PDMC caches
    of CIFAR-10's shape (50,000 train, 10,000 test): compute_stats_forward,
    the flagship's train_diffusion for 5 steps with an eval (grid and FID
-   over 512 samples, cut from cifar10's 50,000) at step 5, sample from its
-   checkpoint, compute_fid with n_steps [10] over 512 samples; each with
+   over CLI_FID_SAMPLES samples, cut from cifar10's 50,000) at step 5,
+   sample from its checkpoint, compute_fid with n_steps [10] over as
+   many; each with
    rows 1-4's and row 8's launch counters zeroed just before and read
    just after (exact counts), its wall time, and its artifact read back
    (a finite, non-negative FID in the training log and the FID table).
@@ -312,12 +316,29 @@ any error or disagreement:
    32 x 32 DDPM's DDIM-10 at batch 64 (6 row-1 launches a step). The
    host's load, clocks and a fixed loop's time are sampled before and
    after the family's sampler and train steps (host_clock), beside their
-   host-bound times.
-24. One JSON line {"kernels": [...]} with all fifteen kernels (the eight
-   rows, 7b, rows 1 and 2 at wide head dims, and rows 3s/4s' four
-   entries, each with its worst error as a fraction of its tolerance;
-   phases 18e's, 20's, 21's, 22's and 23's launches among their paths),
-   then the last line {"ok": true, "device": {...}}.
+   host-bound times. Row 1w times the two-pass kernel its one-pass
+   kernel replaced at T <= 256 beside it. The whole block at every
+   geometry JAX's gate admits: rows 5 and 6 on the staged plan
+   against their plain versions at the family's blocks (B 8), the
+   single-head 32 x 32's (B 64, and B 128 with the backward) and the
+   edges BLOCK_WIDE_EDGES, bf16 and fp32, timed beside the bound, the
+   plain version and the library composition (SDPA's backend named),
+   each call twice (bitwise equal), launches exact (BLOCK_LAUNCHES); then
+   with
+   PDM_FUSED_BLOCK=1: (g) the family's DDIM-50 (18 row-5 launches and 71
+   row-3 a step, no row-1), (h) its train step (18 row-5 and 48 row-6
+   launches a micro-batch), then the two paths in HIGHRES_TURN_PAIRS
+   alternating pairs of turns (a batch of the sampler, a train step),
+   (i) its fp32 forward card vs CPU, (j) a
+   single-head tiny UNet's fp32 train step card vs CPU, (k) the
+   single-head 32 x 32's DDIM-10; no plain version on a card tensor
+   (plain_on_card_spy).
+24. One JSON line {"kernels": [...]} with all seventeen kernels (the
+   eight rows, 7b, rows 1 and 2 at wide head dims, rows 5 and 6 on the
+   staged plan, and rows 3s/4s' four entries, each with its worst error
+   as a fraction of its tolerance; phases 18e's, 20's, 21's, 22's and
+   23's launches among their paths), then the last line {"ok": true,
+   "device": {...}}.
 """
 
 from __future__ import annotations
@@ -343,7 +364,7 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
-N_STEPS = 500  # the main path's DDPM steps (bench.py runs 1000)
+N_STEPS = 100  # the main path's DDPM steps (bench.py runs 1000)
 BATCH = 64
 PROFILE_STEPS = 20  # main-path steps traced for the time breakdown
 FLAGSHIP = {
@@ -423,10 +444,18 @@ FUSED_VS_DEFAULT_TOL = 2e-2
 # forward and once backward (three kernels), no row 1 or 2 launch
 # phase 14's whole-block DDPM sampler (phase 4 runs the default path's
 # N_STEPS): launch counts are per step, so fewer steps check as much
-BLOCK_SAMPLER_STEPS = 250
+BLOCK_SAMPLER_STEPS = 50
 TURN_STEPS = 50        # sampler steps per turn of the two paths' comparison
 TURN_PAIRS = 10        # alternating (default, whole block) pairs of turns
 TRAIN_TURN_STEPS = 10  # train steps per turn
+# the launches of one whole-block call by (route, backward), written out
+# here so that a launch a wrapper drops or adds shows: cluster, one kernel
+# forward and three backward; staged, the qkv projection, row 1 and the out
+# projection forward, and backward the qkv projection, row 1, the datt
+# projection, row 2's two kernels, the dh projection, the weight gradients
+# and their merge
+BLOCK_LAUNCHES = {("cluster", False): 1, ("cluster", True): 3,
+                  ("staged", False): 3, ("staged", True): 8}
 BLOCK_TRAIN_LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0,
                         "block_fwd": 8, "block_bwd": 24,
                         "group_norm_fwd": 69, "group_norm_bwd": 69}
@@ -521,7 +550,7 @@ LENET_N = 21_000
 LENET_EPOCHS = 3
 CLI_TEST_N = 10_000
 CLI_TRAIN_STEPS = 5
-CLI_FID_SAMPLES = 512
+CLI_FID_SAMPLES = 128
 GATHER_REPS = 50       # host-resident gathers timed for the data path's rate
 # Schedule optimization (phase 19). Row 7b, the posterior mean's VJP, at
 # the CLI's shape (pdm_tpu_torch/scripts/optimize_schedule.py: B 1024 over
@@ -1868,6 +1897,43 @@ def env_var(name: str, value):
             os.environ[name] = before
 
 
+def block_turns(run, pairs: int, steps: int) -> dict:
+    """`run` (one turn of `steps` steps) in `pairs` alternating pairs of
+    turns on the default path (PDM_FUSED_BLOCK=0) and the whole-block path
+    (=1), the order inside a pair alternating too, in ms a step: the host's
+    speed drifts between phases, so only the per-pair differences compare
+    the two paths. PDM_FUSED_BLOCK is restored after each turn."""
+    import torch
+
+    turns = {"0": [], "1": []}
+    for pair in range(pairs):
+        for flag in (("0", "1") if pair % 2 == 0 else ("1", "0")):
+            with env_var("PDM_FUSED_BLOCK", flag):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                turns[flag].append((time.perf_counter() - t0) / steps * 1e3)
+    gain = [d - f for d, f in zip(turns["0"], turns["1"])]
+    return {"steps_per_turn": steps, "pairs": pairs, "default_ms": turns["0"],
+            "whole_block_ms": turns["1"], "default_minus_whole_block_ms": gain,
+            "default_median_ms": statistics.median(turns["0"]),
+            "whole_block_median_ms": statistics.median(turns["1"]),
+            "median_gain_ms": statistics.median(gain),
+            "pairs_whole_block_faster": sum(g_ > 0 for g_ in gain)}
+
+
+def turns_summary(label: str, t: dict) -> str:
+    """One log line of :func:`block_turns`'s result."""
+    gain = t["default_minus_whole_block_ms"]
+    return (f"{label} in {t['pairs']} alternating pairs of turns, {t['steps_per_turn']} "
+            f"steps each: default path median {t['default_median_ms']:.3f} ms/step, "
+            f"whole-block path median {t['whole_block_median_ms']:.3f}; default minus "
+            f"whole block per pair median {t['median_gain_ms']:.3f} ms (range "
+            f"{min(gain):.3f} to {max(gain):.3f}), whole block faster in "
+            f"{t['pairs_whole_block_faster']} of {t['pairs']} pairs; " + json.dumps(t))
+
+
 def write_inception_npz(path: str) -> str:
     """Seeded random InceptionV3 weights in the JAX package's .npz layout
     (the pretrained FID weights are not in the repository): kernels
@@ -2557,40 +2623,77 @@ def block_inputs(g, dev, B, T, C, dtype):
 
 def block_library(x, h, ws, bs, w_out, b_out, heads, scale):
     """The whole block as library calls (F.linear, SDPA, F.linear, add),
-    the yardstick of rows 5 and 6: returns a function of no arguments."""
+    the yardstick of rows 5 and 6: returns a function of no arguments,
+    with the SDPA backend it runs as its ``backend`` attribute."""
     import torch
     import torch.nn.functional as F
 
     B, T, C = h.shape
     w_cat, b_cat = torch.cat(list(ws)), torch.cat(list(bs))
 
-    def run():
-        q, k, v = F.linear(h, w_cat, b_cat).view(B, T, 3, heads, C // heads).permute(
+    def qkv():
+        return F.linear(h, w_cat, b_cat).view(B, T, 3, heads, C // heads).permute(
             2, 0, 3, 1, 4)
+
+    def run():
+        q, k, v = qkv()
         a = F.scaled_dot_product_attention(q, k, v, scale=scale)
         return x + F.linear(a.transpose(1, 2).reshape(B, T, C), w_out, b_out)
 
+    with torch.no_grad():
+        run.backend = sdpa_backend(*qkv(), scale)
     return run
 
 
-def block_kernel_rows(time_ms, dev):
+def staged_row(call, want: dict, tol, time_ms, reps, pick=lambda r: r) -> dict:
+    """The staged launch plan forced at a cluster-plan shape: `call`'s
+    outputs (through `pick`, in `want`'s order) against the plain version's
+    `want` to `tol`, and its time beside the cluster plan's. Fails on a
+    mismatch."""
+    import torch
+
+    got = pick(call())
+    torch.cuda.synchronize()
+    errs = {k: compare_to_scale(a, b, *tol) for (k, b), a in zip(want.items(), got)}
+    if not all(ok for _, ok in errs.values()):
+        fail(f"the staged plan at a cluster shape disagrees with the plain version: "
+             f"{[k for k, (_, ok) in errs.items() if not ok]}")
+    return {"staged_ms": time_ms(call, **reps)[0],
+            "staged_max_abs_err": max(e for e, _ in errs.values())}
+
+
+def staged_note(row: dict) -> str:
+    """The staged plan's figures in a cluster row's log line."""
+    if "staged_ms" not in row:
+        return ""
+    return (f"; the staged plan on the same inputs {row['staged_ms']:.4f} ms "
+            f"(max_abs_err {row['staged_max_abs_err']:.3g})")
+
+
+def block_kernel_rows(time_ms, dev, geoms=BLOCK_GEOMS, batches=(BATCH, TRAIN_BATCH),
+                      seed: int = 5):
     """Rows 5 and 6 against their plain versions on the same card inputs at
-    the flagship's attention shapes: the forward at batch 64 and 128, the
-    backward at 128, bf16 and fp32. Returns (forward rows at batch 64,
-    forward rows at 128, backward rows)."""
+    `geoms` ((T, C, heads, calls a step); by default the flagship's
+    attention shapes): the forward at each of `batches`, the backward at
+    the last, bf16 and fp32, each row naming its launch plan (route).
+    Returns ({batch: forward rows}, backward rows)."""
     import torch
     from pdm_tpu_torch.ops import attention_block as tb
 
-    g = torch.Generator(device=dev).manual_seed(5)
-    fwd = {BATCH: [], TRAIN_BATCH: []}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fwd = {b: [] for b in batches}
     bwd_rows = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         esz = 2 if dtype == torch.bfloat16 else 4
-        for (T, C, heads, calls), batch in [(geom, b) for b in (BATCH, TRAIN_BATCH)
-                                           for geom in BLOCK_GEOMS]:
+        for (T, C, heads, calls), batch in [(geom, b) for b in batches
+                                           for geom in geoms]:
             hd = C // heads
             scale = 1.0 / math.sqrt(hd)
+            route = tb.block_route(T, C, heads)
+            # the staged plan's fp32 calls take milliseconds: fewer of them
+            staged_reps = {"reps": 3, "inner": 5} if dtype == torch.float32 else {}
+            reps = staged_reps if route == "staged" else {}
             x, h, ws, bs, wo, bo = block_inputs(g, dev, batch, T, C, dtype)
             args = (x, h, ws, bs, wo, bo, heads, scale)
             out, lse = tb._forward(*args)
@@ -2599,7 +2702,7 @@ def block_kernel_rows(time_ms, dev):
             torch.cuda.synchronize()
             same = torch.equal(out, out2) and torch.equal(lse, lse2)
             plan = (tb.plan_block(batch, T, hd, backward=False)._asdict()
-                    if dtype == torch.bfloat16 else None)
+                    if dtype == torch.bfloat16 and route == "cluster" else None)
             rtol, atol = BLOCK_TOL[dname]
             err, ok = compare_to_scale(out, ref, rtol, atol)
             lse_err, lse_ok = compare_to_scale(lse, ref_lse, rtol, atol)
@@ -2608,32 +2711,40 @@ def block_kernel_rows(time_ms, dev):
             b_ms, b_by = bound(3 * batch * T * C * esz + 4 * C * C * esz + 4 * C * esz
                                + batch * heads * T * 4,
                                8 * batch * T * C * C + 4 * batch * T * T * C, dname)
-            ms, host_ms = time_ms(lambda: tb._forward(*args))
+            ms, host_ms = time_ms(lambda: tb._forward(*args), **reps)
+            library = block_library(*args)
             row = {
                 "shape": [batch, T, C], "heads": heads, "dtype": dname,
                 "calls_per_step": calls if dtype == torch.bfloat16 else 0,
+                "route": route, "launches_per_call": BLOCK_LAUNCHES[route, False],
                 "max_abs_err": err, "lse_max_abs_err": lse_err,
                 "tol_fraction": frac, "rtol": rtol, "bitwise_repeat": same,
                 "plan": plan, "atol_of_scale": atol, "ms": ms, "host_ms": host_ms,
                 "plain_ms": time_ms(lambda: tb._reference_with_lse(
                     x, h, *ws, bs, wo, bo, heads, scale), inner=5)[0],
-                "library_ms": time_ms(block_library(*args))[0],
+                "library_ms": time_ms(library, **reps)[0],
                 "library": "F.linear + scaled_dot_product_attention + F.linear + add",
+                "library_backend": library.backend,
                 "bound_ms": b_ms, "bound_by": b_by,
             }
+            if route == "cluster":  # the staged plan beside it on the same inputs
+                row.update(staged_row(lambda: tb.launch_fwd(*args, route="staged"),
+                                      {"out": ref, "lse": ref_lse}, BLOCK_TOL[dname],
+                                      time_ms, staged_reps))
             fwd[batch].append(row)
-            log(f"whole block {dname} B={batch} T={T} C={C} heads={heads}: max_abs_err "
+            log(f"whole block ({route}) {dname} B={batch} T={T} C={C} heads={heads}: max_abs_err "
                 f"{err:.3g} (lse {lse_err:.3g}; tol rtol {rtol} atol {atol:.3g} of "
                 f"scale; worst {frac:.3g} of it) kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms "
-                f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
-                f"{b_ms:.4f} ({b_by}); two calls bitwise equal: {same}; plan {plan} "
-                f"{'ok' if ok and lse_ok else 'MISMATCH'}")
+                f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} (SDPA "
+                f"{library.backend}) bound_ms "
+                f"{b_ms:.4f} ({b_by}); two calls bitwise equal: {same}; plan {plan}"
+                f"{staged_note(row)} {'ok' if ok and lse_ok else 'MISMATCH'}")
             if not (ok and lse_ok):
                 fail(f"whole-block kernel disagrees with its plain version at "
                      f"{row['shape']} {dname}")
             if not same:
                 fail(f"whole-block kernel not bitwise repeatable at {row['shape']} {dname}")
-            if batch != TRAIN_BATCH:
+            if batch != batches[-1]:
                 continue
 
             # the backward at the training batch: every gradient of the
@@ -2650,7 +2761,7 @@ def block_kernel_rows(time_ms, dev):
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(once, twice))
             plan = (tb.plan_block(batch, T, hd, backward=True)._asdict()
-                    if dtype == torch.bfloat16 else None)
+                    if dtype == torch.bfloat16 and route == "cluster" else None)
             del once, twice
             rtol, atol = BLOCK_BWD_TOL[dname]
             named = {"dh": (got[1], want[0]), "dw_q": (got[2], want[1]),
@@ -2672,15 +2783,17 @@ def block_kernel_rows(time_ms, dev):
                                + 8 * C * C * esz + 3 * C * esz,
                                22 * batch * T * C * C + 12 * batch * T * T * C, dname)
             ms, host_ms = time_ms(lambda: tb.attention_block_bwd(
-                h, *ws, bs, wo, lse, gco, heads, scale))
+                h, *ws, bs, wo, lse, gco, heads, scale), **reps)
             lib_leaves = [t.detach().clone().requires_grad_()
                           for t in (x, h, *ws, *bs, wo, bo)]
-            lib_out = block_library(lib_leaves[0], lib_leaves[1], lib_leaves[2:5],
+            library = block_library(lib_leaves[0], lib_leaves[1], lib_leaves[2:5],
                                     lib_leaves[5:8], lib_leaves[8], lib_leaves[9],
-                                    heads, scale)()
+                                    heads, scale)
+            lib_out = library()
             row = {
                 "shape": [batch, T, C], "heads": heads, "dtype": dname,
                 "calls_per_step": calls if dtype == torch.bfloat16 else 0,
+                "route": route, "launches_per_call": BLOCK_LAUNCHES[route, True],
                 "max_abs_err": err,
                 "errors": {k: c[0] for k, c in checks.items()},
                 "tol_fraction": frac, "bitwise_repeat": same, "plan": plan,
@@ -2691,24 +2804,36 @@ def block_kernel_rows(time_ms, dev):
                 "plain_ms": time_ms(lambda: tb.attention_block_bwd_reference(
                     h, *ws, bs, wo, lse, gco, heads, scale), inner=3)[0],
                 "library_ms": time_ms(lambda: torch.autograd.grad(
-                    lib_out, lib_leaves, gco, retain_graph=True))[0],
+                    lib_out, lib_leaves, gco, retain_graph=True), **reps)[0],
                 "library": "autograd of F.linear + scaled_dot_product_attention "
                            "+ F.linear + add",
+                "library_backend": library.backend,
                 "bound_ms": b_ms, "bound_by": b_by,
                 # the design's own traffic beyond the bound: dqkv and att
                 # written by the first kernel and read by the second
                 "intermediate_mb": 2 * batch * T * 4 * C * esz / 1e6,
             }
+            if route == "cluster":  # db_qkv as one vector, as above
+                def db_qkv_joined(r):
+                    return (*r[:4], torch.cat(r[4:7]), r[7])
+
+                row.update(staged_row(
+                    lambda: tb.attention_block_bwd(h, *ws, bs, wo, lse, gco, heads,
+                                                   scale, route="staged"),
+                    dict(zip(("dh", "dw_q", "dw_k", "dw_v", "db_qkv", "dw_out"),
+                             db_qkv_joined(want))),
+                    BLOCK_BWD_TOL[dname], time_ms, staged_reps, pick=db_qkv_joined))
             bwd_rows.append(row)
-            log(f"whole block backward {dname} B={batch} T={T} C={C} heads={heads}: "
+            log(f"whole block backward ({route}) {dname} B={batch} T={T} C={C} "
+                f"heads={heads}: "
                 f"errors {', '.join(f'{k} {c[0]:.3g}' for k, c in checks.items())} "
                 f"(tol rtol {rtol} atol {atol:.3g} of scale, worst {frac:.3g} of it; "
                 f"db_out {PARAM_GRAD_TOL}; dx exact) kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms "
                 f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
                 f"{b_ms:.4f} ({b_by}); dqkv and att round trip "
                 f"{row['intermediate_mb']:.1f} MB; two calls bitwise equal: {same}; "
-                f"plan {plan}, {row['weight_grad_chunks']} weight-gradient chunks "
-                f"{'ok' if ok else 'MISMATCH'}")
+                f"plan {plan}, {row['weight_grad_chunks']} weight-gradient chunks"
+                f"{staged_note(row)} {'ok' if ok else 'MISMATCH'}")
             if not ok:
                 bad = [k for k, c in checks.items() if not c[1]]
                 fail(f"whole-block backward kernels disagree with their plain "
@@ -2718,27 +2843,30 @@ def block_kernel_rows(time_ms, dev):
                      f"{row['shape']} {dname}")
             del lib_out, lib_leaves, leaves, got, want
     torch.cuda.empty_cache()
-    return fwd[BATCH], fwd[TRAIN_BATCH], bwd_rows
+    return fwd, bwd_rows
 
 
-def block_edge_rows(dev):
-    """Rows 5 and 6 at BLOCK_EDGES, bf16 and fp32, untimed: the forward and
-    lse and every gradient of the backward against the plain versions to
-    BLOCK_TOL / BLOCK_BWD_TOL, each kernel called twice (bitwise equal).
+def block_edge_rows(dev, edges=BLOCK_EDGES, seed: int = 9):
+    """Rows 5 and 6 at `edges` ((B, T, heads, hd); by default BLOCK_EDGES),
+    bf16 and fp32, untimed: the forward and lse and every gradient of the
+    backward against the plain versions to BLOCK_TOL / BLOCK_BWD_TOL, each
+    kernel called twice (bitwise equal), the route's launches exact.
     Returns (forward rows: out and lse; backward rows: dh, the weight and
     the bias gradients), one per shape and dtype (no calls on the main
     path)."""
     import torch
     from pdm_tpu_torch.ops import attention_block as tb
 
-    g = torch.Generator(device=dev).manual_seed(9)
+    g = torch.Generator(device=dev).manual_seed(seed)
     fwd_rows, bwd_rows = [], []
-    for B, T, heads, hd in BLOCK_EDGES:
+    for B, T, heads, hd in edges:
         C = heads * hd
         scale = 1.0 / math.sqrt(hd)
+        route = tb.block_route(T, C, heads)
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             x, h, ws, bs, wo, bo = block_inputs(g, dev, B, T, C, dtype)
+            counts = (tb.fused_attention_block.launches, tb.attention_block_bwd.launches)
             out, lse = tb._forward(x, h, ws, bs, wo, bo, heads, scale)
             out2, lse2 = tb._forward(x, h, ws, bs, wo, bo, heads, scale)
             ref, ref_lse = tb._reference_with_lse(x, h, *ws, bs, wo, bo, heads, scale)
@@ -2747,6 +2875,11 @@ def block_edge_rows(dev):
             got2 = tb.attention_block_bwd(h, *ws, bs, wo, lse, gco, heads, scale)
             want = tb.attention_block_bwd_reference(h, *ws, bs, wo, lse, gco, heads, scale)
             torch.cuda.synchronize()
+            launched = (tb.fused_attention_block.launches - counts[0],
+                        tb.attention_block_bwd.launches - counts[1])
+            if launched != (2 * BLOCK_LAUNCHES[route, False], 2 * BLOCK_LAUNCHES[route, True]):
+                fail(f"whole block edge {[B, T, heads, hd]} {dname} ({route}): "
+                     f"{launched} launches for two calls each way")
             fwd_pairs = {"out": (out, ref), "lse": (lse, ref_lse)}
             bwd_pairs = {name: (got[i], want[i]) for name, i in
                          (("dh", 0), ("dw_q", 1), ("dw_k", 2), ("dw_v", 3), ("dw_out", 7))}
@@ -2760,12 +2893,13 @@ def block_edge_rows(dev):
                 frac = max(tol_fraction(a, b, *tol[dname]) for a, b in pairs.values())
                 ok = all(c[1] for c in errs.values())
                 plan = (tb.plan_block(B, T, hd, backward=kind == "backward")._asdict()
-                        if dtype == torch.bfloat16 else None)
+                        if dtype == torch.bfloat16 and route == "cluster" else None)
                 rows.append({"shape": [B, T, C], "heads": heads, "dtype": dname,
-                             "calls_per_step": 0, "edge": True,
+                             "calls_per_step": 0, "edge": True, "route": route,
                              "max_abs_err": max(c[0] for c in errs.values()),
                              "tol_fraction": frac, "bitwise_repeat": same, "plan": plan})
-                log(f"whole block edge {kind} {dname} B={B} T={T} heads={heads} hd={hd}: "
+                log(f"whole block edge ({route}) {kind} {dname} B={B} T={T} heads={heads} "
+                    f"hd={hd}: "
                     f"worst {frac:.3g} of {'BLOCK_TOL' if kind == 'forward' else 'BLOCK_BWD_TOL'}"
                     f" ({', '.join(pairs)}), two calls bitwise equal: {same}; plan {plan} "
                     f"{'ok' if ok and same else 'MISMATCH'}")
@@ -5141,6 +5275,20 @@ HIGHRES_SAMPLES = 16
 HIGHRES_ACCUM = 16
 HIGHRES_TRAIN_STEPS = 3
 HIGHRES_PROFILE_STEPS = 5
+HIGHRES_TURN_PAIRS = 3  # alternating pairs of turns, default vs PDM_FUSED_BLOCK=1
+# rows 5 and 6 at every geometry JAX's gate admits (PDM_FUSED_BLOCK=1 on
+# the family and the single-head 32 x 32 DDPM: the staged launch plan):
+# the blocks' (T, C, heads, calls a step), and edges (B, T, heads, hd) the
+# cluster kernels do not take: 16 and 64 heads of 8 (64 x 176^2 just under
+# 2^21), head dims 24 and 128, 512 and 1024 tokens, one head of 512 at T 8
+FAMILY_BLOCK_GEOMS = ((256, 512, 1, 5), (64, 512, 1, 1))
+SINGLE_BLOCK_GEOMS = ((256, 256, 1, 5), (16, 256, 1, 1))
+BLOCK_WIDE_EDGES = ((2, 64, 16, 8), (2, 176, 64, 8), (2, 256, 4, 24), (2, 128, 4, 128),
+                    (2, 512, 8, 64), (1, 1024, 2, 256), (2, 8, 1, 512), (1, 1024, 1, 512))
+# a single-head UNet whose fp32 train step the CPU can take: one head of
+# 128 in its four attention blocks at 8 x 8 (the staged plan), 16 x 16
+# images, batch 4
+SINGLE_TINY = {**TINY_UNET, "block_out_channels": [32, 128], "attention_head_dim": None}
 
 
 def sdpa_backend(qh, kh, vh, scale: float) -> str:
@@ -5152,6 +5300,31 @@ def sdpa_backend(qh, kh, vh, scale: float) -> str:
     choice = int(torch._fused_sdp_choice(qh, kh, vh, scale=scale))
     return next((b.name for b in SDPBackend.__members__.values()
                  if int(b) == choice), str(choice))
+
+
+def wide_two_pass(q, k, v, heads, scale):
+    """A function of no arguments launching row 1w's two-pass bf16 kernel
+    (attention_wide.cu's pdm_attention_wide_fwd_two_pass, kept for T above
+    256) on q, k, v (the column thirds of one (B, T, 3C) tensor), which the
+    wrappers no longer call at T <= 256: the yardstick of its redesign."""
+    import torch
+
+    from pdm_tpu_torch.ops import _build
+    from pdm_tpu_torch.ops import attention as attn_op
+
+    B, T, C = q.shape
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((B, heads, T), dtype=torch.float32, device=q.device)
+    fn = _build.entry("pdm_attention_wide_fwd_two_pass", attn_op._FWD_ARGS)
+
+    def run():
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                 B, T, heads, C // heads, q.stride(1), float(scale), 1,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+        if err:
+            fail(f"the two-pass wide kernel: CUDA error {err}")
+
+    return run
 
 
 def attention_rows(time_ms, dev, g, B, T, C, heads, calls, dtype,
@@ -5212,9 +5385,17 @@ def attention_rows(time_ms, dev, g, B, T, C, heads, calls, dtype,
                 "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                     qh, kh, vh, scale=scale), reps=reps, inner=inner)[0],
                 "library_backend": backend, "bound_ms": b_ms, "bound_by": b_by})
+            was = ""
+            if (dtype == torch.bfloat16 and hd > attn_op.NARROW_MAX_HEAD_DIM
+                    and T <= 256):
+                # the two-pass kernel the one-pass one replaced at T <= 256,
+                # on the same inputs in the same call
+                fwd["two_pass_ms"] = time_ms(wide_two_pass(q, k, v, heads, scale),
+                                             reps=reps, inner=inner)[0]
+                was = f" (the two-pass kernel it replaced: {fwd['two_pass_ms']:.4f})"
             log(f"attention {where} x{calls}/step: max_abs_err {err:.3g} (lse "
                 f"{lse_err:.3g}; tol rtol {rtol} atol {atol}; worst {worst:.3g} "
-                f"of it; bitwise repeat {same}) kernel_ms {ms:.4f} (host "
+                f"of it; bitwise repeat {same}) kernel_ms {ms:.4f}{was} (host "
                 f"{host_ms:.4f}) plain_ms {fwd['plain_ms']:.4f} SDPA ({backend}) "
                 f"{fwd['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by})")
         if not (ok and lse_err <= lse_tol and same):
@@ -5428,24 +5609,109 @@ def model_calls(net, x, tau):
 
 
 @contextlib.contextmanager
-def plain_attention_spy():
-    """Counts the UNet's calls of the plain attention branch
-    (models/unet.py's attention_reference) on CUDA tensors, for the
-    duration: {"cuda": n, "cpu": n}."""
+def plain_on_card_spy():
+    """Counts calls of the plain versions of rows 1, 2, 5 and 6 (the
+    modules' references, and the UNet's attention_reference) whose first
+    tensor lies on the card, for the duration: {name: n}."""
     import pdm_tpu_torch.models.unet as unet_mod
+    from pdm_tpu_torch.ops import attention as attn_op
+    from pdm_tpu_torch.ops import attention_block as tb
 
-    calls = {"cuda": 0, "cpu": 0}
-    plain = unet_mod.attention_reference
+    calls = {}
+    patched = [(attn_op, "_reference_with_lse"), (attn_op, "attention_bwd_reference"),
+               (tb, "_reference_with_lse"), (tb, "attention_block_reference"),
+               (tb, "attention_block_bwd_reference"), (unet_mod, "attention_reference")]
+    real = {(mod, name): getattr(mod, name) for mod, name in patched}
 
-    def spy(q, *args, **kw):
-        calls["cuda" if q.is_cuda else "cpu"] += 1
-        return plain(q, *args, **kw)
+    def spy(key, fn):
+        def call(*args, **kw):
+            if any(getattr(a, "is_cuda", False) for a in args[:2]):
+                calls[key] = calls.get(key, 0) + 1
+            return fn(*args, **kw)
+        return call
 
-    unet_mod.attention_reference = spy
+    for (mod, name), fn in real.items():
+        setattr(mod, name, spy(f"{mod.__name__.split('.')[-1]}.{name}", fn))
     try:
         yield calls
     finally:
-        unet_mod.attention_reference = plain
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+
+def block_launch_counts():
+    from pdm_tpu_torch.ops import attention_block as tb
+
+    return {"block_fwd": tb.fused_attention_block.launches,
+            "block_bwd": tb.attention_block_bwd.launches}
+
+
+def zero_block_launches():
+    from pdm_tpu_torch.ops import attention_block as tb
+
+    tb.fused_attention_block.launches = 0
+    tb.attention_block_bwd.launches = 0
+
+
+def tiny_single_head_step(dev) -> dict:
+    """PDM_FUSED_BLOCK=1, fp32: one train step of SINGLE_TINY (its four
+    blocks one head of 128 at 8 x 8: rows 5 and 6 on the staged plan) on
+    the card against the CPU, as tests/test_torch_cuda.py holds the
+    flagship-sized tiny UNet: loss within 1e-4, each gradient the step
+    applied within 1e-4 of its scale plus 1e-6 of the largest; launches
+    exact (rows 5 and 6 three and eight a block, rows 1 and 2 none), no
+    plain version on a card tensor."""
+    import torch
+    from pdm_tpu_torch.diffusion.trainer import DDPMTrainer
+    from pdm_tpu_torch.models.unet import unet_from_config
+    from pdm_tpu_torch.models.unet_ddpm import UNetDDPM
+    from pdm_tpu_torch.ops import attention_block as tb
+    from pdm_tpu_torch.schedulers.analytic import LinearBetaScheduler
+
+    rng = np.random.RandomState(26)
+    cpu_net = unet_from_config(3, SINGLE_TINY, device="cpu")
+    params = {k: torch.from_numpy((rng.standard_normal(tuple(v.shape)) * 0.1)
+                                  .astype(np.float32))
+              for k, v in cpu_net.named_parameters()}
+    x0, eps = (torch.from_numpy(rng.standard_normal((4, 3, 16, 16)).astype(np.float32))
+               for _ in range(2))
+    tau = torch.from_numpy(rng.uniform(0, 1, 4).astype(np.float32))
+    n_attn = sum(1 for n, _ in cpu_net.named_modules() if n.endswith("to_q"))
+    heads = sorted({m.heads for m in cpu_net.modules() if hasattr(m, "to_q")})
+    out = {}
+    with env_var("PDM_FUSED_BLOCK", "1"), plain_on_card_spy() as plain:
+        for d in (torch.device("cpu"), dev):
+            net = cpu_net if d.type == "cpu" else unet_from_config(3, SINGLE_TINY, device=d)
+            tr = DDPMTrainer(UNetDDPM(LinearBetaScheduler(1e-4, 1e2), net, device=d),
+                             learning_rate=1e-3, warmup_steps=0, grad_clip=1e3)
+            state = tr.init_state(params)
+            zero_launches()
+            zero_block_launches()
+            state, m, grads = train_step_with_grads(tr, state, x0.to(d), tau=tau.to(d),
+                                                    eps=eps.to(d))
+            out[d.type] = (float(m["loss"]), grads,
+                           {**launch_counts(), **block_launch_counts()})
+            del net, tr, state
+    cpu, card = out["cpu"], out["cuda"]
+    want = {"attention_fwd": 0, "attention_bwd": 0, "group_norm_fwd": card[2]["group_norm_fwd"],
+            "group_norm_bwd": card[2]["group_norm_bwd"],
+            "block_fwd": BLOCK_LAUNCHES["staged", False] * n_attn,
+            "block_bwd": BLOCK_LAUNCHES["staged", True] * n_attn}
+    loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
+    top = max(float(g.abs().max()) for g in cpu[1].values())
+    worst = max(float((card[1][k] - g).abs().max())
+                / (1e-4 * float(g.abs().max()) + 1e-6 * top) for k, g in cpu[1].items())
+    log(f"single-head tiny UNet ({n_attn} blocks, heads {heads}, one of 128 at 8 x 8: "
+        f"{tb.block_route(64, 128, 1)}) fp32 train step B=4, PDM_FUSED_BLOCK=1, card vs "
+        f"CPU: loss {card[0]:.6g} vs {cpu[0]:.6g} (rel err {loss_err:.3g}, tol 1e-4); "
+        f"worst gradient error {worst:.3g} of its tolerance (1e-4 of its scale + 1e-6 "
+        f"of {top:.3g}); card launches {card[2]} (want {want}); plain versions on card "
+        f"tensors {plain}")
+    if (loss_err > 1e-4 or worst > 1.0 or card[2] != want or plain
+            or cpu[2]["block_fwd"] or cpu[2]["block_bwd"]):
+        fail("single-head tiny UNet: the fp32 opt-in train step on the card disagrees "
+             "with the CPU, or its launches are wrong")
+    return {"loss_rel_err": loss_err, "worst_of_tolerance": worst, "launches": card[2]}
 
 
 def launch_counts():
@@ -5509,7 +5775,15 @@ def highres_phase(time_ms, dev, smi: str) -> dict:
     memory, idle share. (e) The fp32 family at batch 1 on the card against
     the same weights on the CPU (FORWARD_TOL). (f) The single-head 32 x 32
     DDPM's DDIM-10 at batch 64: 6 row-1 (head dim 256) and 51 row-3
-    launches a step."""
+    launches a step. Rows 5 and 6 at every geometry JAX's gate admits: in
+    (b) on the staged plan at the family's (B 8) and the single-head 32 x
+    32's blocks (B 64; B 128 with the backward) and at BLOCK_WIDE_EDGES;
+    then with PDM_FUSED_BLOCK=1 (g) (c)'s sampler (6 row-5 calls, 18
+    launches, a step), (h) (d)'s trainer (6 row-5 and row-6 calls a
+    micro-batch), (i) (e)'s forward against the same CPU output, (j) the
+    fp32 train step of a single-head tiny UNet card vs CPU, (k) (f)'s
+    sampler, each with exact launches and no plain version of rows 1, 2,
+    5 or 6 on a card tensor."""
     import torch
 
     from pdm_tpu_torch.config.loader import (
@@ -5569,6 +5843,13 @@ def highres_phase(time_ms, dev, smi: str) -> dict:
             bwd_single.append(attention_rows(time_ms, dev, g, TRAIN_BATCH, T, C,
                                              heads, c, dtype, forward=False)[1])
     edge_fwd, edge_bwd = wide_edge_rows(dev, g)
+    # rows 5 and 6 (the staged plan) at the family's and the single-head
+    # 32 x 32's blocks, then at the edges of JAX's geometry
+    fam_blk, fam_blk_bwd = block_kernel_rows(time_ms, dev, FAMILY_BLOCK_GEOMS,
+                                             (HIGHRES_BATCH,), seed=25)
+    sh_blk, sh_blk_bwd = block_kernel_rows(time_ms, dev, SINGLE_BLOCK_GEOMS,
+                                           (BATCH, TRAIN_BATCH), seed=26)
+    blk_edge_fwd, blk_edge_bwd = block_edge_rows(dev, BLOCK_WIDE_EDGES, seed=27)
     gn_fwd, gn_bwd = [], []
     for (S, C, act), calls in sorted(gn_calls.items(), key=lambda kv: -kv[0][0] * kv[0][1]):
         f, b = group_norm_rows(time_ms, dev, g, HIGHRES_BATCH, S, C, 32, "bfloat16",
@@ -5579,7 +5860,12 @@ def highres_phase(time_ms, dev, smi: str) -> dict:
     out["rows"] = {"attention_fwd": fwd_family, "attention_bwd": bwd_family,
                    "single_fwd": fwd_single, "single_bwd": bwd_single,
                    "edge_fwd": edge_fwd, "edge_bwd": edge_bwd,
-                   "group_norm_fwd": gn_fwd, "group_norm_bwd": gn_bwd}
+                   "group_norm_fwd": gn_fwd, "group_norm_bwd": gn_bwd,
+                   "block_fwd": fam_blk[HIGHRES_BATCH], "block_bwd": fam_blk_bwd,
+                   "single_block_fwd": sh_blk[BATCH],
+                   "single_block_fwd_train": sh_blk[TRAIN_BATCH],
+                   "single_block_bwd": sh_blk_bwd,
+                   "block_edge_fwd": blk_edge_fwd, "block_edge_bwd": blk_edge_bwd}
     log(f"phase 23 (b) done at {time.perf_counter() - t_phase:.1f} s")
 
     # (c) the diffusers entry point: write, load, sample
@@ -5628,7 +5914,7 @@ def highres_phase(time_ms, dev, smi: str) -> dict:
     short.batch_sample(torch.Generator(device=dev).manual_seed(1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with plain_attention_spy() as plain:
+    with plain_on_card_spy() as plain:
         host = [host_clock()]
         zero_launches()
         t0 = time.perf_counter()
@@ -5650,13 +5936,13 @@ def highres_phase(time_ms, dev, smi: str) -> dict:
         f"in batches of {HIGHRES_BATCH}: {wall:.3f} s, {ms_step:.3f} ms/step, "
         f"{HIGHRES_SAMPLES / wall:.3f} samples/s, peak memory {peak:.2f} GiB; "
         f"launches {launches} (want {want}); plain attention calls on CUDA "
-        f"tensors {plain['cuda']}; the card busy {busy:.3f} ms of a step, idle "
+        f"tensors {sum(plain.values())}; the card busy {busy:.3f} ms of a step, idle "
         f"{1.0 - busy / ms_step:.1%}; output {tuple(x.shape)} mean "
         f"{float(x.float().mean()):.4g} std {float(x.float().std()):.4g}; host "
         f"before / after {host}")
-    if launches != want or plain["cuda"]:
+    if launches != want or sum(plain.values()):
         fail(f"256x256 family sampling: launches {launches} != {want} or plain "
-             f"attention on CUDA tensors {plain['cuda']} times")
+             f"attention on CUDA tensors {sum(plain.values())} times")
     if tuple(x.shape) != (HIGHRES_SAMPLES, 3, size, size) or not bool(
             torch.isfinite(x).all()):
         fail(f"256x256 family sampling: output not finite of shape "
@@ -5664,7 +5950,59 @@ def highres_phase(time_ms, dev, smi: str) -> dict:
     out["sampling"] = {"launches": launches, "steps": n_steps, "ms_per_step": ms_step,
                        "samples_per_s": HIGHRES_SAMPLES / wall, "peak_gib": peak,
                        "busy_ms_per_step": busy, "idle_share": 1.0 - busy / ms_step,
-                       "plain_attention_cuda_calls": plain["cuda"], "host": host}
+                       "plain_attention_cuda_calls": sum(plain.values()), "host": host}
+
+    # (g) the same sampler with PDM_FUSED_BLOCK=1: rows 5 and 6 on the
+    # staged plan in every attention block, no row-1 launch
+    n_blk = HIGHRES_CALLS["attention"]
+    with env_var("PDM_FUSED_BLOCK", "1"):
+        short.batch_sample(torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with plain_on_card_spy() as plain_b:
+            host = [host_clock()]
+            zero_launches()
+            zero_block_launches()
+            t0 = time.perf_counter()
+            samples = sampler.sample()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {**launch_counts(), **block_launch_counts()}
+            host.append(host_clock())
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy = profile_steps(lambda: short.batch_sample(
+            torch.Generator(device=dev).manual_seed(4)), HIGHRES_PROFILE_STEPS,
+            label="256x256 sampling profile, PDM_FUSED_BLOCK=1")
+    x = torch.as_tensor(samples["x"])
+    ms_blk = wall / n_steps * 1e3
+    want = {"attention_fwd": 0, "attention_bwd": 0, "group_norm_fwd": 71 * n_steps,
+            "group_norm_bwd": 0, "block_fwd": 3 * n_blk * n_steps, "block_bwd": 0}
+    log(f"256x256 family sampling, PDM_FUSED_BLOCK=1: DDIM-{HIGHRES_STEPS}, "
+        f"{HIGHRES_SAMPLES} samples in batches of {HIGHRES_BATCH}: {wall:.3f} s, "
+        f"{ms_blk:.3f} ms/step (without the opt-in {ms_step:.3f}), "
+        f"{HIGHRES_SAMPLES / wall:.3f} samples/s, peak memory {peak:.2f} GiB; launches "
+        f"{launches} (want {want}: {n_blk} row-5 calls a step, three launches each); "
+        f"plain versions on CUDA tensors {plain_b}; the card busy {busy:.3f} ms of a "
+        f"step, idle {1.0 - busy / ms_blk:.1%}; output {tuple(x.shape)} mean "
+        f"{float(x.float().mean()):.4g} std {float(x.float().std()):.4g}; host before / "
+        f"after {host}")
+    if launches != want or plain_b:
+        fail(f"256x256 family sampling with PDM_FUSED_BLOCK=1: launches {launches} != "
+             f"{want} or plain versions on CUDA tensors {plain_b}")
+    if tuple(x.shape) != (HIGHRES_SAMPLES, 3, size, size) or not bool(
+            torch.isfinite(x).all()):
+        fail("256x256 family sampling with PDM_FUSED_BLOCK=1: output not finite or "
+             "of the wrong shape")
+    out["sampling_block"] = {"launches": launches, "steps": n_steps, "ms_per_step": ms_blk,
+                             "samples_per_s": HIGHRES_SAMPLES / wall, "peak_gib": peak,
+                             "busy_ms_per_step": busy, "idle_share": 1.0 - busy / ms_blk,
+                             "host": host}
+    # the two in alternating turns: (f) and (g) ran one after the other
+    gen_t = torch.Generator(device=dev).manual_seed(5)
+    out["sampling_turns"] = block_turns(lambda: sampler.batch_sample(gen_t),
+                                        HIGHRES_TURN_PAIRS, HIGHRES_STEPS)
+    log(turns_summary("256x256 family sampling (DDIM, one batch a turn)",
+                      out["sampling_turns"]))
     del ddpm, sampler, short, samples, x
     torch.cuda.empty_cache()
 
@@ -5682,7 +6020,7 @@ def highres_phase(time_ms, dev, smi: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses = []
-    with plain_attention_spy() as plain:
+    with plain_on_card_spy() as plain:
         host = [host_clock()]
         zero_launches()
         t0 = time.perf_counter()
@@ -5707,11 +6045,11 @@ def highres_phase(time_ms, dev, smi: str) -> dict:
         f"in {wall:.3f} s, {ms_step:.3f} ms/step, {global_batch / ms_step * 1e3:.3f} "
         f"img/s, peak memory {peak:.2f} GiB; losses {losses.tolist()}; launches "
         f"{launches} (want {want}); plain attention calls on CUDA tensors "
-        f"{plain['cuda']}; the card busy {busy:.3f} ms of a step, idle "
+        f"{sum(plain.values())}; the card busy {busy:.3f} ms of a step, idle "
         f"{1.0 - busy / ms_step:.1%}; host before / after {host}")
-    if launches != want or plain["cuda"]:
+    if launches != want or sum(plain.values()):
         fail(f"256x256 family training: launches {launches} != {want} or plain "
-             f"attention on CUDA tensors {plain['cuda']} times")
+             f"attention on CUDA tensors {sum(plain.values())} times")
     if not bool(torch.isfinite(losses).all()):
         fail("256x256 family training: loss not finite")
     out["training"] = {"launches": launches, "micro_batches": micro,
@@ -5719,6 +6057,59 @@ def highres_phase(time_ms, dev, smi: str) -> dict:
                        "peak_gib": peak, "busy_ms_per_step": busy,
                        "idle_share": 1.0 - busy / ms_step, "losses": losses.tolist(),
                        "host": host}
+
+    # (h) the same trainer with PDM_FUSED_BLOCK=1: a warm step, then three
+    with env_var("PDM_FUSED_BLOCK", "1"):
+        state, _ = trainer.train_step(state, x_train, step_generator(0, 50, dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        with plain_on_card_spy() as plain_b:
+            host = [host_clock()]
+            zero_launches()
+            zero_block_launches()
+            t0 = time.perf_counter()
+            for it in range(HIGHRES_TRAIN_STEPS):
+                state, m = trainer.train_step(state, x_train,
+                                              step_generator(0, it + 60, dev))
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {**launch_counts(), **block_launch_counts()}
+            host.append(host_clock())
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        gen_p = step_generator(0, 101, dev)
+        busy = profile_steps(lambda: trainer.train_step(state, x_train, gen_p), 1,
+                             label="256x256 training profile, PDM_FUSED_BLOCK=1")
+    losses = torch.stack(losses).float().cpu()
+    ms_blk = wall / HIGHRES_TRAIN_STEPS * 1e3
+    want = {"attention_fwd": 0, "attention_bwd": 0, "group_norm_fwd": 71 * micro,
+            "group_norm_bwd": 71 * micro, "block_fwd": 3 * n_blk * micro,
+            "block_bwd": 8 * n_blk * micro}
+    log(f"256x256 family training, PDM_FUSED_BLOCK=1: {HIGHRES_TRAIN_STEPS} steps in "
+        f"{wall:.3f} s, {ms_blk:.3f} ms/step (without the opt-in {ms_step:.3f}), "
+        f"{global_batch / ms_blk * 1e3:.3f} img/s, peak memory {peak:.2f} GiB; losses "
+        f"{losses.tolist()}; launches {launches} (want {want}: {n_blk} row-5 and "
+        f"row-6 calls a micro-batch, three and eight launches each); plain versions on "
+        f"CUDA tensors {plain_b}; the card busy {busy:.3f} ms of a step, idle "
+        f"{1.0 - busy / ms_blk:.1%}; host before / after {host}")
+    if launches != want or plain_b:
+        fail(f"256x256 family training with PDM_FUSED_BLOCK=1: launches {launches} != "
+             f"{want} or plain versions on CUDA tensors {plain_b}")
+    if not bool(torch.isfinite(losses).all()):
+        fail("256x256 family training with PDM_FUSED_BLOCK=1: loss not finite")
+    out["training_block"] = {"launches": launches, "micro_batches": micro,
+                             "ms_per_step": ms_blk,
+                             "img_per_s": global_batch / ms_blk * 1e3, "peak_gib": peak,
+                             "busy_ms_per_step": busy, "idle_share": 1.0 - busy / ms_blk,
+                             "losses": losses.tolist(), "host": host}
+
+    def train_turn():
+        nonlocal state
+        state, _ = trainer.train_step(state, x_train, step_generator(0, 70, dev))
+
+    out["training_turns"] = block_turns(train_turn, HIGHRES_TURN_PAIRS, 1)
+    log(turns_summary("256x256 family training (one step a turn)", out["training_turns"]))
     del trainer, state, net_t, ddpm_t, x_train
     torch.cuda.empty_cache()
 
@@ -5744,7 +6135,25 @@ def highres_phase(time_ms, dev, smi: str) -> dict:
             n_card["attention_fwd"], n_card["group_norm_fwd"]) != (6, 71):
         fail("256x256 family fp32 forward on the card disagrees with the CPU")
     out["card_vs_cpu"] = {"max_abs_err": err, "scale": scale_o}
+    # (i) the same with PDM_FUSED_BLOCK=1 against the same CPU output
+    with env_var("PDM_FUSED_BLOCK", "1"), torch.no_grad(), plain_on_card_spy() as plain_b:
+        zero_launches()
+        zero_block_launches()
+        card = net32(x1.to(dev), tau1.to(dev)).cpu()
+        n_card = {**launch_counts(), **block_launch_counts()}
+    err = float((card - ref).abs().max())
+    log(f"256x256 family fp32 forward B=1, PDM_FUSED_BLOCK=1, card (kernels: {n_card}) "
+        f"vs CPU: max_abs_err {err:.3g} of output scale {scale_o:.3g} (tol {FORWARD_TOL} "
+        f"of scale); plain versions on CUDA tensors {plain_b}")
+    if not (math.isfinite(err) and err <= FORWARD_TOL * scale_o) or plain_b or (
+            n_card["attention_fwd"], n_card["block_fwd"], n_card["group_norm_fwd"]) != (
+            0, 3 * n_blk, 71):
+        fail("256x256 family fp32 forward with PDM_FUSED_BLOCK=1 on the card disagrees "
+             "with the CPU")
+    out["card_vs_cpu_block"] = {"max_abs_err": err, "scale": scale_o}
     del net32, cpu_net
+    # (j) a single-head UNet's fp32 train step with the opt-in, card vs CPU
+    out["tiny_single_head_step"] = tiny_single_head_step(dev)
 
     # (f) the single-head 32 x 32 DDPM, DDIM-10 at batch 64
     net_s = unet_from_config(3, SINGLE_HEAD, dtype=torch.bfloat16, device=dev)
@@ -5759,7 +6168,7 @@ def highres_phase(time_ms, dev, smi: str) -> dict:
                           step_type="ddim", precision="half", device=dev)
     sampler.batch_sample(torch.Generator(device=dev).manual_seed(2))
     torch.cuda.synchronize()
-    with plain_attention_spy() as plain:
+    with plain_on_card_spy() as plain:
         zero_launches()
         t0 = time.perf_counter()
         xs = sampler.batch_sample(torch.Generator(device=dev).manual_seed(3))["x"]
@@ -5774,14 +6183,38 @@ def highres_phase(time_ms, dev, smi: str) -> dict:
     log(f"single-head 32x32 DDPM ({n_s:,} parameters; attention {attn_s}): "
         f"DDIM-{SINGLE_HEAD_STEPS} at batch {BATCH}: {wall / SINGLE_HEAD_STEPS * 1e3:.3f} "
         f"ms/step; launches {launches} (want {want}); plain attention calls on "
-        f"CUDA tensors {plain['cuda']}")
-    if (launches != want or plain["cuda"] or set(attn_s) != set(sh_attn)
+        f"CUDA tensors {sum(plain.values())}")
+    if (launches != want or sum(plain.values()) or set(attn_s) != set(sh_attn)
             or sum(gn_s.values()) != SINGLE_HEAD_CALLS["group_norm"]
             or not bool(torch.isfinite(xs).all())):
         fail("single-head 32x32 DDPM: launches, layout or output wrong")
     out["single_head"] = {"launches": launches, "steps": SINGLE_HEAD_STEPS,
                           "ms_per_step": wall / SINGLE_HEAD_STEPS * 1e3,
                           "params": n_s}
+    # (k) the same sampler with PDM_FUSED_BLOCK=1
+    with env_var("PDM_FUSED_BLOCK", "1"):
+        sampler.batch_sample(torch.Generator(device=dev).manual_seed(2))
+        torch.cuda.synchronize()
+        with plain_on_card_spy() as plain_b:
+            zero_launches()
+            zero_block_launches()
+            t0 = time.perf_counter()
+            xs = sampler.batch_sample(torch.Generator(device=dev).manual_seed(3))["x"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {**launch_counts(), **block_launch_counts()}
+    n_sh = SINGLE_HEAD_CALLS["attention"]
+    want = {"attention_fwd": 0, "attention_bwd": 0,
+            "group_norm_fwd": SINGLE_HEAD_CALLS["group_norm"] * SINGLE_HEAD_STEPS,
+            "group_norm_bwd": 0, "block_fwd": 3 * n_sh * SINGLE_HEAD_STEPS, "block_bwd": 0}
+    log(f"single-head 32x32 DDPM, PDM_FUSED_BLOCK=1: DDIM-{SINGLE_HEAD_STEPS} at batch "
+        f"{BATCH}: {wall / SINGLE_HEAD_STEPS * 1e3:.3f} ms/step; launches {launches} "
+        f"(want {want}: {n_sh} row-5 calls a step); plain versions on CUDA tensors "
+        f"{plain_b}")
+    if launches != want or plain_b or not bool(torch.isfinite(xs).all()):
+        fail("single-head 32x32 DDPM with PDM_FUSED_BLOCK=1: launches or output wrong")
+    out["single_head_block"] = {"launches": launches, "steps": SINGLE_HEAD_STEPS,
+                                "ms_per_step": wall / SINGLE_HEAD_STEPS * 1e3}
     del net_s, ddpm_s, sampler
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
@@ -6137,7 +6570,8 @@ def main() -> int:
 
     # ---- phase 13: the whole-block kernels against their plain versions ----
     log(f"phase 13 at {time.perf_counter() - t_start:.1f} s")
-    block_rows, block_train_rows, block_bwd_rows = block_kernel_rows(time_ms, dev)
+    block_fwd, block_bwd_rows = block_kernel_rows(time_ms, dev)
+    block_rows, block_train_rows = block_fwd[BATCH], block_fwd[TRAIN_BATCH]
     block_fwd_edges, block_bwd_edges = block_edge_rows(dev)
 
     # the whole-block path is opt-in: on for phases 14-16 only
@@ -6200,30 +6634,9 @@ def main() -> int:
         # the two paths in ten alternating pairs of short turns in this run
         # (the order inside a pair alternates too): the host's speed drifts
         # between phases, so only the per-pair differences compare them
-        turns = {"0": [], "1": []}
-        for pair in range(TURN_PAIRS):
-            for flag in (("0", "1") if pair % 2 == 0 else ("1", "0")):
-                os.environ["PDM_FUSED_BLOCK"] = flag
-                leg = sampler_of(TURN_STEPS)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                leg.batch_sample(gen)
-                torch.cuda.synchronize()
-                turns[flag].append((time.perf_counter() - t0) / TURN_STEPS * 1e3)
-        os.environ["PDM_FUSED_BLOCK"] = "1"
-        gain = [d - f for d, f in zip(turns["0"], turns["1"])]
-        sampling_turns = {
-            "steps_per_turn": TURN_STEPS, "default_ms": turns["0"],
-            "whole_block_ms": turns["1"], "default_minus_whole_block_ms": gain,
-            "median_gain_ms": statistics.median(gain),
-            "pairs_whole_block_faster": sum(g_ > 0 for g_ in gain)}
-        log(f"sampling in {TURN_PAIRS} alternating pairs of turns, {TURN_STEPS} DDPM "
-            f"steps each: default path median {statistics.median(turns['0']):.3f} "
-            f"ms/step, whole-block path median {statistics.median(turns['1']):.3f}; "
-            f"default minus whole block per pair median {sampling_turns['median_gain_ms']:.3f} "
-            f"ms (range {min(gain):.3f} to {max(gain):.3f}), whole block faster in "
-            f"{sampling_turns['pairs_whole_block_faster']} of {TURN_PAIRS} pairs; "
-            + json.dumps(sampling_turns))
+        leg = sampler_of(TURN_STEPS)
+        log(turns_summary("sampling (DDPM)", block_turns(
+            lambda: leg.batch_sample(gen), TURN_PAIRS, TURN_STEPS)))
 
         # ---- phase 15: the whole-block training path ----
         log(f"phase 15 at {time.perf_counter() - t_start:.1f} s")
@@ -6272,19 +6685,13 @@ def main() -> int:
                                         for _ in range(TRAIN_PROFILE_STEPS)],
                                TRAIN_PROFILE_STEPS, label="whole-block training profile")
         idle_f = train_ms_f - busy_f
-        turns = {"0": [], "1": []}
-        for flag in ("0", "1", "1", "0"):
-            os.environ["PDM_FUSED_BLOCK"] = flag
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+
+        def train_turn():
+            nonlocal state_f
             for _ in range(TRAIN_TURN_STEPS):
                 state_f, _ = trainer_f.train_step(state_f, x_train, gen_b)
-            torch.cuda.synchronize()
-            turns[flag].append((time.perf_counter() - t0) / TRAIN_TURN_STEPS * 1e3)
-        os.environ["PDM_FUSED_BLOCK"] = "1"
-        log(f"training in turns, {TRAIN_TURN_STEPS} steps each: default path "
-            f"{turns['0'][0]:.3f} / {turns['0'][1]:.3f} ms/step, whole-block path "
-            f"{turns['1'][0]:.3f} / {turns['1'][1]:.3f} ms/step")
+
+        log(turns_summary("training", block_turns(train_turn, 2, TRAIN_TURN_STEPS)))
         log(f"whole-block training path: the card is busy {busy_f:.3f} ms of a "
             f"{train_ms_f:.3f} ms step and idle {idle_f:.3f} ms "
             f"({idle_f / train_ms_f:.1%}) (default path: busy {busy_ms:.3f} ms)")
@@ -6369,12 +6776,15 @@ def main() -> int:
         bound_ms = per_step("bound_ms")
         by_bytes = sum(r["bound_ms"] * r["calls_per_step"] for r in main
                        if r["bound_by"] == "bytes")
+        # rows 5 and 6 at cluster shapes: the staged plan timed beside it
+        staged = ({"staged_ms": per_step("staged_ms")}
+                  if main and all("staged_ms" in r for r in main) else {})
         return {
             "launches": launches, "launches_per_step": launches / n_steps,
             "ms": per_step("ms"), "host_ms": per_step("host_ms"),
             "plain_ms": per_step("plain_ms"), "bound_ms": bound_ms,
             "bound_by": "bytes" if by_bytes >= bound_ms / 2 else "operations",
-            "library_ms": per_step("library_ms"),
+            "library_ms": per_step("library_ms"), **staged,
         }
 
     def entry(name, source, replaces, design, paths, edges=()):
@@ -6405,6 +6815,12 @@ def main() -> int:
                  highres["sampling"]["launches"], highres["sampling"]["steps"])
     hr_train = ("256x256 family training (a step = a micro-batch of 8)",
                 highres["training"]["launches"], highres["training"]["micro_batches"])
+
+    hr_sample_b = ("256x256 family whole-block sampling (PDM_FUSED_BLOCK=1, DDIM-50, B 8)",
+                   highres["sampling_block"]["launches"], highres["sampling_block"]["steps"])
+    hr_train_b = ("256x256 family whole-block training (PDM_FUSED_BLOCK=1; a step = a "
+                  "micro-batch of 8)", highres["training_block"]["launches"],
+                  highres["training_block"]["micro_batches"])
 
     def hr_path(which, rows, key):
         path, launches, n = which
@@ -6446,9 +6862,12 @@ def main() -> int:
               + [hr_path(hr_train, hr["group_norm_bwd"], "group_norm_bwd")]),
         entry("fused_spatial_attention_wide", "pdm_tpu_torch/csrc/attention_wide.cu",
               "pdm_tpu/ops/attention.py:75 (row 1 at head dims above 128)",
-              "two passes on mma.sync: the head dim contracted in 64-column "
-              "chunks through shared memory, the output's head dim cut into "
-              "128-column blocks, each recomputing its scores",
+              "bf16 at T <= 256: one pass on wgmma, a strip's whole score row in "
+              "registers contracted over 64-column head-dim chunks on a four-stage "
+              "TMA ring, two strips a block sharing k and v, P v on wgmma with P "
+              "in registers, output chunks split over blocks to fill the card "
+              "('two_pass_ms': the kernel it replaced, same call); above T 256 "
+              "two passes on mma.sync",
               [hr_path(hr_sample, hr["attention_fwd"], "attention_fwd"),
                hr_path(hr_train, hr["attention_fwd"], "attention_fwd"),
                ("single-head 32x32 sampling (DDIM-10, B 64)", hr["single_fwd"],
@@ -6488,6 +6907,31 @@ def main() -> int:
               "order",
               [("whole-block training", block_bwd_rows,
                 block_train_launches["block_bwd"], TRAIN_STEPS)], block_bwd_edges),
+    ]
+    kernels += [
+        entry("fused_attention_block_staged", "pdm_tpu_torch/csrc/attention_block_wide.cu",
+              "pdm_tpu/ops/attention_block.py:90 (row 5 at the geometries the cluster "
+              "kernels do not take)",
+              "staged through device memory, three launches a call: the qkv "
+              "projection on wgmma (128 x 64 tiles, a four-stage TMA ring, the "
+              "weights read in place), row 1's kernel on its column thirds (above "
+              "head dim 128 the one-pass wide kernel), the out projection with "
+              "b_out and the residual in its epilogue",
+              [hr_path(hr_sample_b, hr["block_fwd"], "block_fwd"),
+               hr_path(hr_train_b, hr["block_fwd"], "block_fwd"),
+               ("single-head 32x32 whole-block sampling (PDM_FUSED_BLOCK=1, DDIM-10, B 64)",
+                hr["single_block_fwd"], highres["single_head_block"]["launches"]["block_fwd"],
+                highres["single_head_block"]["steps"])],
+              hr["block_edge_fwd"] + hr["single_block_fwd_train"]),
+        entry("attention_block_bwd_staged", "pdm_tpu_torch/csrc/attention_block_wide.cu",
+              "pdm_tpu/ops/attention_block.py:104 (row 6 at the geometries the "
+              "cluster kernels do not take)",
+              "staged, eight launches a call: qkv and att recomputed as the "
+              "forward does, datt = do W_out and dh = dqkv W_qkv on the projection "
+              "kernel, row 2's two kernels into the column thirds of one dqkv, "
+              "attention_block_bwd.cu's split-K weight gradients and their merge",
+              [hr_path(hr_train_b, hr["block_bwd"], "block_bwd")],
+              hr["block_edge_bwd"] + hr["single_block_bwd"]),
     ]
     # the entry points' paths (phase 18): launch counts only, their
     # shapes being the main paths' at other batches

@@ -14,8 +14,10 @@
 // (not FlashAttention's rowsum(do * o), which differs by a rounding).
 //
 // Layout: q, k, v are (B, T, C) with C = heads * hd, token rows `ld` apart
-// (the column thirds of the fused qkv projection); do, dq, dk, dv are
-// contiguous (B, T, C); lse and D are (B, heads, T) fp32.
+// (the column thirds of the fused qkv projection); do is contiguous (B,
+// T, C); dq, dk, dv are (B, T, C) with token rows `ldo` apart (C, or 3C
+// for the column thirds of the whole block's dqkv on its staged plan);
+// lse and D are (B, heads, T) fp32.
 //
 // What bounds it on the H100: at the flagship's B=128, T=256, C=256 in
 // bf16 the call must read q, k, v, do (4 x 16.8 MB) and lse, and write
@@ -117,7 +119,7 @@ attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                               __nv_bfloat16* __restrict__ dq,
                               float* __restrict__ dsum, int n_items, int n_tok,
                               int heads, int hd, float scale, float scale_log2,
-                              int stages) {
+                              int stages, long long ldo) {
   using namespace pdm_hop;
   using S = Stripe<HDP>;
   constexpr int rows = NC * kRows;
@@ -170,8 +172,7 @@ attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       dq_strip<HDP, NC, true>(qs, qs + pair_tile, qs + 2 * pair_tile, qs + 2 * pair_tile + tile,
                         &bar[st][1], phase, pair_rows, wg * kRows, rows, strip, lay, lse,
                         [&](const auto& acc, float mul, int row0) {
-                          store_rows<HDP>(dq, acc, mul, lay, row0, (long long)heads * hd,
-                                          it.h * hd, hd);
+                          store_rows<HDP>(dq, acc, mul, lay, row0, ldo, it.h * hd, hd);
                         },
                         dsum, scale, scale_log2);
     else
@@ -192,7 +193,7 @@ attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                 __nv_bfloat16* __restrict__ dk,
                                 __nv_bfloat16* __restrict__ dv, int n_items,
                                 int n_tok, int heads, int hd, float scale,
-                                float scale_log2, int stages) {
+                                float scale_log2, int stages, long long ldo) {
   using namespace pdm_hop;
   using S = Stripe<HDP>;
   constexpr int rows = NC * kRows;
@@ -253,8 +254,8 @@ attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       dkdv_strip<HDP, NC>(ks, ks + pair_tile, ks + 2 * pair_tile, ks + 2 * pair_tile + tile,
                           pair_rows, wg * kRows, rows, kt, lay, lse_s, d_s,
                           [&](int which, const auto& acc, float mul, int row0) {
-                            store_rows<HDP>(which ? dv : dk, acc, mul, lay, row0,
-                                            (long long)heads * hd, it.h * hd, hd);
+                            store_rows<HDP>(which ? dv : dk, acc, mul, lay, row0, ldo,
+                                            it.h * hd, hd);
                           },
                           scale, scale_log2);
     wgs_sync();  // the stage, lse_s and d_s are consumed
@@ -274,7 +275,7 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const float* __restrict__ lse,
                            __nv_bfloat16* __restrict__ dq,
                            float* __restrict__ dsum, int n_tok, int heads, int hd,
-                           long long ld, float scale, float scale_log2) {
+                           long long ld, long long ldo, float scale, float scale_log2) {
   constexpr int S = HD + 8;
   __shared__ __align__(16) __nv_bfloat16 ks[kTile * S];  // q, do, then k
   __shared__ __align__(16) __nv_bfloat16 vs[kTile * S];
@@ -353,7 +354,7 @@ attention_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   if (!busy) return;
   store_rows<HD>(dq + (long long)h * hd, acc, scale, (long long)b * n_tok,
-                 q0 + warp * 16, n_tok, C, lane, hd);
+                 q0 + warp * 16, n_tok, ldo, lane, hd);
   if (tq == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -373,7 +374,7 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                              const float* __restrict__ dsum,
                              __nv_bfloat16* __restrict__ dk,
                              __nv_bfloat16* __restrict__ dv, int n_tok,
-                             int heads, int hd, long long ld, float scale,
+                             int heads, int hd, long long ld, long long ldo, float scale,
                              float scale_log2) {
   constexpr int S = HD + 8;
   __shared__ __align__(16) __nv_bfloat16 qs[kTile * S];
@@ -444,9 +445,9 @@ attention_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   if (!busy) return;
   const long long row_base = (long long)b * n_tok;
   store_rows<HD>(dk + (long long)h * hd, dk_acc, scale, row_base, k0 + warp * 16,
-                 n_tok, C, lane, hd);
+                 n_tok, ldo, lane, hd);
   store_rows<HD>(dv + (long long)h * hd, dv_acc, 1.f, row_base, k0 + warp * 16,
-                 n_tok, C, lane, hd);
+                 n_tok, ldo, lane, hd);
 }
 
 // ---------------------------------------------------------------------------
@@ -459,7 +460,7 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict
                             const float* __restrict__ dout,
                             const float* __restrict__ lse, float* __restrict__ dq,
                             float* __restrict__ dsum, int n_tok, int heads, int hd,
-                            long long ld, float scale) {
+                            long long ld, long long ldo, float scale) {
   constexpr int BK = kTileElems / HD;
   __shared__ __align__(16) float ks[kTileElems];
   __shared__ __align__(16) float vs[kTileElems];
@@ -527,7 +528,7 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict
   if (active) {
 #pragma unroll
     for (int d = 0; d < HD; ++d)
-      if (d < hd) dq[drow + d] = acc[d] * scale;
+      if (d < hd) dq[((long long)b * n_tok + t) * ldo + (long long)h * hd + d] = acc[d] * scale;
     dsum[lrow + t] = D;
   }
 }
@@ -551,7 +552,7 @@ attention_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                               const float* __restrict__ lse,
                               const float* __restrict__ dsum,
                               float* __restrict__ dk, float* __restrict__ dv,
-                              int n_tok, int heads, int hd, long long ld,
+                              int n_tok, int heads, int hd, long long ld, long long ldo,
                               float scale) {
   constexpr int P = HD + 1;
   extern __shared__ __align__(16) float smem_f[];
@@ -623,7 +624,7 @@ attention_bwd_dkdv_f32_kernel(const float* __restrict__ q,
   }
 
   if (active) {
-    const long long o = ((long long)b * n_tok + t) * C + (long long)h * hd;
+    const long long o = ((long long)b * n_tok + t) * ldo + (long long)h * hd;
 #pragma unroll
     for (int d = 0; d < HD; ++d) {
       if (d < hd) {
@@ -652,7 +653,7 @@ bool bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
 template <int HDP, int NC>
 cudaError_t launch_dq_wgmma(const CUtensorMap (&m)[4], const float* lse, void* dq,
                             float* dsum, int B, int n_tok, int heads, int hd,
-                            float scale, cudaStream_t stream) {
+                            long long ldo, float scale, cudaStream_t stream) {
   using S = pdm_hop::Stripe<HDP>;
   const int pair_rows = (NC < 2 ? NC : 2) * pdm_hop::kRows;
   const int items = B * heads * ((NC + 1) / 2);
@@ -664,15 +665,15 @@ cudaError_t launch_dq_wgmma(const CUtensorMap (&m)[4], const float* lse, void* d
   if (err != cudaSuccess) return err;
   kernel<<<ring.blocks, pdm_hop::kThreads, smem, stream>>>(
       m[0], m[1], m[2], m[3], lse, static_cast<__nv_bfloat16*>(dq), dsum, items, n_tok,
-      heads, hd, scale, scale * kLog2e, ring.stages);
+      heads, hd, scale, scale * kLog2e, ring.stages, ldo);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, void* dq, float* dsum,
-                      int B, int n_tok, int heads, int hd, long long ld, float scale,
-                      cudaStream_t stream) {
+                      int B, int n_tok, int heads, int hd, long long ld, long long ldo,
+                      float scale, cudaStream_t stream) {
   if (dtype == pdm::kBFloat16 && n_tok <= pdm_hop::kMaxTokens) {
     const int nc = (n_tok + pdm_hop::kRows - 1) / pdm_hop::kRows;
     const int rows = nc * pdm_hop::kRows, pair_rows = (nc < 2 ? nc : 2) * pdm_hop::kRows;
@@ -680,24 +681,24 @@ cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v,
     if (!bwd_maps<HD>(m, q, k, v, dout, B, n_tok, heads, hd, ld, pair_rows, rows))
       return cudaErrorInvalidValue;
     switch (nc) {
-      case 1: return launch_dq_wgmma<HD, 1>(m, lse, dq, dsum, B, n_tok, heads, hd, scale, stream);
-      case 2: return launch_dq_wgmma<HD, 2>(m, lse, dq, dsum, B, n_tok, heads, hd, scale, stream);
-      case 3: return launch_dq_wgmma<HD, 3>(m, lse, dq, dsum, B, n_tok, heads, hd, scale, stream);
-      default: return launch_dq_wgmma<HD, 4>(m, lse, dq, dsum, B, n_tok, heads, hd, scale, stream);
+      case 1: return launch_dq_wgmma<HD, 1>(m, lse, dq, dsum, B, n_tok, heads, hd, ldo, scale, stream);
+      case 2: return launch_dq_wgmma<HD, 2>(m, lse, dq, dsum, B, n_tok, heads, hd, ldo, scale, stream);
+      case 3: return launch_dq_wgmma<HD, 3>(m, lse, dq, dsum, B, n_tok, heads, hd, ldo, scale, stream);
+      default: return launch_dq_wgmma<HD, 4>(m, lse, dq, dsum, B, n_tok, heads, hd, ldo, scale, stream);
     }
   } else if (dtype == pdm::kBFloat16) {
     const dim3 grid((n_tok + kTile - 1) / kTile, heads, B);
     attention_bwd_dq_tc_kernel<HD><<<grid, kTcThreads, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-        lse, static_cast<__nv_bfloat16*>(dq), dsum, n_tok, heads, hd, ld, scale,
+        lse, static_cast<__nv_bfloat16*>(dq), dsum, n_tok, heads, hd, ld, ldo, scale,
         scale * kLog2e);
   } else if (dtype == pdm::kFloat32) {
     const dim3 grid((n_tok + kBQ - 1) / kBQ, heads, B);
     attention_bwd_dq_f32_kernel<HD><<<grid, kBQ, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        static_cast<float*>(dq), dsum, n_tok, heads, hd, ld, scale);
+        static_cast<float*>(dq), dsum, n_tok, heads, hd, ld, ldo, scale);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -707,7 +708,8 @@ cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v,
 template <int HDP, int NC>
 cudaError_t launch_dkdv_wgmma(const CUtensorMap (&m)[4], const float* lse,
                               const float* dsum, void* dk, void* dv, int B, int n_tok,
-                              int heads, int hd, float scale, cudaStream_t stream) {
+                              int heads, int hd, long long ldo, float scale,
+                              cudaStream_t stream) {
   using S = pdm_hop::Stripe<HDP>;
   const int pair_rows = (NC < 2 ? NC : 2) * pdm_hop::kRows;
   const int items = B * heads * ((NC + 1) / 2);
@@ -721,7 +723,7 @@ cudaError_t launch_dkdv_wgmma(const CUtensorMap (&m)[4], const float* lse,
   kernel<<<ring.blocks, pdm_hop::kThreads, smem, stream>>>(
       m[0], m[1], m[2], m[3], lse, dsum, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), items, n_tok, heads, hd, scale, scale * kLog2e,
-      ring.stages);
+      ring.stages, ldo);
   return cudaGetLastError();
 }
 
@@ -729,7 +731,7 @@ template <int HD>
 cudaError_t launch_dkdv(int dtype, const void* q, const void* k, const void* v,
                         const void* dout, const float* lse, const float* dsum,
                         void* dk, void* dv, int B, int n_tok, int heads, int hd,
-                        long long ld, float scale, cudaStream_t stream) {
+                        long long ld, long long ldo, float scale, cudaStream_t stream) {
   if (dtype == pdm::kBFloat16 && n_tok <= pdm_hop::kMaxTokens) {
     const int nc = (n_tok + pdm_hop::kRows - 1) / pdm_hop::kRows;
     const int rows = nc * pdm_hop::kRows, pair_rows = (nc < 2 ? nc : 2) * pdm_hop::kRows;
@@ -737,10 +739,10 @@ cudaError_t launch_dkdv(int dtype, const void* q, const void* k, const void* v,
     if (!bwd_maps<HD>(m, q, k, v, dout, B, n_tok, heads, hd, ld, rows, pair_rows))
       return cudaErrorInvalidValue;
     switch (nc) {
-      case 1: return launch_dkdv_wgmma<HD, 1>(m, lse, dsum, dk, dv, B, n_tok, heads, hd, scale, stream);
-      case 2: return launch_dkdv_wgmma<HD, 2>(m, lse, dsum, dk, dv, B, n_tok, heads, hd, scale, stream);
-      case 3: return launch_dkdv_wgmma<HD, 3>(m, lse, dsum, dk, dv, B, n_tok, heads, hd, scale, stream);
-      default: return launch_dkdv_wgmma<HD, 4>(m, lse, dsum, dk, dv, B, n_tok, heads, hd, scale, stream);
+      case 1: return launch_dkdv_wgmma<HD, 1>(m, lse, dsum, dk, dv, B, n_tok, heads, hd, ldo, scale, stream);
+      case 2: return launch_dkdv_wgmma<HD, 2>(m, lse, dsum, dk, dv, B, n_tok, heads, hd, ldo, scale, stream);
+      case 3: return launch_dkdv_wgmma<HD, 3>(m, lse, dsum, dk, dv, B, n_tok, heads, hd, ldo, scale, stream);
+      default: return launch_dkdv_wgmma<HD, 4>(m, lse, dsum, dk, dv, B, n_tok, heads, hd, ldo, scale, stream);
     }
   } else if (dtype == pdm::kBFloat16) {
     const dim3 grid((n_tok + kTile - 1) / kTile, heads, B);
@@ -748,7 +750,7 @@ cudaError_t launch_dkdv(int dtype, const void* q, const void* k, const void* v,
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
         lse, dsum, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-        n_tok, heads, hd, ld, scale, scale * kLog2e);
+        n_tok, heads, hd, ld, ldo, scale, scale * kLog2e);
   } else if (dtype == pdm::kFloat32) {
     const dim3 grid((n_tok + kBQ - 1) / kBQ, heads, B);
     const int smem = dkdv_f32_smem<HD>() * 4;
@@ -758,7 +760,7 @@ cudaError_t launch_dkdv(int dtype, const void* q, const void* k, const void* v,
     kernel<<<grid, kBQ, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse, dsum,
-        static_cast<float*>(dk), static_cast<float*>(dv), n_tok, heads, hd, ld, scale);
+        static_cast<float*>(dk), static_cast<float*>(dv), n_tok, heads, hd, ld, ldo, scale);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -769,8 +771,10 @@ cudaError_t launch_dkdv(int dtype, const void* q, const void* k, const void* v,
 
 // q, k, v: (B, T, heads*hd) rows `ld` elements apart; dout: contiguous
 // (B, T, heads*hd) of the same dtype; lse: contiguous (B, heads, T) fp32
-// from the forward. Writes dq (contiguous, q's dtype) and dsum, the row
-// sums D (B, heads, T) fp32 that pdm_attention_bwd_dkdv reads. dtype:
+// from the forward. Writes dq (q's dtype, token rows `ldo` elements apart:
+// heads*hd for a contiguous dq, 3 heads*hd for the dq third of a (B, T,
+// 3C) dqkv) and dsum, the row sums D (B, heads, T) fp32 that
+// pdm_attention_bwd_dkdv reads. dtype:
 // pdm::kFloat32 or pdm::kBFloat16 (bf16: 16-byte aligned stripes, ld a
 // multiple of 8). hd: a multiple of 8 up to 128. Returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported argument or
@@ -778,8 +782,8 @@ cudaError_t launch_dkdv(int dtype, const void* q, const void* k, const void* v,
 extern "C" int pdm_attention_bwd_dq(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, void* dq,
                                     void* dsum, int B, int n_tok, int heads,
-                                    int hd, long long ld, float scale, int dtype,
-                                    void* stream) {
+                                    int hd, long long ld, long long ldo, float scale,
+                                    int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* D = static_cast<float*>(dsum);
@@ -787,24 +791,24 @@ extern "C" int pdm_attention_bwd_dq(const void* q, const void* k, const void* v,
   if (hd < 8 || hd > 128 || hd % 8) {
     err = cudaErrorInvalidValue;
   } else if (hd <= 16) {
-    err = launch_dq<16>(dtype, q, k, v, dout, l, dq, D, B, n_tok, heads, hd, ld, scale, s);
+    err = launch_dq<16>(dtype, q, k, v, dout, l, dq, D, B, n_tok, heads, hd, ld, ldo, scale, s);
   } else if (hd <= 32) {
-    err = launch_dq<32>(dtype, q, k, v, dout, l, dq, D, B, n_tok, heads, hd, ld, scale, s);
+    err = launch_dq<32>(dtype, q, k, v, dout, l, dq, D, B, n_tok, heads, hd, ld, ldo, scale, s);
   } else if (hd <= 64) {
-    err = launch_dq<64>(dtype, q, k, v, dout, l, dq, D, B, n_tok, heads, hd, ld, scale, s);
+    err = launch_dq<64>(dtype, q, k, v, dout, l, dq, D, B, n_tok, heads, hd, ld, ldo, scale, s);
   } else {
-    err = launch_dq<128>(dtype, q, k, v, dout, l, dq, D, B, n_tok, heads, hd, ld, scale, s);
+    err = launch_dq<128>(dtype, q, k, v, dout, l, dq, D, B, n_tok, heads, hd, ld, ldo, scale, s);
   }
   return static_cast<int>(err);
 }
 
-// As pdm_attention_bwd_dq, reading its dsum; writes dk and dv (contiguous,
-// q's dtype).
+// As pdm_attention_bwd_dq, reading its dsum; writes dk and dv (q's dtype,
+// token rows `ldo` elements apart).
 extern "C" int pdm_attention_bwd_dkdv(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* dsum,
                                       void* dk, void* dv, int B, int n_tok,
-                                      int heads, int hd, long long ld,
+                                      int heads, int hd, long long ld, long long ldo,
                                       float scale, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
@@ -813,13 +817,13 @@ extern "C" int pdm_attention_bwd_dkdv(const void* q, const void* k,
   if (hd < 8 || hd > 128 || hd % 8) {
     err = cudaErrorInvalidValue;
   } else if (hd <= 16) {
-    err = launch_dkdv<16>(dtype, q, k, v, dout, l, D, dk, dv, B, n_tok, heads, hd, ld, scale, s);
+    err = launch_dkdv<16>(dtype, q, k, v, dout, l, D, dk, dv, B, n_tok, heads, hd, ld, ldo, scale, s);
   } else if (hd <= 32) {
-    err = launch_dkdv<32>(dtype, q, k, v, dout, l, D, dk, dv, B, n_tok, heads, hd, ld, scale, s);
+    err = launch_dkdv<32>(dtype, q, k, v, dout, l, D, dk, dv, B, n_tok, heads, hd, ld, ldo, scale, s);
   } else if (hd <= 64) {
-    err = launch_dkdv<64>(dtype, q, k, v, dout, l, D, dk, dv, B, n_tok, heads, hd, ld, scale, s);
+    err = launch_dkdv<64>(dtype, q, k, v, dout, l, D, dk, dv, B, n_tok, heads, hd, ld, ldo, scale, s);
   } else {
-    err = launch_dkdv<128>(dtype, q, k, v, dout, l, D, dk, dv, B, n_tok, heads, hd, ld, scale, s);
+    err = launch_dkdv<128>(dtype, q, k, v, dout, l, D, dk, dv, B, n_tok, heads, hd, ld, ldo, scale, s);
   }
   return static_cast<int>(err);
 }

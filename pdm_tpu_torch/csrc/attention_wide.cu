@@ -14,13 +14,34 @@
 // the row sums D = sum_k P * dp taken from the rounded P.
 //
 // Layout as theirs: q, k, v are (B, T, C), C = heads * hd, token rows `ld`
-// apart (the column thirds of the fused qkv projection); do, out, dq, dk,
-// dv are contiguous (B, T, C); lse and D are (B, heads, T) fp32.
+// apart (the column thirds of the fused qkv projection); do and out are
+// contiguous (B, T, C); dq, dk, dv are (B, T, C) with token rows `ldo`
+// apart (C, or 3C for the column thirds of the whole block's dqkv); lse
+// and D are (B, heads, T) fp32.
 //
-// Why a kernel of its own: the narrow kernels keep a whole head-dim row in
-// registers (a warp's 16 x HD output accumulator, the fp32 kernels' q and
-// output rows), 256 and more fp32 registers a thread at HD 512. Here no
-// register array spans the head dim, so no head dim is too wide:
+// Why kernels of their own: the narrow kernels keep a whole head-dim row
+// in registers (a warp's 16 x HD output accumulator, the fp32 kernels' q
+// and output rows), 256 and more fp32 registers a thread at HD 512. Here
+// no register array spans the head dim, so no head dim is too wide.
+//
+// The bf16 forward at T <= 256 (every driven shape: the single-head 32x32
+// DDPM's T 256 and 16, the family's 256 and 64) is one pass on wgmma
+// (wide1p below): a strip's whole score row S (64 x 64 NC fp32,
+// NC = T / 64 rounded up) stays in registers while the head dim is
+// contracted over 64-column chunks that a four-stage TMA ring brings;
+// then the exact softmax, P normalized and rounded in registers as the A
+// operand of O = P v, v's 64-column chunks coming through the same ring
+// (loaded while the softmax runs), each output chunk stored through
+// per-warp staging rows. Two warpgroups a block take two strips of one
+// head and share every k and v chunk (one at NC 1); the output chunks
+// are split over blocks only as far as the card's SMs hold them, each
+// split recomputing the same S in the same order. Its two-pass
+// predecessor (below, kept for T > 256) computed each score tile 2 n_oc
+// times (two passes times hd / 128 output blocks) on mma.sync with no
+// load ahead: at the family's B 8, T 256 0.0959 ms, the one pass 0.0129
+// (H100 80GB HBM3 at 700 W, PERF.md).
+//
+// The rest is the simple first design:
 //  * the head dim is contracted in chunks (64 columns in bf16, 32 in
 //    fp32): q k^T (and do v^T) accumulate chunk by chunk over tiles staged
 //    in shared memory, the last chunk zero-filled past hd, so the score
@@ -28,30 +49,31 @@
 //    stays in registers;
 //  * the output's head dim is cut across blocks: a block writes 128 (bf16)
 //    or 64 (fp32) output columns of its 64 rows, and recomputes the scores
-//    it needs. Every block of a row computes bitwise the same scores, lse
-//    and D (one fixed summation order), so no block reads another's
-//    results and nothing is atomic: two calls give the same bits.
+//    it needs.
+// Every block of a row computes bitwise the same scores, lse and D (one
+// fixed summation order), so no block reads another's results and
+// nothing is atomic: two calls give the same bits.
 //
 // What bounds it on the H100: the 256x256 family's call, B 8, T 256, one
 // head of 512 in bf16, must move ~8.4 MB (2.5 us at 3.35 TB/s) and do
-// 1.07 GFLOP (1.1 us at the bf16 tensor-core peak). This design does more
-// than that: the forward computes each score tile 2 n_oc times (two passes
-// times the n_oc = hd / 128 output blocks of a row, 8 times at hd 512),
-// the dq kernel its scores and dp twice per output block, the dk kernel
-// once per output block, and every operand chunk crosses L2 once per tile
-// that uses it, with two barriers around each chunk and no load ahead.
-// It is the simple first kernel; its time beside the bound is in PERF.md.
+// 1.07 GFLOP (1.1 us at the bf16 tensor-core peak). The backward computes
+// more than that: the dq kernel its scores and dp twice per output block,
+// the dk kernel once per output block, and every operand chunk crosses L2
+// once per tile that uses it, with two barriers around each chunk and no
+// load ahead. Its time beside the bound is in PERF.md.
 //
-// Kernels, all with 128 (bf16) or 64 (fp32) threads:
+// Two-pass kernels, all with 128 (bf16) or 64 (fp32) threads:
 //  * bf16 (mma.sync m16n8k16, fp32 accumulate; the fragments and tile
 //    helpers of attention_common.cuh): grid (query tiles of 64, heads x
-//    n_oc, B) for the forward and dq; (key tiles of 64, heads x n_oc x 2,
-//    B) for dk and dv, each block one of the two (a dv block needs no dp).
+//    n_oc, B) for the forward above T 256 and dq; (key tiles of 64, heads
+//    x n_oc x 2, B) for dk and dv, each block one of the two (a dv block
+//    needs no dp).
 //  * fp32 on the CUDA cores (full fp32 products, no TF32), one thread per
 //    query row (forward, dq) or key row (dk, dv), tiles of 32 rows, the
 //    other side's rows read from shared memory as broadcasts.
 
 #include "attention_common.cuh"
+#include "attention_hopper.cuh"
 
 namespace {
 
@@ -258,6 +280,270 @@ attention_fwd_wide_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 forward at T <= 256: one pass on wgmma (the redesign of row 1w)
+//
+// A block is one 64-row query strip of one (image, head) and a range of the
+// output's 64-column chunks, one warpgroup. Thread 0 keeps a four-stage TMA
+// ring of 64-column head-dim chunks in flight: first the strip's q chunk
+// and the head's k chunk (all NC 64-row key chunks in one box), contracted
+// into the strip's whole score row S (64 x 64 NC fp32, in registers) by
+// wgmma; then v's column chunks of the block's output range, which the same
+// ring brings while the softmax runs. The softmax is exact (row max and sum
+// over the whole row), P is normalized and rounded to bf16 in registers as
+// the A operand of O = P v (wgmma, v N-major), and each 64-column output
+// chunk is stored through per-warp staging rows. The scores are computed
+// once per block: the output chunks are split over gridDim.y blocks only to
+// fill the card (32 strips at the family's B 8, T 256), each split
+// recomputing the same S in the same order, so every split writes bitwise
+// the values an unsplit block would.
+
+namespace wide1p {
+
+constexpr int kStages = 4;
+constexpr int kChunk = 64;                    // head-dim columns a chunk
+constexpr int kQBytes = 64 * kChunk * 2;      // a strip's rows of one chunk
+constexpr int kRowBytes = kChunk * 2 + 16;    // a staging row (padded)
+
+struct Maps {
+  CUtensorMap q, k, v;  // 4-D stripe maps {hd, heads, T, B}: boxes of 64 rows (q), 64 NC (k, v)
+};
+
+__host__ __device__ constexpr int stage_bytes(int nc, int wg) {
+  return wg * kQBytes + nc * 64 * kChunk * 2;
+}
+
+// the warp's 16 rows of a 64 x 64 fp32 accumulator, rounded to bf16, to
+// output rows `ld` apart at head-dim column col0 of the head's stripe `o`
+// through the warp's staging rows `buf`: whole 16-byte vectors a store,
+// rows past n_tok and columns past hd not written (hd is a multiple of 8)
+__device__ __forceinline__ void store_chunk(__nv_bfloat16* o, const float (&acc)[32],
+                                            int row0, int n_tok, long long ld, int col0,
+                                            int hd, char* buf) {
+  const int warp = (threadIdx.x & 127) >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<uint32_t*>(buf + (g + 8 * r) * kRowBytes + (i * 8 + 2 * tq) * 2) =
+          pack_bf16(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+  __syncwarp();
+#pragma unroll
+  for (int e = lane; e < 16 * 8; e += 32) {
+    const int rr = e >> 3, vv = e & 7;
+    const int row = row0 + warp * 16 + rr, col = col0 + vv * 8;
+    if (row < n_tok && col < hd)
+      *reinterpret_cast<uint4*>(o + (long long)row * ld + col) =
+          *reinterpret_cast<const uint4*>(buf + rr * kRowBytes + vv * 16);
+  }
+  __syncwarp();
+}
+
+// A block: WG warpgroups, one 64-row query strip each (strips WG p ..
+// WG p + WG - 1 of one (image, head), sharing every k and v chunk), and
+// the output chunks [c0, c0 + per_split) of blockIdx.y's split.
+template <int NC, int WG>
+__global__ void __launch_bounds__(WG * pdm_hop::kWgThreads, 1)
+attention_fwd_wide_wgmma_kernel(const __grid_constant__ Maps m, __nv_bfloat16* __restrict__ out,
+                                float* __restrict__ lse, int n_tok, int heads, int hd,
+                                int per_split, float scale_log2) {
+  using pdm_hop::desc_k;
+  using pdm_hop::desc_mn;
+  constexpr int kGroups = (NC + WG - 1) / WG;  // blocks of strips a head
+  constexpr int kKV = NC * 64 * kChunk * 2;    // a chunk of the head's key rows
+  constexpr int kStage = stage_bytes(NC, WG);
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  __shared__ __align__(16) char staging[4 * WG][16 * kRowBytes];
+
+  const int grp = blockIdx.x % kGroups, rest = blockIdx.x / kGroups;
+  const int h = rest % heads, b = rest / heads;
+  const int wg = threadIdx.x >> 7;
+  const int strip = grp * WG + wg;
+  const int live = NC - grp * WG < WG ? NC - grp * WG : WG;  // strips with rows
+  const int n_dc = (hd + kChunk - 1) / kChunk;
+  const int c0 = blockIdx.y * per_split;
+  const int n_vc = min(n_dc, c0 + per_split) - c0;
+  const int total = n_dc + n_vc;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  char* ring = pdm_hop::aligned_smem(smem_raw);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      pdm_hop::mbar_init(&full[st], 1);
+      pdm_hop::mbar_init(&empty[st], 4 * WG);
+    }
+    pdm_hop::fence_barrier_init();
+  }
+  __syncthreads();
+  // thread 0: chunk n of the sweep (the live strips' q and the head's k
+  // at head-dim chunk n, then v's output chunk c0 + n - n_dc) into stage
+  // n % kStages: k (or v) first, then the strips' q boxes
+  auto issue = [&](int n) {
+    const int st = n % kStages;
+    if (n >= kStages) pdm_hop::mbar_wait(&empty[st], ((n / kStages) - 1) & 1);
+    char* dst = ring + st * kStage;
+    if (n < n_dc) {
+      pdm_hop::mbar_expect_tx(&full[st], kKV + live * kQBytes);
+      pdm_hop::tma_load(dst, &m.k, &full[st], n * kChunk, h, 0, b);
+      for (int w = 0; w < live; ++w)
+        pdm_hop::tma_load(dst + kKV + w * kQBytes, &m.q, &full[st], n * kChunk, h,
+                          (grp * WG + w) * 64, b);
+    } else {
+      pdm_hop::mbar_expect_tx(&full[st], kKV);
+      pdm_hop::tma_load(dst, &m.v, &full[st], (c0 + n - n_dc) * kChunk, h, 0, b);
+    }
+  };
+  if (threadIdx.x == 0)
+    for (int n = 0; n < kStages && n < total; ++n) issue(n);
+  // the warp is done with chunk n's stage; thread 0 refills it
+  auto release = [&](int n) {
+    if (lane == 0) pdm_hop::mbar_arrive(&empty[n % kStages]);
+    if (threadIdx.x == 0 && n + kStages < total) issue(n + kStages);
+    __syncwarp();
+  };
+  const bool mine = wg < live;
+
+  // S = q k^T over the head dim, chunk by chunk
+  float s[NC * 32];
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i) s[i] = 0.f;
+#pragma unroll 1
+  for (int n = 0; n < n_dc; ++n) {
+    const int st = n % kStages;
+    pdm_hop::mbar_wait(&full[st], (n / kStages) & 1);
+    const char* ks = ring + st * kStage;
+    if (mine) {
+      const char* qs = ks + kKV + wg * kQBytes;
+      pdm_hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        pdm_hop::wgmma_ss<NC>(s, desc_k<64>(qs, 64, 0, kk), desc_k<64>(ks, NC * 64, 0, kk));
+      pdm_hop::wgmma_commit();
+      pdm_hop::wgmma_wait_all();
+      pdm_hop::reg_fence(s);
+    }
+    release(n);
+  }
+
+  // keys past n_tok at -inf; exact row max and sum of rows g and g + 8,
+  // the scale folded into the exponent
+  if (n_tok < NC * 64) {
+#pragma unroll
+    for (int i = 0; i < NC * 32; ++i)
+      if ((i >> 2) * 8 + 2 * tq + (i & 1) >= n_tok) s[i] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  const float mc[2] = {mx[0] * scale_log2, mx[1] * scale_log2};
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i) {
+    s[i] = pdm_hop::ex2(fmaf(s[i], scale_log2, -mc[(i >> 1) & 1]));
+    l[(i >> 1) & 1] += s[i];
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
+  uint32_t pa[NC * 4][4];
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i) s[i] *= inv_l[(i >> 1) & 1];
+#pragma unroll
+  for (int j = 0; j < NC * 4; ++j) pdm_hop::pack_slice(pa[j], s, j);
+  if (mine && blockIdx.y == 0 && tq == 0) {
+    const float ln2 = 0.6931471805599453f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = strip * 64 + (warp & 3) * 16 + g + 8 * r;
+      if (row < n_tok)
+        lse[((long long)b * heads + h) * n_tok + row] = mc[r] * ln2 + logf(l[r]);
+    }
+  }
+
+  // O = P v, one 64-column output chunk at a time
+  const int C = heads * hd;
+  __nv_bfloat16* o_head = out + (long long)b * n_tok * C + (long long)h * hd;
+#pragma unroll 1
+  for (int j = 0; j < n_vc; ++j) {
+    const int n = n_dc + j, st = n % kStages;
+    pdm_hop::mbar_wait(&full[st], (n / kStages) & 1);
+    const char* vs = ring + st * kStage;
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    if (mine) {
+      pdm_hop::wgmma_fence();
+#pragma unroll
+      for (int jj = 0; jj < NC * 4; ++jj)
+        pdm_hop::wgmma_rs<64>(o, pa[jj], desc_mn<64>(vs, NC * 64, jj, 0));
+      pdm_hop::wgmma_commit();
+      pdm_hop::wgmma_wait_all();
+      pdm_hop::reg_fence(o);
+      pdm_hop::reg_fence(pa);
+    }
+    release(n);
+    if (mine)
+      store_chunk(o_head, o, strip * 64, n_tok, C, (c0 + j) * kChunk, hd, staging[warp]);
+  }
+}
+
+// The launch at NC key chunks, WG warpgroups a block and `splits` blocks
+// over the output chunks of each group of strips.
+template <int NC, int WG>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                   int B, int n_tok, int heads, int hd, long long ld, float scale,
+                   int splits, cudaStream_t stream) {
+  Maps m;
+  if (!pdm_hop::stripe_map<64>(&m.q, q, B, n_tok, heads, hd, ld, 64) ||
+      !pdm_hop::stripe_map<64>(&m.k, k, B, n_tok, heads, hd, ld, NC * 64) ||
+      !pdm_hop::stripe_map<64>(&m.v, v, B, n_tok, heads, hd, ld, NC * 64))
+    return cudaErrorInvalidValue;
+  const long long items = (long long)B * heads * ((NC + WG - 1) / WG);
+  const int n_dc = (hd + kChunk - 1) / kChunk;
+  splits = splits < 1 ? 1 : (splits > n_dc ? n_dc : splits);
+  const int per_split = (n_dc + splits - 1) / splits;
+  splits = (n_dc + per_split - 1) / per_split;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int smem = kStages * stage_bytes(NC, WG) + 1024;
+  auto kernel = attention_fwd_wide_wgmma_kernel<NC, WG>;
+  cudaError_t err = pdm_hop::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(static_cast<unsigned>(items), splits), WG * pdm_hop::kWgThreads, smem,
+           stream>>>(m, static_cast<__nv_bfloat16*>(out), lse, n_tok, heads, hd, per_split,
+                     scale * kLog2e);
+  return cudaGetLastError();
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// The launch plan: two strips a block where a head has two or more (they
+// share k and v), and the output chunks split over as many blocks as keep
+// the grid within the card's SMs.
+template <int NC>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                   int B, int n_tok, int heads, int hd, long long ld, float scale,
+                   cudaStream_t stream) {
+  constexpr int WG = NC >= 2 ? 2 : 1;
+  const long long items = (long long)B * heads * ((NC + WG - 1) / WG);
+  const int splits = static_cast<int>(sm_count() / items);
+  return launch<NC, WG>(q, k, v, out, lse, B, n_tok, heads, hd, ld, scale, splits, stream);
+}
+
+}  // namespace wide1p
+
+// ---------------------------------------------------------------------------
 // bf16 backward, dq and D: two sweeps over the keys, as attention_bwd.cu's
 // two-pass dq kernel
 
@@ -269,7 +555,7 @@ attention_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ q,
                              const float* __restrict__ lse,
                              __nv_bfloat16* __restrict__ dq,
                              float* __restrict__ dsum, int n_tok, int heads,
-                             int hd, long long ld, float scale,
+                             int hd, long long ld, long long ldo, float scale,
                              float scale_log2) {
   // q, k, do, v chunks; k's output columns overlay the first two
   __shared__ __align__(16) __nv_bfloat16 sm[4 * kTile * kSC];
@@ -344,7 +630,7 @@ attention_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ q,
 
   if (!busy) return;
   store_rows<kOC>(dq + (long long)h * hd + oc * kOC, acc, scale, (long long)b * n_tok,
-                  q0 + warp * 16, n_tok, C, lane, hd - oc * kOC);
+                  q0 + warp * 16, n_tok, ldo, lane, hd - oc * kOC);
   if (oc == 0 && tq == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -367,7 +653,7 @@ attention_bwd_dkdv_wide_kernel(const __nv_bfloat16* __restrict__ q,
                                const float* __restrict__ dsum,
                                __nv_bfloat16* __restrict__ dk,
                                __nv_bfloat16* __restrict__ dv, int n_tok,
-                               int heads, int hd, long long ld, float scale,
+                               int heads, int hd, long long ld, long long ldo, float scale,
                                float scale_log2) {
   // k, q, v, do chunks; q's or do's output columns overlay the first two
   __shared__ __align__(16) __nv_bfloat16 sm[4 * kTile * kSC];
@@ -437,7 +723,7 @@ attention_bwd_dkdv_wide_kernel(const __nv_bfloat16* __restrict__ q,
 
   if (!busy) return;
   store_rows<kOC>((is_dv ? dv : dk) + (long long)h * hd + oc * kOC, acc,
-                  is_dv ? 1.f : scale, (long long)b * n_tok, k0 + warp * 16, n_tok, C,
+                  is_dv ? 1.f : scale, (long long)b * n_tok, k0 + warp * 16, n_tok, ldo,
                   lane, hd - oc * kOC);
 }
 
@@ -585,7 +871,7 @@ attention_bwd_dq_wide_f32_kernel(const float* __restrict__ q, const float* __res
                                  const float* __restrict__ dout,
                                  const float* __restrict__ lse, float* __restrict__ dq,
                                  float* __restrict__ dsum, int n_tok, int heads, int hd,
-                                 long long ld, float scale) {
+                                 long long ld, long long ldo, float scale) {
   __shared__ __align__(16) float ts[kFK * kFD];
   __shared__ __align__(16) float ot[kFK * kFO];
 
@@ -636,7 +922,8 @@ attention_bwd_dq_wide_f32_kernel(const float* __restrict__ q, const float* __res
   }
 
   if (!active) return;
-  store_out_f32(dq + drow, acc, scale, oc * kFO, hd);
+  store_out_f32(dq + ((long long)b * n_tok + t) * ldo + (long long)h * hd, acc, scale,
+                oc * kFO, hd);
   if (oc == 0) dsum[lrow + t] = D;
 }
 
@@ -653,7 +940,7 @@ attention_bwd_dkdv_wide_f32_kernel(const float* __restrict__ q,
                                    const float* __restrict__ dsum,
                                    float* __restrict__ dk, float* __restrict__ dv,
                                    int n_tok, int heads, int hd, long long ld,
-                                   float scale) {
+                                   long long ldo, float scale) {
   __shared__ __align__(16) float ts[kFK * kFD];
   __shared__ __align__(16) float ot[kFK * kFO];
 
@@ -693,7 +980,7 @@ attention_bwd_dkdv_wide_f32_kernel(const float* __restrict__ q,
   }
 
   if (!active) return;
-  store_out_f32((is_dv ? dv : dk) + ((long long)b * n_tok + t) * C + (long long)h * hd,
+  store_out_f32((is_dv ? dv : dk) + ((long long)b * n_tok + t) * ldo + (long long)h * hd,
                 acc, is_dv ? 1.f : scale, oc * kFO, hd);
 }
 
@@ -704,25 +991,44 @@ bool bad_shape(int B, int n_tok, int heads, int hd, int y_blocks) {
          y_blocks > 65535;
 }
 
+// the bf16 two-pass forward at any T
+cudaError_t launch_two_pass(const void* q, const void* k, const void* v, void* out, float* l,
+                            int B, int n_tok, int heads, int hd, long long ld, float scale,
+                            cudaStream_t s) {
+  const int y = heads * out_blocks(hd, kOC);
+  if (bad_shape(B, n_tok, heads, hd, y)) return cudaErrorInvalidValue;
+  attention_fwd_wide_kernel<<<dim3((n_tok + kTile - 1) / kTile, y, B), kTcThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), l, n_tok,
+      heads, hd, ld, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // As pdm_attention_fwd (attention.cu), at any head dim that is a multiple
-// of 8 and any T (grid y, heads x output blocks, at most 65535); the
-// wrapper sends it head dims above 128.
+// of 8 and any T; the wrapper sends it head dims above 128. bf16 at
+// T <= 256 runs the one-pass wgmma kernel (16-byte aligned stripes, ld a
+// multiple of 8), longer rows the two-pass one (grid y, heads x output
+// blocks, at most 65535).
 extern "C" int pdm_attention_wide_fwd(const void* q, const void* k, const void* v,
                                       void* out, void* lse, int B, int n_tok,
                                       int heads, int hd, long long ld, float scale,
                                       int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<float*>(lse);
-  if (dtype == pdm::kBFloat16) {
-    const int y = heads * out_blocks(hd, kOC);
-    if (bad_shape(B, n_tok, heads, hd, y)) return cudaErrorInvalidValue;
-    attention_fwd_wide_kernel<<<dim3((n_tok + kTile - 1) / kTile, y, B), kTcThreads, 0,
-                                s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), l, n_tok,
-        heads, hd, ld, scale * kLog2e);
+  cudaError_t err;
+  if (dtype == pdm::kBFloat16 && n_tok <= pdm_hop::kMaxTokens) {
+    if (bad_shape(B, n_tok, heads, hd, 1)) return cudaErrorInvalidValue;
+    switch ((n_tok + 63) / 64) {
+      case 1: err = wide1p::launch<1>(q, k, v, out, l, B, n_tok, heads, hd, ld, scale, s); break;
+      case 2: err = wide1p::launch<2>(q, k, v, out, l, B, n_tok, heads, hd, ld, scale, s); break;
+      case 3: err = wide1p::launch<3>(q, k, v, out, l, B, n_tok, heads, hd, ld, scale, s); break;
+      default: err = wide1p::launch<4>(q, k, v, out, l, B, n_tok, heads, hd, ld, scale, s);
+    }
+    return static_cast<int>(err);
+  } else if (dtype == pdm::kBFloat16) {
+    return static_cast<int>(launch_two_pass(q, k, v, out, l, B, n_tok, heads, hd, ld, scale, s));
   } else if (dtype == pdm::kFloat32) {
     const int y = heads * out_blocks(hd, kFO);
     if (bad_shape(B, n_tok, heads, hd, y)) return cudaErrorInvalidValue;
@@ -736,12 +1042,25 @@ extern "C" int pdm_attention_wide_fwd(const void* q, const void* k, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 two-pass forward at any T, the one the one-pass kernel replaced
+// at T <= 256: for timing the two designs side by side on one card (the
+// wrappers never call it).
+extern "C" int pdm_attention_wide_fwd_two_pass(const void* q, const void* k, const void* v,
+                                               void* out, void* lse, int B, int n_tok,
+                                               int heads, int hd, long long ld, float scale,
+                                               int dtype, void* stream) {
+  if (dtype != pdm::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_two_pass(q, k, v, out, static_cast<float*>(lse), B, n_tok,
+                                          heads, hd, ld, scale,
+                                          static_cast<cudaStream_t>(stream)));
+}
+
 // As pdm_attention_bwd_dq (attention_bwd.cu), at the same head dims.
 extern "C" int pdm_attention_wide_bwd_dq(const void* q, const void* k, const void* v,
                                          const void* dout, const void* lse, void* dq,
                                          void* dsum, int B, int n_tok, int heads,
-                                         int hd, long long ld, float scale, int dtype,
-                                         void* stream) {
+                                         int hd, long long ld, long long ldo, float scale,
+                                         int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* D = static_cast<float*>(dsum);
@@ -752,14 +1071,15 @@ extern "C" int pdm_attention_wide_bwd_dq(const void* q, const void* k, const voi
                                    0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), l,
-        static_cast<__nv_bfloat16*>(dq), D, n_tok, heads, hd, ld, scale, scale * kLog2e);
+        static_cast<__nv_bfloat16*>(dq), D, n_tok, heads, hd, ld, ldo, scale,
+        scale * kLog2e);
   } else if (dtype == pdm::kFloat32) {
     const int y = heads * out_blocks(hd, kFO);
     if (bad_shape(B, n_tok, heads, hd, y)) return cudaErrorInvalidValue;
     attention_bwd_dq_wide_f32_kernel<<<dim3((n_tok + kFQ - 1) / kFQ, y, B), kFQ, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), l,
-        static_cast<float*>(dq), D, n_tok, heads, hd, ld, scale);
+        static_cast<float*>(dq), D, n_tok, heads, hd, ld, ldo, scale);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -772,7 +1092,8 @@ extern "C" int pdm_attention_wide_bwd_dkdv(const void* q, const void* k, const v
                                            const void* dout, const void* lse,
                                            const void* dsum, void* dk, void* dv, int B,
                                            int n_tok, int heads, int hd, long long ld,
-                                           float scale, int dtype, void* stream) {
+                                           long long ldo, float scale, int dtype,
+                                           void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* D = static_cast<const float*>(dsum);
@@ -784,7 +1105,7 @@ extern "C" int pdm_attention_wide_bwd_dkdv(const void* q, const void* k, const v
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), l,
         D, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), n_tok, heads,
-        hd, ld, scale, scale * kLog2e);
+        hd, ld, ldo, scale, scale * kLog2e);
   } else if (dtype == pdm::kFloat32) {
     const int y = 2 * heads * out_blocks(hd, kFO);
     if (bad_shape(B, n_tok, heads, hd, y)) return cudaErrorInvalidValue;
@@ -792,7 +1113,8 @@ extern "C" int pdm_attention_wide_bwd_dkdv(const void* q, const void* k, const v
                                          s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), l, D,
-        static_cast<float*>(dk), static_cast<float*>(dv), n_tok, heads, hd, ld, scale);
+        static_cast<float*>(dk), static_cast<float*>(dv), n_tok, heads, hd, ld, ldo,
+        scale);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -53,7 +53,7 @@ from ..ops.attention import (
     attention_reference, fused_spatial_attention, use_fused_attention,
 )
 from ..ops.attention_block import (
-    fused_attention_block, kernels_take, use_fused_attention_block,
+    fused_attention_block, use_fused_attention_block,
 )
 from ..ops.groupnorm import fused_group_norm_act
 
@@ -298,12 +298,10 @@ class AttentionBlock(nn.Module):
         _, C, H, W = x.shape
         T = H * W
         h = _to_bsc(self.group_norm(x))
-        if (use_fused_attention_block(T, C, self.heads)
-                and kernels_take(T, C, self.heads)):
-            # the opt-in whole-block kernel (PDM_FUSED_BLOCK=1): projections,
-            # attention, out projection and residual in one call, the
-            # weights read in place; a shape its kernels do not take runs
-            # the standard path below
+        if use_fused_attention_block(T, C, self.heads):
+            # the opt-in whole-block kernels (PDM_FUSED_BLOCK=1), at every
+            # geometry JAX's gate admits: projections, attention, out
+            # projection and residual in one call, the weights read in place
             proj = self.to_out[0]
             out = fused_attention_block(
                 _to_bsc(x), h, self.to_q.weight, self.to_k.weight,

@@ -5,7 +5,8 @@ its VJP. On CUDA tensors the wrappers launch hand-written Hopper kernels:
 ``csrc/attention.cu`` for the forward (it replaces the TPU kernel
 ``_fwd_kernel``) and ``csrc/attention_bwd.cu`` for the backward (it
 replaces ``_bwd_kernel``), and ``csrc/attention_wide.cu`` for both at head
-dims above 128. On CPU tensors they run
+dims above 128 (its bf16 forward at T <= 256 one pass on wgmma). On CPU
+tensors they run
 :func:`attention_reference` and :func:`attention_bwd_reference`, the plain
 PyTorch versions with the reference's op order and rounding points. They
 never fall back from one to the other.
@@ -19,7 +20,8 @@ Up to 128 (``NARROW_MAX_HEAD_DIM``) they are ``attention.cu`` /
 single-pass wgmma kernels, at longer rows the two-pass ones; above 128
 ``csrc/attention_wide.cu``, which contracts the head dim in chunks and
 splits the output's head dim across blocks, so no head dim is too wide
-(one head of 512 channels in the 256x256 family).
+(one head of 512 channels in the 256x256 family); its bf16 forward at
+T <= 256 keeps a strip's score row in registers and computes it once.
 
 :func:`use_fused_attention` is the JAX package's geometry gate; the UNet's
 attention block calls the kernel inside it and runs the plain computation
@@ -31,6 +33,10 @@ logsumexp and whose backward is :func:`attention_bwd`, as the JAX
 package's ``custom_vjp`` does. Launch counters:
 ``fused_spatial_attention.launches`` (forward kernels) and
 ``attention_bwd.launches`` (backward kernels, two per call).
+:func:`launch_fwd_into` and :func:`launch_bwd_into` launch the same
+kernels into given outputs and count each launch on the counter they are
+given: the whole block's staged plan (``ops/attention_block.py``) runs
+them inside its own calls and passes its own counters.
 """
 
 from __future__ import annotations
@@ -153,10 +159,21 @@ def launch_fwd(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float
     """The forward kernel's launch on CUDA tensors, counted on
     ``fused_spatial_attention.launches``: the eager wrapper and the custom
     op's CUDA implementation (``ops/library.py``) both end here."""
-    ld = _check(q, k, v, heads)
     B, T, C = q.shape
     out = torch.empty((B, T, C), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, heads, T), dtype=torch.float32, device=q.device)
+    launch_fwd_into(q, k, v, out, lse, heads, scale, fused_spatial_attention)
+    return out, lse
+
+
+def launch_fwd_into(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
+                    heads: int, scale: float, counter) -> None:
+    """The forward kernel into ``out`` (contiguous (B, T, C)) and ``lse``
+    (contiguous (B, heads, T) fp32), its launch counted on
+    ``counter.launches``: :func:`fused_spatial_attention`, or the whole
+    block's when its staged plan (ops/attention_block.py) runs it."""
+    ld = _check(q, k, v, heads)
+    B, T, C = q.shape
     fn = _build.entry(_entry("fwd", C // heads), _FWD_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -164,8 +181,7 @@ def launch_fwd(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float
                  lse.data_ptr(), B, T, heads, C // heads, ld, float(scale),
                  _DTYPE_CODES[q.dtype], stream)
     _build.check(err, "pdm_attention_fwd")
-    fused_spatial_attention.launches += 1
-    return out, lse
+    counter.launches += 1
 
 
 def attention_bwd_reference(
@@ -224,6 +240,27 @@ def attention_bwd(
         do = do.clone()
     dq, dk, dv = (torch.empty((B, T, C), dtype=q.dtype, device=q.device)
                   for _ in range(3))
+    launch_bwd_into(q, k, v, lse, do, dq, dk, dv, heads, scale, attention_bwd)
+    return dq, dk, dv
+
+
+def launch_bwd_into(q: Tensor, k: Tensor, v: Tensor, lse: Tensor, do: Tensor,
+                    dq: Tensor, dk: Tensor, dv: Tensor, heads: int,
+                    scale: float, counter) -> None:
+    """The backward's two kernels into ``dq``, ``dk``, ``dv`` ((B, T, C)
+    with unit channel stride and one shared token-row stride: contiguous,
+    or the column thirds of one (B, T, 3C) tensor), each launch counted on
+    ``counter.launches``: :func:`attention_bwd`, or the whole block's when
+    its staged plan runs them. ``do`` is contiguous in q's dtype, ``lse``
+    contiguous (B, heads, T) fp32."""
+    ld = _check(q, k, v, heads)
+    B, T, C = q.shape
+    ldo = dq.stride(1)
+    for t in (dq, dk, dv):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.stride(2) != 1
+                or t.stride(1) != ldo or t.stride(0) != T * ldo):
+            raise ValueError("dq, dk, dv need q's shape and dtype, unit channel "
+                             f"stride and one token-row stride: {t.stride()}")
     dsum = torch.empty((B, heads, T), dtype=torch.float32, device=q.device)
     code, hd = _DTYPE_CODES[q.dtype], C // heads
     fn_dq = _build.entry(_entry("bwd_dq", hd), _BWD_DQ_ARGS)
@@ -232,16 +269,15 @@ def attention_bwd(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), dq.data_ptr(), dsum.data_ptr(), B, T,
-                    heads, hd, ld, float(scale), code, stream)
+                    heads, hd, ld, ldo, float(scale), code, stream)
         _build.check(err, "pdm_attention_bwd_dq")
-        attention_bwd.launches += 1
+        counter.launches += 1
         err = fn_dkdv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                       lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(),
-                      dv.data_ptr(), B, T, heads, hd, ld, float(scale), code,
-                      stream)
+                      dv.data_ptr(), B, T, heads, hd, ld, ldo, float(scale),
+                      code, stream)
         _build.check(err, "pdm_attention_bwd_dkdv")
-        attention_bwd.launches += 1
-    return dq, dk, dv
+        counter.launches += 1
 
 
 class _AttentionFn(torch.autograd.Function):
@@ -289,6 +325,7 @@ attention_bwd.launches = 0
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
              ctypes.c_float, _I, _P]
-_BWD_DQ_ARGS = [_P] * 7 + [_I] * 4 + [ctypes.c_longlong, ctypes.c_float, _I, _P]
-_BWD_DKDV_ARGS = [_P] * 8 + [_I] * 4 + [ctypes.c_longlong, ctypes.c_float, _I,
-                                        _P]
+_BWD_DQ_ARGS = [_P] * 7 + [_I] * 4 + [ctypes.c_longlong] * 2 + [
+    ctypes.c_float, _I, _P]
+_BWD_DKDV_ARGS = [_P] * 8 + [_I] * 4 + [ctypes.c_longlong] * 2 + [
+    ctypes.c_float, _I, _P]

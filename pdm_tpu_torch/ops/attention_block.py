@@ -1,11 +1,29 @@
 """The whole attention block, x + out_proj(attention(qkv_proj(h))), fused.
 
 Counterpart of ``pdm_tpu/ops/attention_block.py``. On CUDA tensors the
-wrappers launch hand-written Hopper kernels: ``csrc/attention_block.cu``
-for the forward (it replaces the TPU kernel ``_fwd_kernel``, launched by
-``_fab_fwd``) and ``csrc/attention_block_bwd.cu`` for the backward (it
-replaces ``_bwd_kernel``, launched by ``_fab_bwd``). On CPU tensors they
-run :func:`attention_block_reference` and
+wrappers launch hand-written Hopper kernels that replace the TPU kernels
+``_fwd_kernel`` (launched by ``_fab_fwd``) and ``_bwd_kernel`` (launched by
+``_fab_bwd``), by one of two launch plans that :func:`block_route`, a pure
+function of the geometry, picks:
+
+* ``"cluster"``: head dims 16, 32 and 64, at most 8 heads, at most 256
+  tokens. ``csrc/attention_block.cu`` (one launch) and
+  ``csrc/attention_block_bwd.cu`` (three) keep one head's q, k and v tiles
+  of a whole image in a block's shared memory, a cluster per image group.
+* ``"staged"``: every other geometry the JAX gate admits (one head of 512
+  in the 256x256 family, one head of 256, 16 or 64 heads of 8, 512 or 1024
+  tokens). The block goes through device-memory scratch: the forward is
+  ``csrc/attention_block_wide.cu``'s qkv projection, row 1's attention
+  kernel on its column thirds, and the out projection with b_out and the
+  residual (three launches); the backward recomputes qkv and att, projects
+  datt = do W_out, runs row 2's two kernels into the column thirds of one
+  (B, T, 3C) dqkv, projects dh = dqkv W_qkv, and ends with
+  ``attention_block_bwd.cu``'s split-K weight gradients and their merge
+  (eight launches). Rows 1 and 2 round where the block rounds (P
+  normalized then rounded, att rounded; ds rounded, dq and dk scaled and
+  then rounded once), so their kernels run unchanged inside it.
+
+On CPU tensors the wrappers run :func:`attention_block_reference` and
 :func:`attention_block_bwd_reference`, the plain PyTorch versions with the
 TPU kernel's rounding points. They never fall back from one to the other.
 
@@ -21,23 +39,28 @@ the per-head row logsumexp (B, heads, T) fp32, as ``_fab_fwd`` does; its
 backward returns dx = g exactly, db_out as the fp32 sum of the unrounded
 g over (B, T) (``_fab_bwd``'s fix of the bf16-rounded sum), and the other
 gradients from :func:`attention_block_bwd`. Launch counters:
-``fused_attention_block.launches`` (forward kernels) and
-``attention_block_bwd.launches`` (backward kernels, three per call).
+``fused_attention_block.launches`` (forward kernels: one a call on the
+cluster plan, three on the staged) and ``attention_block_bwd.launches``
+(backward kernels: three, or eight), each raised by one where its kernel
+is launched. The staged plan's row-1 and row-2 kernels count there, as the
+block's, and not on ``fused_spatial_attention.launches`` or
+``attention_bwd.launches``.
 
-The bf16 kernels run one launch plan (:func:`plan_block`, a pure function
-of the shape; ``BlockPlan`` in ``csrc/attention_block_common.cuh`` takes it
-as it comes and refuses one the kernels cannot run): one thread-block
-cluster per group of images, one block per head, two warpgroups on
-64-row strips. Above 64 tokens a group is one image (T / 64 strips,
-rounded up to an even count); at T <= 64 it is two strips of P = 64 / Tr
-images each, Tr the power of two >= T, so that the mid block's T = 16
+The bf16 cluster kernels run one launch plan (:func:`plan_block`, a pure
+function of the shape; ``BlockPlan`` in ``csrc/attention_block_common.cuh``
+takes it as it comes and refuses one the kernels cannot run): one
+thread-block cluster per group of images, one block per head, two
+warpgroups on 64-row strips. Above 64 tokens a group is one image (T / 64
+strips, rounded up to an even count); at T <= 64 it is two strips of P = 64
+/ Tr images each, Tr the power of two >= T, so that the mid block's T = 16
 fills a 64-row ``wgmma`` tile with four images (:func:`tile_rows` maps a
 group's tile rows to tokens). The bf16 wrappers also allocate the
-device-memory scratches the kernels pass every head's att (forward) and
-the row sums D (backward) through.
+device-memory scratches the kernels pass every head's att (forward) and the
+row sums D (backward) through.
 
-The path is opt-in, as in the JAX package: :func:`use_fused_attention_block`
-opens only with ``PDM_FUSED_BLOCK=1``, read at every call.
+The path is opt-in, as in the JAX package:
+:func:`use_fused_attention_block` opens only with ``PDM_FUSED_BLOCK=1``,
+read at every call.
 """
 
 from __future__ import annotations
@@ -51,15 +74,18 @@ from torch import Tensor
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from . import attention as _attention
 from .attention import MAX_FUSED_SCORE_CELLS, MAX_FUSED_TOKENS
 
-# what the kernels take: head dims they are instantiated for, at most 8
-# heads (one thread-block cluster per image, one block per head), and at
-# most 256 tokens (one head's q, k, v and attention output stay in a
-# block's shared memory)
-KERNEL_HEAD_DIMS = (16, 32, 64)
-KERNEL_MAX_HEADS = 8
-KERNEL_MAX_TOKENS = 256
+# what the cluster kernels take: head dims they are instantiated for, at
+# most 8 heads (one thread-block cluster per image, one block per head),
+# and at most 256 tokens (one head's q, k, v and attention output stay in a
+# block's shared memory); the staged plan takes the rest of the JAX gate's
+# geometry
+CLUSTER_HEAD_DIMS = (16, 32, 64)
+CLUSTER_MAX_HEADS = 8
+CLUSTER_MAX_TOKENS = 256
+MAX_BLOCK_CHANNELS = 512  # the JAX gate's C <= 512
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -209,10 +235,40 @@ def attention_block_bwd_reference(
     return (dh, *dws, *dbs, dw_out.to(w_out.dtype))
 
 
-def _check(h, ws, bs, heads) -> None:
+def block_route(T: int, C: int, heads: int):
+    """The launch plan of a block of T tokens, C channels and ``heads``
+    heads, in either dtype and direction: ``"cluster"`` where the cluster
+    kernels take it (head dim 16, 32 or 64, at most 8 heads, at most 256
+    tokens, as before the staged plan existed), ``"staged"`` for the rest
+    of the JAX gate's geometry (:func:`use_fused_attention_block` without
+    the opt-in), None for what that gate refuses."""
+    if heads < 1 or C % heads or (C // heads) % 8 or C // heads < 8:
+        return None
+    if (C // heads in CLUSTER_HEAD_DIMS and heads <= CLUSTER_MAX_HEADS
+            and 1 <= T <= CLUSTER_MAX_TOKENS):
+        return "cluster"
+    if _gate_geometry(T, C, heads):
+        return "staged"
+    return None
+
+
+def _gate_geometry(T: int, C: int, heads: int) -> bool:
+    """The JAX gate's geometry (``pdm_tpu/ops/attention_block.py:316-336``)."""
+    return (
+        T <= MAX_FUSED_TOKENS
+        and heads * T * T <= MAX_FUSED_SCORE_CELLS
+        and C % heads == 0
+        and (C // heads) % 8 == 0
+        and T % 8 == 0
+        and C <= MAX_BLOCK_CHANNELS
+    )
+
+
+def _check(h, ws, bs, heads) -> str:
     """Validate a kernel call (CUDA tensors): h (B, T, C), the four
     weights ``ws`` (C, C) in h's dtype, the biases ``bs`` (C,) in one dtype
-    of their own."""
+    of their own; returns the call's :func:`block_route`. Raises for a
+    geometry the JAX gate refuses (and the cluster kernels do not take)."""
     if h.ndim != 3:
         raise ValueError(f"h must be (B, T, C): {tuple(h.shape)}")
     B, T, C = h.shape
@@ -220,16 +276,19 @@ def _check(h, ws, bs, heads) -> None:
         raise TypeError(f"activations must be float32 or bfloat16: {h.dtype}")
     if any(t.device != h.device for t in (*ws, *bs)):
         raise ValueError("the block's tensors must be on one device")
-    if C % heads or C // heads not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim C/heads = {C}/{heads} not in "
-                         f"{KERNEL_HEAD_DIMS}")
-    if heads > KERNEL_MAX_HEADS:
-        raise ValueError(f"{heads} heads: the kernels take at most "
-                         f"{KERNEL_MAX_HEADS} (one cluster block per head)")
-    if T > KERNEL_MAX_TOKENS:
-        raise ValueError(f"T = {T} tokens: the kernels keep a head's q, k, v "
-                         f"in shared memory and take at most "
-                         f"{KERNEL_MAX_TOKENS}")
+    route = block_route(T, C, heads)
+    if route is None:
+        if C % heads or (C // heads) % 8 or C // heads < 8:
+            raise ValueError(f"head dim C/heads = {C}/{heads}: the kernels "
+                             f"take multiples of 8")
+        if T > MAX_FUSED_TOKENS or T % 8:
+            raise ValueError(f"T = {T} tokens: the JAX gate admits multiples "
+                             f"of 8 up to {MAX_FUSED_TOKENS}")
+        if heads * T * T > MAX_FUSED_SCORE_CELLS:
+            raise ValueError(f"{heads} heads at T = {T}: heads * T^2 above "
+                             f"the JAX gate's {MAX_FUSED_SCORE_CELLS}")
+        raise ValueError(f"C = {C} channels: the JAX gate admits at most "
+                         f"{MAX_BLOCK_CHANNELS}")
     for w in ws:
         if w.shape != (C, C) or w.dtype != h.dtype:
             raise ValueError(f"weights must be ({C}, {C}) {h.dtype}: "
@@ -240,6 +299,18 @@ def _check(h, ws, bs, heads) -> None:
                              f"{tuple(b.shape)} {b.dtype}")
     if len({b.dtype for b in bs}) != 1:
         raise TypeError("the biases must share one dtype")
+    return route
+
+
+def _route(checked: str, route, h: Tensor, heads: int) -> str:
+    """The plan a call on h runs: ``checked`` (:func:`_check`'s) unless
+    ``route`` is "staged", which takes every geometry the gate admits."""
+    if route is None:
+        return checked
+    if route != "staged" or not _gate_geometry(*h.shape[1:], heads):
+        raise ValueError(f"route {route!r} at (T, C) {tuple(h.shape[1:])}, "
+                         f"{heads} heads: only 'staged', inside the JAX gate")
+    return route
 
 
 def _ready(t: Tensor) -> Tensor:
@@ -267,21 +338,29 @@ def _forward(x, h, ws, bs, w_out, b_out, heads, scale
     return launch_fwd(x, h, ws, bs, w_out, b_out, heads, scale)
 
 
-def launch_fwd(x, h, ws, bs, w_out, b_out, heads, scale
+def launch_fwd(x, h, ws, bs, w_out, b_out, heads, scale, route=None
                ) -> Tuple[Tensor, Tensor]:
     """The forward kernel's launch on CUDA tensors, counted on
     ``fused_attention_block.launches``: the eager wrapper and the custom
-    op's CUDA implementation (``ops/library.py``) both end here."""
+    op's CUDA implementation (``ops/library.py``) both end here. ``route``
+    None takes :func:`block_route`'s plan; "staged" forces the staged plan,
+    which takes every geometry the JAX gate admits (chip_smoke.py times it
+    beside the cluster plan at the cluster plan's shapes)."""
     if x.shape != h.shape or x.dtype != h.dtype or x.device != h.device:
         raise ValueError(f"x must match h: {tuple(x.shape)} {x.dtype} "
                          f"{x.device}, h {tuple(h.shape)} {h.dtype} {h.device}")
-    _check(h, (*ws, w_out), (*bs, b_out), heads)
+    route = _route(_check(h, (*ws, w_out), (*bs, b_out), heads), route, h,
+                   heads)
     B, T, C = h.shape
     x, h, w_q, w_k, w_v, w_out = (_ready(t) for t in (x, h, *ws, w_out))
     b_q, b_k, b_v, b_out = (t.contiguous() for t in (*bs, b_out))
     dev = h.device
     out = torch.empty((B, T, C), dtype=x.dtype, device=dev)
     lse = torch.empty((B, heads, T), dtype=torch.float32, device=dev)
+    if route == "staged":
+        _staged_fwd(x, h, (w_q, w_k, w_v), (b_q, b_k, b_v), w_out, b_out,
+                    heads, scale, out, lse)
+        return out, lse
     plan, att = None, None
     if h.dtype == torch.bfloat16:  # every head's att passes through it
         plan = _CPlan(*plan_block(B, T, C // heads, backward=False))
@@ -303,14 +382,16 @@ def launch_fwd(x, h, ws, bs, w_out, b_out, heads, scale
 def attention_block_bwd(
     h: Tensor, w_q: Tensor, w_k: Tensor, w_v: Tensor,
     b_qkv: Sequence[Tensor], w_out: Tensor, lse: Tensor, g: Tensor,
-    heads: int, scale: float,
+    heads: int, scale: float, route: str = None,
 ) -> Tuple[Tensor, ...]:
     """(dh, dw_q, dw_k, dw_v, db_q, db_k, db_v, dw_out) of the block for
-    the cotangent ``g`` of its output, from the forward's lse. Three
-    kernels on CUDA tensors (per group of images: recompute, the attention
-    VJP and dh; then the weight and bias gradients as split-K partials over
-    the B T rows; then their exact merge), the plain version on CPU
-    tensors."""
+    the cotangent ``g`` of its output, from the forward's lse. On CUDA
+    tensors the cluster plan's three kernels (per group of images:
+    recompute, the attention VJP and dh; then the weight and bias
+    gradients as split-K partials over the B T rows; then their exact
+    merge), or the staged plan's eight (:func:`_staged_bwd_attention`'s
+    six, then the same two); the plain version on CPU tensors. ``route``
+    as :func:`launch_fwd`'s."""
     B, T, C = h.shape
     ws, bs = (w_q, w_k, w_v), tuple(b_qkv)
     if h.device.type == "cpu":
@@ -318,7 +399,7 @@ def attention_block_bwd(
                                              heads, scale)
     if h.device.type != "cuda":
         raise ValueError(f"unsupported device {h.device}")
-    _check(h, (*ws, w_out), bs, heads)
+    route = _route(_check(h, (*ws, w_out), bs, heads), route, h, heads)
     if g.shape != h.shape or g.device != h.device:
         raise ValueError(f"g must be {tuple(h.shape)} on {h.device}: "
                          f"{tuple(g.shape)} on {g.device}")
@@ -338,7 +419,10 @@ def attention_block_bwd(
     dh = torch.empty((B, T, C), dtype=dt, device=dev)
     # fp32: q and datt parked for the dk/dv sweep; bf16: the row sums D
     scratch, plan, dsum = None, None, None
-    if dt == torch.float32:
+    if route == "staged":
+        _staged_bwd_attention(h, (w_q, w_k, w_v), (b_q, b_k, b_v), w_out, lse,
+                              do, heads, scale, dqkv, att, dh)
+    elif dt == torch.float32:
         scratch = torch.empty((B, T, 2 * C), dtype=torch.float32, device=dev)
     else:
         plan = _CPlan(*plan_block(B, T, C // heads, backward=True))
@@ -357,15 +441,16 @@ def attention_block_bwd(
     fn_mg = _build.entry("pdm_attention_block_wgrad_merge", _MERGE_ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn_s1(h.data_ptr(), w_q.data_ptr(), w_k.data_ptr(),
-                    w_v.data_ptr(), b_q.data_ptr(), b_k.data_ptr(),
-                    b_v.data_ptr(), w_out.data_ptr(), lse.data_ptr(),
-                    do.data_ptr(), dqkv.data_ptr(), att.data_ptr(),
-                    dh.data_ptr(), _ptr(scratch), _ptr(dsum), _plan_ref(plan),
-                    B, T, heads, C // heads,
-                    float(scale), code, bcode, stream)
-        _build.check(err, "pdm_attention_block_bwd")
-        attention_block_bwd.launches += 1
+        if route == "cluster":
+            err = fn_s1(h.data_ptr(), w_q.data_ptr(), w_k.data_ptr(),
+                        w_v.data_ptr(), b_q.data_ptr(), b_k.data_ptr(),
+                        b_v.data_ptr(), w_out.data_ptr(), lse.data_ptr(),
+                        do.data_ptr(), dqkv.data_ptr(), att.data_ptr(),
+                        dh.data_ptr(), _ptr(scratch), _ptr(dsum),
+                        _plan_ref(plan), B, T, heads, C // heads,
+                        float(scale), code, bcode, stream)
+            _build.check(err, "pdm_attention_block_bwd")
+            attention_block_bwd.launches += 1
         err = fn_wg(h.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
                     att.data_ptr(), partials.data_ptr(), B * T, C, n_chunks,
                     code, stream)
@@ -378,6 +463,69 @@ def attention_block_bwd(
         _build.check(err, "pdm_attention_block_wgrad_merge")
         attention_block_bwd.launches += 1
     return (dh, *dws, *dbs, dw_out)
+
+
+def _launch_project(counter, a: Sequence[Tensor], ws: Sequence[Tensor],
+                    k_major: bool, out: Tensor, n_seg: int,
+                    biases: Sequence[Tensor] = (), res: Tensor = None) -> None:
+    """One launch of ``csrc/attention_block_wide.cu``'s projection: out
+    (R rows, token-row stride ``out.stride(1)``) = sum over the K segments
+    ``a`` (each (B, T, k_seg) with one shared row stride) of a W, W one of
+    ``ws`` ((n_seg, k_seg) nn.Linear weights when ``k_major``, else read as
+    (k_seg, n_seg)), one weight a K segment or an N segment of n_seg
+    columns; plus the N segments' ``biases`` and the residual ``res``
+    (out's layout), in fp32, rounded once to out's dtype. The launch counts
+    on ``counter.launches``, the block's forward or backward counter."""
+    B, T, k_seg = a[0].shape
+    lda, ldo = a[0].stride(1), out.stride(1)
+    nk, nn_ = len(a), len(ws) if len(a) == 1 else 1
+    pa = [t.data_ptr() for t in a] + [None] * (3 - nk)
+    pw = [w.data_ptr() for w in ws] + [None] * (3 - len(ws))
+    pb = [b.data_ptr() for b in biases] + [None] * (3 - len(biases))
+    bias_bf16 = int(bool(biases) and biases[0].dtype == torch.bfloat16)
+    fn = _build.entry("pdm_block_project", _PROJECT_ARGS)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(*pa, lda, nk, k_seg, *pw, int(k_major), *pb, bias_bf16,
+                 _ptr(res), out.data_ptr(), ldo, B * T, nn_, n_seg,
+                 _DTYPE_CODES[out.dtype], stream)
+    _build.check(err, "pdm_block_project")
+    counter.launches += 1
+
+
+def _staged_fwd(x, h, ws, bs, w_out, b_out, heads, scale, out, lse) -> None:
+    """The staged forward into ``out`` and ``lse``: qkv = h W^T + b into
+    one (B, T, 3C) scratch, row 1's kernel on its column thirds (att into a
+    (B, T, C) scratch), out = x + (att W_out^T + b_out)."""
+    B, T, C = h.shape
+    qkv = torch.empty((B, T, 3 * C), dtype=h.dtype, device=h.device)
+    att = torch.empty((B, T, C), dtype=h.dtype, device=h.device)
+    fwd = fused_attention_block
+    _launch_project(fwd, (h,), ws, True, qkv, C, bs)
+    q, k, v = qkv.split(C, dim=-1)
+    _attention.launch_fwd_into(q, k, v, att, lse, heads, scale, fwd)
+    _launch_project(fwd, (att,), (w_out,), True, out, C, (b_out,), res=x)
+
+
+def _staged_bwd_attention(h, ws, bs, w_out, lse, do, heads, scale, dqkv, att,
+                          dh) -> None:
+    """The staged backward up to the weight gradients: qkv and att
+    recomputed as the forward does (its lse rewritten into a scratch),
+    datt = do W_out, row 2's kernels from the saved ``lse`` into the column
+    thirds of ``dqkv``, dh = dqkv W_qkv."""
+    B, T, C = h.shape
+    qkv = torch.empty((B, T, 3 * C), dtype=h.dtype, device=h.device)
+    datt = torch.empty((B, T, C), dtype=h.dtype, device=h.device)
+    lse_again = torch.empty_like(lse)
+    bwd = attention_block_bwd
+    _launch_project(bwd, (h,), ws, True, qkv, C, bs)
+    q, k, v = qkv.split(C, dim=-1)
+    _attention.launch_fwd_into(q, k, v, att, lse_again, heads, scale, bwd)
+    _launch_project(bwd, (do,), (w_out,), False, datt, C)
+    dq, dk, dv = dqkv.split(C, dim=-1)
+    _attention.launch_bwd_into(q, k, v, lse, datt, dq, dk, dv, heads, scale,
+                               bwd)
+    _launch_project(bwd, (dq, dk, dv), ws, False, dh, C)
 
 
 def _weight_grad_chunks(rows: int, C: int, bf16: bool, sms: int) -> int:
@@ -436,32 +584,16 @@ def fused_attention_block(
                     heads, scale)[0]
 
 
-def kernels_take(T: int, C: int, heads: int) -> bool:
-    """Whether the whole-block kernels take this geometry (``_check``'s
-    shape limits): a head dim of 16, 32 or 64, at most 8 heads, at most
-    256 tokens."""
-    return (C % heads == 0 and C // heads in KERNEL_HEAD_DIMS
-            and heads <= KERNEL_MAX_HEADS and T <= KERNEL_MAX_TOKENS)
-
-
 def use_fused_attention_block(T: int, C: int, heads: int) -> bool:
     """The JAX gate (``use_fused_attention_block``): opt-in through
     ``PDM_FUSED_BLOCK=1``, read at every call, and the geometry the TPU
     kernel admits. The JAX gate's "TPU backend" condition has no
     counterpart: the tensors' device chooses between kernel and plain
-    version. The gate admits shapes the kernels do not take
-    (:func:`kernels_take`): the UNet's attention block sends those down
-    its standard path, and the wrapper raises for them on CUDA."""
+    version. The kernels take every geometry it admits
+    (:func:`block_route`)."""
     if os.environ.get("PDM_FUSED_BLOCK", "0") != "1":
         return False
-    return (
-        T <= MAX_FUSED_TOKENS
-        and heads * T * T <= MAX_FUSED_SCORE_CELLS
-        and C % heads == 0
-        and (C // heads) % 8 == 0
-        and T % 8 == 0
-        and C <= 512
-    )
+    return _gate_geometry(T, C, heads)
 
 
 # kernel launches since the last reset (set to 0 to reset)
@@ -485,3 +617,5 @@ _FWD_ARGS = [_P] * 14 + [_I] * 4 + [ctypes.c_float, _I, _I, _P]
 _BWD_ARGS = [_P] * 16 + [_I] * 4 + [ctypes.c_float, _I, _I, _P]
 _WGRAD_ARGS = [_P] * 5 + [_I] * 4 + [_P]
 _MERGE_ARGS = [_P] * 8 + [_I] * 4 + [_P]
+_PROJECT_ARGS = [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I] + [_P] * 3 + [_I] + [_P] * 2 + [
+    _I] * 4 + [_I, _P]

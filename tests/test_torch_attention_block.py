@@ -17,12 +17,21 @@ are held against the JAX package's Pallas kernel in interpret mode
   2^-6 of its scale (a flipped rounding of P, ds or dqkv moves a product
   by one step of the operand).
 
+The wide geometries of the staged launch plan (one head of 512 at T 256
+and 64, one head of 256 at T 16, 16 heads of 8, T 1024) are held to JAX
+the same way, forward, lse and gradients. Row 2's plain backward fed the
+block's own q, k, v, datt and lse gives the block's plain dqkv bitwise:
+the premise of running row 2's kernels inside the staged backward.
+
 The tiny UNet with ``PDM_FUSED_BLOCK=1`` on the port's CPU path against
 the JAX UNet's standard XLA path (JAX's gate stays closed off the TPU)
-agrees in fp32 to 1e-5 of the output scale. The bf16 kernels' launch plan
-(``plan_block``, pure) is checked over every geometry ``kernels_take``
-admits: shared memory under the H100's opt-in, strips and packing, every
-token of every image in exactly one group's tiles. The three-step trainer run
+agrees in fp32 to 1e-5 of the output scale, and a single-head tiny UNet
+also in its train step's gradients. The gate is JAX's geometry exactly,
+the route (``block_route``, pure) gives every admitted geometry a plan,
+and the cluster kernels' launch plan (``plan_block``, pure) is checked
+over every geometry the cluster route takes: shared memory under the
+H100's opt-in, strips and packing, every token of every image in exactly
+one group's tiles. The three-step trainer run
 with the opt-in is in tests/test_torch_trainer.py (it shares that file's
 compiled JAX train step). The CUDA kernels are held against the plain
 versions on the card by tests/test_torch_cuda.py.
@@ -82,6 +91,11 @@ def _port_args(x, h, w_qkv, b_qkv, w_out, b_out, dtype=torch.float32,
     (2, 128, 2, 64),
     (2, 64, 1, 32),
     (2, 16, 4, 64),    # flagship 4x4 mid block
+    (2, 256, 1, 512),  # the 256x256 family's blocks (staged plan)
+    (2, 64, 1, 512),   # its 8x8 block
+    (2, 16, 1, 256),   # the single-head 32x32 DDPM's mid block
+    (2, 64, 16, 8),    # 16 heads of 8
+    (1, 1024, 1, 32),  # the gate's longest rows
 ])
 def test_block_forward_matches_jax_kernel(B, T, heads, hd):
     x, h, w_qkv, b_qkv, w_out, b_out, _ = _inputs(B, T, heads, hd, seed=T + hd)
@@ -145,6 +159,69 @@ def test_block_gradients_match_jax_vjp():
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("dtype,B,T,heads,hd", [
+    (torch.float32, 2, 256, 1, 512),
+    (torch.bfloat16, 2, 256, 1, 512),
+    (torch.float32, 2, 64, 16, 8),
+    (torch.bfloat16, 2, 64, 16, 8),
+    (torch.float32, 1, 1024, 1, 32),
+])
+def test_block_gradients_match_jax_vjp_at_wide_geometries(dtype, B, T, heads,
+                                                          hd):
+    """The staged plan's geometries: all six gradients against jax.grad of
+    the kernel's custom VJP. fp32 to GRAD_TOL of the value plus GRAD_TOL
+    of the gradient's scale (at C 512 and T 1024 the sums run over 4 to 8
+    times the terms of the flagship's shape, and gradients reach ~100, so
+    an absolute GRAD_TOL is below fp32's summation-order noise); bf16
+    (bf16-representable biases) each gradient within 2^-6 of the value
+    plus 2^-6 of its scale, as test_block_bf16_matches_jax_kernel."""
+    want, got = _grads(dtype, dtype, B, T, heads, hd, seed=T + heads)
+    for name, w, g_ in zip(["dx", "dh", "dw_qkv", "db_qkv", "dw_out",
+                            "db_out"], want, got):
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g_, w, rtol=GRAD_TOL,
+                                       atol=GRAD_TOL * np.abs(w).max(),
+                                       err_msg=name)
+        else:
+            np.testing.assert_allclose(g_, w, rtol=2 ** -6,
+                                       atol=2 ** -6 * np.abs(w).max(),
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,hd", [(1, 256), (4, 64)])
+def test_row2_backward_gives_the_blocks_dqkv(dtype, heads, hd):
+    """The staged backward runs row 2's kernels on the block's q, k, v,
+    datt and lse. Their plain version (attention_bwd_reference) must give
+    the block's plain dqkv exactly: both round ds, scale dq and dk after
+    the product and round each of dq, dk, dv once. The block's dqkv is read
+    from its weight gradients at h = the identity (B T = C rows), where
+    dW_{q,k,v} = dqkv^T exactly."""
+    from pdm_tpu_torch.ops import attention as ta
+
+    C = heads * hd
+    B, T = 2, C // 2
+    rng = np.random.RandomState(heads)
+
+    def r(*shape, s=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * s)
+                                .astype(np.float32)).to(dtype)
+
+    h = torch.eye(C, dtype=dtype).reshape(B, T, C)
+    ws = [r(C, C, s=0.3) for _ in range(3)]
+    bs = [r(C, s=0.1) for _ in range(3)]
+    w_out, g = r(C, C, s=0.1), r(B, T, C)
+    scale = 1.0 / np.sqrt(hd)
+    _, lse = tb._reference_with_lse(h, h, *ws, bs, w_out, bs[0], heads, scale)
+    block = tb.attention_block_bwd_reference(h, *ws, bs, w_out, lse, g, heads,
+                                             scale)
+    q, k, v = (tb._project(h, w, b) for w, b in zip(ws, bs))
+    datt = torch.matmul(g.float(), w_out.float()).to(dtype)
+    row2 = ta.attention_bwd_reference(q, k, v, lse, datt, heads, scale)
+    for name, got, dw in zip("qkv", row2, block[1:4]):
+        assert torch.equal(got.reshape(C, C), dw.t()), name
+
+
 def test_block_bf16_matches_jax_kernel():
     B, T, heads, hd = 2, 64, 4, 16
     x, h, w_qkv, b_qkv, w_out, b_out, _ = _inputs(B, T, heads, hd, seed=3)
@@ -186,30 +263,75 @@ def test_gate_reads_the_variable_per_call(monkeypatch):
     assert not tb.use_fused_attention_block(256, 256, 4)
 
 
+@pytest.mark.parametrize("T", [8, 16, 64, 176, 256, 512, 1024])
+def test_block_gate_agrees_with_jax_geometry(monkeypatch, T):
+    """use_fused_attention_block is exactly the JAX gate's geometry
+    (pdm_tpu/ops/attention_block.py:316-336; its own function needs a TPU
+    backend, so the expressions are restated here) over heads {1, ..., 64}
+    and head dims {8, ..., 512}; and every geometry it admits has a route
+    (the kernels take it)."""
+    monkeypatch.setenv("PDM_FUSED_BLOCK", "1")
+    for heads in (1, 2, 4, 8, 16, 64):
+        for hd in (8, 16, 24, 64, 128, 256, 512):
+            C = heads * hd
+            want = (T <= 1024 and heads * T * T <= 2 ** 21 and C % heads == 0
+                    and (C // heads) % 8 == 0 and T % 8 == 0 and C <= 512)
+            assert tb.use_fused_attention_block(T, C, heads) == want, (T, heads, hd)
+            if want:
+                assert tb.block_route(T, C, heads) in ("cluster", "staged")
+
+
 def test_kernel_checks_are_enforced():
-    """Shapes the kernels do not take raise (the card path never falls
-    back to the standard attention)."""
+    """The kernels take every geometry the JAX gate admits; what it
+    refuses raises (the card path never falls back to the standard
+    attention), as do a wrong weight dtype and a dtype the kernels lack."""
     def call(B, T, heads, hd, dtype=torch.float32, wdtype=None):
         C = heads * hd
         x = torch.zeros(B, T, C, dtype=dtype)
         w = torch.zeros(C, C, dtype=wdtype or dtype)
         b = torch.zeros(C)
-        tb._check(x, (w, w, w, w), (b, b, b, b), heads)
+        return tb._check(x, (w, w, w, w), (b, b, b, b), heads)
 
-    call(2, 256, 4, 64)
-    call(2, 16, 4, 64, torch.bfloat16)
+    assert call(2, 256, 4, 64) == "cluster"
+    assert call(2, 16, 4, 64, torch.bfloat16) == "cluster"
+    assert call(2, 64, 1, 128) == "staged"   # hd 128: no cluster instantiation
+    assert call(2, 64, 4, 8) == "staged"     # hd 8
+    assert call(1, 512, 4, 64) == "staged"   # 512 tokens
+    assert call(1, 64, 16, 16) == "staged"   # 16 heads
     with pytest.raises(ValueError, match="head dim"):
-        call(2, 64, 1, 128)  # hd 128 has no instantiation
-    with pytest.raises(ValueError, match="head dim"):
-        call(2, 64, 4, 8)    # hd 8: the tensor-core kernel needs 16
+        call(2, 64, 2, 12)   # a head dim that is not a multiple of 8
     with pytest.raises(ValueError, match="tokens"):
-        call(1, 512, 4, 64)
+        call(1, 2048, 1, 64)
+    with pytest.raises(ValueError, match="tokens"):
+        call(1, 260, 1, 64)  # past the cluster kernels' 256, not a multiple of 8
     with pytest.raises(ValueError, match="heads"):
-        call(1, 64, 16, 16)
+        call(1, 256, 64, 8)  # heads T^2 = 2^22
+    with pytest.raises(ValueError, match="channels"):
+        call(1, 64, 4, 256)  # C 1024
     with pytest.raises(ValueError, match="weights"):
         call(1, 64, 4, 16, torch.bfloat16, torch.float32)
     with pytest.raises(TypeError):
         call(1, 64, 4, 16, torch.float64)
+
+
+@pytest.mark.parametrize("T,heads,hd,checked", [
+    (256, 4, 64, "cluster"),  # the flagship's blocks
+    (16, 4, 64, "cluster"),   # and its mid block
+    (256, 1, 512, "staged"),  # the 256x256 family's
+])
+def test_forced_route_takes_only_the_staged_plan_inside_the_gate(T, heads, hd,
+                                                                 checked):
+    """A call's plan (``_route``): the checked route when none is asked;
+    "staged" where asked, at a cluster shape too (chip_smoke.py times the
+    two plans there side by side); no other plan, and nothing outside the
+    JAX gate's geometry (T 100 is a cluster shape the gate refuses)."""
+    h = torch.zeros(1, T, heads * hd)
+    assert tb._route(checked, None, h, heads) == checked
+    assert tb._route(checked, "staged", h, heads) == "staged"
+    with pytest.raises(ValueError, match="route"):
+        tb._route(checked, "cluster", h, heads)
+    with pytest.raises(ValueError, match="route"):
+        tb._route("cluster", "staged", torch.zeros(1, 100, 64), 1)
 
 
 TINY = {
@@ -262,10 +384,11 @@ def test_tiny_unet_with_the_opt_in_matches_jax(monkeypatch):
 @pytest.mark.parametrize("head_dim", [8, None])
 def test_unet_sends_shapes_the_kernels_refuse_down_the_standard_path(
         monkeypatch, head_dim):
-    """PDM_FUSED_BLOCK=1 and a geometry the JAX gate admits but the
-    whole-block kernels do not take (8 heads of 8 at C 64; one head of 64
-    is taken): the refused blocks call the standard path's attention and
-    give exactly the output of PDM_FUSED_BLOCK=0."""
+    """PDM_FUSED_BLOCK=1 and geometries the JAX gate admits (8 heads of 8
+    at C 64: the staged plan; one head of 64: the cluster plan): the UNet
+    sends every attention block to fused_attention_block (no standard-path
+    attention call), and its output agrees with PDM_FUSED_BLOCK=0's (fp32:
+    the two paths differ in summation order only, 1e-5 of the scale)."""
     import pdm_tpu_torch.models.unet as unet_mod
 
     cfg = {**TINY, "attention_head_dim": head_dim, "block_out_channels": [16, 64]}
@@ -276,8 +399,8 @@ def test_unet_sends_shapes_the_kernels_refuse_down_the_standard_path(
         for k, v in net.state_dict().items()})
     x = torch.from_numpy(rng.standard_normal((2, 3, 16, 16)).astype(np.float32))
     tau = torch.tensor([0.25, 0.75])
-    taken = tb.kernels_take(64, 64, 8 if head_dim == 8 else 1)
-    assert taken == (head_dim is None)
+    heads = 8 if head_dim == 8 else 1
+    assert tb.block_route(64, 64, heads) == ("staged" if head_dim == 8 else "cluster")
     calls = {"block": 0, "attention": 0}
 
     def spy(key, fn):
@@ -296,10 +419,9 @@ def test_unet_sends_shapes_the_kernels_refuse_down_the_standard_path(
     monkeypatch.setenv("PDM_FUSED_BLOCK", "1")
     with torch.no_grad():
         got = net(x, tau)
-    assert calls == ({"block": 4, "attention": 4} if taken
-                     else {"block": 0, "attention": 8})
-    if not taken:
-        assert torch.equal(got, standard)
+    assert calls == {"block": 4, "attention": 4}  # the 4 of PDM_FUSED_BLOCK=0
+    scale = float(standard.abs().max())
+    assert float((got - standard).abs().max()) <= 1e-5 * scale
 
 
 # ---------------------------------------------------------------------------
@@ -307,15 +429,25 @@ def test_unet_sends_shapes_the_kernels_refuse_down_the_standard_path(
 # by BlockPlan in csrc/attention_block_common.cuh)
 
 @pytest.mark.parametrize("backward", [False, True])
-@pytest.mark.parametrize("hd", tb.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("hd", tb.CLUSTER_HEAD_DIMS)
 def test_plan_fits_every_geometry_the_kernels_take(hd, backward):
-    """Every (T, heads) kernels_take admits at this head dim: shared memory
-    under the H100's 227 KB opt-in, a three-stage ring, an even number of
-    strips covering the keys, packing only at T <= 64 with Tr >= T and
-    P Tr = 64, one cluster of `heads` blocks (at most 8)."""
-    for heads in range(1, tb.KERNEL_MAX_HEADS + 1):
-        for T in range(1, tb.KERNEL_MAX_TOKENS + 1):
-            assert tb.kernels_take(T, heads * hd, heads)
+    """The route over the whole of JAX's geometry at this head dim (T up
+    to 1024, heads up to 64): every admitted geometry has a route; the
+    cluster route takes every (T <= 256, heads <= 8) it took before the
+    staged plan, and there its plan fits: shared memory under the H100's
+    227 KB opt-in, a three-stage ring, an even number of strips covering
+    the keys, packing only at T <= 64 with Tr >= T and P Tr = 64, one
+    cluster of `heads` blocks (at most 8)."""
+    for heads in range(1, 65):
+        for T in range(8, 1025, 8):
+            admitted = heads * T * T <= 2 ** 21 and heads * hd <= 512
+            route = tb.block_route(T, heads * hd, heads)
+            assert (route is not None) == (admitted or (T <= 256 and heads <= 8))
+            if route == "staged":
+                assert T > 256 or heads > 8
+    for heads in range(1, tb.CLUSTER_MAX_HEADS + 1):
+        for T in range(1, tb.CLUSTER_MAX_TOKENS + 1):
+            assert tb.block_route(T, heads * hd, heads) == "cluster"
             for B in (1, 3, 64, 128):
                 p = tb.plan_block(B, T, hd, backward)
                 assert p.smem + 1024 <= tb.MAX_SMEM_BYTES  # static memory beside it

@@ -238,6 +238,36 @@ def test_wide_attention_kernels_match_plain_on_card(cuda_device, hd, T, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T,hd", [(64, 256, 256), (8, 256, 512), (8, 64, 512)])
+def test_wide_attention_one_pass_kernel_at_the_driven_shapes(cuda_device, B, T, hd):
+    """Row 1w's one-pass wgmma kernel (bf16, T <= 256) at the shapes the
+    single-head 32x32 DDPM and the 256x256 family give it: within one
+    rounding of the output (2^-7) and 1e-5 in the lse of the plain
+    version, bitwise equal on a second call, and within the same bounds of
+    the two-pass kernel it replaced there (kept for longer rows)."""
+    from pdm_tpu_torch.ops import _build
+
+    g = torch.Generator(device=cuda_device).manual_seed(B + T + hd)
+    qkv = torch.randn(B, T, 3 * hd, generator=g, device=cuda_device).bfloat16()
+    q, k, v = qkv.split(hd, dim=-1)
+    scale = 1.0 / np.sqrt(hd)
+    out, lse = ta.attention_with_lse(q, k, v, 1, scale)
+    out2, lse2 = ta.attention_with_lse(q, k, v, 1, scale)
+    ref, ref_lse = ta._reference_with_lse(q, k, v, 1, scale)
+    old, old_lse = torch.empty_like(out), torch.empty_like(lse)
+    err = _build.entry("pdm_attention_wide_fwd_two_pass", ta._FWD_ARGS)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), old.data_ptr(),
+        old_lse.data_ptr(), B, T, 1, hd, 3 * hd, float(scale), 1,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    for o, l_ in ((ref, ref_lse), (old, old_lse)):
+        torch.testing.assert_close(out.float(), o.float(), rtol=2 ** -7, atol=2 ** -7)
+        torch.testing.assert_close(lse, l_, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_attention_autograd_on_card_matches_plain(cuda_device):
     """Through the autograd Function: the forward kernel, then the
     backward kernels, against autograd of the plain version."""
@@ -470,28 +500,46 @@ def test_tiny_unet_train_step_on_card_matches_cpu(cuda_device):
     (2, 130, 5, 32),    # C 160: a ragged last chunk; 5 heads, 3 key chunks
     (600, 16, 4, 64),   # 75 packed groups: more clusters than fit at once
     (96, 100, 4, 32),   # 96 groups of one ragged image, likewise
+    # the staged plan: every other geometry of the JAX gate
+    (8, 256, 1, 512),   # the 256x256 family's blocks
+    (8, 64, 1, 512),    # and its 8x8 block
+    (64, 256, 1, 256),  # the single-head 32x32 DDPM
+    (64, 16, 1, 256),   # and its mid block
+    (2, 64, 16, 8),     # 16 heads of 8
+    (2, 176, 64, 8),    # 64 heads: 64 T^2 just under 2^21
+    (2, 256, 4, 24),    # a head dim the cluster kernels lack
+    (2, 128, 4, 128),
+    (2, 512, 8, 64),    # 512 tokens
+    (1, 1024, 2, 256),
+    (2, 8, 1, 512),
+    (1, 1024, 1, 512),
 ])
 def test_attention_block_kernels_match_plain_on_card(cuda_device, B, T, heads,
                                                      hd, dtype):
     """Rows 5 and 6: the forward (and its lse) and every gradient of the
     backward against the plain versions on the same card inputs, to
     chip_smoke's BLOCK_TOL / BLOCK_BWD_TOL (db_qkv as one vector: db_k is
-    zero in exact arithmetic); one launch forward, three backward; a second
-    call of each bitwise equal to the first. The last two shapes launch
-    more clusters than the card holds at once."""
+    zero in exact arithmetic); the route's launches (cluster: one forward,
+    three backward; staged: three and eight), none on rows 1 and 2's
+    counters; a second call of each bitwise equal to the first. Two cluster
+    shapes launch more clusters than the card holds at once."""
     C = heads * hd
     g = torch.Generator(device=cuda_device).manual_seed(B + T)
     x, h, ws, bs, wo, bo = block_inputs(g, cuda_device, B, T, C, dtype)
     scale = 1.0 / np.sqrt(hd)
+    route = tb.block_route(T, C, heads)
     f0, b0 = tb.fused_attention_block.launches, tb.attention_block_bwd.launches
+    a0 = (ta.fused_spatial_attention.launches, ta.attention_bwd.launches)
     out, lse = tb._forward(x, h, ws, bs, wo, bo, heads, scale)
     ref, ref_lse = tb._reference_with_lse(x, h, *ws, bs, wo, bo, heads, scale)
     gco = torch.randn(B, T, C, generator=g, device=cuda_device).to(dtype)
     got = tb.attention_block_bwd(h, *ws, bs, wo, lse, gco, heads, scale)
     want = tb.attention_block_bwd_reference(h, *ws, bs, wo, lse, gco, heads, scale)
     torch.cuda.synchronize()
-    assert tb.fused_attention_block.launches == f0 + 1
-    assert tb.attention_block_bwd.launches == b0 + 3
+    launches = {"cluster": (1, 3), "staged": (3, 8)}[route]
+    assert (tb.fused_attention_block.launches - f0,
+            tb.attention_block_bwd.launches - b0) == launches
+    assert (ta.fused_spatial_attention.launches, ta.attention_bwd.launches) == a0
     out2, lse2 = tb._forward(x, h, ws, bs, wo, bo, heads, scale)
     got2 = tb.attention_block_bwd(h, *ws, bs, wo, lse, gco, heads, scale)
     torch.cuda.synchronize()
@@ -512,20 +560,24 @@ def test_attention_block_kernels_match_plain_on_card(cuda_device, B, T, heads,
 def test_attention_block_gate_raises_for_shapes_the_kernels_do_not_take(
         cuda_device, monkeypatch):
     """With PDM_FUSED_BLOCK=1 the gate opens for any head dim that is a
-    multiple of 8 (as JAX's). The whole-block wrapper still raises on the
-    card for a head dim with no instantiation; the UNet's attention block
-    sends such a shape down its standard path instead (row 1, no row-5
-    launch) and matches the CPU."""
+    multiple of 8 (as JAX's), and the whole-block kernels take what it
+    admits: one head of 128 and 8 heads of 8 run the staged plan (three
+    launches) and match the plain version to BLOCK_TOL; the UNet's
+    attention blocks at head dim 8 call it (no row-1 launch) and match the
+    CPU."""
     monkeypatch.setenv("PDM_FUSED_BLOCK", "1")
     for heads, hd in ((1, 128), (8, 8)):
         C = heads * hd
         assert tb.use_fused_attention_block(64, C, heads)
-        assert not tb.kernels_take(64, C, heads)
+        assert tb.block_route(64, C, heads) == "staged"
         x, h, ws, bs, wo, bo = block_inputs(
             torch.Generator(device=cuda_device).manual_seed(0), cuda_device, 2,
             64, C, torch.bfloat16)
-        with pytest.raises(ValueError, match="head dim"):
-            tb.fused_attention_block(x, h, *ws, bs, wo, bo, heads, 0.1)
+        f0 = tb.fused_attention_block.launches
+        got = tb.fused_attention_block(x, h, *ws, bs, wo, bo, heads, 0.1)
+        want = tb.attention_block_reference(x, h, *ws, bs, wo, bo, heads, 0.1)
+        assert tb.fused_attention_block.launches == f0 + 3
+        _assert_close_to_scale(got, want, *BLOCK_TOL["bfloat16"])
     cfg = {**TINY, "attention_head_dim": 8}
     cpu = unet_from_config(3, cfg, device="cpu")
     rng = np.random.RandomState(6)
@@ -541,8 +593,8 @@ def test_attention_block_gate_raises_for_shapes_the_kernels_do_not_take(
     with torch.no_grad():
         want = cpu(x, tau)
         got = net(x.to(cuda_device), tau.to(cuda_device)).cpu()
-    assert ta.fused_spatial_attention.launches - a0 == n_attn
-    assert tb.fused_attention_block.launches == f0
+    assert ta.fused_spatial_attention.launches == a0
+    assert tb.fused_attention_block.launches - f0 == 3 * n_attn
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 

@@ -14,6 +14,9 @@
   sampler. Its attention blocks at 4 x 4 (T 16) call the row-1 wrapper,
   the mid block at 2 x 2 (T 4, not a multiple of 8) the plain branch, as
   JAX's gate decides.
+* With ``PDM_FUSED_BLOCK=1`` its 4 x 4 blocks take the whole block's
+  staged plan (plain version on the CPU): the forward and the eps loss's
+  gradient match JAX's standard path.
 * The diffusers layout of a single-head config written with
   ``write_safetensors`` and ``config.json`` loads through
   ``diffusers_ddpm_from_config`` into bitwise the module it was written
@@ -133,6 +136,57 @@ def test_tiny_single_head_unet_forward_matches_jax(tiny_models, monkeypatch):
     scale = float(np.abs(want).max())
     assert scale > 1e-2
     assert float(np.abs(got - want).max()) <= 1e-5 * scale
+
+
+def test_tiny_single_head_unet_with_the_opt_in_matches_jax(tiny_models, monkeypatch):
+    """PDM_FUSED_BLOCK=1: the five single-head blocks at 4 x 4 (one head of
+    128: the whole block's staged plan) go to fused_attention_block (its
+    plain version on the CPU), the mid block at 2 x 2 (T 4, outside the
+    gate) to the plain branch. The forward matches JAX's standard path
+    (JAX's gate is closed off the TPU) to 1e-5 of the output scale, and the
+    gradient of the eps loss mean((net(x_t, tau) - eps)^2), a train step's
+    gradient, matches jax.grad's in every parameter to 1e-4 of that
+    parameter's gradient scale plus 1e-6 of the largest (fp32 summation
+    order through the backward)."""
+    jnet, params, net = tiny_models
+    monkeypatch.setenv("PDM_FUSED_BLOCK", "1")
+    rng = np.random.RandomState(4)
+    x = rng.standard_normal((B, SIZE, SIZE, 3)).astype(np.float32)
+    tau = rng.uniform(0.0, 1.0, B).astype(np.float32)
+    eps = rng.standard_normal((B, SIZE, SIZE, 3)).astype(np.float32)
+
+    def j_loss(p):
+        out = jnet.apply({"params": p}, jnp.asarray(x), jnp.asarray(tau),
+                         deterministic=True)
+        return jnp.mean((out - jnp.asarray(eps)) ** 2), out
+
+    (_, want), j_grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(params)
+    want_grads = from_flax_params(jax.tree_util.tree_map(np.array, j_grads))
+    calls = _spy_attention(monkeypatch)
+    blocks = {"n": 0}
+    real = unet_mod.fused_attention_block
+
+    def block_spy(*args, **kw):
+        blocks["n"] += 1
+        return real(*args, **kw)
+
+    monkeypatch.setattr(unet_mod, "fused_attention_block", block_spy)
+    net.zero_grad(set_to_none=True)
+    out = net(torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(tau))
+    loss = torch.mean((out - torch.from_numpy(eps).permute(0, 3, 1, 2)) ** 2)
+    loss.backward()
+    assert blocks["n"] == 5 and calls == {"kernel": 0, "plain": 1}
+    got = out.detach().permute(0, 2, 3, 1).numpy()
+    scale = float(np.abs(np.asarray(want)).max())
+    assert float(np.abs(got - np.asarray(want)).max()) <= 1e-5 * scale
+    grads = {k: p.grad for k, p in net.named_parameters()}
+    assert grads.keys() == want_grads.keys()
+    top = max(float(np.abs(np.asarray(g)).max()) for g in want_grads.values())
+    for k, g in want_grads.items():
+        g = np.asarray(g)
+        err = float(np.abs(grads[k].numpy() - g).max())
+        assert err <= 1e-4 * float(np.abs(g).max()) + 1e-6 * top, k
+    net.zero_grad(set_to_none=True)
 
 
 def test_tiny_single_head_unet_ddim_sample_matches_jax(tiny_models):

@@ -316,8 +316,7 @@ any error or disagreement:
    32 x 32 DDPM's DDIM-10 at batch 64 (6 row-1 launches a step). The
    host's load, clocks and a fixed loop's time are sampled before and
    after the family's sampler and train steps (host_clock), beside their
-   host-bound times. Row 1w times the two-pass kernel its one-pass
-   kernel replaced at T <= 256 beside it. The whole block at every
+   host-bound times. The whole block at every
    geometry JAX's gate admits: rows 5 and 6 on the staged plan
    against their plain versions at the family's blocks (B 8), the
    single-head 32 x 32's (B 64, and B 128 with the backward) and the
@@ -5302,31 +5301,6 @@ def sdpa_backend(qh, kh, vh, scale: float) -> str:
                  if int(b) == choice), str(choice))
 
 
-def wide_two_pass(q, k, v, heads, scale):
-    """A function of no arguments launching row 1w's two-pass bf16 kernel
-    (attention_wide.cu's pdm_attention_wide_fwd_two_pass, kept for T above
-    256) on q, k, v (the column thirds of one (B, T, 3C) tensor), which the
-    wrappers no longer call at T <= 256: the yardstick of its redesign."""
-    import torch
-
-    from pdm_tpu_torch.ops import _build
-    from pdm_tpu_torch.ops import attention as attn_op
-
-    B, T, C = q.shape
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lse = torch.empty((B, heads, T), dtype=torch.float32, device=q.device)
-    fn = _build.entry("pdm_attention_wide_fwd_two_pass", attn_op._FWD_ARGS)
-
-    def run():
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                 B, T, heads, C // heads, q.stride(1), float(scale), 1,
-                 torch.cuda.current_stream(q.device).cuda_stream)
-        if err:
-            fail(f"the two-pass wide kernel: CUDA error {err}")
-
-    return run
-
-
 def attention_rows(time_ms, dev, g, B, T, C, heads, calls, dtype,
                    forward: bool = True, backward: bool = True, timed: bool = True):
     """Rows 1 and 2 at (B, T, C, heads) on the column thirds of one
@@ -5385,17 +5359,9 @@ def attention_rows(time_ms, dev, g, B, T, C, heads, calls, dtype,
                 "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                     qh, kh, vh, scale=scale), reps=reps, inner=inner)[0],
                 "library_backend": backend, "bound_ms": b_ms, "bound_by": b_by})
-            was = ""
-            if (dtype == torch.bfloat16 and hd > attn_op.NARROW_MAX_HEAD_DIM
-                    and T <= 256):
-                # the two-pass kernel the one-pass one replaced at T <= 256,
-                # on the same inputs in the same call
-                fwd["two_pass_ms"] = time_ms(wide_two_pass(q, k, v, heads, scale),
-                                             reps=reps, inner=inner)[0]
-                was = f" (the two-pass kernel it replaced: {fwd['two_pass_ms']:.4f})"
             log(f"attention {where} x{calls}/step: max_abs_err {err:.3g} (lse "
                 f"{lse_err:.3g}; tol rtol {rtol} atol {atol}; worst {worst:.3g} "
-                f"of it; bitwise repeat {same}) kernel_ms {ms:.4f}{was} (host "
+                f"of it; bitwise repeat {same}) kernel_ms {ms:.4f} (host "
                 f"{host_ms:.4f}) plain_ms {fwd['plain_ms']:.4f} SDPA ({backend}) "
                 f"{fwd['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by})")
         if not (ok and lse_err <= lse_tol and same):
@@ -6865,9 +6831,8 @@ def main() -> int:
               "bf16 at T <= 256: one pass on wgmma, a strip's whole score row in "
               "registers contracted over 64-column head-dim chunks on a four-stage "
               "TMA ring, two strips a block sharing k and v, P v on wgmma with P "
-              "in registers, output chunks split over blocks to fill the card "
-              "('two_pass_ms': the kernel it replaced, same call); above T 256 "
-              "two passes on mma.sync",
+              "in registers, output chunks split over blocks to fill the card; "
+              "above T 256 two passes on mma.sync",
               [hr_path(hr_sample, hr["attention_fwd"], "attention_fwd"),
                hr_path(hr_train, hr["attention_fwd"], "attention_fwd"),
                ("single-head 32x32 sampling (DDIM-10, B 64)", hr["single_fwd"],
@@ -6876,9 +6841,12 @@ def main() -> int:
               hr["edge_fwd"]),
         entry("attention_bwd_wide", "pdm_tpu_torch/csrc/attention_wide.cu",
               "pdm_tpu/ops/attention.py:123 (row 2 at head dims above 128)",
-              "dq (and D) in two sweeps, then dk or dv a block: the head dim "
-              "contracted in 64-column chunks, the outputs' head dim cut into "
-              "128-column blocks, scores recomputed per block",
+              "bf16 at T <= 256: a dq kernel on wgmma computing each strip's S and "
+              "dp once over its whole key row in registers (64-column head-dim "
+              "chunks on a four-stage TMA ring), P, D and ds in registers, dq = ds "
+              "k chunk by chunk, P and ds to a bf16 scratch; then dk = ds^T q and "
+              "dv = P^T do as wgmma products over the query axis; above T 256 "
+              "two sweeps on mma.sync, scores recomputed per 128-column block",
               [hr_path(hr_train, hr["attention_bwd"], "attention_bwd")],
               hr["edge_bwd"] + hr["single_bwd"]),
     ]
@@ -6913,8 +6881,9 @@ def main() -> int:
               "pdm_tpu/ops/attention_block.py:90 (row 5 at the geometries the cluster "
               "kernels do not take)",
               "staged through device memory, three launches a call: the qkv "
-              "projection on wgmma (128 x 64 tiles, a four-stage TMA ring, the "
-              "weights read in place), row 1's kernel on its column thirds (above "
+              "projection on wgmma (persistent, 128 x 128 tiles, a producer warp "
+              "keeping a four-stage TMA ring in flight across tiles, the weights "
+              "read in place, TMA stores), row 1's kernel on its column thirds (above "
               "head dim 128 the one-pass wide kernel), the out projection with "
               "b_out and the residual in its epilogue",
               [hr_path(hr_sample_b, hr["block_fwd"], "block_fwd"),

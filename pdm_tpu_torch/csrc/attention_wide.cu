@@ -38,10 +38,30 @@
 // split recomputing the same S in the same order. Its two-pass
 // predecessor (below, kept for T > 256) computed each score tile 2 n_oc
 // times (two passes times hd / 128 output blocks) on mma.sync with no
-// load ahead: at the family's B 8, T 256 0.0959 ms, the one pass 0.0129
+// load ahead: at the family's B 8, T 256 0.0950 ms, the one pass 0.0129
 // (H100 80GB HBM3 at 700 W, PERF.md).
 //
-// The rest is the simple first design:
+// The bf16 backward at T <= 256 (every driven shape again) is two
+// launches on wgmma (wide_bwd below): a dq kernel that computes a strip's
+// S and dp once each, over the whole key row in registers, then P, D and
+// ds in registers, dq = ds k chunk by chunk, and P and ds into a bf16
+// scratch; then a dk/dv kernel that takes ds^T q and P^T do as products
+// over the query axis. At the family's B 8, T 256, one head of 512 the
+// design it replaced (below, kept for T > 256) computed each pair's S 16
+// times and dp 12 (31 products of T T hd where 5 suffice) on mma.sync
+// with no load ahead: 0.2320 ms, and 0.7927 at the single-head 32x32's
+// B 128, T 256, one head of 256, 5.3x cuDNN's (H100 80GB HBM3 at 700 W,
+// PERF.md).
+//
+// What bounds them on the H100: the family's forward, B 8, T 256, one
+// head of 512 in bf16, must move ~8.4 MB (2.5 us at 3.35 TB/s) and do
+// 1.07 GFLOP (1.1 us at the bf16 tensor-core peak); its backward ~14.7 MB
+// (4.4 us) and 2.7 GFLOP (2.7 us), so bytes bound both, barely. Few
+// strips fill the card (32 at the family's shape): the one-pass kernels
+// keep every operand chunk in flight on a TMA ring rather than wait on
+// it, and the backward's scratch adds 4 B heads T^2 bytes each way.
+//
+// Above T 256 and in fp32 the simple first design:
 //  * the head dim is contracted in chunks (64 columns in bf16, 32 in
 //    fp32): q k^T (and do v^T) accumulate chunk by chunk over tiles staged
 //    in shared memory, the last chunk zero-filled past hd, so the score
@@ -53,14 +73,6 @@
 // Every block of a row computes bitwise the same scores, lse and D (one
 // fixed summation order), so no block reads another's results and
 // nothing is atomic: two calls give the same bits.
-//
-// What bounds it on the H100: the 256x256 family's call, B 8, T 256, one
-// head of 512 in bf16, must move ~8.4 MB (2.5 us at 3.35 TB/s) and do
-// 1.07 GFLOP (1.1 us at the bf16 tensor-core peak). The backward computes
-// more than that: the dq kernel its scores and dp twice per output block,
-// the dk kernel once per output block, and every operand chunk crosses L2
-// once per tile that uses it, with two barriers around each chunk and no
-// load ahead. Its time beside the bound is in PERF.md.
 //
 // Two-pass kernels, all with 128 (bf16) or 64 (fp32) threads:
 //  * bf16 (mma.sync m16n8k16, fp32 accumulate; the fragments and tile
@@ -544,6 +556,460 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 }  // namespace wide1p
 
 // ---------------------------------------------------------------------------
+// bf16 backward at T <= 256: S and dp once per strip on wgmma (the redesign
+// of row 2w)
+//
+// Two kernels, launched as row 2's dq and dk/dv entries, planned by
+// ops/attention.py::plan_wide_bwd (Plan below, checked against the shape).
+//  * dq: a block is WG 64-row query strips of one (image, head), one
+//    warpgroup each, sharing every k and v chunk (WG 2 where the card
+//    still fills, else 1). Thread 0 keeps a four-stage TMA ring of
+//    64-column head-dim chunks in flight over three sweeps: k with the
+//    strips' q (S = q k^T, the strip's whole key row in registers, m64
+//    n(64 NC) k16), then v with the strips' do (dp = do v^T in the same
+//    registers), then k again as the B operand of dq = ds k, one 64-column
+//    output chunk at a time. In between, in registers: P = exp(s - lse)
+//    rounded to bf16 (the A fragments), D = sum_k P dp from the rounded P
+//    over the whole row, ds = P dp - P D rounded to bf16; P and ds go to a
+//    (B heads, Tp, Tp) bf16 scratch each (Tp = 64 NC, padding rows and
+//    keys written as zeros) through per-warp staging rows.
+//  * dk/dv: dk = ds^T q scale and dv = P^T do as products over the query
+//    axis: a block is one 64-key strip, 128 output columns and one of dk
+//    or dv, one warpgroup; all NC stages (the scratch's 64 x 64 box read
+//    MN-major as A, two 64-column panels of q or do as B) are issued at
+//    once.
+// S and dp are computed once per (query strip, key strip) pair: 5 products
+// of T T hd in all, where the two-pass design computed 31 at hd 512. Each
+// output is written by one block in one fixed order, nothing is atomic:
+// two calls give the same bits.
+
+namespace wide_bwd {
+
+constexpr int kStages = 4;
+constexpr int kChunk = 64;                   // head-dim columns a chunk
+constexpr int kBox = 64 * kChunk * 2;        // a 64 x 64 bf16 box
+constexpr int kRowBytes = kChunk * 2 + 16;   // a staging row (padded)
+constexpr int kKvCols = 128;                 // output columns of a dk/dv block
+
+// ops/attention.py::WideBwdPlan, field for field
+struct Plan {
+  int one_pass, nc, wg, dq_x, dq_y, dq_z, dq_smem, kv_x, kv_y, kv_z, kv_smem;
+  long long scratch;
+};
+
+// The plan of a call at this shape (the strips a dq block, wg, chosen by
+// the caller), as plan_wide_bwd gives it.
+inline Plan expected(int B, int n_tok, int heads, int hd, bool bf16, int wg) {
+  const int nc = (n_tok + 63) / 64;
+  if (bf16 && n_tok <= pdm_hop::kMaxTokens) {
+    const long long bh = (long long)B * heads;
+    const long long n_nt = (hd + kKvCols - 1) / kKvCols;
+    const long long dq_x = bh * ((nc + wg - 1) / wg), kv_x = bh * nc * n_nt * 2;
+    const long long tp = 64LL * nc;
+    return Plan{1, nc, wg, (int)dq_x, 1, 1, kStages * (nc + wg) * kBox + 1024, (int)kv_x, 1, 1,
+                nc * 3 * kBox + 1024, 2 * bh * tp * tp};
+  }
+  const int n_oc = out_blocks(hd, bf16 ? kOC : kFO);
+  return Plan{0, nc, 1, nc, heads * n_oc, B, 0, nc, 2 * heads * n_oc, B, 0, 0};
+}
+
+inline bool plan_ok(const Plan* p, int B, int n_tok, int heads, int hd, bool bf16) {
+  if (p == nullptr || p->wg < 1 || p->wg > 2 || (p->wg == 2 && p->nc < 2)) return false;
+  const Plan e = expected(B, n_tok, heads, hd, bf16, p->wg);
+  const long long bh = (long long)B * heads;
+  const long long n_nt = (hd + kKvCols - 1) / kKvCols;
+  if (e.one_pass && (bh * ((e.nc + p->wg - 1) / p->wg) > 0x7fffffffLL ||
+                     bh * e.nc * n_nt * 2 > 0x7fffffffLL))
+    return false;
+  return p->one_pass == e.one_pass && p->nc == e.nc && p->dq_x == e.dq_x &&
+         p->dq_y == e.dq_y && p->dq_z == e.dq_z && p->dq_smem == e.dq_smem &&
+         p->kv_x == e.kv_x && p->kv_y == e.kv_y && p->kv_z == e.kv_z &&
+         p->kv_smem == e.kv_smem && p->scratch == e.scratch && e.dq_y <= 65535 &&
+         e.dq_z <= 65535 && e.kv_y <= 65535 && e.kv_z <= 65535;
+}
+
+// a bf16 pair into the warp's staging rows at (row, column)
+__device__ __forceinline__ void stage(char* buf, int row, int col, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(buf + row * kRowBytes + col * 2) = v;
+}
+
+// the warp's staged 16 x 64 tile to rows `ld` apart at dst (its first
+// row): whole 16-byte vectors, rows >= rows and columns >= cols not
+// written (cols a multiple of 8)
+__device__ __forceinline__ void flush(__nv_bfloat16* dst, long long ld, int rows, int cols,
+                                      char* buf) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+#pragma unroll
+  for (int e = lane; e < 16 * 8; e += 32) {
+    const int rr = e >> 3, vv = e & 7;
+    if (rr < rows && vv * 8 < cols)
+      *reinterpret_cast<uint4*>(dst + (long long)rr * ld + vv * 8) =
+          *reinterpret_cast<const uint4*>(buf + rr * kRowBytes + vv * 16);
+  }
+  __syncwarp();
+}
+
+// columns [64 h, 64 h + 64) of the warp's 16 rows of a 64 x N fp32
+// accumulator (wgmma m64nN: registers 4 i + 2 r + e at row g + 8 r, column
+// 8 i + 2 tq + e), times mul, rounded to bf16, into the staging rows
+template <int R>
+__device__ __forceinline__ void stage_acc(char* buf, const float (&acc)[R], int h, float mul) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int a = 4 * (8 * h + i) + 2 * r;
+      stage(buf, g + 8 * r, i * 8 + 2 * tq, pdm_attn::pack_bf16(acc[a] * mul, acc[a + 1] * mul));
+    }
+}
+
+// The warp's 16 rows of a 64 x 64 NC bf16 tile held as A fragments
+// (pack_slice's layout) to rows `ld` apart at dst, every row and column:
+// the P and ds scratch
+template <int NC>
+__device__ __forceinline__ void store_frags(__nv_bfloat16* dst, const uint32_t (&a)[NC * 4][4],
+                                            long long ld, char* buf) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const uint32_t(&f)[4] = a[4 * c + jj];
+      stage(buf, g, 16 * jj + 2 * tq, f[0]);
+      stage(buf, g + 8, 16 * jj + 2 * tq, f[1]);
+      stage(buf, g, 16 * jj + 8 + 2 * tq, f[2]);
+      stage(buf, g + 8, 16 * jj + 8 + 2 * tq, f[3]);
+    }
+    flush(dst + c * 64, ld, 16, 64, buf);
+  }
+}
+
+struct DqMaps {
+  CUtensorMap q, k, v, dout;  // 4-D stripe maps: boxes of 64 rows (q, do), 64 NC (k, v)
+};
+
+// dq and D of WG query strips (strips WG p .. WG p + WG - 1 of one (image,
+// head)), and their rows of the P and ds scratch.
+template <int NC, int WG>
+__global__ void __launch_bounds__(WG * pdm_hop::kWgThreads, 1)
+attention_bwd_dq_wgmma_kernel(const __grid_constant__ DqMaps m, const float* __restrict__ lse,
+                              __nv_bfloat16* __restrict__ dq, float* __restrict__ dsum,
+                              __nv_bfloat16* __restrict__ p_out,
+                              __nv_bfloat16* __restrict__ ds_out, int n_tok, int heads, int hd,
+                              long long ldo, float scale, float scale_log2) {
+  using pdm_hop::desc_k;
+  using pdm_hop::desc_mn;
+  constexpr int kGroups = (NC + WG - 1) / WG;  // blocks of strips a head
+  constexpr int kKV = NC * kBox;               // a chunk of the head's key rows
+  constexpr int kStage = kKV + WG * kBox;
+  constexpr int kTp = NC * 64;
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  __shared__ __align__(16) char staging[4 * WG][16 * kRowBytes];
+
+  const int grp = blockIdx.x % kGroups, bh = blockIdx.x / kGroups;
+  const int h = bh % heads, b = bh / heads;
+  const int wg = threadIdx.x >> 7;
+  const int live = NC - grp * WG < WG ? NC - grp * WG : WG;  // strips with rows
+  const int n_dc = (hd + kChunk - 1) / kChunk;
+  const int total = 3 * n_dc;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wrow = (grp * WG + wg) * 64 + (warp & 3) * 16;  // the warp's first row
+  char* ring = pdm_hop::aligned_smem(smem_raw);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      pdm_hop::mbar_init(&full[st], 1);
+      pdm_hop::mbar_init(&empty[st], 4 * WG);
+    }
+    pdm_hop::fence_barrier_init();
+  }
+  __syncthreads();
+  // thread 0: chunk n of the three sweeps into stage n % kStages: the
+  // head's k (sweeps 0 and 2) or v (sweep 1) at head-dim chunk n % n_dc,
+  // then the live strips' q (sweep 0) or do (sweep 1)
+  auto issue = [&](int n) {
+    const int st = n % kStages;
+    if (n >= kStages) pdm_hop::mbar_wait(&empty[st], ((n / kStages) - 1) & 1);
+    char* dst = ring + st * kStage;
+    const int sweep = n / n_dc, col = (n - sweep * n_dc) * kChunk;
+    const int strips = sweep == 2 ? 0 : live;
+    pdm_hop::mbar_expect_tx(&full[st], kKV + strips * kBox);
+    pdm_hop::tma_load(dst, sweep == 1 ? &m.v : &m.k, &full[st], col, h, 0, b);
+    for (int w = 0; w < strips; ++w)
+      pdm_hop::tma_load(dst + kKV + w * kBox, sweep == 1 ? &m.dout : &m.q, &full[st], col, h,
+                        (grp * WG + w) * 64, b);
+  };
+  if (threadIdx.x == 0)
+    for (int n = 0; n < kStages && n < total; ++n) issue(n);
+  // the warp is done with chunk n's stage; thread 0 refills it
+  auto release = [&](int n) {
+    if (lane == 0) pdm_hop::mbar_arrive(&empty[n % kStages]);
+    if (threadIdx.x == 0 && n + kStages < total) issue(n + kStages);
+    __syncwarp();
+  };
+  const bool mine = wg < live;
+
+  // lse of rows g and g + 8 in log2 units; +inf past n_tok makes P = 0
+  const long long lrow = ((long long)b * heads + h) * n_tok;
+  float lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    lse2[r] = row < n_tok ? lse[lrow + row] * kLog2e : INFINITY;
+  }
+
+  // S = q k^T over the head dim, chunk by chunk
+  float s[NC * 32];
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i) s[i] = 0.f;
+#pragma unroll 1
+  for (int n = 0; n < n_dc; ++n) {
+    const int st = n % kStages;
+    pdm_hop::mbar_wait(&full[st], (n / kStages) & 1);
+    const char* ks = ring + st * kStage;
+    if (mine) {
+      const char* qs = ks + kKV + wg * kBox;
+      pdm_hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        pdm_hop::wgmma_ss<NC>(s, desc_k<64>(qs, 64, 0, kk), desc_k<64>(ks, NC * 64, 0, kk));
+      pdm_hop::wgmma_commit();
+      pdm_hop::wgmma_wait_all();
+      pdm_hop::reg_fence(s);
+    }
+    release(n);
+  }
+
+  // P = exp(s - lse) rounded to bf16 as it is packed (keys past n_tok: 0)
+  uint32_t pa[NC * 4][4];
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i) s[i] = pdm_hop::ex2(fmaf(s[i], scale_log2, -lse2[(i >> 1) & 1]));
+  if (n_tok < NC * 64) {
+#pragma unroll
+    for (int i = 0; i < NC * 32; ++i)
+      if ((i >> 2) * 8 + 2 * tq + (i & 1) >= n_tok) s[i] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < NC * 4; ++j) pdm_hop::pack_slice(pa[j], s, j);
+  const long long sbase = (long long)bh * kTp * kTp + (long long)wrow * kTp;
+  if (mine) store_frags<NC>(p_out + sbase, pa, kTp, staging[warp]);
+
+  // dp = do v^T (in the same registers), D = sum_k P dp from the rounded P
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i) s[i] = 0.f;
+#pragma unroll 1
+  for (int j = 0; j < n_dc; ++j) {
+    const int n = n_dc + j, st = n % kStages;
+    pdm_hop::mbar_wait(&full[st], (n / kStages) & 1);
+    const char* vs = ring + st * kStage;
+    if (mine) {
+      const char* dos = vs + kKV + wg * kBox;
+      pdm_hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        pdm_hop::wgmma_ss<NC>(s, desc_k<64>(dos, 64, 0, kk), desc_k<64>(vs, NC * 64, 0, kk));
+      pdm_hop::wgmma_commit();
+      pdm_hop::wgmma_wait_all();
+      pdm_hop::reg_fence(s);
+    }
+    release(n);
+  }
+  float D[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i)
+    D[(i >> 1) & 1] += pdm_hop::unpack(pa[i >> 3], i >> 2, i & 3) * s[i];
+  D[0] = quad_sum(D[0]);
+  D[1] = quad_sum(D[1]);
+
+  // ds = P dp - P D, rounded to bf16 as it is repacked (the A operand of
+  // ds k)
+#pragma unroll
+  for (int i = 0; i < NC * 32; ++i) {
+    const float p = pdm_hop::unpack(pa[i >> 3], i >> 2, i & 3);
+    s[i] = p * s[i] - p * D[(i >> 1) & 1];
+  }
+#pragma unroll
+  for (int j = 0; j < NC * 4; ++j) pdm_hop::pack_slice(pa[j], s, j);
+  if (mine) {
+    store_frags<NC>(ds_out + sbase, pa, kTp, staging[warp]);
+    if (tq == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wrow + g + 8 * r;
+        if (row < n_tok) dsum[lrow + row] = D[r];
+      }
+    }
+  }
+
+  // dq = ds k times the scale, one 64-column output chunk at a time
+  __nv_bfloat16* dq_rows = dq + ((long long)b * n_tok + wrow) * ldo + (long long)h * hd;
+#pragma unroll 1
+  for (int j = 0; j < n_dc; ++j) {
+    const int n = 2 * n_dc + j, st = n % kStages;
+    pdm_hop::mbar_wait(&full[st], (n / kStages) & 1);
+    const char* ks = ring + st * kStage;
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    if (mine) {
+      pdm_hop::wgmma_fence();
+#pragma unroll
+      for (int jj = 0; jj < NC * 4; ++jj)
+        pdm_hop::wgmma_rs<64>(acc, pa[jj], desc_mn<64>(ks, NC * 64, jj, 0));
+      pdm_hop::wgmma_commit();
+      pdm_hop::wgmma_wait_all();
+      pdm_hop::reg_fence(acc);
+      pdm_hop::reg_fence(pa);
+    }
+    release(n);
+    if (mine) {
+      stage_acc(staging[warp], acc, 0, scale);
+      flush(dq_rows + j * kChunk, ldo, n_tok - wrow, hd - j * kChunk, staging[warp]);
+    }
+  }
+}
+
+struct KvMaps {
+  CUtensorMap q, dout;  // 4-D stripe maps, boxes of 64 rows
+  CUtensorMap p, ds;    // 3-D maps {Tp, Tp, B heads} of the scratch, boxes 64 x 64
+};
+
+// dk (ds^T q, times the scale) or dv (P^T do) of one 64-key strip, over
+// 128 output columns: blockIdx.x = ((b heads + h) NC + strip) n_nt + tile,
+// times 2, plus 1 for dv.
+template <int NC>
+__global__ void __launch_bounds__(pdm_hop::kWgThreads, 1)
+attention_bwd_kv_wgmma_kernel(const __grid_constant__ KvMaps m, __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv, int n_tok, int heads, int hd,
+                              long long ldo, float scale) {
+  using pdm_hop::desc_mn;
+  constexpr int kStage = 3 * kBox;  // the scratch's box, two panels of q or do
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t full[NC];
+  __shared__ __align__(16) char staging[4][16 * kRowBytes];
+
+  const int n_nt = (hd + kKvCols - 1) / kKvCols;
+  const bool is_dv = blockIdx.x & 1;
+  int x = blockIdx.x >> 1;
+  const int nt = x % n_nt;
+  x /= n_nt;
+  const int kt = x % NC, bh = x / NC;
+  const int h = bh % heads, b = bh / heads;
+  const int n0 = nt * kKvCols;
+  const int panels = hd - n0 > 64 ? 2 : 1;  // a panel wholly past hd is not loaded
+  const int warp = threadIdx.x >> 5;
+  const int wrow = kt * 64 + warp * 16;
+  char* ring = pdm_hop::aligned_smem(smem_raw);
+
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < NC; ++j) pdm_hop::mbar_init(&full[j], 1);
+    pdm_hop::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < NC; ++j) {
+      char* st = ring + j * kStage;
+      pdm_hop::mbar_expect_tx(&full[j], (1 + panels) * kBox);
+      pdm_hop::tma_load_3d(st, is_dv ? &m.p : &m.ds, &full[j], kt * 64, j * 64, bh);
+      for (int p = 0; p < panels; ++p)
+        pdm_hop::tma_load(st + (1 + p) * kBox, is_dv ? &m.dout : &m.q, &full[j], n0 + p * 64, h,
+                          j * 64, b);
+    }
+  }
+
+  // acc (64 keys x 128 columns) += (P or ds)^T (64 keys x 64 queries, the
+  // scratch box MN-major) times (do or q) (64 queries x 128, N-major)
+  float acc[kKvCols / 2];
+#pragma unroll
+  for (int i = 0; i < kKvCols / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    pdm_hop::mbar_wait(&full[j], 0);
+    const char* st = ring + j * kStage;
+    pdm_hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      pdm_hop::wgmma_ss_t<kKvCols, 1, 1>(acc, desc_mn<64>(st, 64, kk, 0),
+                                         desc_mn<64>(st + kBox, 64, kk, 0));
+    pdm_hop::wgmma_commit();
+    pdm_hop::wgmma_wait_all();
+    pdm_hop::reg_fence(acc);
+  }
+
+  __nv_bfloat16* rows =
+      (is_dv ? dv : dk) + ((long long)b * n_tok + wrow) * ldo + (long long)h * hd + n0;
+  const float mul = is_dv ? 1.f : scale;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    stage_acc(staging[warp], acc, p, mul);
+    flush(rows + p * 64, ldo, n_tok - wrow, hd - n0 - p * 64, staging[warp]);
+  }
+}
+
+template <int NC, int WG>
+cudaError_t launch_dq_wg(const Plan& p, const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, void* dq, float* dsum, void* scratch,
+                      int B, int n_tok, int heads, int hd, long long ld, long long ldo,
+                      float scale, cudaStream_t stream) {
+  DqMaps m;
+  if (!pdm_hop::stripe_map<64>(&m.q, q, B, n_tok, heads, hd, ld, 64) ||
+      !pdm_hop::stripe_map<64>(&m.k, k, B, n_tok, heads, hd, ld, NC * 64) ||
+      !pdm_hop::stripe_map<64>(&m.v, v, B, n_tok, heads, hd, ld, NC * 64) ||
+      !pdm_hop::stripe_map<64>(&m.dout, dout, B, n_tok, heads, hd, (long long)heads * hd, 64))
+    return cudaErrorInvalidValue;
+  auto kernel = attention_bwd_dq_wgmma_kernel<NC, WG>;
+  cudaError_t err = pdm_hop::allow_smem(kernel, p.dq_smem);
+  if (err != cudaSuccess) return err;
+  auto* P = static_cast<__nv_bfloat16*>(scratch);
+  kernel<<<p.dq_x, WG * pdm_hop::kWgThreads, p.dq_smem, stream>>>(
+      m, lse, static_cast<__nv_bfloat16*>(dq), dsum, P, P + p.scratch / 2, n_tok, heads, hd,
+      ldo, scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_dq(const Plan& p, const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, void* dq, float* dsum, void* scratch,
+                      int B, int n_tok, int heads, int hd, long long ld, long long ldo,
+                      float scale, cudaStream_t stream) {
+  if constexpr (NC >= 2) {
+    if (p.wg == 2)
+      return launch_dq_wg<NC, 2>(p, q, k, v, dout, lse, dq, dsum, scratch, B, n_tok, heads, hd, ld,
+                              ldo, scale, stream);
+  }
+  return launch_dq_wg<NC, 1>(p, q, k, v, dout, lse, dq, dsum, scratch, B, n_tok, heads, hd, ld,
+                          ldo, scale, stream);
+}
+
+template <int NC>
+cudaError_t launch_kv(const Plan& p, const void* q, const void* dout, const void* scratch,
+                      void* dk, void* dv, int B, int n_tok, int heads, int hd, long long ld,
+                      long long ldo, float scale, cudaStream_t stream) {
+  KvMaps m;
+  const auto* P = static_cast<const __nv_bfloat16*>(scratch);
+  const long long bh = (long long)B * heads;
+  if (!pdm_hop::stripe_map<64>(&m.q, q, B, n_tok, heads, hd, ld, 64) ||
+      !pdm_hop::stripe_map<64>(&m.dout, dout, B, n_tok, heads, hd, (long long)heads * hd, 64) ||
+      !pdm_hop::rows_map(&m.p, P, static_cast<int>(bh), NC * 64, NC * 64, NC * 64, 64, 64, 1) ||
+      !pdm_hop::rows_map(&m.ds, P + p.scratch / 2, static_cast<int>(bh), NC * 64, NC * 64,
+                         NC * 64, 64, 64, 1))
+    return cudaErrorInvalidValue;
+  auto kernel = attention_bwd_kv_wgmma_kernel<NC>;
+  cudaError_t err = pdm_hop::allow_smem(kernel, p.kv_smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<p.kv_x, pdm_hop::kWgThreads, p.kv_smem, stream>>>(
+      m, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), n_tok, heads, hd, ldo,
+      scale);
+  return cudaGetLastError();
+}
+
+}  // namespace wide_bwd
+
+// ---------------------------------------------------------------------------
 // bf16 backward, dq and D: two sweeps over the keys, as attention_bwd.cu's
 // two-pass dq kernel
 
@@ -991,19 +1457,6 @@ bool bad_shape(int B, int n_tok, int heads, int hd, int y_blocks) {
          y_blocks > 65535;
 }
 
-// the bf16 two-pass forward at any T
-cudaError_t launch_two_pass(const void* q, const void* k, const void* v, void* out, float* l,
-                            int B, int n_tok, int heads, int hd, long long ld, float scale,
-                            cudaStream_t s) {
-  const int y = heads * out_blocks(hd, kOC);
-  if (bad_shape(B, n_tok, heads, hd, y)) return cudaErrorInvalidValue;
-  attention_fwd_wide_kernel<<<dim3((n_tok + kTile - 1) / kTile, y, B), kTcThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), l, n_tok,
-      heads, hd, ld, scale * kLog2e);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // As pdm_attention_fwd (attention.cu), at any head dim that is a multiple
@@ -1028,7 +1481,12 @@ extern "C" int pdm_attention_wide_fwd(const void* q, const void* k, const void* 
     }
     return static_cast<int>(err);
   } else if (dtype == pdm::kBFloat16) {
-    return static_cast<int>(launch_two_pass(q, k, v, out, l, B, n_tok, heads, hd, ld, scale, s));
+    const int y = heads * out_blocks(hd, kOC);
+    if (bad_shape(B, n_tok, heads, hd, y)) return cudaErrorInvalidValue;
+    attention_fwd_wide_kernel<<<dim3((n_tok + kTile - 1) / kTile, y, B), kTcThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), l, n_tok,
+        heads, hd, ld, scale * kLog2e);
   } else if (dtype == pdm::kFloat32) {
     const int y = heads * out_blocks(hd, kFO);
     if (bad_shape(B, n_tok, heads, hd, y)) return cudaErrorInvalidValue;
@@ -1042,81 +1500,93 @@ extern "C" int pdm_attention_wide_fwd(const void* q, const void* k, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 two-pass forward at any T, the one the one-pass kernel replaced
-// at T <= 256: for timing the two designs side by side on one card (the
-// wrappers never call it).
-extern "C" int pdm_attention_wide_fwd_two_pass(const void* q, const void* k, const void* v,
-                                               void* out, void* lse, int B, int n_tok,
-                                               int heads, int hd, long long ld, float scale,
-                                               int dtype, void* stream) {
-  if (dtype != pdm::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_two_pass(q, k, v, out, static_cast<float*>(lse), B, n_tok,
-                                          heads, hd, ld, scale,
-                                          static_cast<cudaStream_t>(stream)));
-}
-
-// As pdm_attention_bwd_dq (attention_bwd.cu), at the same head dims.
+// As pdm_attention_bwd_dq (attention_bwd.cu), at the same head dims, with
+// two more arguments: `plan` (ops/attention.py::plan_wide_bwd's, refused
+// unless it is this shape's) and `scratch`, plan->scratch bf16 elements
+// for the one-pass design's P and ds (bf16 at T <= 256), else unused.
 extern "C" int pdm_attention_wide_bwd_dq(const void* q, const void* k, const void* v,
                                          const void* dout, const void* lse, void* dq,
                                          void* dsum, int B, int n_tok, int heads,
                                          int hd, long long ld, long long ldo, float scale,
-                                         int dtype, void* stream) {
+                                         int dtype, void* stream, void* scratch,
+                                         const void* plan) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* D = static_cast<float*>(dsum);
-  if (dtype == pdm::kBFloat16) {
-    const int y = heads * out_blocks(hd, kOC);
-    if (bad_shape(B, n_tok, heads, hd, y)) return cudaErrorInvalidValue;
-    attention_bwd_dq_wide_kernel<<<dim3((n_tok + kTile - 1) / kTile, y, B), kTcThreads,
-                                   0, s>>>(
+  const auto* p = static_cast<const wide_bwd::Plan*>(plan);
+  const bool bf16 = dtype == pdm::kBFloat16;
+  if ((!bf16 && dtype != pdm::kFloat32) || bad_shape(B, n_tok, heads, hd, 1) ||
+      !wide_bwd::plan_ok(p, B, n_tok, heads, hd, bf16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p->one_pass) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err;
+    switch (p->nc) {
+      case 1: err = wide_bwd::launch_dq<1>(*p, q, k, v, dout, l, dq, D, scratch, B, n_tok, heads, hd, ld, ldo, scale, s); break;
+      case 2: err = wide_bwd::launch_dq<2>(*p, q, k, v, dout, l, dq, D, scratch, B, n_tok, heads, hd, ld, ldo, scale, s); break;
+      case 3: err = wide_bwd::launch_dq<3>(*p, q, k, v, dout, l, dq, D, scratch, B, n_tok, heads, hd, ld, ldo, scale, s); break;
+      default: err = wide_bwd::launch_dq<4>(*p, q, k, v, dout, l, dq, D, scratch, B, n_tok, heads, hd, ld, ldo, scale, s);
+    }
+    return static_cast<int>(err);
+  }
+  const dim3 grid(p->dq_x, p->dq_y, p->dq_z);
+  if (bf16) {
+    attention_bwd_dq_wide_kernel<<<grid, kTcThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), l,
         static_cast<__nv_bfloat16*>(dq), D, n_tok, heads, hd, ld, ldo, scale,
         scale * kLog2e);
-  } else if (dtype == pdm::kFloat32) {
-    const int y = heads * out_blocks(hd, kFO);
-    if (bad_shape(B, n_tok, heads, hd, y)) return cudaErrorInvalidValue;
-    attention_bwd_dq_wide_f32_kernel<<<dim3((n_tok + kFQ - 1) / kFQ, y, B), kFQ, 0, s>>>(
+  } else {
+    attention_bwd_dq_wide_f32_kernel<<<grid, kFQ, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), l,
         static_cast<float*>(dq), D, n_tok, heads, hd, ld, ldo, scale);
-  } else {
-    return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// As pdm_attention_bwd_dkdv (attention_bwd.cu), at the same head dims:
-// one launch whose blocks write dk or dv.
+// As pdm_attention_bwd_dkdv (attention_bwd.cu), at the same head dims, with
+// pdm_attention_wide_bwd_dq's `scratch` (its P and ds, read here by the
+// one-pass design) and `plan`: one launch whose blocks write dk or dv.
 extern "C" int pdm_attention_wide_bwd_dkdv(const void* q, const void* k, const void* v,
                                            const void* dout, const void* lse,
                                            const void* dsum, void* dk, void* dv, int B,
                                            int n_tok, int heads, int hd, long long ld,
                                            long long ldo, float scale, int dtype,
-                                           void* stream) {
+                                           void* stream, const void* scratch,
+                                           const void* plan) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* D = static_cast<const float*>(dsum);
-  if (dtype == pdm::kBFloat16) {
-    const int y = 2 * heads * out_blocks(hd, kOC);
-    if (bad_shape(B, n_tok, heads, hd, y)) return cudaErrorInvalidValue;
-    attention_bwd_dkdv_wide_kernel<<<dim3((n_tok + kTile - 1) / kTile, y, B),
-                                     kTcThreads, 0, s>>>(
+  const auto* p = static_cast<const wide_bwd::Plan*>(plan);
+  const bool bf16 = dtype == pdm::kBFloat16;
+  if ((!bf16 && dtype != pdm::kFloat32) || bad_shape(B, n_tok, heads, hd, 1) ||
+      !wide_bwd::plan_ok(p, B, n_tok, heads, hd, bf16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p->one_pass) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err;
+    switch (p->nc) {
+      case 1: err = wide_bwd::launch_kv<1>(*p, q, dout, scratch, dk, dv, B, n_tok, heads, hd, ld, ldo, scale, s); break;
+      case 2: err = wide_bwd::launch_kv<2>(*p, q, dout, scratch, dk, dv, B, n_tok, heads, hd, ld, ldo, scale, s); break;
+      case 3: err = wide_bwd::launch_kv<3>(*p, q, dout, scratch, dk, dv, B, n_tok, heads, hd, ld, ldo, scale, s); break;
+      default: err = wide_bwd::launch_kv<4>(*p, q, dout, scratch, dk, dv, B, n_tok, heads, hd, ld, ldo, scale, s);
+    }
+    return static_cast<int>(err);
+  }
+  const dim3 grid(p->kv_x, p->kv_y, p->kv_z);
+  if (bf16) {
+    attention_bwd_dkdv_wide_kernel<<<grid, kTcThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), l,
         D, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), n_tok, heads,
         hd, ld, ldo, scale, scale * kLog2e);
-  } else if (dtype == pdm::kFloat32) {
-    const int y = 2 * heads * out_blocks(hd, kFO);
-    if (bad_shape(B, n_tok, heads, hd, y)) return cudaErrorInvalidValue;
-    attention_bwd_dkdv_wide_f32_kernel<<<dim3((n_tok + kFQ - 1) / kFQ, y, B), kFQ, 0,
-                                         s>>>(
+  } else {
+    attention_bwd_dkdv_wide_f32_kernel<<<grid, kFQ, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), l, D,
         static_cast<float*>(dk), static_cast<float*>(dv), n_tok, heads, hd, ld, ldo,
         scale);
-  } else {
-    return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());
 }

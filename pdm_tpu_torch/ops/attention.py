@@ -5,7 +5,8 @@ its VJP. On CUDA tensors the wrappers launch hand-written Hopper kernels:
 ``csrc/attention.cu`` for the forward (it replaces the TPU kernel
 ``_fwd_kernel``) and ``csrc/attention_bwd.cu`` for the backward (it
 replaces ``_bwd_kernel``), and ``csrc/attention_wide.cu`` for both at head
-dims above 128 (its bf16 forward at T <= 256 one pass on wgmma). On CPU
+dims above 128 (in bf16 at T <= 256 its forward one pass on wgmma, its
+backward the two wgmma kernels of :func:`plan_wide_bwd`'s plan). On CPU
 tensors they run
 :func:`attention_reference` and :func:`attention_bwd_reference`, the plain
 PyTorch versions with the reference's op order and rounding points. They
@@ -20,8 +21,10 @@ Up to 128 (``NARROW_MAX_HEAD_DIM``) they are ``attention.cu`` /
 single-pass wgmma kernels, at longer rows the two-pass ones; above 128
 ``csrc/attention_wide.cu``, which contracts the head dim in chunks and
 splits the output's head dim across blocks, so no head dim is too wide
-(one head of 512 channels in the 256x256 family); its bf16 forward at
-T <= 256 keeps a strip's score row in registers and computes it once.
+(one head of 512 channels in the 256x256 family); in bf16 at T <= 256 its
+forward keeps a strip's score row in registers and computes it once, and
+its backward computes each strip's scores and dp once, passing P and ds
+to the dk/dv kernel through a bf16 scratch the wrapper allocates.
 
 :func:`use_fused_attention` is the JAX package's geometry gate; the UNet's
 attention block calls the kernel inside it and runs the plain computation
@@ -42,7 +45,7 @@ them inside its own calls and passes its own counters.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 from torch import Tensor
@@ -64,6 +67,65 @@ MAX_FUSED_SCORE_CELLS = 1 << 21  # heads * T * T
 NARROW_MAX_HEAD_DIM = 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# attention_wide.cu's one-pass bf16 kernels take T up to this (a strip's
+# whole score row in registers); a block's shared memory is at most the
+# H100's opt-in
+ONE_PASS_MAX_TOKENS = 256
+MAX_SMEM_BYTES = 232_448
+_WIDE_STAGES = 4             # the dq kernel's TMA ring
+_WIDE_BOX = 64 * 64 * 2      # one 64 x 64 bf16 box
+WIDE_KV_COLS = 128           # output columns of a dk/dv block
+# static shared memory beside the plan's dynamic bytes: each warp's
+# staging rows (16 x 144 bytes) and the mbarriers
+WIDE_STAGING_BYTES = 16 * 144
+WIDE_BARRIER_BYTES = 64
+
+
+class WideBwdPlan(NamedTuple):
+    """The backward's two launches at a head dim above 128;
+    ``wide_bwd::Plan`` in csrc/attention_wide.cu has the same fields and
+    refuses a plan that is not the shape's."""
+    one_pass: int   # 1: the wgmma design (bf16, T <= 256); 0: the two-pass one
+    nc: int         # 64-row strips of T (the scratch's rows, Tp = 64 nc)
+    wg: int         # query strips (warpgroups) of a dq block
+    dq_x: int       # the dq launch's grid
+    dq_y: int
+    dq_z: int
+    dq_smem: int    # its dynamic shared memory bytes
+    kv_x: int       # the dk/dv launch's grid
+    kv_y: int
+    kv_z: int
+    kv_smem: int
+    scratch: int    # bf16 elements of the P and ds scratch (0: none)
+
+
+def plan_wide_bwd(B: int, T: int, heads: int, hd: int, bf16: bool,
+                  sms: int) -> WideBwdPlan:
+    """The plan of row 2's backward at head dim ``hd`` (above 128) on a card
+    of ``sms`` SMs. bf16 at T <= 256 takes the one-pass design: a dq block
+    of ``wg`` 64-row query strips of one (image, head), two where the grid
+    still fills the card, with a four-stage ring of k or v chunks (nc 64
+    x 64 boxes) beside wg boxes of q or do; then a dk/dv block per
+    (image, head, 64-key strip, 128 output columns, dk or dv), all nc
+    stages of a scratch box and two 64-column panels loaded at once. The
+    rest takes the two-pass kernels: grid (64-row tiles, heads x output
+    blocks of 128 columns (bf16) or 64 (fp32), B), and twice the heads x
+    blocks for dk/dv."""
+    nc = -(-T // 64)
+    if bf16 and T <= ONE_PASS_MAX_TOKENS:
+        bh = B * heads
+        wg = 2 if nc >= 2 and bh * -(-nc // 2) >= sms else 1
+        n_nt = -(-hd // WIDE_KV_COLS)
+        tp = 64 * nc
+        return WideBwdPlan(
+            1, nc, wg, bh * -(-nc // wg), 1, 1,
+            _WIDE_STAGES * (nc + wg) * _WIDE_BOX + 1024,
+            bh * nc * n_nt * 2, 1, 1, nc * 3 * _WIDE_BOX + 1024,
+            2 * bh * tp * tp)
+    n_oc = -(-hd // (128 if bf16 else 64))
+    return WideBwdPlan(0, nc, 1, nc, heads * n_oc, B, 0, nc, 2 * heads * n_oc,
+                       B, 0, 0)
 
 
 def attention_reference(
@@ -263,19 +325,31 @@ def launch_bwd_into(q: Tensor, k: Tensor, v: Tensor, lse: Tensor, do: Tensor,
                              f"stride and one token-row stride: {t.stride()}")
     dsum = torch.empty((B, heads, T), dtype=torch.float32, device=q.device)
     code, hd = _DTYPE_CODES[q.dtype], C // heads
-    fn_dq = _build.entry(_entry("bwd_dq", hd), _BWD_DQ_ARGS)
-    fn_dkdv = _build.entry(_entry("bwd_dkdv", hd), _BWD_DKDV_ARGS)
+    # above head dim 128 the plan, and the one-pass design's P and ds
+    wide = ()
+    if hd > NARROW_MAX_HEAD_DIM:
+        plan = plan_wide_bwd(
+            B, T, heads, hd, q.dtype == torch.bfloat16,
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
+        scratch = (torch.empty(plan.scratch, dtype=torch.bfloat16,
+                               device=q.device) if plan.scratch else None)
+        wide = (None if scratch is None else scratch.data_ptr(),
+                ctypes.byref(_CWidePlan(*plan)))
+    fn_dq = _build.entry(_entry("bwd_dq", hd),
+                         _BWD_DQ_ARGS + [_P, _P] if wide else _BWD_DQ_ARGS)
+    fn_dkdv = _build.entry(_entry("bwd_dkdv", hd),
+                           _BWD_DKDV_ARGS + [_P, _P] if wide else _BWD_DKDV_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), dq.data_ptr(), dsum.data_ptr(), B, T,
-                    heads, hd, ld, ldo, float(scale), code, stream)
+                    heads, hd, ld, ldo, float(scale), code, stream, *wide)
         _build.check(err, "pdm_attention_bwd_dq")
         counter.launches += 1
         err = fn_dkdv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                       lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(),
                       dv.data_ptr(), B, T, heads, hd, ld, ldo, float(scale),
-                      code, stream)
+                      code, stream, *wide)
         _build.check(err, "pdm_attention_bwd_dkdv")
         counter.launches += 1
 
@@ -313,7 +387,8 @@ def fused_spatial_attention(
 def _entry(what: str, hd: int) -> str:
     """The C entry of ``what`` at head dim ``hd``: attention.cu's and
     attention_bwd.cu's up to NARROW_MAX_HEAD_DIM, attention_wide.cu's
-    (same arguments) above."""
+    above (the same arguments; the backward's two take a scratch and
+    :func:`plan_wide_bwd`'s plan after them)."""
     wide = "_wide" if hd > NARROW_MAX_HEAD_DIM else ""
     return f"pdm_attention{wide}_{what}"
 
@@ -329,3 +404,8 @@ _BWD_DQ_ARGS = [_P] * 7 + [_I] * 4 + [ctypes.c_longlong] * 2 + [
     ctypes.c_float, _I, _P]
 _BWD_DKDV_ARGS = [_P] * 8 + [_I] * 4 + [ctypes.c_longlong] * 2 + [
     ctypes.c_float, _I, _P]
+
+
+class _CWidePlan(ctypes.Structure):
+    _fields_ = ([(name, ctypes.c_int) for name in WideBwdPlan._fields[:-1]]
+                + [("scratch", ctypes.c_longlong)])

@@ -75,7 +75,7 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 from . import attention as _attention
-from .attention import MAX_FUSED_SCORE_CELLS, MAX_FUSED_TOKENS
+from .attention import MAX_FUSED_SCORE_CELLS, MAX_FUSED_TOKENS, MAX_SMEM_BYTES
 
 # what the cluster kernels take: head dims they are instantiated for, at
 # most 8 heads (one thread-block cluster per image, one block per head),
@@ -93,7 +93,37 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # ring of 64-deep stages, a block's shared memory at most sm_90's opt-in
 # (the kernels also check the device's)
 KERNEL_STAGES = 3
-MAX_SMEM_BYTES = 232_448
+
+
+# the staged plan's projection kernel (csrc/attention_block_wide.cu, bf16):
+# 128 x 128 output tiles, a four-stage ring of 64-deep chunks (A's 128 x 64
+# box and W's 128 x 64, 16 KB each), two 64 x 128 output staging tiles;
+# statically the mbarriers and two tiles of fp32 bias
+PROJECT_TILE = 128
+PROJECT_STAGES = 4
+PROJECT_STATIC_BYTES = 64 + 2 * 128 * 4
+
+
+class ProjectPlan(NamedTuple):
+    """One bf16 launch of the projection kernel; ``ProjPlan`` in
+    csrc/attention_block_wide.cu has the same fields and refuses a plan
+    that is not the shape's."""
+    tiles: int      # 128 x 128 output tiles
+    blocks: int     # the persistent grid: one block an SM, or a tile
+    stages: int     # TMA ring depth
+    smem: int       # dynamic shared memory bytes
+
+
+def plan_project(R: int, nn_seg: int, n_seg: int, sms: int) -> ProjectPlan:
+    """The bf16 projection's plan for R output rows and ``nn_seg`` N
+    segments of ``n_seg`` columns on a card of ``sms`` SMs: a block an SM
+    (at most one a tile) walks the 128 x 128 tiles, an output row tile's
+    column tiles side by side, its two consumer warpgroups on a tile's
+    64-row halves. Shared memory: the ring (32 KB a stage), the two
+    warpgroups' 16 KB staging tiles, 1 KB of alignment."""
+    tiles = -(-R // PROJECT_TILE) * nn_seg * -(-n_seg // PROJECT_TILE)
+    smem = PROJECT_STAGES * 2 * PROJECT_TILE * 64 * 2 + 2 * 64 * PROJECT_TILE * 2 + 1024
+    return ProjectPlan(tiles, min(tiles, sms), PROJECT_STAGES, smem)
 
 
 class BlockPlan(NamedTuple):
@@ -483,12 +513,17 @@ def _launch_project(counter, a: Sequence[Tensor], ws: Sequence[Tensor],
     pw = [w.data_ptr() for w in ws] + [None] * (3 - len(ws))
     pb = [b.data_ptr() for b in biases] + [None] * (3 - len(biases))
     bias_bf16 = int(bool(biases) and biases[0].dtype == torch.bfloat16)
+    plan = None
+    if out.dtype == torch.bfloat16:
+        plan = _CProjectPlan(*plan_project(
+            B * T, nn_, n_seg,
+            torch.cuda.get_device_properties(out.device).multi_processor_count))
     fn = _build.entry("pdm_block_project", _PROJECT_ARGS)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = fn(*pa, lda, nk, k_seg, *pw, int(k_major), *pb, bias_bf16,
                  _ptr(res), out.data_ptr(), ldo, B * T, nn_, n_seg,
-                 _DTYPE_CODES[out.dtype], stream)
+                 _DTYPE_CODES[out.dtype], stream, _plan_ref(plan))
     _build.check(err, "pdm_block_project")
     counter.launches += 1
 
@@ -604,6 +639,10 @@ class _CPlan(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in BlockPlan._fields]
 
 
+class _CProjectPlan(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in ProjectPlan._fields]
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -618,4 +657,4 @@ _BWD_ARGS = [_P] * 16 + [_I] * 4 + [ctypes.c_float, _I, _I, _P]
 _WGRAD_ARGS = [_P] * 5 + [_I] * 4 + [_P]
 _MERGE_ARGS = [_P] * 8 + [_I] * 4 + [_P]
 _PROJECT_ARGS = [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I] + [_P] * 3 + [_I] + [_P] * 2 + [
-    _I] * 4 + [_I, _P]
+    _I] * 4 + [_I, _P, _P]

@@ -203,3 +203,61 @@ def test_attention_backward_of_strided_qkv_views():
                      *(jnp.asarray(a) for a in np.split(qkv, 3, axis=-1)))
     want = np.concatenate([np.asarray(w) for w in vjp(jnp.asarray(g))], axis=-1)
     _assert_close_to_scale(t.grad.numpy(), want, *BWD_TOL["float32"])
+
+
+def test_wide_backward_plan_fits_every_geometry_the_gate_admits():
+    """Row 2's backward plan above head dim 128 (ops/attention.py::
+    plan_wide_bwd, which csrc/attention_wide.cu's Plan refuses unless it
+    is the shape's) over head dims 136 to 576 and T up to 1024 inside the
+    JAX gate: bf16 at T <= 256 takes the one-pass wgmma design, the rest
+    the two-pass kernels; a block's shared memory (the plan's dynamic
+    bytes, the staging rows and barriers) within the H100's opt-in; TMA
+    boxes of at most 256 rows; grids within CUDA's limits and covering
+    every (image, head, strip) and, for dk/dv, every 128-column tile of
+    both gradients; the scratch holds P and ds of every (image, head)."""
+    limit_x, limit_yz = 2 ** 31 - 1, 65535
+    for hd in range(136, 577, 8):
+        for T in range(8, 1025, 8):
+            for heads in (1, 2, 8):
+                if heads * T * T > ta.MAX_FUSED_SCORE_CELLS:
+                    continue
+                for B in (1, 128):
+                    for bf16 in (True, False):
+                        p = ta.plan_wide_bwd(B, T, heads, hd, bf16, 132)
+                        nc = -(-T // 64)
+                        assert p.nc == nc
+                        assert p.one_pass == int(bf16 and T <= ta.ONE_PASS_MAX_TOKENS)
+                        if not p.one_pass:
+                            n_oc = -(-hd // (128 if bf16 else 64))
+                            assert (p.dq_x, p.dq_y, p.dq_z) == (nc, heads * n_oc, B)
+                            assert (p.kv_x, p.kv_y, p.kv_z) == (nc, 2 * heads * n_oc, B)
+                            assert p.dq_y <= limit_yz and p.kv_y <= limit_yz
+                            assert p.scratch == 0
+                            continue
+                        assert 64 * nc <= 256  # the k and v boxes' rows
+                        assert p.wg in (1, 2) and (p.wg == 1 or nc >= 2)
+                        static = 4 * p.wg * ta.WIDE_STAGING_BYTES + ta.WIDE_BARRIER_BYTES
+                        assert p.dq_smem + static <= ta.MAX_SMEM_BYTES
+                        assert p.kv_smem + 4 * ta.WIDE_STAGING_BYTES + \
+                            ta.WIDE_BARRIER_BYTES <= ta.MAX_SMEM_BYTES
+                        assert p.dq_x * p.wg >= B * heads * nc > (p.dq_x - B * heads) * p.wg
+                        assert p.kv_x == B * heads * nc * -(-hd // ta.WIDE_KV_COLS) * 2
+                        assert p.dq_x <= limit_x and p.kv_x <= limit_x
+                        assert (p.dq_y, p.dq_z, p.kv_y, p.kv_z) == (1, 1, 1, 1)
+                        assert p.scratch == 2 * B * heads * (64 * nc) ** 2
+
+
+def test_wide_backward_plan_takes_two_strips_a_block_only_where_the_card_fills():
+    """Two query strips a dq block share k and v, but halve the grid: the
+    plan takes them only where the grid still covers the card's SMs. The
+    family's micro-batch (B 8, T 256, one head of 512) runs 32 one-strip
+    blocks, the single-head 32x32's train step (B 128, T 256, one head of
+    256) 256 two-strip blocks; T <= 64 is one strip an image."""
+    fam = ta.plan_wide_bwd(8, 256, 1, 512, True, 132)
+    assert (fam.wg, fam.dq_x, fam.kv_x) == (1, 32, 8 * 4 * 4 * 2)
+    single = ta.plan_wide_bwd(128, 256, 1, 256, True, 132)
+    assert (single.wg, single.dq_x, single.kv_x) == (2, 256, 128 * 4 * 2 * 2)
+    assert ta.plan_wide_bwd(8, 64, 1, 512, True, 132).wg == 1
+    assert ta.plan_wide_bwd(66, 256, 1, 512, True, 132).wg == 2
+    assert ta.plan_wide_bwd(65, 256, 1, 512, True, 132).wg == 1
+    assert ta.plan_wide_bwd(8, 256, 1, 512, True, 132) == fam  # a pure function

@@ -513,3 +513,29 @@ def test_weight_grad_chunks_fill_the_card_without_short_chunks(bf16):
                 assert n * tiles <= 132 or n == 1
     assert tb._weight_grad_chunks(128 * 256, 256, True, 132) == 16
     assert tb._weight_grad_chunks(128 * 256, 256, True, 114) == 14
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_project_plan_fits_every_staged_geometry(sms):
+    """The staged plan's projection kernel (ops/attention_block.py::
+    plan_project, which csrc/attention_block_wide.cu's ProjPlan refuses
+    unless it is the shape's) at every width the JAX gate admits (C a
+    multiple of 8 up to 512) and row counts from one ragged row tile to
+    B 128 x T 256, for qkv (three N segments) and the C-wide projections:
+    its 128 x 128 tiles cover every row and column, the persistent grid
+    is one block an SM (at most one a tile), the ring is four stages
+    deep, and shared memory (the plan's dynamic bytes beside the static
+    mbarriers and bias tiles) fits the H100's opt-in."""
+    for C in range(8, tb.MAX_BLOCK_CHANNELS + 1, 8):
+        for R in (8, 400, 2048, 16384, 32768):
+            for nn_seg in (1, 3):
+                p = tb.plan_project(R, nn_seg, C, sms)
+                per_seg = -(-C // tb.PROJECT_TILE)
+                assert p.tiles == -(-R // tb.PROJECT_TILE) * nn_seg * per_seg
+                assert per_seg * tb.PROJECT_TILE >= C > (per_seg - 1) * tb.PROJECT_TILE
+                assert p.blocks == min(p.tiles, sms) >= 1
+                assert p.stages == tb.PROJECT_STAGES == 4
+                assert p.smem + tb.PROJECT_STATIC_BYTES <= tb.MAX_SMEM_BYTES
+    assert tb.plan_project(2048, 3, 512, 132) == (192, 132, 4, 164864)
+    assert tb.plan_project(16384, 1, 256, 132) == (256, 132, 4, 164864)
+    assert tb.plan_project(400, 1, 136, 132) == (8, 8, 4, 164864)

@@ -202,14 +202,18 @@ def test_attention_backward_kernel_ragged_and_long_rows(cuda_device, T, heads,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T", [8, 64, 256, 1024])
+@pytest.mark.parametrize("T", [8, 16, 64, 200, 256, 257, 1024])
 @pytest.mark.parametrize("hd", [136, 200, 256, 264, 384, 504, 512, 520, 576])
 def test_wide_attention_kernels_match_plain_on_card(cuda_device, hd, T, dtype):
-    """Rows 1 and 2 at head dims above 128 (csrc/attention_wide.cu: the
-    head dim contracted in chunks, the output's cut across blocks), one
-    head on the column thirds of one (B, T, 3C) projection: forward within
-    one rounding of the output (2^-7; fp32 1e-5), lse 1e-5, gradients to
-    BWD_TOL, and two calls bitwise equal."""
+    """Rows 1 and 2 at head dims above 128 (csrc/attention_wide.cu: in bf16
+    at T <= 256 the one-pass wgmma kernels, above it and in fp32 the
+    two-pass ones; T 200 ends in a partial strip, 257 is the first row
+    length past the one-pass limit, and head dims 136, 264 and 520 end in
+    a ragged chunk), one head on the column thirds of one (B, T, 3C)
+    projection: forward within one rounding of the output (2^-7; fp32
+    1e-5), lse 1e-5, gradients to BWD_TOL, two calls bitwise equal, and
+    the gradients written into the column thirds of one (B, T, 3C) tensor
+    (the whole block's dqkv) bitwise equal to the contiguous ones."""
     B, heads = 2, 1
     C = heads * hd
     g = torch.Generator(device=cuda_device).manual_seed(hd + T)
@@ -224,17 +228,20 @@ def test_wide_attention_kernels_match_plain_on_card(cuda_device, hd, T, dtype):
     got = ta.attention_bwd(q, k, v, lse, do, heads, scale)
     got2 = ta.attention_bwd(q, k, v, lse, do, heads, scale)
     want = ta.attention_bwd_reference(q, k, v, lse, do, heads, scale)
+    dqkv = torch.full((B, T, 3 * C), float("nan"), dtype=dtype, device=cuda_device)
+    ta.launch_bwd_into(q, k, v, lse, do, *dqkv.split(C, dim=-1), heads, scale,
+                       ta.attention_bwd)
     torch.cuda.synchronize()
     assert ta.fused_spatial_attention.launches == f0 + 2
-    assert ta.attention_bwd.launches == b0 + 4
+    assert ta.attention_bwd.launches == b0 + 6
     tol = 1e-5 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
-    for a, b, a2 in zip(got, want, got2):
+    for a, b, a2, third in zip(got, want, got2, dqkv.split(C, dim=-1)):
         assert a.dtype == dtype and a.shape == (B, T, C)
         _assert_close_to_scale(a, b, *BWD_TOL[dtype])
-        assert torch.equal(a, a2)
+        assert torch.equal(a, a2) and torch.equal(a, third)
 
 
 @pytest.mark.cuda
@@ -243,10 +250,7 @@ def test_wide_attention_one_pass_kernel_at_the_driven_shapes(cuda_device, B, T, 
     """Row 1w's one-pass wgmma kernel (bf16, T <= 256) at the shapes the
     single-head 32x32 DDPM and the 256x256 family give it: within one
     rounding of the output (2^-7) and 1e-5 in the lse of the plain
-    version, bitwise equal on a second call, and within the same bounds of
-    the two-pass kernel it replaced there (kept for longer rows)."""
-    from pdm_tpu_torch.ops import _build
-
+    version, bitwise equal on a second call."""
     g = torch.Generator(device=cuda_device).manual_seed(B + T + hd)
     qkv = torch.randn(B, T, 3 * hd, generator=g, device=cuda_device).bfloat16()
     q, k, v = qkv.split(hd, dim=-1)
@@ -254,17 +258,38 @@ def test_wide_attention_one_pass_kernel_at_the_driven_shapes(cuda_device, B, T, 
     out, lse = ta.attention_with_lse(q, k, v, 1, scale)
     out2, lse2 = ta.attention_with_lse(q, k, v, 1, scale)
     ref, ref_lse = ta._reference_with_lse(q, k, v, 1, scale)
-    old, old_lse = torch.empty_like(out), torch.empty_like(lse)
-    err = _build.entry("pdm_attention_wide_fwd_two_pass", ta._FWD_ARGS)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), old.data_ptr(),
-        old_lse.data_ptr(), B, T, 1, hd, 3 * hd, float(scale), 1,
-        torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
-    assert err == 0
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
-    for o, l_ in ((ref, ref_lse), (old, old_lse)):
-        torch.testing.assert_close(out.float(), o.float(), rtol=2 ** -7, atol=2 ** -7)
-        torch.testing.assert_close(lse, l_, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=2 ** -7)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,hd", [(128, 256, 256), (8, 256, 512), (8, 64, 512),
+                                    (64, 16, 256)])
+def test_wide_attention_one_pass_backward_at_the_driven_shapes(cuda_device, B, T, hd):
+    """Row 2w's one-pass wgmma kernels (bf16, T <= 256) at the shapes the
+    single-head 32x32 DDPM's and the 256x256 family's train steps give
+    them, on the column thirds of one projection: the plan takes the
+    one-pass design, both launches counted, every gradient within BWD_TOL
+    of the plain version and bitwise equal on a second call."""
+    g = torch.Generator(device=cuda_device).manual_seed(B + T + hd + 1)
+    qkv = torch.randn(B, T, 3 * hd, generator=g, device=cuda_device).bfloat16()
+    q, k, v = qkv.split(hd, dim=-1)
+    do = torch.randn(B, T, hd, generator=g, device=cuda_device).bfloat16()
+    scale = 1.0 / np.sqrt(hd)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert ta.plan_wide_bwd(B, T, 1, hd, True, sms).one_pass == 1
+    _, lse = ta.attention_with_lse(q, k, v, 1, scale)
+    b0 = ta.attention_bwd.launches
+    got = ta.attention_bwd(q, k, v, lse, do, 1, scale)
+    got2 = ta.attention_bwd(q, k, v, lse, do, 1, scale)
+    want = ta.attention_bwd_reference(q, k, v, lse, do, 1, scale)
+    torch.cuda.synchronize()
+    assert ta.attention_bwd.launches == b0 + 4
+    for a, b, a2 in zip(got, want, got2):
+        _assert_close_to_scale(a, b, *BWD_TOL[torch.bfloat16])
+        assert torch.equal(a, a2)
 
 
 @pytest.mark.cuda
@@ -513,6 +538,14 @@ def test_tiny_unet_train_step_on_card_matches_cpu(cuda_device):
     (1, 1024, 2, 256),
     (2, 8, 1, 512),
     (1, 1024, 1, 512),
+    # the staged plan's new kernels at their edges: T 200 (a partial strip
+    # and a ragged last row tile), head dims 136 and 264 (a ragged
+    # contraction chunk and an output tile mostly past C), T 8 and 16
+    (2, 200, 1, 136),
+    (2, 16, 1, 264),
+    (3, 8, 2, 136),
+    (2, 256, 1, 264),
+    (5, 64, 3, 136),
 ])
 def test_attention_block_kernels_match_plain_on_card(cuda_device, B, T, heads,
                                                      hd, dtype):

@@ -44,7 +44,10 @@ any error or disagreement:
    GroupNorm backward (row 4) also at GN_EDGES. Every shape's kernels are
    called twice (bitwise equal); GroupNorm's launch plan is printed. Then
    rows 1 and 2, untimed, at every head dim they take (8 to 128 by 8) at
-   T 16, 64, 256 and 512, bf16 and fp32.
+   T 16, 64, 256 and 512, bf16 and fp32; and rows 1-4, untimed, at the
+   experiment chain's batches of the flagship (phase 24: the forward
+   kernels at CHAIN_SAMPLER_BATCH 500 and CHAIN_TRAIN_BATCH 256, the
+   backward kernels at 256; chain_batch_rows).
 6. The full-width fp32 flagship train step (batch 2, dropout off, the
    same tau and eps) on the card against the CPU: loss and every
    gradient the step applied within the stated tolerance of their scale,
@@ -67,7 +70,8 @@ any error or disagreement:
    precision modes, with and without an (N, 1) payload, at CIFAR-10 scale
    (B = 1024 starts, N = 50,000, D = 3072, 32 temperatures) and at edge
    shapes (gmm1d's D = 1 with N = 1e6; high_dim_exp's D = 100, N = 1e5,
-   200 temperatures; no tile's multiple; one start), each within a
+   200 temperatures; no tile's multiple; one start; the experiment
+   chain's four sweeps of phase 24), each within a
    tolerance derived from the Grams' rounding (sweep_logit_error), and
    two calls bitwise equal; the kernel in fp32 against one moments pass
    per temperature; times beside the bound, the plain version and the two
@@ -90,7 +94,8 @@ any error or disagreement:
    schedule CLI's B = 1024 over N = 100,000 at D = K = 1, the
    MC metric's K = 2D payload, one query at no tile's multiple, and the
    MC metric's K = 2D = 6144 at CIFAR-10's D (above the cluster kernel's
-   threshold); queries noised from data points with one temperature per
+   threshold), and schedule_ordering_exp's B = 4096 over N = 20,000 at D =
+   K = 64 (phase 24, its temperatures 1e-6-1e3); queries noised from data points with one temperature per
    row over the sampler's range. Each within what the Grams' rounding
    allows (moments_logit_error, moments_check) and two calls bitwise
    equal; times beside the bound, the plain version and the Gram and
@@ -332,16 +337,37 @@ any error or disagreement:
    single-head tiny UNet's fp32 train step card vs CPU, (k) the
    single-head 32 x 32's DDIM-10; no plain version on a card tensor
    (plain_on_card_spy).
-24. One JSON line {"kernels": [...]} with all seventeen kernels (the
+24. The experiment chain (pdm_tpu_torch/scripts/: the schedule
+   experiments and the flagship endurance run), each CLI with its wall
+   time and its launches of rows 1-4, 7 and 8 (zeroed just before, read
+   just after) against exact counts: (a) schedule_ordering_exp at its
+   defaults (64-D GMM, 20,000 points, 4,096 samples, 64 temperatures,
+   5 schedules x 5-50 DDPM steps; row 7 twice a step, row 8 twice), every
+   NLL and MMD finite; (b) longrun_endurance on the bf16 flagship at
+   batch 256 (CHAIN_ENDURANCE) in two child processes (`python -m` through
+   runpy, each writing its launch counts at exit): the first with
+   --crash_at 25 must exit 17 with latest.txt at step 20, the second must
+   resume from 20, train to 40 and give finite FIDs; (c) both endurance
+   tables on its checkpoint at their default grids over CHAIN_FID_SAMPLES
+   (500) samples; (d) optimize_schedule_flagship, 5 iterations, then FID of both
+   grids over as many; every
+   endurance script's LeNet bitwise one (its printed digest); (e)
+   metric_schedule_exp over 500 samples in phase 18's working directory
+   (its caches, its train_diffusion checkpoint, the seeded Inception
+   weights), computing its metric npz; (f) check_config, then
+   check_distance on that npz. Each kernel the chain launches was held
+   against its plain version at the chain's shapes in phases 5, 8 and 10.
+25. One JSON line {"kernels": [...]} with all seventeen kernels (the
    eight rows, 7b, rows 1 and 2 at wide head dims, rows 5 and 6 on the
    staged plan, and rows 3s/4s' four entries, each with its worst error
-   as a fraction of its tolerance; phases 18e's, 20's, 21's, 22's and
-   23's launches among their paths), then the last line {"ok": true,
+   as a fraction of its tolerance; phases 18e's, 20's, 21's, 22's, 23's
+   and 24's launches among their paths), then the last line {"ok": true,
    "device": {...}}.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import datetime
 import functools
@@ -464,13 +490,23 @@ BLOCK_TRAIN_LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0,
 # temperatures over CIFAR-10's range 1e0-1e6 (config/yaml/groups/
 # forward_stats.yaml, config/datasets.py). Edge shapes: gmm1d (D = 1,
 # N = 1e6, T 1e-4-1e1), high_dim_exp (D = 100, N = 1e5, 200 temperatures,
-# batch 500, T 1e-4-1e4), no tile's multiple, and one start.
-# (label, B, N, D, n_temps, log10 T range)
+# batch 500, T 1e-4-1e4), no tile's multiple, and one start; then the
+# experiment chain's (phase 24): schedule_ordering_exp's thermo_sweep (512
+# starts over its 20,000 64-D points, 64 temperatures 1e-6-1e3),
+# endurance_schedule_table's forward_stats and metric_stats over
+# CHAIN_ENDURANCE's 4096 blob images (512 and 256 starts, 32 temperatures
+# 1e-4-10^4.5) and metric_schedule_exp's metric_stats over phase 18's
+# 50,000 CIFAR-10-shaped images (512 starts, 100 temperatures over
+# CIFAR-10's range). (label, B, N, D, n_temps, log10 T range)
 SWEEP_MAIN = ("cifar10", 1024, 50_000, 3072, 32, (0.0, 6.0))
 SWEEP_EDGES = (("gmm1d", 1024, 1_000_000, 1, 32, (-4.0, 1.0)),
                ("high_dim", 500, 100_000, 100, 200, (-4.0, 4.0)),
                ("ragged", 77, 5003, 333, 7, (-1.0, 3.0)),
-               ("one_start", 1, 50_000, 3072, 32, (0.0, 6.0)))
+               ("one_start", 1, 50_000, 3072, 32, (0.0, 6.0)),
+               ("ordering", 512, 20_000, 64, 64, (-6.0, 3.0)),
+               ("blob_forward", 512, 4096, 3072, 32, (-4.0, 4.5)),
+               ("blob_metric", 256, 4096, 3072, 32, (-4.0, 4.5)),
+               ("metric_exp", 512, 50_000, 3072, 100, (0.0, 6.0)))
 SWEEP_MODES = ("fp32", "bf16_3x", "bf16")
 SWEEP_SUBSET = 64  # rows held against the plain version
 SWEEP_PASSES = {"fp32": 1, "bf16_3x": 3, "bf16": 1}
@@ -509,8 +545,14 @@ MOMENTS_EDGES = (("high_dim", 1000, 50_000, 100, 100),
                  # the MC metric's K = 2D payload at CIFAR-10's D: above the
                  # cluster kernel's K <= 3072, so the bf16 modes run the
                  # tiled kernel here (ops/boltzmann_kernel.py::kernel_choice)
-                 ("over_threshold", 256, 20_000, 3072, 6144))
+                 ("over_threshold", 256, 20_000, 3072, 6144),
+                 # schedule_ordering_exp's TrueDDPM (phase 24): 4096 samples
+                 # over its 20,000 64-D points, the data as the payload
+                 ("ordering", 4096, 20_000, 64, 64))
 MOMENTS_LOG10_T = (-4.0, math.log10(2.478e4))
+# a shape's temperatures where they are not the sampler's: schedule_
+# ordering_exp samples under LogSNRScheduler(1e-6, 1e3)
+MOMENTS_LOG10_T_OF = {"ordering": (-6.0, 3.0)}
 MOMENTS_SUBSET = 64  # rows held against the plain version, over the T range
 # operations per (row, point) of the moments epilogue, as the sweep's
 MOMENTS_EPI_OPS = 13
@@ -1290,16 +1332,16 @@ def stats_main_path(data, ddpm, dev) -> int:
     return launches
 
 
-def moments_case(dev, g, B, N, D, K):
+def moments_case(dev, g, B, N, D, K, log10_t=MOMENTS_LOG10_T):
     """Row 7's inputs: a dataset, queries xt = sqrt(ab) y_j + sqrt(1 - ab)
-    eps with one temperature per row over MOMENTS_LOG10_T (the sampler's
+    eps with one temperature per row over ``log10_t`` (the sampler's
     range), the denoiser's inv_temp = 1 / (1 - ab) and y_scale =
     sqrt(ab), and a payload: the data itself (K = D), the MC metric's
     [y, y^2] (K = 2D) or N(0, 1)."""
     import torch
 
     y = torch.randn(N, D, generator=g, device=dev)
-    temps = torch.logspace(*MOMENTS_LOG10_T, B, device=dev)
+    temps = torch.logspace(*log10_t, B, device=dev)
     ab = 1.0 / (1.0 + temps)
     idx = torch.randint(0, N, (B,), generator=g, device=dev)
     x = (torch.sqrt(ab)[:, None] * y[idx]
@@ -1345,7 +1387,8 @@ def moments_kernel_rows(time_ms, dev):
     g = torch.Generator(device=dev).manual_seed(4)
     rows = []
     for label, B, N, D, K in (MOMENTS_MAIN, *MOMENTS_EDGES):
-        x, y, it, s, v = moments_case(dev, g, B, N, D, K)
+        x, y, it, s, v = moments_case(dev, g, B, N, D, K,
+                                      MOMENTS_LOG10_T_OF.get(label, MOMENTS_LOG10_T))
         sub = torch.linspace(0, B - 1, min(B, MOMENTS_SUBSET), device=dev).round().long().unique()
         gap = top_two_gap(x[sub], y, it[sub], s[sub])
         sq = [float((0.5 * (t * t).sum(1)).max()) for t in (x, y)]
@@ -2258,20 +2301,7 @@ def experiment_clis(dev, smi: str) -> dict:
     out = {}
 
     def run(name, fn, want=None):
-        for _, c in counters:
-            c.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {k: c.launches for k, c in counters}
-        log(f"experiment CLIs: {name} in {wall:.2f} s wall; launches {launches}"
-            + (f" (want {want})" if want is not None else "") + f" ({smi})")
-        if want is not None and launches != want:
-            fail(f"experiment CLIs: {name} launch counts {launches} != {want}")
-        out[name] = {"wall_s": wall, "launches": launches}
-        return result
+        return counted_run("experiment CLIs", counters, name, fn, want, smi, out)
 
     def only(**kw):
         return {"attention": 0, "group_norm": 0, "moments": 0, "sweep": 0, **kw}
@@ -2345,12 +2375,12 @@ def experiment_clis(dev, smi: str) -> dict:
     return out
 
 
-def fid_and_entry_points(dev, smi: str, weights_path: str) -> dict:
-    """Phase 18, in a temporary working directory with PDM_DATA_CACHE
-    pointing into it and PDM_INCEPTION_WEIGHTS at the seeded weights."""
+def fid_and_entry_points(dev, smi: str, weights_path: str, tmp: str) -> dict:
+    """Phase 18, in the working directory ``tmp`` (phase 24 reuses it) with
+    PDM_DATA_CACHE pointing into it and PDM_INCEPTION_WEIGHTS at the
+    seeded weights."""
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp, \
-            env_var("PDM_DATA_CACHE", os.path.join(tmp, "data_cache")), \
+    with env_var("PDM_DATA_CACHE", os.path.join(tmp, "data_cache")), \
             env_var("PDM_INCEPTION_WEIGHTS", weights_path):
         os.chdir(tmp)
         try:
@@ -5411,13 +5441,14 @@ def attention_rows(time_ms, dev, g, B, T, C, heads, calls, dtype,
 
 
 def group_norm_rows(time_ms, dev, g, B, S, C, G, dname, act, calls,
-                    forward: bool = True, backward: bool = True):
+                    forward: bool = True, backward: bool = True, timed: bool = True):
     """Rows 3 and 4 at (B, S, C), G groups, against their plain versions:
     the forward to TOL, dx to BWD_TOL and dscale / dbias to
-    PARAM_GRAD_TOL, each kernel called twice and bitwise equal; each timed
-    beside the bound, the plain version and F.group_norm (+ SiLU) on the
-    channels_last image. `forward` and `backward` pick the rows made.
-    Returns (forward row or None, backward row or None)."""
+    PARAM_GRAD_TOL, each kernel called twice and bitwise equal; each
+    (where `timed`) timed beside the bound, the plain version and
+    F.group_norm (+ SiLU) on the channels_last image. `forward` and
+    `backward` pick the rows made. Returns (forward row or None, backward
+    row or None)."""
     import torch
     import torch.nn.functional as F
 
@@ -5445,30 +5476,33 @@ def group_norm_rows(time_ms, dev, g, B, S, C, G, dname, act, calls,
         same = bool(torch.equal(y, y2))
         plan = gn_op.plan_group_norm(B, S, C, G, x.element_size(), False)
         del y, y2, ref
-
-        def library():
-            z = F.group_norm(x4, G, sc_b, bi_b, 1e-6)
-            return F.silu(z) if act == "silu" else z
-
-        b_ms, b_by = bound(2 * x.numel() * x.element_size() + 2 * C * 4,
-                           (12 if act == "silu" else 8) * x.numel(), "float32")
-        ms, host_ms = time_ms(
-            lambda: gn_op.fused_group_norm_act(x, scale, bias, G, 1e-6, act))
         fwd = {**base, "plan": list(plan), "max_abs_err": err,
                "worst_of_tolerance": worst, "bitwise_repeat": same, "rtol": rtol,
-               "atol": atol, "ms": ms, "host_ms": host_ms,
-               "plain_ms": time_ms(lambda: gn_op.group_norm_reference(
-                   x, scale, bias, G, 1e-6, act).to(dtype), inner=5)[0],
-               "library_ms": time_ms(library)[0],
-               "bound_ms": b_ms, "bound_by": b_by}
-        log(f"groupnorm {where} x{calls}/step plan {tuple(plan)}: max_abs_err "
-            f"{err:.3g} (tol rtol {rtol} atol {atol}; worst {worst:.3g} of it; "
-            f"bitwise repeat {same}) kernel_ms {ms:.4f} (host {host_ms:.4f}) "
-            f"plain_ms {fwd['plain_ms']:.4f} library_ms {fwd['library_ms']:.4f} "
-            f"bound_ms {b_ms:.4f} ({b_by})")
+               "atol": atol}
         if not (ok and same):
             fail(f"GroupNorm kernel disagrees with its plain version or is not "
                  f"bitwise repeatable at {where}")
+
+        if timed:
+            def library():
+                z = F.group_norm(x4, G, sc_b, bi_b, 1e-6)
+                return F.silu(z) if act == "silu" else z
+
+            b_ms, b_by = bound(2 * x.numel() * x.element_size() + 2 * C * 4,
+                               (12 if act == "silu" else 8) * x.numel(), "float32")
+            ms, host_ms = time_ms(
+                lambda: gn_op.fused_group_norm_act(x, scale, bias, G, 1e-6, act))
+            fwd.update({
+                "ms": ms, "host_ms": host_ms,
+                "plain_ms": time_ms(lambda: gn_op.group_norm_reference(
+                    x, scale, bias, G, 1e-6, act).to(dtype), inner=5)[0],
+                "library_ms": time_ms(library)[0],
+                "bound_ms": b_ms, "bound_by": b_by})
+            log(f"groupnorm {where} x{calls}/step plan {tuple(plan)}: max_abs_err "
+                f"{err:.3g} (tol rtol {rtol} atol {atol}; worst {worst:.3g} of it; "
+                f"bitwise repeat {same}) kernel_ms {ms:.4f} (host {host_ms:.4f}) "
+                f"plain_ms {fwd['plain_ms']:.4f} library_ms {fwd['library_ms']:.4f} "
+                f"bound_ms {b_ms:.4f} ({b_by})")
     if backward:
         got = gn_op.group_norm_bwd(x, scale, bias, dy, G, 1e-6, act)
         again = gn_op.group_norm_bwd(x, scale, bias, dy, G, 1e-6, act)
@@ -5483,6 +5517,14 @@ def group_norm_rows(time_ms, dev, g, B, S, C, G, dname, act, calls,
         same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
         plan = gn_op.plan_group_norm(B, S, C, G, x.element_size(), True)
         del got, again, want
+        bwd = {**base, "plan": list(plan), "max_abs_err": err,
+               "worst_of_tolerance": worst, "bitwise_repeat": same, "rtol": rtol,
+               "atol_of_scale": atol}
+        if not (ok and same):
+            fail(f"GroupNorm backward kernel disagrees with its plain version or "
+                 f"is not bitwise repeatable at {where}")
+        if not timed:
+            return fwd, bwd
         x4g = x4.detach().clone().requires_grad_()
         sc_g, bi_g = sc_b.clone().requires_grad_(), bi_b.clone().requires_grad_()
         lib_out = F.group_norm(x4g, G, sc_g, bi_g, 1e-6)
@@ -5493,14 +5535,13 @@ def group_norm_rows(time_ms, dev, g, B, S, C, G, dname, act, calls,
                            GN_BWD_OPS[act] * x.numel(), "float32")
         ms, host_ms = time_ms(lambda: gn_op.group_norm_bwd(
             x, scale, bias, dy, G, 1e-6, act))
-        bwd = {**base, "plan": list(plan), "max_abs_err": err,
-               "worst_of_tolerance": worst, "bitwise_repeat": same, "rtol": rtol,
-               "atol_of_scale": atol, "ms": ms, "host_ms": host_ms,
-               "plain_ms": time_ms(lambda: gn_op.group_norm_bwd_reference(
-                   x, scale, bias, dy, G, 1e-6, act), inner=3)[0],
-               "library_ms": time_ms(lambda: torch.autograd.grad(
-                   lib_out, (x4g, sc_g, bi_g), dy4, retain_graph=True))[0],
-               "bound_ms": b_ms, "bound_by": b_by}
+        bwd.update({
+            "ms": ms, "host_ms": host_ms,
+            "plain_ms": time_ms(lambda: gn_op.group_norm_bwd_reference(
+                x, scale, bias, dy, G, 1e-6, act), inner=3)[0],
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                lib_out, (x4g, sc_g, bi_g), dy4, retain_graph=True))[0],
+            "bound_ms": b_ms, "bound_by": b_by})
         del lib_out, x4g
         log(f"groupnorm backward {where} x{calls}/step plan {tuple(plan)}: "
             f"max_abs_err {err:.3g} (dx tol rtol {rtol} atol {atol} of scale; "
@@ -5508,9 +5549,6 @@ def group_norm_rows(time_ms, dev, g, B, S, C, G, dname, act, calls,
             f"repeat {same}) kernel_ms {ms:.4f} (host {host_ms:.4f}) plain_ms "
             f"{bwd['plain_ms']:.4f} library_ms {bwd['library_ms']:.4f} bound_ms "
             f"{b_ms:.4f} ({b_by})")
-        if not (ok and same):
-            fail(f"GroupNorm backward kernel disagrees with its plain version or "
-                 f"is not bitwise repeatable at {where}")
     return fwd, bwd
 
 
@@ -6188,6 +6226,366 @@ def highres_phase(time_ms, dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 24: the experiment chain (the schedule experiments and the
+# flagship endurance run, its tables and its schedule optimizer)
+# ---------------------------------------------------------------------
+
+# longrun_endurance's drill, cut from 60,000 steps over 50,000 images
+CHAIN_ENDURANCE = {"steps": 40, "n_data": 4096, "batch_size": 256, "warmup": 10,
+                   "ckpt_every": 10, "eval_every": 20, "eval_samples": 500}
+CHAIN_CRASH_AT = 25
+CHAIN_FID_SAMPLES = 500  # the tables' and the optimizer's, cut from 5,000
+CHAIN_OPT_ITERS = 5      # optimize_schedule_flagship's, cut from 200
+CHAIN_METRIC_SAMPLES = 500  # metric_schedule_exp's, cut from 50,000
+CHAIN_CHILD_TIMEOUT_S = 300
+# the chain's batches of the flagship (rows 1-4 are held against their
+# plain versions at these in phase 5): the endurance train step's and the
+# optimizer's knot gradient's (optimize_schedule_flagship's --batch_size
+# default), and the samplers' (scripts/_common.py::sampler_batch of
+# CHAIN_FID_SAMPLES, CHAIN_ENDURANCE's eval_samples, CHAIN_METRIC_SAMPLES)
+CHAIN_TRAIN_BATCH = CHAIN_ENDURANCE["batch_size"]
+CHAIN_SAMPLER_BATCH = 500
+# a child process running `python -m pdm_tpu_torch.scripts.longrun_endurance`
+# (runpy, as -m does) that writes its launch counts (chain_counters) to
+# the file named by its first argument when it exits, the drill's
+# os._exit included
+CHAIN_CHILD = r"""
+import json, os, runpy, sys
+from chip_smoke import chain_counters
+counters = chain_counters()
+out = sys.argv.pop(1)
+hard_exit = os._exit
+
+def dump():
+    with open(out, "w") as f:
+        json.dump({k: c.launches for k, c in counters}, f)
+
+def crash(code):
+    dump()
+    sys.stdout.flush()
+    hard_exit(code)
+
+os._exit = crash
+sys.argv[0] = "longrun_endurance"
+try:
+    runpy.run_module("pdm_tpu_torch.scripts.longrun_endurance", run_name="__main__",
+                     alter_sys=True)
+finally:
+    dump()
+"""
+LENET_DIGEST = "LeNet extractor sha256 "
+# the kernels line's note on each kernel of the chain: where it was held
+# against its plain version at the chain's shapes (rows in 'shapes')
+CHAIN_CHECKED = {
+    **{k: f"launch count; its shapes checked in phase 5 at batches "
+       f"{CHAIN_SAMPLER_BATCH} and {CHAIN_TRAIN_BATCH}"
+       for k in ("attention_fwd", "group_norm_fwd")},
+    **{k: f"launch count; its shapes checked in phase 5 at batch {CHAIN_TRAIN_BATCH}"
+       for k in ("attention_bwd", "group_norm_bwd")},
+    "moments": "launch count; its shape checked in phase 10 (label ordering)",
+    "sweep": "launch count; its shapes checked in phase 8 (labels ordering, "
+             "blob_forward, blob_metric, metric_exp)"}
+
+
+class _Tee:
+    """stdout for an in-process CLI: printed, and kept."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, s):
+        self.parts.append(s)
+        return sys.__stdout__.write(s)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def chain_counters():
+    from pdm_tpu_torch.ops import attention as attn_op
+    from pdm_tpu_torch.ops import boltzmann as bz
+    from pdm_tpu_torch.ops import boltzmann_sweep as sw
+    from pdm_tpu_torch.ops import groupnorm as gn_op
+
+    return (("attention_fwd", attn_op.fused_spatial_attention),
+            ("attention_bwd", attn_op.attention_bwd),
+            ("group_norm_fwd", gn_op.fused_group_norm_act),
+            ("group_norm_bwd", gn_op.group_norm_bwd),
+            ("moments", bz.boltzmann_moments), ("sweep", sw.boltzmann_sweep))
+
+
+def unet_launches(forwards: int, train_steps: int = 0) -> dict:
+    """Rows 1-4 of the bf16 flagship: `forwards` model evaluations and
+    `train_steps` train steps (phase 7's counts a step)."""
+    return {"attention_fwd": 8 * (forwards + train_steps),
+            "attention_bwd": 16 * train_steps,
+            "group_norm_fwd": 69 * (forwards + train_steps),
+            "group_norm_bwd": 69 * train_steps}
+
+
+def chain_batch_rows(dev, g, attn_shapes, gn_shapes_at) -> dict:
+    """Rows 1-4 against their plain versions at the experiment chain's
+    batches of the flagship, untimed (attention_rows' and
+    group_norm_rows' tolerances and bitwise repeat): the forward kernels
+    at CHAIN_SAMPLER_BATCH and CHAIN_TRAIN_BATCH, the backward kernels at
+    CHAIN_TRAIN_BATCH; every attention shape ((T, C, heads), calls) of
+    ``attn_shapes`` and every GroupNorm shape ``gn_shapes_at(batch)``
+    gives. Returns each kernel's rows by the chain's counter names."""
+    import torch
+
+    from pdm_tpu_torch.scripts._common import sampler_batch
+
+    batches = {sampler_batch(n) for n in (CHAIN_FID_SAMPLES, CHAIN_METRIC_SAMPLES,
+                                          CHAIN_ENDURANCE["eval_samples"])}
+    if batches != {CHAIN_SAMPLER_BATCH}:
+        fail(f"the experiment chain's samplers run at batches {batches}, not "
+             f"{CHAIN_SAMPLER_BATCH}")
+    rows = {"attention_fwd": [], "attention_bwd": [], "group_norm_fwd": [],
+            "group_norm_bwd": []}
+    for batch in (CHAIN_SAMPLER_BATCH, CHAIN_TRAIN_BATCH):
+        backward = batch == CHAIN_TRAIN_BATCH
+        for (T, C, heads), calls in attn_shapes:
+            f, b = attention_rows(None, dev, g, batch, T, C, heads, calls, torch.bfloat16,
+                                  backward=backward, timed=False)
+            rows["attention_fwd"].append(f)
+            rows["attention_bwd"] += [b] if b else []
+        for shape, calls in gn_shapes_at(batch):
+            f, b = group_norm_rows(None, dev, g, *shape, calls, backward=backward,
+                                   timed=False)
+            rows["group_norm_fwd"].append(f)
+            rows["group_norm_bwd"] += [b] if b else []
+        torch.cuda.empty_cache()
+    for key, rs in rows.items():
+        log(f"experiment chain's batches: {key} against its plain version at "
+            f"{len(rs)} shapes (batches {sorted({r['shape'][0] for r in rs})}): worst "
+            f"{max(r['worst_of_tolerance'] for r in rs):.3g} of the tolerance, "
+            f"bitwise repeat {all(r['bitwise_repeat'] for r in rs)}")
+    return rows
+
+
+def counted_run(label, counters, name, fn, want, smi, out, tee=None):
+    """One entry point's run: every wrapper of ``counters`` ((key,
+    wrapper) pairs) zeroed just before and read just after, the wall
+    time between two synchronisations, stdout through ``tee`` where
+    given. Logs both, fails where ``want`` is given and the launches
+    differ, and keeps them in ``out[name]``. Returns fn's result."""
+    import torch
+
+    for _, c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee) if tee is not None else contextlib.nullcontext():
+        result = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters}
+    log(f"{label}: {name} in {wall:.2f} s wall; launches {launches}"
+        + (f" (want {want})" if want is not None else "") + f" ({smi})")
+    if want is not None and launches != want:
+        fail(f"{label}: {name} launch counts {launches} != {want}")
+    out[name] = {"wall_s": wall, "launches": launches}
+    return result
+
+
+def chain_want(**kw) -> dict:
+    return {"attention_fwd": 0, "attention_bwd": 0, "group_norm_fwd": 0,
+            "group_norm_bwd": 0, "moments": 0, "sweep": 0, **kw}
+
+
+def lenet_digests(text: str) -> list:
+    return [ln.split(LENET_DIGEST)[1].strip() for ln in text.splitlines()
+            if LENET_DIGEST in ln]
+
+
+def experiment_chain(dev, smi: str, cli_dir: str, incep_npz: str) -> dict:
+    """Phase 24: the eight CLIs of the schedule experiments and the
+    endurance chain at the flagship's full width. (a)-(d) in a temporary
+    working directory, (e)-(f) in phase 18's (its PDMC caches and its
+    train_diffusion checkpoint, the seeded Inception weights); each CLI's
+    wall time and launches of rows 1-4, 7 and 8 (zeroed just before, read
+    just after; the endurance children count their own) against exact
+    counts, its outputs read back."""
+    import torch
+
+    from pdm_tpu_torch.scripts import (
+        check_config, check_distance, endurance_schedule_table,
+        endurance_solver_table, metric_schedule_exp, optimize_schedule_flagship,
+        schedule_ordering_exp,
+    )
+
+    counters = chain_counters()
+    out = {}
+    digests = []
+    t_phase = time.perf_counter()
+
+    def run(name, fn, want):
+        tee = _Tee()
+        result = counted_run("experiment chain", counters, name, fn, want, smi, out, tee)
+        digests.extend(lenet_digests(tee.text()))
+        return result
+
+    def finite(*xs) -> bool:
+        return all(np.isfinite(np.asarray(x, dtype=np.float64)).all() for x in xs)
+
+    cwd = os.getcwd()
+    chain_dir = tempfile.mkdtemp(prefix="chain_")
+    try:
+        os.chdir(chain_dir)
+        # (a) the schedule-ordering result at the script's defaults
+        steps = (5, 10, 20, 50)
+        res = run("schedule_ordering_exp", lambda: schedule_ordering_exp.main([]),
+                  chain_want(moments=2 * 5 * sum(steps), sweep=2))
+        log("experiment chain: schedule_ordering_exp NLL - floor "
+            + json.dumps({nm: np.round(res["nll"][i] - res["nll_floor"], 3).tolist()
+                          for i, nm in enumerate(res["names"])})
+            + " MMD " + json.dumps({nm: np.round(res["mmd"][i], 6).tolist()
+                                    for i, nm in enumerate(res["names"])}))
+        if not (finite(res["nll"], res["mmd"], res["nll_floor"])
+                and res["nll"].shape == (5, len(steps))
+                and os.path.exists("schedule_ordering.md")):
+            fail("experiment chain: schedule_ordering_exp's tables are not finite")
+
+        # (b) the endurance drill: a child killed right after CHAIN_CRASH_AT,
+        # then a relaunch that resumes from the last published checkpoint
+        e = CHAIN_ENDURANCE
+        argv = [f"--{k}={v}" for k, v in e.items()]
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__))
+                   + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        evals = math.ceil(e["eval_samples"] / 500)
+        published = (CHAIN_CRASH_AT // e["ckpt_every"]) * e["ckpt_every"]
+        torch.cuda.empty_cache()
+        for child, extra, code in (("crash", [f"--crash_at={CHAIN_CRASH_AT}"], 17),
+                                   ("resume", [], 0)):
+            counts = os.path.join(chain_dir, f"launches_{child}.json")
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-c", CHAIN_CHILD, counts, *argv, *extra],
+                               capture_output=True, text=True, env=env,
+                               timeout=CHAIN_CHILD_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            if r.returncode != code:
+                fail(f"experiment chain: the {child} child exited {r.returncode}, "
+                     f"not {code}: {r.stdout[-2000:]} {r.stderr[-3000:]}")
+            with open(counts) as f:
+                launches = json.load(f)
+            lines = r.stdout.splitlines()
+            digests.extend(lenet_digests(r.stdout))
+            first, last = (1, CHAIN_CRASH_AT) if child == "crash" else (
+                published + 1, e["steps"])
+            trained = last - first + 1
+            done = [s for s in range(first, last + 1) if s % e["eval_every"] == 0]
+            want = chain_want(**unet_launches(100 * evals * len(done), trained))
+            log(f"experiment chain: longrun_endurance ({child}) exit {r.returncode} "
+                f"(want {code}) in {wall:.2f} s wall; launches {launches} (want "
+                f"{want}); its last lines: " + " | ".join(lines[-4:]) + f" ({smi})")
+            if launches != want:
+                fail(f"experiment chain: the {child} child's launches {launches} != "
+                     f"{want}")
+            out[f"longrun_endurance ({child})"] = {"wall_s": wall, "launches": launches}
+            if child == "crash":
+                with open("checkpoints/endurance/latest.txt") as f:
+                    latest = f.read().strip()
+                log(f"experiment chain: after the crash latest.txt names step {latest}")
+                if latest != str(published):
+                    fail(f"experiment chain: latest.txt names {latest} after the crash")
+        with open("endurance_result.json") as f:
+            result = json.load(f)
+        log("experiment chain: endurance_result.json " + json.dumps(result))
+        if not (result["resumed_from"] == published and result["steps"] == e["steps"]
+                and finite(result["final_fid"], result["fid_floor"],
+                           [h["fid"] for h in result["eval_history"]])
+                and [h["step"] for h in result["eval_history"]] == done):
+            fail("experiment chain: the resumed run's result is wrong or not finite")
+        out["endurance"] = result
+
+        # (c) both tables on that checkpoint, at their default grids
+        common = [f"--n_data={e['n_data']}", f"--fid_samples={CHAIN_FID_SAMPLES}"]
+        batches = math.ceil(CHAIN_FID_SAMPLES / 500)
+        sched_steps = (5, 10, 20, 50, 100)
+        res = run("endurance_schedule_table",
+                  lambda: endurance_schedule_table.main(common),
+                  chain_want(**unet_launches(4 * sum(sched_steps) * batches), sweep=4))
+        log("experiment chain: endurance_schedule_table " + json.dumps(res["table"])
+            + f", floor {res['fid_floor']}")
+        if not (res["checkpoint_step"] == e["steps"] and finite(
+                list(res["table"].values()), res["fid_floor"])
+                and len(res["table"]) == 4 * len(sched_steps)):
+            fail("experiment chain: the schedule table is not finite")
+        solver_steps = (3, 5, 10, 20, 50)
+        nfe = 3 * sum(solver_steps) + sum(2 * n - 1 for n in solver_steps)
+        res = run("endurance_solver_table",
+                  lambda: endurance_solver_table.main(common),
+                  chain_want(**unet_launches(nfe * batches)))
+        log("experiment chain: endurance_solver_table " + json.dumps(res["table"])
+            + f", floor {res['fid_floor']}")
+        if not (res["checkpoint_step"] == e["steps"] and finite(
+                [c["fid"] for c in res["table"].values()], res["fid_floor"])
+                and all(res["table"][f"heun@{n}"]["nfe"] == 2 * n - 1
+                        for n in solver_steps)):
+            fail("experiment chain: the solver table is wrong or not finite")
+
+        # (d) the knot gradient through the trained flagship, then FID of
+        # both grids (per iteration as phase 19e counts it)
+        n = 5
+        per_iter = {"attention_fwd": 2 * n * 8, "attention_bwd": n * 8 * 2,
+                    "group_norm_fwd": 2 * n * 69, "group_norm_bwd": n * 69 - 1}
+        fid_fwd = unet_launches(2 * n * batches)
+        res = run("optimize_schedule_flagship",
+                  lambda: optimize_schedule_flagship.main(
+                      [*common, f"--n_iters={CHAIN_OPT_ITERS}"]),
+                  chain_want(**{k: CHAIN_OPT_ITERS * v + fid_fwd[k]
+                                for k, v in per_iter.items()}))
+        lt = np.asarray(res["optimized_log_temp"])
+        log("experiment chain: optimize_schedule_flagship " + json.dumps(
+            {k: res[k] for k in ("fid_linear_beta_init", "fid_optimized",
+                                 "init_log_temp", "optimized_log_temp",
+                                 "mmd_history_first_last")}))
+        if not (finite(lt, res["history"], res["fid_linear_beta_init"],
+                       res["fid_optimized"]) and bool(np.all(np.diff(lt) >= 0))
+                and lt[0] >= math.log(1e-4) - 1e-4 and lt[-1] <= math.log(2.478e4) + 1e-4):
+            fail("experiment chain: the optimized knots or their FIDs are wrong")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(chain_dir, ignore_errors=True)
+    if len(digests) != 5 or len(set(digests)) != 1:
+        fail(f"experiment chain: the endurance scripts' LeNets differ: {digests}")
+    log(f"experiment chain: the five LeNet extractors are bitwise one ({digests[0]})")
+
+    # (e)-(f) in phase 18's working directory
+    with env_var("PDM_DATA_CACHE", os.path.join(cli_dir, "data_cache")), \
+            env_var("PDM_INCEPTION_WEIGHTS", incep_npz):
+        os.chdir(cli_dir)
+        try:
+            absent = not os.path.exists("stats/cifar10_metric.npz")
+            res = run("metric_schedule_exp", lambda: metric_schedule_exp.main(
+                [f"--n_samples={CHAIN_METRIC_SAMPLES}"]),
+                chain_want(**unet_launches(3 * 10 * math.ceil(CHAIN_METRIC_SAMPLES / 500)),
+                           sweep=2 if absent else 0))
+            stats = dict(np.load(res["metric_stats_path"]))
+            log(f"experiment chain: metric_schedule_exp FID@10 {res['fid']} (its metric "
+                f"npz {'computed' if absent else 'read'}: {stats['temp'].shape[0]} "
+                f"temperatures)")
+            if not (absent and finite(list(res["fid"].values()), stats["metric"])
+                    and len(res["fid"]) == 3):
+                fail("experiment chain: metric_schedule_exp's FIDs are not finite")
+            cfg = run("check_config", lambda: check_config.main([]), chain_want())
+            res = run("check_distance", lambda: check_distance.main([]), chain_want())
+            log(f"experiment chain: check_config {cfg.experiment_name}; check_distance "
+                f"{res}")
+            if not (finite(res["total"]) and 0.0 <= res["fraction"] <= 1.0):
+                fail("experiment chain: check_distance's arc length is wrong")
+        finally:
+            os.chdir(cwd)
+    out["digest"] = digests[0]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 24 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6406,6 +6804,8 @@ def main() -> int:
     gn_bwd_rows = [group_norm_rows(time_ms, dev, g, *shape, calls, forward=False)[1]
                    for shape, calls in group_norm_shapes(TRAIN_BATCH, edges=True)]
     torch.cuda.empty_cache()
+    chain_rows = chain_batch_rows(dev, g, attn_main,
+                                  lambda b: group_norm_shapes(b, edges=False))
 
     # ---- phase 6: the full-width fp32 train step, card vs CPU ----
     log(f"phase 6 at {time.perf_counter() - t_start:.1f} s")
@@ -6694,19 +7094,21 @@ def main() -> int:
 
     # ---- phase 17: the config path ----
     log(f"phase 17 at {time.perf_counter() - t_start:.1f} s")
-    incep_dir = tempfile.mkdtemp()
-    try:
-        incep_npz = write_inception_npz(os.path.join(incep_dir, "inception.npz"))
-        with env_var("PDM_INCEPTION_WEIGHTS", incep_npz):
-            cfg_path = config_path(dev, weights, smi)
-        cfg_train = (("config training, device-resident data", "train_launches"),
-                     ("config training, host-resident data", "host_launches"))
+    # the seeded Inception weights and phase 18's working directory stay
+    # until phase 24 has used them (removed at exit, a failure's included)
+    work_dir = tempfile.mkdtemp()
+    atexit.register(shutil.rmtree, work_dir, ignore_errors=True)
+    incep_npz = write_inception_npz(os.path.join(work_dir, "inception.npz"))
+    with env_var("PDM_INCEPTION_WEIGHTS", incep_npz):
+        cfg_path = config_path(dev, weights, smi)
+    cfg_train = (("config training, device-resident data", "train_launches"),
+                 ("config training, host-resident data", "host_launches"))
 
-        # ---- phase 18: FID and the entry points ----
-        log(f"phase 18 at {time.perf_counter() - t_start:.1f} s")
-        fid_out = fid_and_entry_points(dev, smi, incep_npz)
-    finally:
-        shutil.rmtree(incep_dir, ignore_errors=True)
+    # ---- phase 18: FID and the entry points ----
+    log(f"phase 18 at {time.perf_counter() - t_start:.1f} s")
+    cli_dir = os.path.join(work_dir, "cli")
+    os.makedirs(cli_dir)
+    fid_out = fid_and_entry_points(dev, smi, incep_npz, cli_dir)
     cli = fid_out["cli"]
     cli_sweep = cli["compute_stats_forward"]["launches"]["sweep"]
 
@@ -6730,8 +7132,13 @@ def main() -> int:
     log(f"phase 23 at {time.perf_counter() - t_start:.1f} s")
     highres = highres_phase(time_ms, dev, smi)
 
-    # ---- phase 24: the kernels line and the result ----
+    # ---- phase 24: the experiment chain ----
     log(f"phase 24 at {time.perf_counter() - t_start:.1f} s")
+    chain = experiment_chain(dev, smi, cli_dir, incep_npz)
+    shutil.rmtree(work_dir, ignore_errors=True)
+
+    # ---- phase 25: the kernels line and the result ----
+    log(f"phase 25 at {time.perf_counter() - t_start:.1f} s")
 
     def per_path(rows, launches, n_steps):
         main = [r for r in rows if r["calls_per_step"]]
@@ -6800,14 +7207,14 @@ def main() -> int:
                ("training", attn_train_rows, train_launches["attention_fwd"],
                 TRAIN_STEPS)]
               + [(path, attn_train_rows, cfg_path[which]["attention_fwd"], CONFIG_STEPS)
-                 for path, which in cfg_train]),
+                 for path, which in cfg_train], chain_rows["attention_fwd"]),
         entry("attention_bwd", "pdm_tpu_torch/csrc/attention_bwd.cu",
               "pdm_tpu/ops/attention.py:123",
               "dq, then dk/dv: persistent wgmma kernels on a TMA ring (T <= 256)",
               [("training", attn_bwd_rows, train_launches["attention_bwd"],
                 TRAIN_STEPS)]
               + [(path, attn_bwd_rows, cfg_path[which]["attention_bwd"], CONFIG_STEPS)
-                 for path, which in cfg_train]),
+                 for path, which in cfg_train], chain_rows["attention_bwd"]),
         entry("fused_group_norm_act", "pdm_tpu_torch/csrc/groupnorm.cu",
               "pdm_tpu/ops/groupnorm.py:99",
               "a cluster's whole-row tiles in shared memory, read once",
@@ -6817,7 +7224,7 @@ def main() -> int:
               + [(path, gn_train_rows, cfg_path[which]["group_norm_fwd"], CONFIG_STEPS)
                  for path, which in cfg_train]
               + [hr_path(w, hr["group_norm_fwd"], "group_norm_fwd")
-                 for w in (hr_sample, hr_train)]),
+                 for w in (hr_sample, hr_train)], chain_rows["group_norm_fwd"]),
         entry("group_norm_bwd", "pdm_tpu_torch/csrc/groupnorm_bwd.cu",
               "pdm_tpu/ops/groupnorm.py:112",
               "a cluster's whole-row tiles, dn kept on chip",
@@ -6825,7 +7232,8 @@ def main() -> int:
                 TRAIN_STEPS)]
               + [(path, gn_bwd_rows, cfg_path[which]["group_norm_bwd"], CONFIG_STEPS)
                  for path, which in cfg_train]
-              + [hr_path(hr_train, hr["group_norm_bwd"], "group_norm_bwd")]),
+              + [hr_path(hr_train, hr["group_norm_bwd"], "group_norm_bwd")],
+              chain_rows["group_norm_bwd"]),
         entry("fused_spatial_attention_wide", "pdm_tpu_torch/csrc/attention_wide.cu",
               "pdm_tpu/ops/attention.py:75 (row 1 at head dims above 128)",
               "bf16 at T <= 256: one pass on wgmma, a strip's whole score row in "
@@ -7172,6 +7580,25 @@ def main() -> int:
             "replay_ms_per_step": run["replay_median_ms"],
             "eager_ms_per_step": run["eager_median_ms"],
             "note": "launch count only: the replay's shapes are the eager path's"}
+    # phase 24: the experiment chain's CLIs (launch counts; rows 1-4 at
+    # their batches held against the plain versions in phase 5, rows 8
+    # and 7 at their shapes in phases 8 and 10)
+    chain_names = {"attention_fwd": "fused_spatial_attention",
+                   "attention_bwd": "attention_bwd",
+                   "group_norm_fwd": "fused_group_norm_act",
+                   "group_norm_bwd": "group_norm_bwd",
+                   "moments": "boltzmann_moments", "sweep": "boltzmann_sweep"}
+    for cli_name, run in chain.items():
+        if not isinstance(run, dict) or "launches" not in run:
+            continue
+        for key, name in chain_names.items():
+            n = run["launches"][key]
+            if n:
+                k = next(k for k in kernels if k["name"] == name)
+                k["launches"] += n
+                k["paths"][f"{cli_name} (experiment chain)"] = {
+                    "launches": n, "wall_s": run["wall_s"],
+                    "note": CHAIN_CHECKED[key]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

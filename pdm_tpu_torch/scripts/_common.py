@@ -7,6 +7,14 @@ import sys
 
 import numpy as np
 
+SAMPLER_BATCH = 500
+
+
+def sampler_batch(n_samples: int) -> int:
+    """A sampler's batch: SAMPLER_BATCH (the JAX scripts' 500), or
+    ``n_samples`` where that is smaller."""
+    return min(SAMPLER_BATCH, n_samples)
+
 
 def ensure_dirs(*names: str) -> None:
     for name in names:
@@ -41,6 +49,16 @@ def gaussian_points(n: int, device, seed: int = 42) -> "torch.Tensor":
 
     return torch.randn((n, 1), generator=torch.Generator(device=device)
                        .manual_seed(seed), device=device)
+
+
+def draws_or_seed(draws, seed: int, device) -> dict:
+    """A sweep's keywords: ``draws`` where given, else a generator seeded
+    ``seed`` (the JAX scripts' ``PRNGKey(seed)``)."""
+    import torch
+
+    if draws is not None:
+        return {"draws": draws}
+    return {"generator": torch.Generator(device=device).manual_seed(seed)}
 
 
 def grid_draws(draws, i: int, device):

@@ -51,8 +51,10 @@ from pdm_tpu_torch.models.from_config import ddpm_from_config
 from pdm_tpu_torch.models.weights import from_flax_params
 from pdm_tpu_torch.schedulers.from_config import scheduler_from_config
 from pdm_tpu_torch.scripts import (
-    compute_fid, compute_stats_forward, compute_stats_metric,
-    sample, train_diffusion, train_lenet,
+    check_config, check_distance, compute_fid, compute_stats_forward,
+    compute_stats_metric, endurance_schedule_table, endurance_solver_table,
+    longrun_endurance, metric_schedule_exp, optimize_schedule_flagship,
+    sample, schedule_ordering_exp, train_diffusion, train_lenet,
 )
 from pdm_tpu_torch.utils.data import pdmc_cache_path
 from torch_port_fixtures import two_torch_threads  # noqa: F401
@@ -396,6 +398,26 @@ def test_clis_need_the_card_unless_told_cpu(workdir):
         sample.main(argv=TRUE_MODEL)
     with pytest.raises(RuntimeError, match="CUDA"):
         compute_stats_metric.main(["--dataset", "mnist"])
+    for cli in (check_config, check_distance, schedule_ordering_exp,
+                metric_schedule_exp, longrun_endurance, endurance_schedule_table,
+                endurance_solver_table, optimize_schedule_flagship):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main([])
+
+
+@pytest.mark.parametrize("name,args,printed,artifact", [
+    ("check_config", [], "config OK: experiment=cifar10_unet_eps_linear_beta_schedule",
+     None),
+    ("schedule_ordering_exp", ["--dim", "4", "--n_data", "1000", "--n_eval", "64",
+                               "--n_temps", "6", "--steps", "3", "--min_temp", "1e-4"],
+     "wrote schedule_ordering.md + stats/schedule_ordering.npz",
+     "stats/schedule_ordering.npz"),
+])
+def test_experiment_cli_argv_surface(tmp_path, name, args, printed, artifact):
+    r = run_module(name, *args, *CPU, cwd=tmp_path)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert printed in r.stdout
+    assert artifact is None or (tmp_path / artifact).exists()
 
 
 # ---------------------------------------------------------------------------
